@@ -113,3 +113,7 @@ def sample_parquet(tmp_path):
     pq.write_table(table.slice(0, n // 2), root / "part-0.parquet")
     pq.write_table(table.slice(n // 2), root / "part-1.parquet")
     return str(root)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips where there is none")

@@ -7,21 +7,37 @@ What it does, in order (any failure raises and exits non-zero):
 1. prints the card's name and power limit (nvidia-smi), then builds every
    CUDA kernel of the port from `hyperspace_tpu_torch/csrc/` (one nvcc per
    source, started together) into `build/kernels/`;
-2. main path, through the user entry points: generates TPC-H lineitem
-   (16 columns; 6,001,991 rows at SF1 with seed 42, where TPC-H's own
-   table holds 6,001,215), builds the `l_orderkey` covering index with
-   200 buckets, runs 12 point lookups with the index enabled and
-   disabled, and runs the Q1-shaped group-by and the per-order revenue
-   aggregate, each checked against an independent pyarrow computation on
-   the same parquet. Each aggregate runs cold, warm (timed), and once more
-   under `torch.profiler` for the kernels' device time inside the query.
-   Kernel launch counts are zeroed just before this phase and read just
-   after; every kernel must have launched;
-3. kernel phase: holds each kernel against its plain PyTorch version on
-   the card at the shapes the main path gave it (its row count, group
-   counts and channels), and times kernel, plain version and the library
-   yardstick with CUDA events (median of 12 runs after warm-up);
-4. prints one JSON line describing every kernel, the card's name and
+2. aggregate path, through the user entry points: generates TPC-H
+   lineitem (16 columns; 6,001,991 rows at SF1 with seed 42, where
+   TPC-H's own table holds 6,001,215), builds the `l_orderkey` covering
+   index with 200 buckets, runs 12 point lookups with the index enabled
+   and disabled, and runs the Q1-shaped group-by and the per-order
+   revenue aggregate, each checked against an independent pyarrow
+   computation on the same parquet. Each aggregate runs cold, warm
+   (timed), and once more under `torch.profiler` for the kernels' device
+   time inside the query;
+3. join path, on the same lineitem index: generates TPC-H orders (9
+   columns, 1.5M rows at SF1, seed 43), builds the `o_orderkey` index
+   with `o_totalprice, o_orderpriority` (200 buckets), and runs J1 (the
+   lineitem ⋈ orders join of benchmarks/bench_join.py), J2 (an aggregate
+   over the join grouped on the orders side) and J3 (grouped on the
+   lineitem side), each cold and warm with the index enabled (the
+   zero-exchange aligned path) and disabled (one partition), each checked
+   against pyarrow's join and group-by on the same parquet (J1 pair by
+   pair); J2 and J3 run once more under `torch.profiler`, and once more
+   with K1's inputs recorded;
+   kernel launch counts are zeroed just before each path and read just
+   after it: every kernel a path runs must have launched in it;
+4. kernel phase: holds each kernel against its plain PyTorch version on
+   the card at the shapes the paths gave it (K1: the aggregates' row
+   count, group counts and channels, and the very inputs of its four
+   launches in the indexed J2 and J3 — the secondary run extrema and the
+   group fold; K2: the join's real key codes at the aligned J2 and J3
+   shapes and the un-indexed J2 shape, in the regime the kernel picks
+   and, at the aligned shapes, in the other one too), and times kernel,
+   plain version and the library yardstick with CUDA events (median of 12
+   runs after warm-up);
+5. prints one JSON line describing every kernel, the card's name and
    power limit again, and, last, `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it; without either it
@@ -41,10 +57,12 @@ from pathlib import Path
 
 import numpy as np
 
-# H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM3, 34 TFLOP/s float64 outside
-# the tensor cores.
+# H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM3, 34 TFLOP/s float64 and
+# 67 TFLOP/s float32 outside the tensor cores; K2's int32 compares are
+# counted at the 32-bit rate.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+INT32_OPS = 67e12
 REPEATS = 12
 UNIT_ROUNDOFF = 2.0**-53  # float64
 INDEXED = ["l_orderkey"]
@@ -61,6 +79,22 @@ Q1_AGGS = [
 # The channels aggregate_arrays stacks for Q1_AGGS: a value channel and a
 # non-null count channel per aggregate.
 Q1_FNS = ("sum", "sum", "sum", "sum", "sum", "sum", "min", "sum", "max", "sum", "sum", "sum")
+O_INDEXED = ["o_orderkey"]
+O_INCLUDED = ["o_totalprice", "o_orderpriority"]
+J2_AGGS = [
+    ("sum", "l_extendedprice", "sum_price"),
+    ("sum", "l_quantity", "sum_qty"),
+    ("min", "l_discount", "min_disc"),
+    ("max", "l_extendedprice", "max_price"),
+    ("mean", "o_totalprice", "avg_total"),
+    ("count", None, "cnt"),
+]
+J3_AGGS = [
+    ("sum", "o_totalprice", "sum_total"),
+    ("max", "o_totalprice", "max_total"),
+    ("sum", "l_extendedprice", "sum_price"),
+    ("count", None, "cnt"),
+]
 
 
 def sum_tolerance(rows, abs_sum):
@@ -132,24 +166,42 @@ def _k1_exact(kinds: tuple, fns: tuple) -> list[bool]:
     return [fn != "sum" or kind in ("qty", "ind") for fn, kind in zip(fns, kinds)]
 
 
-def k1_phase(device, n: int, k: int, fns: tuple, kinds: tuple, seed: int) -> dict:
-    """K1 against its plain version on the card at one main-path shape:
-    exact channels (integral sums, extrema with NaN and ±inf, counts)
-    bit-equal, non-integral sums within `sum_tolerance` (float64 atomics
-    add in another order than index_add_). For few groups it also reports
-    each non-integral sum's error against the exact (math.fsum) sum."""
+def _k1_exact_from_data(vals_np: np.ndarray, fns: tuple) -> list[bool]:
+    """Which channels any summation order gives bit-equal: extrema, and
+    sums of integral values whose Σ|v| stays below 2^53."""
+    return [
+        fn != "sum" or bool(np.all(np.mod(v, 1) == 0) and np.abs(v).sum() < 2.0**53)
+        for fn, v in zip(fns, vals_np)
+    ]
+
+
+def k1_synthetic(device, n: int, k: int, fns: tuple, kinds: tuple, seed: int) -> dict:
+    """k1_phase on seeded channels shaped like an aggregate's (`kinds`)."""
+    import torch
+
+    gid_np, vals_np = _k1_inputs(np.random.default_rng(seed), n, k, fns, kinds)
+    gid = torch.from_numpy(gid_np).to(device)
+    vals = torch.from_numpy(vals_np).to(device)
+    return k1_phase(device, vals, gid, k, fns, _k1_exact(kinds, fns))
+
+
+def k1_phase(device, vals, gid, k: int, fns: tuple, exact: list[bool]) -> dict:
+    """K1 against its plain version on the card at one main-path shape
+    (vals float64 [C, n], gid int32 [n] on the card): `exact` channels
+    (integral sums, extrema with NaN and ±inf, counts) bit-equal, other
+    sums within `sum_tolerance` (float64 atomics add in another order than
+    index_add_). For few groups it also reports each non-integral sum's
+    error against the exact (math.fsum) sum."""
     import math
 
     import torch
 
     from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce, segment_reduce_plain
 
-    gid_np, vals_np = _k1_inputs(np.random.default_rng(seed), n, k, fns, kinds)
-    gid = torch.from_numpy(gid_np).to(device)
-    vals = torch.from_numpy(vals_np).to(device)
+    gid_np, vals_np = gid.cpu().numpy(), vals.cpu().numpy()
+    n = len(gid_np)
     got = segment_reduce(vals, gid, k, fns).cpu().numpy()
     want = segment_reduce_plain(vals, gid, k, fns).cpu().numpy()
-    exact = _k1_exact(kinds, fns)
     rows = np.bincount(gid_np, minlength=k)
     rel_err = {}
     for c, is_exact in enumerate(exact):
@@ -159,9 +211,10 @@ def k1_phase(device, n: int, k: int, fns: tuple, kinds: tuple, seed: int) -> dic
         abs_sum = np.bincount(gid_np, weights=np.abs(vals_np[c]), minlength=k)
         if k <= 64:
             truth = np.array([math.fsum(vals_np[c][gid_np == g]) for g in range(k)])
+            some = abs_sum > 0  # a group of zeros (the fold's dead group) has no relative error
             rel_err[c] = {
-                "kernel": float(np.max(np.abs(got[c] - truth) / abs_sum)),
-                "plain": float(np.max(np.abs(want[c] - truth) / abs_sum)),
+                "kernel": float(np.max(np.abs(got[c] - truth)[some] / abs_sum[some], initial=0.0)),
+                "plain": float(np.max(np.abs(want[c] - truth)[some] / abs_sum[some], initial=0.0)),
             }
         if not np.all(np.abs(got[c] - want[c]) <= sum_tolerance(rows, abs_sum)):
             raise AssertionError(
@@ -264,41 +317,48 @@ def check_revenue(got, source) -> None:
         raise AssertionError("revenue beyond the float64 summation bound")
 
 
-def device_time(fn, kernel_prefix: str) -> dict:
-    """Runs `fn` once under torch.profiler and sums the device time of the
-    kernels whose names hold `kernel_prefix` (counting them), and of all
-    device work. The times are None when the profiler recorded no device
-    activity."""
+def device_time(fn, prefixes: tuple) -> dict:
+    """Runs `fn` once under torch.profiler and sums, per name prefix, the
+    device time (and count) of the kernels whose names hold it, and the
+    time of all device work. The times are None when the profiler
+    recorded no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():  # a CPU rehearsal has no card to wait for
+            torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    ours = busy = 0.0
-    seen = matched = 0
+    ours = {p: 0.0 for p in prefixes}
+    matched = {p: 0 for p in prefixes}
+    busy = 0.0
+    seen = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
         seen += 1
         busy += us
-        if kernel_prefix in e.name:
-            ours += us
-            matched += 1
+        for p in prefixes:
+            if p in e.name:
+                ours[p] += us
+                matched[p] += 1
     if seen == 0:
-        return {"kernel_ms": None, "device_busy_ms": None, "profiled_wall_ms": wall_ms, "kernels": 0}
+        return {"kernel_ms": dict.fromkeys(prefixes), "device_busy_ms": None,
+                "profiled_wall_ms": wall_ms, "kernels": matched}
     return {
-        "kernel_ms": ours / 1e3, "device_busy_ms": busy / 1e3, "profiled_wall_ms": wall_ms,
-        "kernels": matched,
+        "kernel_ms": {p: ours[p] / 1e3 for p in prefixes}, "device_busy_ms": busy / 1e3,
+        "profiled_wall_ms": wall_ms, "kernels": matched,
     }
 
 
-def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 200) -> dict:
-    """The port's main path through its user entry points; returns the
-    phase wall times and row counts."""
+def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 200) -> tuple[dict, dict]:
+    """The port's aggregate path through its user entry points; returns
+    (the phase wall times and row counts, what the join path reuses: the
+    session, the lineitem scan, its pyarrow source and the work
+    directory)."""
     import pandas as pd
     import pyarrow as pa
     import pyarrow.compute as pc
@@ -379,8 +439,312 @@ def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 20
         phases[f"agg_{name}_groups"] = result.num_rows
         # K1's device time inside the query (the kernels of segment_reduce.cu
         # are all named segment_reduce_*).
-        phases[f"agg_{name}_profiled"] = device_time(lambda: session.run(plan), "segment_reduce_")
-    return {"rows": rows, "lookup_rows": sum(counts["index"]), "phases": phases}
+        phases[f"agg_{name}_profiled"] = device_time(lambda: session.run(plan), ("segment_reduce_",))
+    result = {"rows": rows, "lookup_rows": sum(counts["index"]), "phases": phases}
+    return result, {"session": session, "lineitem": df, "source": source, "workdir": workdir}
+
+
+# -- join path ----------------------------------------------------------------
+
+
+def join_sum_tolerance(count, max_abs, buckets: int, ls=None, bucket_abs_sum=None):
+    """How far two float64 sums over an inner join's groups may differ
+    (tests/test_torch_join_agg.py derives it; γ_n = 1.01·n·u): a group of
+    `count` pairs folds at most `count` terms (plus one partial per
+    bucket) whose |w| sum to at most count·max|v|, and a term over the
+    secondary side (`ls` given) is a difference of per-bucket prefix sums,
+    each within γ_Ls·Σ_bucket|v| of exact. Twice one side's error covers
+    both."""
+    count = np.asarray(count, dtype=np.float64)
+    gamma = 1.01 * UNIT_ROUNDOFF
+    tol = gamma * (count + buckets) * count * max_abs
+    if ls is not None:
+        tol = tol + 2 * count * gamma * ls * bucket_abs_sum
+    return 2 * tol
+
+
+def _index_buckets(system_path: Path, name: str, columns: list[str]) -> list:
+    """The index's bucket files in bucket order, as pyarrow tables."""
+    import pyarrow.parquet as pq
+
+    files = sorted((system_path / name).rglob("bucket-*.parquet"))
+    return [pq.ParquetFile(f).read(columns=columns) for f in files]
+
+
+def _bucket_stats(buckets, column: str) -> dict:
+    """Widest bucket and largest per-bucket Σ|v| of a column (aligned
+    path), and the side's row count, Σ|v| and max|v| (one partition)."""
+    import pyarrow.compute as pc
+
+    rows = [t.num_rows for t in buckets]
+    abs_sums = [pc.sum(pc.abs(t[column])).as_py() or 0.0 for t in buckets]
+    return {
+        "widest": max(rows), "max_bucket_abs_sum": max(abs_sums),
+        "rows": sum(rows), "abs_sum": sum(abs_sums),
+        "max_abs": max(pc.max(pc.abs(t[column])).as_py() or 0.0 for t in buckets),
+    }
+
+
+def _check_join_aggregate(name, got, ref, keys, exact, tolerant, stats, aligned, buckets):
+    """got (pandas) against pyarrow's group-by of the joined table: keys,
+    counts, integral sums and extrema exactly; the `tolerant` sums (alias
+    → (reference column, side "p"/"s", is a mean)) within
+    join_sum_tolerance."""
+    got = got.sort_values(keys).reset_index(drop=True)
+    ref = ref.sort_values(keys).reset_index(drop=True)
+    if len(got) != len(ref) or len(got) == 0:
+        raise AssertionError(f"{name} groups: {len(got)} vs reference {len(ref)}")
+    for c in keys:
+        if list(got[c]) != list(ref[c]):
+            raise AssertionError(f"{name} group keys differ in {c}")
+    for alias, ref_col in exact.items():
+        np.testing.assert_array_equal(got[alias].to_numpy(), ref[ref_col].to_numpy(), err_msg=f"{name} {alias}")
+    count = ref["l_orderkey_count"].to_numpy()
+    for alias, (ref_col, side, is_mean) in tolerant.items():
+        st = stats[ref_col.rsplit("_", 1)[0]]
+        if side == "s":
+            ls = st["widest"] if aligned else st["rows"]
+            sb = st["max_bucket_abs_sum"] if aligned else st["abs_sum"]
+            tol = join_sum_tolerance(count, st["max_abs"], buckets, ls, sb)
+        else:
+            tol = join_sum_tolerance(count, st["max_abs"], buckets)
+        want = ref[ref_col].to_numpy()
+        if is_mean:
+            tol, want = tol / count, want / count
+        diff = np.abs(got[alias].to_numpy() - want)
+        if not np.all(diff <= tol):
+            raise AssertionError(f"{name} {alias} beyond the float64 join bound ({diff.max()} > {tol.min()})")
+
+
+def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
+    """The port's join path through its user entry points, on the lineitem
+    index of the aggregate path. Returns (the phase wall times with the
+    row and group counts, the K2 inputs at the path's shapes: real key
+    codes, for the kernel phase)."""
+    import pandas as pd
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig
+    from hyperspace_tpu_torch.datagen import gen_tpch_orders
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    session, li, workdir = ctx["session"], ctx["lineitem"], ctx["workdir"]
+    num_buckets = session.conf.num_buckets
+    phases: dict = {}
+    t0 = time.perf_counter()
+    gen_tpch_orders(workdir / "orders", sf=sf, seed=43)
+    phases["orders_datagen_s"] = time.perf_counter() - t0
+    orders = session.parquet(workdir / "orders")
+    t0 = time.perf_counter()
+    Hyperspace(session).create_index(orders, IndexConfig("orders_orderkey", O_INDEXED, O_INCLUDED))
+    sync()
+    phases["orders_build_s"] = time.perf_counter() - t0
+    phases["orders_build_phases_s"] = session.last_build_stats["phases_s"]
+
+    j = li.select("l_orderkey", "l_quantity", "l_extendedprice", "l_discount").join(
+        orders.select("o_orderkey", "o_totalprice", "o_orderpriority"), ["l_orderkey"], ["o_orderkey"]
+    )
+    queries = {
+        "J1": li.select("l_orderkey", "l_extendedprice").join(
+            orders.select("o_orderkey", "o_totalprice", "o_orderpriority"), ["l_orderkey"], ["o_orderkey"]
+        ),
+        "J2": j.aggregate(["o_orderpriority"], J2_AGGS),
+        "J3": j.aggregate(["l_quantity"], J3_AGGS),
+    }
+
+    # The independent reference: pyarrow's join and group-by of the parquet.
+    o_source = pq.read_table(sorted(str(p) for p in (workdir / "orders").glob("*.parquet")))
+    ref = ctx["source"].select(["l_orderkey", "l_quantity", "l_extendedprice", "l_discount"]).join(
+        o_source.select(["o_orderkey", "o_totalprice", "o_orderpriority"]),
+        keys="l_orderkey", right_keys="o_orderkey", join_type="inner",
+    )
+    ref_j2 = ref.group_by(["o_orderpriority"]).aggregate([
+        ("l_extendedprice", "sum"), ("l_quantity", "sum"), ("l_discount", "min"),
+        ("l_extendedprice", "max"), ("o_totalprice", "sum"), ("l_orderkey", "count"),
+    ]).to_pandas()
+    ref_j3 = ref.group_by(["l_quantity"]).aggregate([
+        ("o_totalprice", "sum"), ("o_totalprice", "max"), ("l_extendedprice", "sum"), ("l_orderkey", "count"),
+    ]).to_pandas()
+
+    # J1's pairs, sorted: o_orderkey is unique, so each pair's o_totalprice
+    # is its order's, and any mispairing shows in the sorted columns.
+    j1_cols = ["l_orderkey", "l_extendedprice", "o_totalprice"]
+    ref_j1 = ref.select(j1_cols).sort_by([(c, "ascending") for c in j1_cols])
+    ref_j1 = [ref_j1[c].to_numpy() for c in j1_cols]
+
+    li_buckets = _index_buckets(Path(session.conf.system_path), "lineitem_orderkey", ["l_orderkey", "l_extendedprice"])
+    o_buckets = _index_buckets(Path(session.conf.system_path), "orders_orderkey", ["o_orderkey", "o_totalprice"])
+    stats = {"l_extendedprice": _bucket_stats(li_buckets, "l_extendedprice"),
+             "o_totalprice": _bucket_stats(o_buckets, "o_totalprice")}
+
+    def check(name, result, aligned):
+        buckets = num_buckets if aligned else 1
+        if name == "J1":
+            n = result.num_rows
+            if n != ref.num_rows or n == 0:
+                raise AssertionError(f"J1 rows: {n} vs reference {ref.num_rows}")
+            # Every pair, exactly: sorted on the device by the three columns.
+            cols = [result.column(c) for c in j1_cols]
+            perm = torch.arange(n, device=cols[0].device)
+            for c in reversed(cols):
+                perm = perm[torch.sort(c[perm], stable=True).indices]
+            for c, got, want in zip(j1_cols, cols, ref_j1):
+                if not np.array_equal(got[perm].cpu().numpy(), want):
+                    raise AssertionError(f"J1 pairs differ from the reference in {c}")
+            return
+        got = pd.DataFrame(result.decode())
+        if name == "J2":
+            _check_join_aggregate(
+                name, got, ref_j2, ["o_orderpriority"],
+                {"sum_qty": "l_quantity_sum", "min_disc": "l_discount_min",
+                 "max_price": "l_extendedprice_max", "cnt": "l_orderkey_count"},
+                {"sum_price": ("l_extendedprice_sum", "s", False), "avg_total": ("o_totalprice_sum", "p", True)},
+                stats, aligned, buckets,
+            )
+        else:
+            _check_join_aggregate(
+                name, got, ref_j3, ["l_quantity"],
+                {"max_total": "o_totalprice_max", "cnt": "l_orderkey_count"},
+                {"sum_total": ("o_totalprice_sum", "s", False), "sum_price": ("l_extendedprice_sum", "p", False)},
+                stats, aligned, buckets,
+            )
+
+    counts: dict = {}
+    for mode in ("index", "no_index"):
+        session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
+        want_path = "zero-exchange-aligned" if mode == "index" else "single-partition"
+        for name, plan in queries.items():
+            k2, k1 = run_bounds.launches, segment_reduce.launches
+            t0 = time.perf_counter()
+            session.run(plan)  # cold: reads the index or source columns onto the device
+            sync()
+            phases[f"{name}_{mode}_cold_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result = session.run(plan)
+            sync()
+            phases[f"{name}_{mode}_s"] = time.perf_counter() - t0
+            stats_q = session.last_query_stats
+            if stats_q["join_path"] != want_path:
+                raise AssertionError(f"{name} {mode}: join path {stats_q['join_path']}, expected {want_path}")
+            if name != "J1" and stats_q["agg_path"] != "fused-join-agg":
+                raise AssertionError(f"{name} {mode}: aggregate path {stats_q['agg_path']}, expected fused-join-agg")
+            # On the card every join launches K2 and every fused aggregate
+            # K1 (a CPU rehearsal runs their plain versions instead).
+            if device.type == "cuda" and run_bounds.launches == k2:
+                raise AssertionError(f"{name} {mode}: K2 never launched")
+            if device.type == "cuda" and name != "J1" and segment_reduce.launches == k1:
+                raise AssertionError(f"{name} {mode}: K1 never launched")
+            check(name, result, mode == "index")
+            counts[f"{name}_{mode}"] = result.num_rows
+    session.enable_hyperspace()
+    for name in ("J2", "J3"):
+        phases[f"{name}_profiled"] = device_time(
+            lambda: session.run(queries[name]), ("run_bounds_", "segment_reduce_")
+        )
+    # K1's inputs at the fused aggregates' shapes, from one more indexed run
+    # of each: the secondary run extrema, then the group fold.
+    k1_inputs = {}
+    for name in ("J2", "J3"):
+        calls = capture_k1(session, queries[name])
+        if len(calls) != 2:
+            raise AssertionError(f"{name}: expected K1 calls for the run extrema and the fold, got {len(calls)}")
+        k1_inputs[f"{name} run extrema"], k1_inputs[f"{name} fold"] = calls
+
+    # K2's inputs at the path's shapes, from the indexes' real keys: codes
+    # are the keys shifted by their minimum (the factorization's fast
+    # path), each bucket sorted, pads at the int32 max.
+    lo = min(min(pc.min(t["l_orderkey"]).as_py() for t in li_buckets if t.num_rows),
+             min(pc.min(t["o_orderkey"]).as_py() for t in o_buckets if t.num_rows))
+
+    def padded(buckets, column):
+        rows = [t[column].to_numpy().astype(np.int64) - lo for t in buckets]
+        out = np.full((len(rows), max(len(r) for r in rows)), np.iinfo(np.int32).max, np.int32)
+        for b, r in enumerate(rows):
+            out[b, : len(r)] = r
+        return out
+
+    li_pad, o_pad = padded(li_buckets, "l_orderkey"), padded(o_buckets, "o_orderkey")
+    li_all = np.sort(np.concatenate([t["l_orderkey"].to_numpy() for t in li_buckets]) - lo).astype(np.int32)[None]
+    o_all = np.sort(np.concatenate([t["o_orderkey"].to_numpy() for t in o_buckets]) - lo).astype(np.int32)[None]
+    k2_inputs = {"J2 aligned": (o_pad, li_pad), "J3 aligned": (li_pad, o_pad), "J2 no index": (o_all, li_all)}
+    return {"groups": {"J2": len(ref_j2), "J3": len(ref_j3)}, "rows": counts, "phases": phases}, k1_inputs, k2_inputs
+
+
+def capture_k1(session, plan) -> list:
+    """Runs `plan` once with every K1 call of the fused Aggregate(Join)
+    recorded, in call order: (vals, gid, number of groups, reduce kinds),
+    copied on the card. The calls still launch K1."""
+    from hyperspace_tpu_torch.ops import join_agg
+
+    real = join_agg.segment_reduce
+    calls = []
+
+    def recording(vals, gid, k, fns):
+        calls.append((vals.clone(), gid.clone(), k, fns))
+        return real(vals, gid, k, fns)
+
+    join_agg.segment_reduce = recording
+    try:
+        session.run(plan)
+    finally:
+        join_agg.segment_reduce = real
+    return calls
+
+
+def k2_phase(device, pk_np, sk_np, other_regime: bool) -> dict:
+    """K2 against its plain version on the card at one main-path shape
+    (exactly equal: the bounds are integers), with CUDA-event times of
+    kernel, plain version and the library yardstick (two batched
+    torch.searchsorted calls). With `other_regime`, the regime the kernel
+    did not pick is checked and timed too."""
+    import torch
+
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds, run_bounds_plain
+
+    pk = torch.from_numpy(pk_np).to(device)
+    sk = torch.from_numpy(sk_np).to(device)
+    st, en = run_bounds(pk, sk)
+    regime = run_bounds.last_regime
+    torch.cuda.synchronize()
+    want_st, want_en = run_bounds_plain(pk, sk)
+    max_abs_err = max(int((st - want_st).abs().max()), int((en - want_en).abs().max()))
+    if max_abs_err != 0:
+        raise AssertionError(f"K2 differs from its plain version by {max_abs_err} at {tuple(pk.shape)}, {tuple(sk.shape)}")
+    b, lp = pk.shape
+    ls = sk.shape[1]
+    nbytes = 4 * b * lp + 4 * b * ls + 8 * b * lp
+    ops = 2 * b * lp * max(int(ls).bit_length(), 1)  # two binary searches a row
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops / INT32_OPS * 1e3
+
+    def library():
+        torch.searchsorted(sk, pk, side="left", out_int32=True)
+        torch.searchsorted(sk, pk, side="right", out_int32=True)
+
+    other_ms = None
+    if other_regime:
+        other = "global" if regime == "shared" else "shared"
+        st, en = run_bounds(pk, sk, regime=other)
+        if not (torch.equal(st, want_st) and torch.equal(en, want_en)):
+            raise AssertionError(f"K2's {other} regime differs from its plain version at {tuple(pk.shape)}")
+        other_ms = {other: cuda_ms(lambda: run_bounds(pk, sk, regime=other))}
+    return {
+        "b": b, "lp": lp, "ls": ls,
+        "regime": regime, "other_regime_ms": other_ms,
+        "ms": cuda_ms(lambda: run_bounds(pk, sk)),
+        "plain_ms": cuda_ms(lambda: run_bounds_plain(pk, sk)),
+        "library_ms": cuda_ms(library),
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "bytes": nbytes, "max_abs_err": float(max_abs_err),
+    }
 
 
 def main(argv=None) -> int:
@@ -396,6 +760,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from hyperspace_tpu_torch.ops import kernels
     from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
 
     card = card_line()
     log(card)
@@ -404,54 +769,110 @@ def main(argv=None) -> int:
     kernels.build()
     log(json.dumps({"kernel_build_s": time.perf_counter() - t0, "kernels": list(kernels.SOURCES)}))
 
-    segment_reduce.launches = 0
+    def zero_counts():
+        segment_reduce.launches = 0
+        run_bounds.launches = 0
+
+    def read_counts(path: str, kernels_of_path: tuple) -> dict:
+        counts = {"segment_reduce": segment_reduce.launches, "run_bounds": run_bounds.launches}
+        for name in kernels_of_path:
+            if counts[name] == 0:
+                raise AssertionError(f"kernel {name} never launched on the {path} path")
+        return counts
+
     work = Path(tempfile.mkdtemp(prefix="hs_chip_smoke_"))
     try:
+        zero_counts()
         t0 = time.perf_counter()
-        result = main_path(device, args.sf, args.seed, work)
+        result, ctx = main_path(device, args.sf, args.seed, work)
         result["phases"]["main_path_s"] = time.perf_counter() - t0
-        launches = {"segment_reduce": segment_reduce.launches}
+        launches = {"aggregates": read_counts("aggregate", ("segment_reduce",))}
+        log(json.dumps({"main_path": result, "launches": launches["aggregates"]}))
+        zero_counts()
+        t0 = time.perf_counter()
+        join, k1_join_inputs, k2_inputs = join_path(device, ctx, args.sf)
+        join["phases"]["join_path_s"] = time.perf_counter() - t0
+        launches["join"] = read_counts("join", ("run_bounds", "segment_reduce"))
+        log(json.dumps({"join_path": join, "launches": launches["join"]}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log(json.dumps({"main_path": result, "launches": launches}))
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
 
-    # Kernel phase at the main path's two aggregate shapes: its row count
-    # and group counts. Q1 by (l_returnflag, l_linestatus): 6 groups, 12
+    # Kernel phase at the aggregate path's two shapes: its row count and
+    # group counts. Q1 by (l_returnflag, l_linestatus): 6 groups, 12
     # channels — the shared-memory regime. Revenue by l_orderkey: 1.5M
     # groups at SF1, 2 channels — the global-atomic regime.
     n = result["rows"]
     phases = result["phases"]
     q1_kinds = ("qty", "ind", "price", "ind", "disc", "ind", "price", "ind", "disc", "ind", "ind", "ind")
     shapes = {
-        "q1": k1_phase(device, n, phases["agg_q1_groups"], Q1_FNS, q1_kinds, args.seed),
-        "revenue": k1_phase(
+        "q1": k1_synthetic(device, n, phases["agg_q1_groups"], Q1_FNS, q1_kinds, args.seed),
+        "revenue": k1_synthetic(
             device, n, phases["agg_revenue_groups"], ("sum", "sum"), ("price", "ind"), args.seed + 1
         ),
     }
+    # And at the join path's four, on the inputs the indexed J2 and J3 gave
+    # it: the secondary run extrema (min/max over about 1.5M runs, global
+    # atomics) and the group fold over the padded [B·Lp] rows.
+    for name, (vals, gid, k, fns) in k1_join_inputs.items():
+        shapes[name] = k1_phase(device, vals, gid, k, fns, _k1_exact_from_data(vals.cpu().numpy(), fns))
+    del k1_join_inputs
     for name, r in shapes.items():
         log(json.dumps({"kernel": "segment_reduce", "shape": name, **r}))
 
     entries = []
     for name, r in shapes.items():
+        query = name.split()[0]
         entries.append({
             "name": f"segment_reduce[{name}: n={r['n']}, K={r['k']}, C={r['channels']}]",
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
             "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-            "launches": launches["segment_reduce"],
+            # K1 runs on both paths: its launches on each, summed.
+            "launches": launches["aggregates"]["segment_reduce"] + launches["join"]["segment_reduce"],
+            "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            # The same kernel's device time inside the main path's query
-            # (torch.profiler; None where it saw no device activity).
-            "main_path_ms": phases[f"agg_{name}_profiled"]["kernel_ms"],
+            # The kernel's device time inside the main path's query
+            # (torch.profiler; None where it saw no device activity); for
+            # J2 and J3 both K1 launches of the query together.
+            "main_path_ms": (
+                phases[f"agg_{name}_profiled"] if query in ("q1", "revenue") else join["phases"][f"{query}_profiled"]
+            )["kernel_ms"]["segment_reduce_"],
             # k1_phase raised had the kernel disagreed with its plain version.
+            "plain_check": "passed",
+        })
+
+    # K2 at the join path's shapes, on its real key codes: the aligned J2
+    # (orders buckets searched in lineitem buckets), the aligned J3 (the
+    # reverse) and the un-indexed J2 (one partition: 1.5M codes searched in
+    # 6.0M). Each reports the regime the kernel picked; the aligned shapes
+    # also time the regime it did not pick.
+    k2 = {name: k2_phase(device, pk, sk, "aligned" in name) for name, (pk, sk) in k2_inputs.items()}
+    for name, r in k2.items():
+        log(json.dumps({"kernel": "run_bounds", "shape": name, **r}))
+        query = name.split()[0]
+        entries.append({
+            "name": f"run_bounds[{name}: B={r['b']}, Lp={r['lp']}, Ls={r['ls']}, {r['regime']}]",
+            "other_regime_ms": r["other_regime_ms"],
+            "route": "cuda",
+            "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
+            "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
+            "launches": launches["join"]["run_bounds"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            # K2's device time inside the indexed query of that name
+            # (torch.profiler), for the aligned shapes.
+            "main_path_ms": (
+                join["phases"][f"{query}_profiled"]["kernel_ms"]["run_bounds_"] if "aligned" in name else None
+            ),
             "plain_check": "passed",
         })
     log(json.dumps({"kernels": entries}))

@@ -1,11 +1,14 @@
-"""TPC-H lineitem generator for the port's slice (tests and chip_smoke.py).
+"""TPC-H lineitem and orders generators for the port (tests and
+chip_smoke.py).
 
-The port's own copy of the JAX package's `benchmarks/datagen.py::
-gen_tpch_lineitem`: the full 16-column TPC-H lineitem schema, 1 to 7
-lines per order (TPC-H's SF1 table holds 6,001,215 rows; this generator
-gives 6,001,991 at SF1 with seed 42), written chunk by chunk with a
-seed derived per file, so the same `sf` and `seed` give the same files
-as the JAX package's generator.
+The port's own copies of the JAX package's `benchmarks/datagen.py::
+gen_tpch_lineitem` and `gen_tpch_orders`: the full 16-column TPC-H
+lineitem schema, 1 to 7 lines per order (TPC-H's SF1 table holds
+6,001,215 rows; this generator gives 6,001,991 at SF1 with seed 42), and
+the 9-column orders table (1.5M rows at SF1, `o_orderkey` in
+`[0, n_orders)`, the domain `l_orderkey` draws from). Both are written
+chunk by chunk with a seed derived per file, so the same `sf` and `seed`
+give the same files as the JAX package's generators.
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ _SHIPINSTRUCT = np.array(
 _SHIPMODE = np.array(
     ["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK"], dtype=object
 )
+_ORDERPRIORITY = np.array(
+    ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"], dtype=object
+)
+_ORDERSTATUS = np.array(["F", "O", "P"], dtype=object)
 _EPOCH_1992 = 8035  # days from 1970-01-01 to 1992-01-01
 _DATE_SPAN = 2525  # order dates span 1992-01-01 .. 1998-12-01 (TPC-H 4.2.3)
 
@@ -85,6 +92,53 @@ def gen_tpch_lineitem(
                 "l_shipinstruct": pa.array(_SHIPINSTRUCT[rng.integers(0, 4, m)]),
                 "l_shipmode": pa.array(_SHIPMODE[rng.integers(0, 7, m)]),
                 "l_comment": pa.array(comments.astype(object)),
+            }
+        )
+        pq.write_table(t, root / f"part-{i}.parquet", row_group_size=262_144)
+        total += t.nbytes
+    return total
+
+
+def gen_tpch_orders(root: Path, sf: float = 1.0, seed: int = 43, files: int | None = None) -> int:
+    """TPC-H-faithful orders (9 columns, SF1 = 1.5M rows), generated
+    chunk by chunk like lineitem. Deterministic under the seed; returns
+    total in-memory byte size."""
+    n = int(TPCH_SF1_ORDERS_ROWS * sf)
+    if files is None:
+        files = max(4, int(round(4 * sf)))
+    root.mkdir(parents=True, exist_ok=True)
+    per = (n + files - 1) // files
+    total = 0
+    for i in range(files):
+        k0, k1 = i * per, min((i + 1) * per, n)
+        if k0 >= k1:
+            break
+        rng = np.random.default_rng(seed + 7919 * i)
+        m = k1 - k0
+        orderdate = (_EPOCH_1992 + rng.integers(0, _DATE_SPAN, m)).astype(np.int32)
+        t = pa.table(
+            {
+                "o_orderkey": np.arange(k0, k1, dtype=np.int64),
+                "o_custkey": rng.integers(0, n // 10 + 1, m).astype(np.int64),
+                "o_orderstatus": pa.array(_ORDERSTATUS[rng.integers(0, 3, m)]),
+                "o_totalprice": np.round(rng.random(m) * 500_000, 2),
+                "o_orderdate": pa.array(orderdate, type=pa.date32()),
+                "o_orderpriority": pa.array(_ORDERPRIORITY[rng.integers(0, 5, m)]),
+                "o_clerk": pa.array(
+                    np.char.add("Clerk#", rng.integers(1, 1001, m).astype("U6")).astype(object)
+                ),
+                "o_shippriority": np.zeros(m, dtype=np.int32),
+                # ~1.2% of comments match Q13's '%special%requests%' exclusion.
+                "o_comment": pa.array(
+                    np.where(
+                        rng.random(m) < 0.012,
+                        "the special packages wake furiously among the requests",
+                        np.char.add(
+                            _ORDERPRIORITY[rng.integers(0, 5, m)].astype(str),
+                            " instructions sleep quickly",
+                        ).astype(object),
+                    ).astype(object)
+                ),
             }
         )
         pq.write_table(t, root / f"part-{i}.parquet", row_group_size=262_144)

@@ -14,24 +14,25 @@ from __future__ import annotations
 import os
 import threading
 
-from hyperspace_tpu_torch.execution.table import ColumnTable
 
 
 class DeviceTableCache:
     def __init__(self):
         self._lock = threading.Lock()
-        self._entries: dict[tuple, tuple[tuple, ColumnTable]] = {}
+        self._entries: dict[tuple, tuple[tuple, object]] = {}
 
-    def get_or_read(self, files: list[str], columns: list[str], read) -> tuple[ColumnTable, bool]:
-        """(table, hit): the cached table for (files, columns), or
-        `read()` stored under that key."""
-        key = (tuple(files), tuple(columns))
+    def get_or_read(self, files: list[str], columns: list[str], read, kind: str = "table") -> tuple[object, bool]:
+        """(value, hit): the cached value for (kind, files, columns), or
+        `read()` stored under that key. `kind` tells apart what different
+        readers keep for the same files (a table; a table with its
+        per-file row counts)."""
+        key = (kind, tuple(files), tuple(columns))
         mtimes = tuple(os.stat(f).st_mtime_ns for f in files)
         with self._lock:
             hit = self._entries.get(key)
             if hit is not None and hit[0] == mtimes:
                 return hit[1], True
-        table = read()
+        value = read()
         with self._lock:
-            self._entries[key] = (mtimes, table)
-        return table, False
+            self._entries[key] = (mtimes, value)
+        return value, False

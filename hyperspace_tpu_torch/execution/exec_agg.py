@@ -1,10 +1,11 @@
 """Aggregate execution (Executor mixin).
 
 A port of the plain GROUP BY path of the JAX package's
-`execution/exec_agg.py::AggregateMixin._aggregate`: the child executes,
-then one segment-reduce over every channel on the session's device.
-Grouping sets, count-distinct, partial-aggregation pushdown and the fused
-Aggregate(Join) are not ported yet.
+`execution/exec_agg.py::AggregateMixin._aggregate`: an Aggregate over an
+inner join first tries the fused Aggregate(Join) (exec_join_agg.py), as
+the JAX package does; otherwise the child executes, then one
+segment-reduce over every channel on the session's device. Grouping sets,
+count-distinct and partial-aggregation pushdown are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from hyperspace_tpu_torch.plan.nodes import Aggregate
 
 class AggregateMixin:
     def _aggregate(self, plan: Aggregate) -> ColumnTable:
+        fused = self._try_fused_join_aggregate(plan)
+        if fused is not None:
+            return fused
         table = self._execute(plan.child)
         self.stats["agg_path"] = f"segment-reduce-{self.device.type}"
         return aggregate_table(table, plan.group_by, plan.aggs, plan.schema)

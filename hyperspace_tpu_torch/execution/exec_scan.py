@@ -71,16 +71,19 @@ def point_prune_names(scan: Scan, predicate: Expr) -> set[str] | None:
 
 
 class ScanFilterMixin:
-    def _read(self, files: list[str], columns: list[str], schema, index_root: str | None) -> ColumnTable:
+    def _read(
+        self, files: list[str], columns: list[str], schema, index_root: str | None, *, file_rows: bool = False
+    ):
         """Read through the session's device cache; files_read counts only
         physical (miss) reads. An unreadable index file surfaces as a
-        typed IndexCorruptionError naming the index."""
+        typed IndexCorruptionError naming the index. With `file_rows`,
+        returns (table, per-file row counts), cached together."""
 
         def read():
-            return hio.read_parquet(files, columns=columns, schema=schema, device=self.device)
+            return hio.read_parquet(files, columns=columns, schema=schema, device=self.device, file_rows=file_rows)
 
         try:
-            table, hit = self.cache.get_or_read(files, columns, read)
+            value, hit = self.cache.get_or_read(files, columns, read, kind="table+rows" if file_rows else "table")
         except (OSError, pa.ArrowException) as e:
             if index_root is None:
                 raise
@@ -91,7 +94,7 @@ class ScanFilterMixin:
             ) from e
         if not hit:
             self.stats["files_read"] += len(files)
-        return table
+        return value
 
     def _scan(self, scan: Scan) -> ColumnTable:
         files = scan_files(scan)

@@ -10,11 +10,14 @@ types. What matters for speed:
 - decoded columns stay on the device between queries
   (execution/device_cache.py);
 - predicates and aggregates evaluate on the device (ops/filter.py,
-  ops/aggregate.py).
+  ops/aggregate.py);
+- an inner equi-join of two indexes bucketed alike runs per bucket with
+  zero exchange (exec_side.py, exec_join.py), and an aggregate over it
+  never materializes the joined pairs (exec_join_agg.py).
 
-A port of the JAX package's `Executor._dispatch` for Scan, Filter, Project
-and Aggregate. There are no venues: every operator runs on the session's
-device.
+A port of the JAX package's `Executor._dispatch` for Scan, Filter,
+Project, Join and Aggregate. There are no venues: every operator runs on
+the session's device.
 """
 
 from __future__ import annotations
@@ -24,19 +27,30 @@ import torch
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.device_cache import DeviceTableCache
 from hyperspace_tpu_torch.execution.exec_agg import AggregateMixin
+from hyperspace_tpu_torch.execution.exec_join import JoinMixin
+from hyperspace_tpu_torch.execution.exec_join_agg import FusedJoinAggMixin
 from hyperspace_tpu_torch.execution.exec_scan import ScanFilterMixin
+from hyperspace_tpu_torch.execution.exec_side import JoinSidesMixin
 from hyperspace_tpu_torch.execution.table import ColumnTable
-from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, LogicalPlan, Project, Scan
 from hyperspace_tpu_torch.plan.prune import prune_columns
 
 
-class Executor(ScanFilterMixin, AggregateMixin):
+class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, AggregateMixin):
     """Runs plans on `device`. `stats` records what physically ran."""
 
     def __init__(self, device: torch.device, cache: DeviceTableCache):
         self.device = device
         self.cache = cache
-        self.stats: dict = {"files_read": 0, "files_pruned": 0, "scan": None, "agg_path": None}
+        self.stats: dict = {
+            "files_read": 0,
+            "files_pruned": 0,
+            "scan": None,
+            "agg_path": None,
+            "join_path": None,
+            "join_kernel": None,
+            "num_buckets": None,
+        }
 
     def execute(self, plan: LogicalPlan) -> ColumnTable:
         return self._execute(prune_columns(plan))
@@ -49,6 +63,8 @@ class Executor(ScanFilterMixin, AggregateMixin):
             return self._filter(plan)
         if isinstance(plan, Project):
             return self._execute(plan.child).select(plan.columns)
+        if isinstance(plan, Join):
+            return self._join(plan)
         if isinstance(plan, Aggregate):
             return self._aggregate(plan)
         raise HyperspaceError(f"cannot execute plan node {type(plan).__name__}")

@@ -49,10 +49,13 @@ def read_parquet(
     files: list[str],
     columns: list[str] | None = None,
     schema: Schema | None = None,
-    device: torch.device | str = "cpu",
-) -> ColumnTable:
+    *,
+    device: torch.device | str,
+    file_rows: bool = False,
+) -> ColumnTable | tuple[ColumnTable, np.ndarray]:
     """Multi-file parquet read into a ColumnTable on `device` (decode
-    overlapped across files; row order is the file order)."""
+    overlapped across files; row order is the file order). With
+    `file_rows`, returns (table, int64 row count of each file)."""
     if not files:
         raise HyperspaceError("no files to read")
     if len(files) == 1:
@@ -63,7 +66,10 @@ def read_parquet(
     table = pa.concat_tables(tables, promote_options="default") if len(tables) > 1 else tables[0]
     if schema is not None and columns is not None:
         schema = schema.select(columns)
-    return ColumnTable.from_arrow(table, schema, device=device)
+    out = ColumnTable.from_arrow(table, schema, device=device)
+    if file_rows:
+        return out, np.array([t.num_rows for t in tables], dtype=np.int64)
+    return out
 
 
 def bucket_file_name(bucket: int) -> str:

@@ -59,8 +59,8 @@ class ColumnTable:
     columns: dict[str, torch.Tensor]  # physical columns (codes for strings)
     dictionaries: dict[str, np.ndarray]  # string name -> sorted object array
     # column name -> bool tensor, True = valid. Absent key = no nulls.
-    validity: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
-    device: torch.device = torch.device("cpu")
+    validity: dict[str, torch.Tensor]
+    device: torch.device
 
     def __post_init__(self):
         lens = {len(v) for v in self.columns.values()}
@@ -91,7 +91,7 @@ class ColumnTable:
 
     # -- construction ----------------------------------------------------
     @staticmethod
-    def from_arrow(table, schema: Schema | None = None, device: torch.device | str = "cpu") -> "ColumnTable":
+    def from_arrow(table, schema: Schema | None = None, *, device: torch.device | str) -> "ColumnTable":
         """Build from a pyarrow Table, dictionary-encoding string columns
         and extracting validity masks for nullable data (the JAX package's
         decode, step for step), then placing every column on `device`."""
@@ -162,7 +162,7 @@ class ColumnTable:
     @staticmethod
     def from_numpy(
         schema: Schema, columns: dict[str, np.ndarray], dictionaries=None, validity=None,
-        device: torch.device | str = "cpu",
+        *, device: torch.device | str,
     ) -> "ColumnTable":
         device = torch.device(device)
         return ColumnTable(
@@ -174,7 +174,7 @@ class ColumnTable:
         )
 
     @staticmethod
-    def empty(schema: Schema, device: torch.device | str = "cpu") -> "ColumnTable":
+    def empty(schema: Schema, *, device: torch.device | str) -> "ColumnTable":
         """Zero-row table for a schema (empty sorted dictionaries for
         string fields)."""
         cols: dict[str, np.ndarray] = {}

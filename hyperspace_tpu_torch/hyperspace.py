@@ -10,7 +10,10 @@ applies the rewrite rules when enabled.
 A port of the JAX package's `hyperspace.py` (`HyperspaceSession.parquet /
 enable_hyperspace / disable_hyperspace / run / to_pandas` and
 `Hyperspace.create_index`). The session runs on the CUDA card unless the
-caller passes `device="cpu"`. Corruption fallback, profiles, serving, the
+caller passes `device="cpu"`. `last_query_stats` reports what ran: the
+scan kind and files read or pruned, the aggregate path, and for a join
+its path (`zero-exchange-aligned` or `single-partition`), kernel and
+bucket count. Corruption fallback, profiles, serving, the
 advisor and the lifecycle APIs other than create are not ported yet.
 """
 

@@ -21,7 +21,10 @@ from pathlib import Path
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"segment_reduce": _PKG / "csrc" / "segment_reduce.cu"}
+SOURCES = {
+    "segment_reduce": _PKG / "csrc" / "segment_reduce.cu",
+    "run_bounds": _PKG / "csrc" / "run_bounds.cu",
+}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -19,12 +19,18 @@ The decomposition is a copy of the JAX package's `ops/sortkeys.py`
 `device_sort_perms`: one stable `torch.sort` per lane on the device, least
 significant lane first (LSD), which reproduces the JAX package's
 `lexsort_lanes` exactly.
+
+`run_bounds(pk, sk)` is the port of the JAX package's Pallas run-bounds
+kernel (K2, `_make_run_bounds_kernel` / `pallas_run_bounds`): the batched
+searchsorted the joins take their match runs from.
 Torch can neither sort nor shift `uint32`, so every lane travels as int64:
 unsigned lanes zero-extend and signed lanes sign-extend, which keeps each
 lane's own (signed or unsigned) order.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -136,3 +142,85 @@ def device_sort_perm(table, key_columns: list[str], device: torch.device) -> tor
     if table.num_rows <= 1:
         return torch.arange(table.num_rows, device=device)
     return device_lanes_perm([lane_tensor(l, device) for l in key_lanes(table, key_columns)])
+
+
+# -- run bounds (K2) ------------------------------------------------------------
+
+
+def _check_run_bounds(pk: torch.Tensor, sk: torch.Tensor) -> None:
+    if pk.dim() != 2 or sk.dim() != 2 or pk.dtype != torch.int32 or sk.dtype != torch.int32:
+        raise HyperspaceError(
+            f"run_bounds takes int32 [B, Lp] and [B, Ls] tensors, got {pk.dtype} "
+            f"{tuple(pk.shape)} and {sk.dtype} {tuple(sk.shape)}"
+        )
+    if pk.shape[0] != sk.shape[0]:
+        raise HyperspaceError(f"run_bounds: bucket counts differ ({pk.shape[0]} vs {sk.shape[0]})")
+    if pk.device != sk.device:
+        raise HyperspaceError("run_bounds: pk and sk must lie on one device")
+    if not (pk.is_contiguous() and sk.is_contiguous()):
+        raise HyperspaceError("run_bounds takes contiguous tensors")
+
+
+def run_bounds_plain(pk: torch.Tensor, sk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2: per bucket row b, `st = #(sk[b] < pk)`
+    and `en = #(sk[b] <= pk)` — searchsorted left and right of every
+    primary code in the sorted secondary row, as int32 [B, Lp]."""
+    _check_run_bounds(pk, sk)
+    st = torch.searchsorted(sk, pk, side="left", out_int32=True)
+    en = torch.searchsorted(sk, pk, side="right", out_int32=True)
+    return st, en
+
+
+_REGIMES = {"auto": 0, "global": 1, "shared": 2}
+
+
+def run_bounds(pk: torch.Tensor, sk: torch.Tensor, *, regime: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """(st, en) int32 [B, Lp]: the run of every primary code `pk` [B, Lp]
+    in its bucket's sorted secondary codes `sk` [B, Ls] (pads at the int32
+    max; `pk` need not be sorted). The CUDA kernel
+    `csrc/run_bounds.cu` for a CUDA tensor, whatever the shape; the plain
+    version for a CPU tensor. `run_bounds.launches` counts the kernel's
+    launches and `run_bounds.last_regime` names the regime the kernel
+    picked ("shared" or "global"); `regime` forces one, for measuring."""
+    if pk.device.type == "cpu":
+        return run_bounds_plain(pk, sk)
+    if pk.device.type != "cuda":
+        raise HyperspaceError(f"run_bounds runs on cuda or cpu, not {pk.device}")
+    _check_run_bounds(pk, sk)
+    b, lp = pk.shape
+    st = torch.empty_like(pk)
+    en = torch.empty_like(pk)
+    if b * lp == 0:
+        return st, en
+    lib = _run_bounds_library()
+    picked = ctypes.c_int(_REGIMES[regime])
+    with torch.cuda.device(pk.device):
+        stream = torch.cuda.current_stream(pk.device).cuda_stream
+        err = lib.hs_run_bounds(
+            pk.data_ptr(), sk.data_ptr(), st.data_ptr(), en.data_ptr(), b, lp, sk.shape[1],
+            ctypes.byref(picked), stream,
+        )
+    if err != 0:
+        raise HyperspaceError(f"run_bounds kernel launch failed ({regime} regime): CUDA error {err}")
+    run_bounds.launches += 1
+    run_bounds.last_regime = "shared" if picked.value == 2 else "global"
+    return st, en
+
+
+run_bounds.launches = 0
+run_bounds.last_regime = None
+
+
+def _run_bounds_library() -> ctypes.CDLL:
+    from hyperspace_tpu_torch.ops.kernels import load
+
+    lib = load("run_bounds")
+    if not getattr(lib, "_hs_typed", False):
+        lib.hs_run_bounds.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_void_p,
+        ]
+        lib.hs_run_bounds.restype = ctypes.c_int
+        lib._hs_typed = True
+    return lib

@@ -10,11 +10,14 @@ keeping the same capability: the log entry stores the plan as lineage and
 A `Scan` stores the dataset root + format + schema — NOT a pinned file list.
 On (re-)execution the file list is derived from the live filesystem.
 
-A copy of the JAX package's `plan/nodes.py`, cut to the nodes the port's
-slice executes: Scan, Filter, a passthrough Project, and a plain GROUP BY
-Aggregate over sum / count / min / max / mean. Join, Union, Window, Sort,
-Limit, computed projections, grouping sets and count-distinct are not
-ported yet. The JSON form is the JAX package's.
+A copy of the JAX package's `plan/nodes.py`, cut to the nodes the port
+executes: Scan, Filter, a passthrough Project, an equi-Join, and a plain
+GROUP BY Aggregate over sum / count / min / max / mean. The Join node
+keeps the JAX package's full shape (every join type, the ON residual,
+null-safe keys) so plans and their JSON round-trip alike; the executor
+runs the inner equi-join only and raises on the rest. Union, Window,
+Sort, Limit, computed projections, grouping sets and count-distinct are
+not ported yet. The JSON form is the JAX package's.
 """
 
 from __future__ import annotations
@@ -35,6 +38,21 @@ class LogicalPlan:
     def select(self, *columns: str) -> "Project":
         """Project (pass through) the named columns."""
         return Project(self, list(columns))
+
+    def join(
+        self,
+        other: "LogicalPlan",
+        left_on: list[str],
+        right_on: list[str] | None = None,
+        how: str = "inner",
+        condition: "Expr | None" = None,
+    ) -> "Join":
+        """Equi-join on key lists; `condition` adds a non-equi residual
+        (`ON a.k = b.k AND a.lo <= b.hi` shapes)."""
+        return Join(
+            self, other, list(left_on), list(right_on or left_on), how,
+            condition=condition,
+        )
 
     def aggregate(self, group_by: list[str], aggs: list) -> "Aggregate":
         """Grouped aggregation. `aggs` entries are AggSpec or
@@ -143,6 +161,89 @@ class Project(LogicalPlan):
         return {"type": "project", "child": self.child.to_json(), "columns": self.columns}
 
 
+JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti")
+
+
+@dataclasses.dataclass
+class Join(LogicalPlan):
+    """Equi-join on key column lists (reference matches CNF of EqualTo,
+    JoinIndexRule.scala:179-185; the equi-join is structural here). `how`
+    covers inner / left / right / full outer, plus (left) semi and anti;
+    the port executes `inner` without a `condition` and raises on the
+    rest."""
+
+    left: LogicalPlan
+    right: LogicalPlan
+    left_on: list[str]
+    right_on: list[str]
+    how: str = "inner"
+    # Non-equi residual of the ON clause (equality stays structural).
+    condition: Expr | None = None
+    # NULL-safe key equality (SQL IS NOT DISTINCT FROM), used by the set
+    # operations of the JAX package.
+    null_safe: bool = False
+
+    def __post_init__(self):
+        if len(self.left_on) != len(self.right_on):
+            raise ValueError("join key lists must have equal length")
+        if self.how not in JOIN_TYPES:
+            raise ValueError(f"unknown join type {self.how!r}; one of {JOIN_TYPES}")
+        if self.condition is not None:
+            # Validate references against the MATCH schema now, so a typo
+            # or a merged-away key fails here, not mid-execution.
+            out_names = {n.lower() for n in self.match_schema.names}
+            missing = sorted(r for r in self.condition.references() if r not in out_names)
+            if missing:
+                raise ValueError(
+                    f"join condition references {missing} not present in the "
+                    f"join match schema (right-side key columns merge into "
+                    f"the left-named key)"
+                )
+
+    @property
+    def match_schema(self) -> Schema:
+        """Left columns plus right non-key columns — the inner-join shape.
+        A non-key name collision is ambiguous and rejected."""
+        lf = self.left.schema.fields
+        left_names = {f.name.lower() for f in lf}
+        keys = {k.lower() for k in self.right_on}
+        rf = []
+        for f in self.right.schema.fields:
+            low = f.name.lower()
+            if low in keys:
+                continue  # merged into the left key column
+            if low in left_names:
+                raise ValueError(f"ambiguous non-key column {f.name!r} appears on both join sides")
+            rf.append(f)
+        return Schema(tuple(lf) + tuple(rf))
+
+    @property
+    def schema(self) -> Schema:
+        """Join key columns appear once; semi/anti produce the left side's
+        schema only."""
+        if self.how in ("semi", "anti"):
+            return Schema(tuple(self.left.schema.fields))
+        return self.match_schema
+
+    def children(self) -> list[LogicalPlan]:
+        return [self.left, self.right]
+
+    def to_json(self) -> dict[str, Any]:
+        d = {
+            "type": "join",
+            "left": self.left.to_json(),
+            "right": self.right.to_json(),
+            "leftOn": self.left_on,
+            "rightOn": self.right_on,
+            "how": self.how,
+        }
+        if self.condition is not None:
+            d["condition"] = self.condition.to_json()
+        if self.null_safe:
+            d["nullSafe"] = True
+        return d
+
+
 @dataclasses.dataclass
 class AggSpec:
     """One aggregation: fn over an expression (None = count(*))."""
@@ -248,6 +349,16 @@ def plan_from_json(d: dict[str, Any]) -> LogicalPlan:
         return Filter(plan_from_json(d["child"]), expr_from_json(d["predicate"]))
     if t == "project":
         return Project(plan_from_json(d["child"]), list(d["columns"]))
+    if t == "join":
+        return Join(
+            plan_from_json(d["left"]),
+            plan_from_json(d["right"]),
+            list(d["leftOn"]),
+            list(d["rightOn"]),
+            d.get("how", "inner"),
+            condition=expr_from_json(d["condition"]) if "condition" in d else None,
+            null_safe=bool(d.get("nullSafe", False)),
+        )
     if t == "aggregate":
         return Aggregate(
             plan_from_json(d["child"]),

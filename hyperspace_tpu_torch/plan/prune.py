@@ -7,14 +7,15 @@ The pass rewrites each Scan's `scan_schema` to the subset of columns
 required by its ancestors; the executor then feeds the pruned schema
 straight into the parquet column projection.
 
-A copy of the JAX package's pass over the plan nodes the port has.
+A copy of the JAX package's pass over the plan nodes the port has: a
+Join narrows each side to its own needed columns plus its join keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, LogicalPlan, Project, Scan
 
 
 def _one_cheap_column(schema) -> set[str]:
@@ -47,6 +48,20 @@ def prune_columns(plan: LogicalPlan, needed: set[str] | None = None) -> LogicalP
         else:
             child_needed = set(needed) | {c.lower() for c in plan.predicate.references()}
         return Filter(prune_columns(plan.child, child_needed), plan.predicate)
+    if isinstance(plan, Join):
+        if needed is None:
+            lneed = rneed = None
+        else:
+            cond_refs = (
+                {c.lower() for c in plan.condition.references()} if plan.condition is not None else set()
+            )
+            lneed = {c.lower() for c in plan.left.schema.names if c.lower() in needed | cond_refs}
+            lneed |= {c.lower() for c in plan.left_on}
+            rneed = {c.lower() for c in plan.right.schema.names if c.lower() in needed | cond_refs}
+            rneed |= {c.lower() for c in plan.right_on}
+        return dataclasses.replace(
+            plan, left=prune_columns(plan.left, lneed), right=prune_columns(plan.right, rneed)
+        )
     if isinstance(plan, Aggregate):
         child_needed = {c.lower() for c in plan.group_by}
         for a in plan.aggs:

@@ -1,13 +1,14 @@
 """Rule infrastructure for transparent plan rewriting.
 
 The analog of the reference's Catalyst rule batch
-(`JoinIndexRule :: FilterIndexRule` registered at package.scala:34). Rules
-never throw: any failure downgrades to a no-op (reference behavior at
-FilterIndexRule.scala:76-80).
+(`JoinIndexRule :: FilterIndexRule` registered at package.scala:34). The
+ordering is load-bearing and preserved: join first, then filter, because a
+source already rewritten to an index scan cannot be rewritten again
+(package.scala:23-33). Rules never throw: any failure downgrades to a
+no-op (reference behavior at FilterIndexRule.scala:76-80).
 
-A trimmed copy of the JAX package's module: the join rule and hybrid scan
-are not ported yet, so `apply_rules` runs the filter rule alone and an
-index matches only when its signature equals the source's.
+A trimmed copy of the JAX package's module: hybrid scan is not ported
+yet, so an index matches only when its signature equals the source's.
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ class Rule:
 def apply_rules(plan: LogicalPlan, indexes: list[IndexLogEntry], rules=None, conf=None) -> LogicalPlan:
     if rules is None:
         from hyperspace_tpu_torch.rules.filter_index_rule import FilterIndexRule
+        from hyperspace_tpu_torch.rules.join_index_rule import JoinIndexRule
 
-        rules = [FilterIndexRule(conf)]
+        rules = [JoinIndexRule(conf), FilterIndexRule(conf)]
     for rule in rules:
         try:
             plan = rule.apply(plan, indexes)

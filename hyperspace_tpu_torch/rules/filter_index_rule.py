@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 
 from hyperspace_tpu_torch.metadata.log_entry import IndexLogEntry
-from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, LogicalPlan, Project, Scan
 from hyperspace_tpu_torch.rules.base import Rule, SignatureMatcher, index_scan_for
 
 
@@ -66,6 +66,12 @@ class FilterIndexRule(Rule):
             return Filter(self._rewrite(plan.child, indexes, matcher), plan.predicate)
         if isinstance(plan, Aggregate):
             return dataclasses.replace(plan, child=self._rewrite(plan.child, indexes, matcher))
+        if isinstance(plan, Join):
+            return dataclasses.replace(
+                plan,
+                left=self._rewrite(plan.left, indexes, matcher),
+                right=self._rewrite(plan.right, indexes, matcher),
+            )
         return plan
 
     def _replacement(self, scan: Scan, predicate, output_columns, indexes, matcher) -> Scan | None:

@@ -4,8 +4,8 @@ Reference parity: index/rankers/JoinIndexRanker.scala:24-56 — prefer pairs
 with EQUAL bucket counts (zero-exchange join), then larger bucket counts
 (more parallelism).
 
-A copy of the JAX package's ranker; the join rule that consumes it is
-the next slice of the port.
+A copy of the JAX package's ranker, consumed by the join rule
+(rules/join_index_rule.py).
 """
 
 from __future__ import annotations

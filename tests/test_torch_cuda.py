@@ -123,3 +123,119 @@ def test_forty_aggregates_on_the_card_match_the_cpu(cuda, tmp_path):
                     segment_reduce.launches - before)
     assert out["cuda"][1] == 2 and out["cpu"][1] == 0  # 80 channels: two launches
     pd.testing.assert_frame_equal(out["cuda"][0], out["cpu"][0])
+
+
+def _run_bounds_inputs(rng, b, lp, ls, domain):
+    """Unsorted primary codes and sorted secondary rows, pads at the
+    int32 max, null codes -2 / -1."""
+    big = np.iinfo(np.int32).max
+    pk = np.full((b, lp), big, np.int32)
+    sk = np.full((b, ls), big, np.int32)
+    for i in range(b):
+        n_p, n_s = int(rng.integers(lp // 2, lp + 1)), int(rng.integers(ls // 2, ls + 1))
+        pk[i, :n_p] = rng.integers(-2, domain, n_p)
+        sk[i, :n_s] = np.sort(rng.integers(-1, domain, n_s))
+    return pk, sk
+
+
+# (B, Lp, Ls, the regime the kernel picks). Shared when sk[b] fits the
+# opt-in shared memory (about 58k keys) and Lp >= Ls; else global.
+_K2_SHAPES = [
+    (1, 1, 1, "shared"), (3, 5, 0, "shared"), (8, 1000, 700, "shared"),
+    # the join's aligned shapes (200 buckets): J3 (lineitem primary), J2
+    (200, 31000, 7600, "shared"), (200, 7600, 31000, "global"),
+    # a secondary row past the shared-memory limit
+    (2, 50_000, 70_000, "global"), (1, 1_500_000, 6_000_000, "global"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,lp,ls,regime",
+    # Each shape as the kernel picks it, and forced into the other regime
+    # wherever sk[b] fits shared memory.
+    [(b, lp, ls, "auto") for b, lp, ls, _ in _K2_SHAPES]
+    + [(b, lp, ls, "global" if pick == "shared" else "shared") for b, lp, ls, pick in _K2_SHAPES if ls < 58_000],
+)
+def test_run_bounds_kernel_equals_plain_in_both_regimes(cuda, b, lp, ls, regime):
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds, run_bounds_plain
+
+    pk, sk = _run_bounds_inputs(np.random.default_rng(b + lp + ls), b, lp, ls, max(ls // 4, 3))
+    pkt, skt = torch.from_numpy(pk).to(cuda), torch.from_numpy(sk).to(cuda)
+    before = run_bounds.launches
+    st, en = run_bounds(pkt, skt, regime=regime)
+    torch.cuda.synchronize()
+    assert run_bounds.launches == before + 1
+    picked = next(pick for sb, slp, sls, pick in _K2_SHAPES if (sb, slp, sls) == (b, lp, ls))
+    assert run_bounds.last_regime == (picked if regime == "auto" else regime)
+    want_st, want_en = run_bounds_plain(pkt, skt)
+    assert torch.equal(st, want_st) and torch.equal(en, want_en)
+
+
+@pytest.mark.gpu
+def test_join_queries_on_the_card_match_the_cpu(cuda, tmp_path):
+    """J1 to J3 at sf=0.001 with the index enabled and disabled: the card
+    launches K2 for every join and K1 for the fused aggregates, and gives
+    the CPU's answer. Exact columns are equal; the non-integral sums `p`
+    (over the secondary side, so prefix differences) are held to the bound
+    of tests/test_torch_join.py, 2·(γ_{c+B}·c·max|v| + 2·c·γ_N·Σ|v|) for c
+    pairs and a secondary side of N rows, γ_n = 1.01·n·2^-53."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem, gen_tpch_orders
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    gen_tpch_lineitem(tmp_path / "li", sf=0.001)
+    gen_tpch_orders(tmp_path / "o", sf=0.001)
+
+    def queries(li, o):
+        j = li.select("l_orderkey", "l_quantity", "l_extendedprice").join(
+            o.select("o_orderkey", "o_totalprice", "o_orderpriority"), ["l_orderkey"], ["o_orderkey"]
+        )
+        return {
+            "J1": j,
+            "J2": j.aggregate(["o_orderpriority"], [("sum", "l_quantity", "q"), ("max", "l_extendedprice", "m"),
+                                                   ("sum", "l_extendedprice", "p"), ("count", None, "c")]),
+            "J3": j.aggregate(["l_quantity"], [("max", "o_totalprice", "m"), ("sum", "o_totalprice", "p"),
+                                              ("count", None, "c")]),
+        }
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = HyperspaceSession(system_path=str(tmp_path / f"idx_{dev}"), num_buckets=8, device=dev)
+        li, o = s.parquet(tmp_path / "li"), s.parquet(tmp_path / "o")
+        Hyperspace(s).create_index(li, IndexConfig("li", ["l_orderkey"], ["l_quantity", "l_extendedprice"]))
+        Hyperspace(s).create_index(o, IndexConfig("o", ["o_orderkey"], ["o_totalprice", "o_orderpriority"]))
+        for indexed in (True, False):
+            s.enable_hyperspace() if indexed else s.disable_hyperspace()
+            for name, plan in queries(li, o).items():
+                k2, k1 = run_bounds.launches, segment_reduce.launches
+                out[dev, indexed, name] = s.to_pandas(plan)
+                if dev == "cuda":
+                    assert run_bounds.launches > k2
+                    assert (segment_reduce.launches > k1) == (name != "J1")
+                assert s.last_query_stats["join_path"] == (
+                    "zero-exchange-aligned" if indexed else "single-partition"
+                )
+    import pyarrow.parquet as pq
+
+    side = {}
+    for name, table, column in (("J2", "li", "l_extendedprice"), ("J3", "o", "o_totalprice")):
+        v = np.abs(pq.read_table(sorted(str(p) for p in (tmp_path / table).glob("*.parquet")))[column].to_numpy())
+        side[name] = (len(v), v.sum(), v.max())
+    for (dev, indexed, name), got in out.items():
+        if dev != "cuda":
+            continue
+        want = out["cpu", indexed, name]
+        keys = list(want.columns) if name == "J1" else [want.columns[0]]
+        got = got.sort_values(keys).reset_index(drop=True)
+        want = want.sort_values(keys).reset_index(drop=True)
+        assert len(got) == len(want) > 0
+        for c in want.columns:
+            if name != "J1" and c == "p":
+                n, abs_sum, max_abs = side[name]
+                cnt = want["c"].to_numpy().astype(np.float64)
+                gamma = lambda m: 1.01 * m * 2.0**-53  # noqa: E731
+                tol = 2 * (gamma(cnt + 8) * cnt * max_abs + 2 * cnt * gamma(n) * abs_sum)
+                assert np.all(np.abs(got[c].to_numpy() - want[c].to_numpy()) <= tol), name
+            else:
+                np.testing.assert_array_equal(got[c].to_numpy(), want[c].to_numpy(), err_msg=f"{name} {c}")

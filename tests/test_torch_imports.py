@@ -35,6 +35,13 @@ def test_port_imports_without_jax_or_the_jax_package():
         "hyperspace_tpu_torch.ops.segment_reduce",
         "hyperspace_tpu_torch.execution.executor",
         "hyperspace_tpu_torch.datagen",
+        "hyperspace_tpu_torch.ops.join",
+        "hyperspace_tpu_torch.ops.join_agg",
+        "hyperspace_tpu_torch.execution.exec_common",
+        "hyperspace_tpu_torch.execution.exec_side",
+        "hyperspace_tpu_torch.execution.exec_join",
+        "hyperspace_tpu_torch.execution.exec_join_agg",
+        "hyperspace_tpu_torch.rules.join_index_rule",
     ):
         assert name in report["modules"]
 

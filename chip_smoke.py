@@ -26,18 +26,31 @@ What it does, in order (any failure raises and exits non-zero):
    against pyarrow's join and group-by on the same parquet (J1 pair by
    pair); J2 and J3 run once more under `torch.profiler`, and once more
    with K1's inputs recorded;
+4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
+   128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
+   with `id` included (64 partitions, l2; timed by phase: read, k-means,
+   assign, carve), checks its partition row counts against the manifest,
+   runs brute force (index disabled) at k = 10 and k = 100 and
+   `ann_search` at nprobe 8 and 64, each cold and warm, for 32 queries
+   (rows drawn with seed 9, plus 0.01), one more nprobe-8 query under
+   `torch.profiler`, and one nprobe-8 and one brute-force query with
+   K3's inputs recorded; brute force and full probe are checked against a
+   float64 top-k on the host, and recall@10 at nprobe 8 must reach 0.8;
    kernel launch counts are zeroed just before each path and read just
-   after it: every kernel a path runs must have launched in it;
-4. kernel phase: holds each kernel against its plain PyTorch version on
+   after it: every kernel a path runs must have launched in it, and no
+   other;
+5. kernel phase: holds each kernel against its plain PyTorch version on
    the card at the shapes the paths gave it (K1: the aggregates' row
    count, group counts and channels, and the very inputs of its four
    launches in the indexed J2 and J3 — the secondary run extrema and the
    group fold; K2: the join's real key codes at the aligned J2 and J3
    shapes and the un-indexed J2 shape, in the regime the kernel picks
-   and, at the aligned shapes, in the other one too), and times kernel,
-   plain version and the library yardstick with CUDA events (median of 12
-   runs after warm-up);
-5. prints one JSON line describing every kernel, the card's name and
+   and, at the aligned shapes, in the other one too; K3: the vector
+   path's routing, candidate and brute-force score matrices, and a
+   tie-heavy matrix at the brute-force shape, bit-equal), and times
+   kernel, plain version and the library yardstick with CUDA events
+   (median of 12 runs after warm-up);
+6. prints one JSON line describing every kernel, the card's name and
    power limit again, and, last, `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it; without either it
@@ -320,7 +333,8 @@ def check_revenue(got, source) -> None:
 def device_time(fn, prefixes: tuple) -> dict:
     """Runs `fn` once under torch.profiler and sums, per name prefix, the
     device time (and count) of the kernels whose names hold it, and the
-    time of all device work. The times are None when the profiler
+    time of all device work; `kernel_ms_each` lists each such kernel's
+    time in the order they started. The times are None when the profiler
     recorded no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -331,8 +345,7 @@ def device_time(fn, prefixes: tuple) -> dict:
         if torch.cuda.is_available():  # a CPU rehearsal has no card to wait for
             torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    ours = {p: 0.0 for p in prefixes}
-    matched = {p: 0 for p in prefixes}
+    each = {p: [] for p in prefixes}  # (start, us) of each matching kernel
     busy = 0.0
     seen = 0
     for e in prof.events():
@@ -343,14 +356,15 @@ def device_time(fn, prefixes: tuple) -> dict:
         busy += us
         for p in prefixes:
             if p in e.name:
-                ours[p] += us
-                matched[p] += 1
+                each[p].append((e.time_range.start, us))
+    matched = {p: len(each[p]) for p in prefixes}
     if seen == 0:
-        return {"kernel_ms": dict.fromkeys(prefixes), "device_busy_ms": None,
-                "profiled_wall_ms": wall_ms, "kernels": matched}
+        return {"kernel_ms": dict.fromkeys(prefixes), "kernel_ms_each": dict.fromkeys(prefixes),
+                "device_busy_ms": None, "profiled_wall_ms": wall_ms, "kernels": matched}
     return {
-        "kernel_ms": {p: ours[p] / 1e3 for p in prefixes}, "device_busy_ms": busy / 1e3,
-        "profiled_wall_ms": wall_ms, "kernels": matched,
+        "kernel_ms": {p: sum(us for _, us in each[p]) / 1e3 for p in prefixes},
+        "kernel_ms_each": {p: [us / 1e3 for _, us in sorted(each[p])] for p in prefixes},
+        "device_busy_ms": busy / 1e3, "profiled_wall_ms": wall_ms, "kernels": matched,
     }
 
 
@@ -747,6 +761,245 @@ def k2_phase(device, pk_np, sk_np, other_regime: bool) -> dict:
     }
 
 
+# -- vector path --------------------------------------------------------------
+
+
+def exact_l2_topk(emb: np.ndarray, queries: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """The exact top-k+1 by l2 of each query on the host in float64:
+    (row ids [q, k+1], squared distances [q, k+1]), nearest first."""
+    e = emb.astype(np.float64)
+    q = queries.astype(np.float64)
+    d2 = (q * q).sum(1)[:, None] - 2.0 * (q @ e.T) + (e * e).sum(1)[None, :]
+    part = np.argpartition(d2, k, axis=1)[:, : k + 1]
+    ordered = np.take_along_axis(part, np.argsort(np.take_along_axis(d2, part, 1), axis=1, kind="stable"), 1)
+    return ordered, np.take_along_axis(d2, ordered, 1)
+
+
+def l2_rounding(emb: np.ndarray, queries: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """Bound on the float32 error of an l2 score -(|q|² - 2q·x + |x|²) over
+    d dimensions: each of the three terms is within d·u of its scale and
+    the two additions add 2u, so within (d + 2)·u·(|q| + |x|)², u = 2^-24."""
+    qn = np.linalg.norm(queries.astype(np.float64), axis=1)[:, None]
+    xn = np.linalg.norm(emb[ids].astype(np.float64), axis=2)
+    return (emb.shape[1] + 2) * 2.0**-24 * (qn + xn) ** 2
+
+
+def check_against_exact(name: str, scores, ids, exact_ids, exact_d2, emb, queries, k: int) -> dict:
+    """A float32 search result (scores [q, k], row ids [q, k]) against the
+    float64 exact answer: every score within rtol 1e-4 plus the float32
+    rounding bound of its slot, and the id sets equal wherever the exact
+    gap between the k-th and (k+1)-th distance exceeds twice that bound.
+    Returns how many queries the set check covered."""
+    want = -exact_d2[:, :k]
+    tol = l2_rounding(emb, queries, exact_ids[:, : k + 1])
+    if scores.shape != want.shape or not np.isfinite(scores).all():
+        raise AssertionError(f"{name}: scores of shape {scores.shape}, finite {np.isfinite(scores).all()}")
+    err = np.abs(scores - want)
+    if not np.all(err <= 1e-4 * np.abs(want) + tol[:, :k]):
+        raise AssertionError(f"{name}: scores beyond rtol 1e-4 plus the float32 bound ({err.max()})")
+    separated = (exact_d2[:, k] - exact_d2[:, k - 1]) > 2 * tol[:, k - 1 : k + 1].max(axis=1)
+    for i in np.nonzero(separated)[0]:
+        if set(ids[i].tolist()) != set(exact_ids[i, :k].tolist()):
+            raise AssertionError(f"{name}: query {i} found other rows than the exact top {k}")
+    return {"queries_set_checked": int(separated.sum()), "max_abs_score_err": float(err.max())}
+
+
+def capture_topk(fn) -> list:
+    """Runs `fn` once with every K3 call of the vector search recorded, in
+    call order: (scores, k), copied on the device. The calls still launch
+    K3."""
+    from hyperspace_tpu_torch.vector import search
+
+    real = search.topk
+    calls = []
+
+    def recording(scores, k):
+        calls.append((scores.clone(), k))
+        return real(scores, k)
+
+    search.topk = recording
+    try:
+        fn()
+    finally:
+        search.topk = real
+    return calls
+
+
+def vector_path(device, workdir: Path, n: int, dim: int = 128, partitions: int = 64) -> tuple[dict, dict]:
+    """The port's vector index through its user entry points, at the shape
+    of SIFT1M (1M x 128 float32, l2, k = 10) with the settings of
+    benchmarks/bench_ann.py. Returns (the phase wall times and checks,
+    the K3 inputs at the path's four shapes)."""
+    import pyarrow.parquet as pq
+    import torch
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, VectorIndexConfig
+    from hyperspace_tpu_torch.datagen import gen_embeddings
+    from hyperspace_tpu_torch.execution.io import read_manifest
+    from hyperspace_tpu_torch.ops.topk import pass_plan, topk, topk_plain
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 matrix products")
+    phases: dict = {}
+    checks: dict = {}
+    t0 = time.perf_counter()
+    emb = gen_embeddings(workdir / "emb", n, dim, clusters=partitions, seed=7)
+    phases["datagen_s"] = time.perf_counter() - t0
+    session = HyperspaceSession(system_path=str(workdir / "vindexes"), device=device)
+    hs = Hyperspace(session)
+    df = session.parquet(workdir / "emb")
+    t0 = time.perf_counter()
+    hs.create_vector_index(df, VectorIndexConfig("annidx", "emb", ["id"], num_partitions=partitions))
+    sync()
+    phases["build_s"] = time.perf_counter() - t0
+    phases["build_phases_s"] = session.last_build_stats["phases_s"]
+
+    # The index on disk: partition row counts sum to n and match the manifest.
+    vdir = workdir / "vindexes" / "annidx" / "v__=0"
+    file_rows = [pq.read_metadata(vdir / f"bucket-{p:05d}.parquet").num_rows for p in range(partitions)]
+    manifest = read_manifest(vdir)
+    if sum(file_rows) != n or manifest["bucketRows"] != file_rows:
+        raise AssertionError(f"partition rows {sum(file_rows)} of {n}; manifest agrees: {manifest['bucketRows'] == file_rows}")
+    checks["partition_rows"] = {"min": min(file_rows), "max": max(file_rows)}
+
+    queries = emb[np.random.default_rng(9).choice(n, 32, replace=False)] + 0.01
+    t0 = time.perf_counter()
+    exact_ids, exact_d2 = exact_l2_topk(emb, queries, 100)
+    phases["exact_host_float64_s"] = time.perf_counter() - t0
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        phases[label] = time.perf_counter() - t0
+        return out
+
+    def ids_of(res, k):
+        return res.rows.host_column("id").reshape(len(queries), k)
+
+    before = topk.launches
+    session.disable_hyperspace()
+    brute = {}
+    for k in (10, 100):
+        timed(f"brute_k{k}_cold_s", lambda: hs.ann_search(df, queries, k=k))
+        res = timed(f"brute_k{k}_s", lambda: hs.ann_search(df, queries, k=k))
+        brute[k] = res
+        checks[f"brute_k{k}"] = check_against_exact(
+            f"brute force k={k}", res.scores, ids_of(res, k), exact_ids, exact_d2, emb, queries, k
+        )
+    session.enable_hyperspace()
+    ann = {}
+    for nprobe in (8, partitions):
+        timed(f"ann_nprobe{nprobe}_cold_s", lambda: hs.ann_search(df, queries, k=10, nprobe=nprobe))
+        ann[nprobe] = timed(f"ann_nprobe{nprobe}_s", lambda: hs.ann_search(df, queries, k=10, nprobe=nprobe))
+    # Full probe is brute force: the same id sets (where the exact gap at
+    # the 10th row clears the float32 bound) and scores.
+    checks["full_probe"] = check_against_exact(
+        "full probe", ann[partitions].scores, ids_of(ann[partitions], 10), exact_ids, exact_d2, emb, queries, 10
+    )
+    if not np.allclose(ann[partitions].scores, brute[10].scores, rtol=1e-4, atol=2 * l2_rounding(emb, queries, exact_ids[:, :10]).max()):
+        raise AssertionError("full probe scores differ from brute force")
+    exact10 = exact_ids[:, :10]
+    got8 = ids_of(ann[8], 10)
+    recall = float(np.mean([len(set(got8[i]) & set(exact10[i])) / 10 for i in range(len(queries))]))
+    checks["recall_at_10_nprobe8"] = recall
+    if recall < 0.8:
+        raise AssertionError(f"recall@10 at nprobe 8 is {recall} < 0.8")
+    # The index lookup alone (index listing, source fingerprint): the
+    # host's share of each warm indexed query that brute force skips.
+    from hyperspace_tpu_torch.vector.search import find_vector_index
+
+    timed("ann_find_index_s", lambda: find_vector_index(session, df))
+    profiled = device_time(lambda: hs.ann_search(df, queries, k=10, nprobe=8), ("topk_tile",))
+    # Each call's share of K3's device time: routing runs first, in
+    # pass_plan(partitions, 8)'s passes, and the candidates' passes follow.
+    each = profiled["kernel_ms_each"]["topk_tile"]
+    split = len(pass_plan(partitions, 8))
+    profiled["topk_ms"] = (
+        None if each is None else {"routing": sum(each[:split]), "candidates": sum(each[split:])}
+    )
+    phases["ann_nprobe8_profiled"] = profiled
+    # 2 brute force x (cold, warm) + 2 nprobe x (cold, warm) x 2 (route,
+    # candidates) + the profiled query's 2.
+    launched = topk.launches - before
+    if device.type == "cuda" and launched != 4 + 8 + 2:
+        raise AssertionError(f"K3 launched {launched} times on the vector path, expected 14")
+
+    # K3's inputs at the path's shapes: the routing and candidate scores
+    # of one nprobe-8 query, and the brute-force score matrix (for k = 10
+    # and k = 100).
+    routing, candidates = capture_topk(lambda: hs.ann_search(df, queries, k=10, nprobe=8))
+    probed = torch.unique(topk_plain(*routing)[1])
+    checks["nprobe8_partitions_in_union"] = len(probed)
+    checks["nprobe8_candidates"] = candidates[0].shape[1]
+    session.disable_hyperspace()
+    (brute_scores, _), = capture_topk(lambda: hs.ann_search(df, queries, k=10))
+    k3_inputs = {
+        "routing": routing, "candidates": candidates,
+        "brute force": (brute_scores, 10), "brute force k=100": (brute_scores, 100),
+    }
+    del emb
+    return {"rows": n, "dim": dim, "partitions": partitions, "queries": len(queries),
+            "phases": phases, "checks": checks}, k3_inputs
+
+
+def tie_heavy(scores):
+    """The brute-force scores rounded to 16 distinct values (integers -8
+    to 7), with an all-NaN row, scattered NaN and -inf, and signed zeros."""
+    import torch
+
+    lo, hi = scores.min(), scores.max()
+    x = torch.floor((scores - lo) / (hi - lo) * 16).clamp(0, 15) - 8
+    g = torch.Generator(device=scores.device).manual_seed(5)
+    pick = lambda: torch.randint(0, x.shape[1], (x.shape[0], 64), generator=g, device=x.device)  # noqa: E731
+    x.scatter_(1, pick(), float("nan"))
+    x.scatter_(1, pick(), float("-inf"))
+    x.scatter_(1, pick(), -0.0)
+    x[0] = float("nan")
+    return x.contiguous()
+
+
+def k3_phase(device, scores, k: int) -> dict:
+    """K3 against its plain version on the card at one path shape:
+    bit-equal values and equal indices. Times kernel, plain version and
+    torch.topk (the library yardstick: its tie order is unspecified, so it
+    is timed only) with CUDA events."""
+    import torch
+
+    from hyperspace_tpu_torch.ops.topk import pass_plan, topk, topk_plain
+
+    vals, idx = topk(scores, k)
+    torch.cuda.synchronize()
+    want_vals, want_idx = topk_plain(scores, k)
+    if not (torch.equal(idx, want_idx) and torch.equal(vals.view(torch.int32), want_vals.view(torch.int32))):
+        raise AssertionError(f"K3 differs from its plain version at {tuple(scores.shape)}, k={k}")
+    # The largest difference over the values finite in both (the rest are
+    # bit-equal -inf, checked above) and over the indices.
+    finite = torch.isfinite(vals) & torch.isfinite(want_vals)
+    max_abs_err = max(
+        float((vals[finite] - want_vals[finite]).abs().max()) if bool(finite.any()) else 0.0,
+        float((idx.long() - want_idx.long()).abs().max()) if idx.numel() else 0.0,
+    )
+    q, n = scores.shape
+    nbytes = q * n * 4 + q * k * 8  # scores read once, values and indices written once
+    ops = q * n  # at least one compare a score
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops / INT32_OPS * 1e3
+    return {
+        "q": q, "n": n, "k": k, "passes": pass_plan(n, k),
+        "ms": cuda_ms(lambda: topk(scores, k)),
+        "plain_ms": cuda_ms(lambda: topk_plain(scores, k)),
+        "library_ms": cuda_ms(lambda: torch.topk(scores, k, dim=1)),
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "bytes": nbytes, "max_abs_err": max_abs_err,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor (1.0 = 1.5M orders, about 6.0M rows)")
@@ -761,6 +1014,7 @@ def main(argv=None) -> int:
     from hyperspace_tpu_torch.ops import kernels
     from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
     from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+    from hyperspace_tpu_torch.ops.topk import topk
 
     card = card_line()
     log(card)
@@ -772,12 +1026,14 @@ def main(argv=None) -> int:
     def zero_counts():
         segment_reduce.launches = 0
         run_bounds.launches = 0
+        topk.launches = 0
 
     def read_counts(path: str, kernels_of_path: tuple) -> dict:
-        counts = {"segment_reduce": segment_reduce.launches, "run_bounds": run_bounds.launches}
-        for name in kernels_of_path:
-            if counts[name] == 0:
-                raise AssertionError(f"kernel {name} never launched on the {path} path")
+        counts = {"segment_reduce": segment_reduce.launches, "run_bounds": run_bounds.launches,
+                  "topk": topk.launches}
+        for name, count in counts.items():
+            if (count == 0) == (name in kernels_of_path):
+                raise AssertionError(f"kernel {name} launched {count} times on the {path} path")
         return counts
 
     work = Path(tempfile.mkdtemp(prefix="hs_chip_smoke_"))
@@ -794,6 +1050,13 @@ def main(argv=None) -> int:
         join["phases"]["join_path_s"] = time.perf_counter() - t0
         launches["join"] = read_counts("join", ("run_bounds", "segment_reduce"))
         log(json.dumps({"join_path": join, "launches": launches["join"]}))
+        del ctx
+        zero_counts()
+        t0 = time.perf_counter()
+        vector, k3_inputs = vector_path(device, work, n=1_000_000)
+        vector["phases"]["vector_path_s"] = time.perf_counter() - t0
+        launches["vector"] = read_counts("vector", ("topk",))
+        log(json.dumps({"vector_path": vector, "launches": launches["vector"]}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -873,6 +1136,35 @@ def main(argv=None) -> int:
             "main_path_ms": (
                 join["phases"][f"{query}_profiled"]["kernel_ms"]["run_bounds_"] if "aligned" in name else None
             ),
+            "plain_check": "passed",
+        })
+
+    # K3 at the vector path's four shapes, on its real score matrices: the
+    # routing scores [32, 64] (k = 8), the probed candidates' [32, about
+    # 125k] (k = 10) and brute force's [32, 1M] at k = 10 and 100; then
+    # the tie-heavy matrix at the brute-force shape.
+    ties = tie_heavy(k3_inputs["brute force"][0])
+    k3_inputs["tie-heavy"] = (ties, 10)
+    k3_inputs["tie-heavy k=100"] = (ties, 100)
+    profiled = vector["phases"]["ann_nprobe8_profiled"]["topk_ms"] or {}
+    for name, (scores, k) in k3_inputs.items():
+        r = k3_phase(device, scores, k)
+        log(json.dumps({"kernel": "topk", "shape": name, **r}))
+        entries.append({
+            "name": f"topk[{name}: q={r['q']}, n={r['n']}, k={r['k']}]",
+            "route": "cuda",
+            "source": "hyperspace_tpu_torch/csrc/topk.cu",
+            "replaces": "hyperspace_tpu/ops/topk.py:46",
+            "launches": launches["vector"]["topk"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            # K3's device time for this call inside one warm nprobe-8 query
+            # (torch.profiler); brute force is not profiled.
+            "main_path_ms": profiled.get(name),
             "plain_check": "passed",
         })
     log(json.dumps({"kernels": entries}))

@@ -6,8 +6,9 @@ the same covering-index layout on disk (op log, bucket files, manifest),
 the same rewrite rules, and a query executor whose operators run on the
 session's device — the CUDA card unless the caller asks for the CPU. The
 segment reduce behind every grouped aggregate (ops/segment_reduce.py) and
-the run bounds behind every join (ops/sortkeys.py::run_bounds) are
-hand-written CUDA kernels. Importing the package loads neither JAX nor
+the run bounds behind every join (ops/sortkeys.py::run_bounds) and the
+top-k behind every vector search (ops/topk.py) are hand-written CUDA
+kernels. Importing the package loads neither JAX nor
 the JAX package.
 """
 
@@ -28,6 +29,7 @@ __all__ = [
     "IndexConfig",
     "Join",
     "Schema",
+    "VectorIndexConfig",
     "col",
     "lit",
 ]
@@ -38,4 +40,8 @@ def __getattr__(name):
         from hyperspace_tpu_torch import hyperspace as _h
 
         return getattr(_h, name)
+    if name == "VectorIndexConfig":
+        from hyperspace_tpu_torch.vector.index import VectorIndexConfig
+
+        return VectorIndexConfig
     raise AttributeError(name)

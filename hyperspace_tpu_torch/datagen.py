@@ -1,5 +1,5 @@
-"""TPC-H lineitem and orders generators for the port (tests and
-chip_smoke.py).
+"""TPC-H lineitem and orders generators, and the clustered embedding
+table, for the port (tests and chip_smoke.py).
 
 The port's own copies of the JAX package's `benchmarks/datagen.py::
 gen_tpch_lineitem` and `gen_tpch_orders`: the full 16-column TPC-H
@@ -8,7 +8,9 @@ lineitem schema, 1 to 7 lines per order (TPC-H's SF1 table holds
 the 9-column orders table (1.5M rows at SF1, `o_orderkey` in
 `[0, n_orders)`, the domain `l_orderkey` draws from). Both are written
 chunk by chunk with a seed derived per file, so the same `sf` and `seed`
-give the same files as the JAX package's generators.
+give the same files as the JAX package's generators. `gen_embeddings` is
+the port's copy of the JAX package's generator of the same name: the same
+seed gives the same matrix and the same file.
 """
 
 from __future__ import annotations
@@ -144,3 +146,22 @@ def gen_tpch_orders(root: Path, sf: float = 1.0, seed: int = 43, files: int | No
         pq.write_table(t, root / f"part-{i}.parquet", row_group_size=262_144)
         total += t.nbytes
     return total
+
+
+def gen_embeddings(root: Path, n: int, dim: int, clusters: int, seed: int = 7) -> np.ndarray:
+    """Clustered embedding table (`id` int64, `emb` float32 FixedSizeList of
+    `dim`) in one parquet file under `root`; returns the raw [n, dim]
+    matrix for querying."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((clusters, dim)).astype(np.float32) * 4
+    emb = centers[rng.integers(0, clusters, n)] + rng.standard_normal((n, dim)).astype(np.float32)
+    t = pa.table(
+        {
+            "id": pa.array(np.arange(n, dtype=np.int64)),
+            "emb": pa.FixedSizeListArray.from_arrays(pa.array(emb.reshape(-1), type=pa.float32()), dim),
+        }
+    )
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    pq.write_table(t, root / "part-0.parquet")
+    return emb

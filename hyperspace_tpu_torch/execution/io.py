@@ -16,6 +16,8 @@ executor keeps decoded index columns on the device instead
 from __future__ import annotations
 
 import json
+import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -83,12 +85,14 @@ def _json_scalar(v):
 
 def bucket_key_stats(table: ColumnTable, key: str):
     """JSON-serializable [min, max] of `table[key]`, ignoring nulls; None
-    for empty/all-null — persisted in the index manifest so range
+    for empty/all-null/vector — persisted in the index manifest so range
     predicates can skip whole bucket files (the JAX package's stats,
     computed on the host copy of the bucket)."""
     try:
         f = table.schema.field(key)
     except KeyError:
+        return None
+    if f.is_vector:
         return None
     vals = table.host_column(f.name)
     valid = table.host_valid_mask(f.name)
@@ -158,6 +162,28 @@ def read_manifest(version_dir: Path) -> dict | None:
         ) from e
 
 
+_manifest_cache: dict[str, tuple[int, dict | None]] = {}
+_manifest_lock = threading.Lock()
+
+
+def read_manifest_cached(version_dir: Path) -> dict | None:
+    """read_manifest through an mtime-validated cache (manifests are
+    immutable per version, but a refresh can rewrite a dir's manifest)."""
+    mp = Path(version_dir) / MANIFEST_NAME
+    try:
+        mt = os.stat(mp).st_mtime_ns
+    except OSError:
+        return None
+    with _manifest_lock:
+        cached = _manifest_cache.get(str(mp))
+    if cached is not None and cached[0] == mt:
+        return cached[1]
+    m = read_manifest(version_dir)
+    with _manifest_lock:
+        _manifest_cache[str(mp)] = (mt, m)
+    return m
+
+
 def carve_and_write(
     dest: Path,
     table: ColumnTable,
@@ -178,7 +204,7 @@ def carve_and_write(
     key_stats: list = [None] * num_buckets
     col_stats: list = [None] * num_buckets
     lead = table.schema.field(indexed_columns[0]).name if indexed_columns else None
-    other_cols = [f.name for f in table.schema.fields if f.name != lead]
+    other_cols = [f.name for f in table.schema.fields if f.name != lead and not f.is_vector]
     order_t = torch.from_numpy(np.ascontiguousarray(order, dtype=np.int64))
 
     def write_one(b: int) -> None:

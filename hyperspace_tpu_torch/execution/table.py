@@ -4,6 +4,8 @@ Struct-of-tensors on one device (the CUDA card, or the CPU when the caller
 asks for it), with the JAX package's physical types:
 
 - numerics/bools/dates map directly;
+- a vector (embedding) column is one [n, dim] float32 tensor; it holds
+  no nulls;
 - strings are dictionary-encoded with a SORTED dictionary kept on the
   host as a numpy object array, so int32 codes on the device preserve the
   string sort order — equality AND range predicates evaluate correctly on
@@ -105,11 +107,14 @@ class ColumnTable:
         dictionaries: dict[str, np.ndarray] = {}
         validity: dict[str, np.ndarray] = {}
         for f in schema.fields:
-            if f.is_vector:
-                raise HyperspaceError(f"vector column {f.name!r}: the vector index is not ported yet")
             arr = table.column(f.name)
             valid = None
             if arr.null_count:
+                if f.is_vector:
+                    raise HyperspaceError(
+                        f"vector column {f.name!r} contains {arr.null_count} null "
+                        "rows; null embeddings are not supported"
+                    )
                 valid = _validity_mask(arr)
                 validity[f.name] = valid
             if f.is_string:
@@ -147,6 +152,15 @@ class ColumnTable:
                     codes = np.where(valid, codes, empty_code).astype(np.int32, copy=False)
                 columns[f.name] = codes
                 dictionaries[f.name] = sorted_dict
+            elif f.is_vector:
+                # [n, dim] float32 from the FixedSizeList's child buffer
+                # (.values, not .flatten(), which drops null list slots).
+                combined = arr.combine_chunks() if isinstance(arr, pa.ChunkedArray) else arr
+                child = combined.values
+                if child.null_count:
+                    raise HyperspaceError(f"vector column {f.name!r} contains null elements")
+                flat = child.to_numpy(zero_copy_only=False)
+                columns[f.name] = np.ascontiguousarray(flat).astype(np.float32, copy=False).reshape(-1, f.dim)
             else:
                 if f.dtype == "date":
                     arr = arr.cast(pa.int32())
@@ -180,7 +194,7 @@ class ColumnTable:
         cols: dict[str, np.ndarray] = {}
         dicts: dict[str, np.ndarray] = {}
         for f in schema.fields:
-            cols[f.name] = np.zeros(0, dtype=f.device_dtype)
+            cols[f.name] = np.zeros((0, f.dim) if f.is_vector else 0, dtype=f.device_dtype)
             if f.is_string:
                 dicts[f.name] = np.zeros(0, dtype=object)
         return ColumnTable.from_numpy(schema, cols, dicts, device=device)
@@ -274,6 +288,10 @@ class ColumnTable:
                 arrays[f.name] = pa.DictionaryArray.from_arrays(
                     idx, pa.array(d.astype(object), type=pa.string())
                 )
+            elif f.is_vector:
+                arrays[f.name] = pa.FixedSizeListArray.from_arrays(
+                    pa.array(np.ascontiguousarray(v).reshape(-1), type=pa.float32()), f.dim
+                )
             elif f.dtype == "date":
                 arrays[f.name] = pa.array(v, type=pa.date32(), mask=mask)
             elif f.dtype == "timestamp":
@@ -281,3 +299,39 @@ class ColumnTable:
             else:
                 arrays[f.name] = pa.array(v, mask=mask)
         return pa.table(arrays)
+
+    @staticmethod
+    def concat(tables: list["ColumnTable"]) -> "ColumnTable":
+        """Concatenate tables with the same schema on one device. String
+        columns merge on the (small, host) dictionaries and remap codes
+        with one lookup per part, never decoding row values."""
+        if not tables:
+            raise HyperspaceError("cannot concat zero tables")
+        if len(tables) == 1:
+            return tables[0]
+        schema, device = tables[0].schema, tables[0].device
+        cols: dict[str, torch.Tensor] = {}
+        dicts: dict[str, np.ndarray] = {}
+        validity: dict[str, torch.Tensor] = {}
+        for f in schema.fields:
+            parts = [t.columns[f.name] for t in tables]
+            if f.is_string:
+                part_dicts = [t.dictionaries[f.name] for t in tables]
+                if all(len(d) == len(part_dicts[0]) and np.array_equal(d, part_dicts[0]) for d in part_dicts[1:]):
+                    dicts[f.name] = part_dicts[0]
+                else:
+                    merged = np.unique(np.concatenate(part_dicts).astype(str))
+                    remapped = []
+                    for codes, d in zip(parts, part_dicts):
+                        # Old code -> position of its string in the merged
+                        # sorted dictionary (exact: every entry is present).
+                        old_to_new = to_tensor(np.searchsorted(merged, d.astype(str)).astype(np.int32), device)
+                        remapped.append(old_to_new[codes.long()] if len(d) else codes)
+                    dicts[f.name] = merged.astype(object)
+                    parts = remapped
+            cols[f.name] = torch.cat(parts)
+            if any(f.name in t.validity for t in tables):
+                validity[f.name] = torch.cat([
+                    t.validity.get(f.name, torch.ones(t.num_rows, dtype=torch.bool, device=device)) for t in tables
+                ])
+        return ColumnTable(schema, cols, dicts, validity, device)

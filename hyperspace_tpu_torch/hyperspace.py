@@ -9,12 +9,13 @@ applies the rewrite rules when enabled.
 
 A port of the JAX package's `hyperspace.py` (`HyperspaceSession.parquet /
 enable_hyperspace / disable_hyperspace / run / to_pandas` and
-`Hyperspace.create_index`). The session runs on the CUDA card unless the
-caller passes `device="cpu"`. `last_query_stats` reports what ran: the
-scan kind and files read or pruned, the aggregate path, and for a join
-its path (`zero-exchange-aligned` or `single-partition`), kernel and
-bucket count. Corruption fallback, profiles, serving, the
-advisor and the lifecycle APIs other than create are not ported yet.
+`Hyperspace.create_index`, `create_vector_index` and `ann_search`). The
+session runs on the CUDA card unless the caller passes `device="cpu"`.
+`last_query_stats` reports what ran: the scan kind and files read or
+pruned, the aggregate path, and for a join its path
+(`zero-exchange-aligned` or `single-partition`), kernel and bucket count.
+Corruption fallback, profiles, serving, the advisor and the lifecycle
+APIs other than create are not ported yet.
 """
 
 from __future__ import annotations
@@ -81,14 +82,21 @@ class HyperspaceSession:
                 self._last_writer = DeviceIndexBuilder(self.device)
                 return self._last_writer
 
-            self._manager = CachingIndexCollectionManager(self.conf, writer_factory)
+            def vector_builder_factory():
+                from hyperspace_tpu_torch.vector.index import VectorIndexBuilder
+
+                self._last_writer = VectorIndexBuilder(self.device)
+                return self._last_writer
+
+            self._manager = CachingIndexCollectionManager(self.conf, writer_factory, vector_builder_factory)
         return self._manager
 
     @property
     def last_build_stats(self) -> dict:
         """Stats of the most recent index build in this session, including
-        the per-phase wall times (decode / hash_lanes / partition_sort /
-        carve_encode_write)."""
+        the per-phase wall times (a covering index: decode / hash_lanes /
+        partition_sort / carve_encode_write; a vector index: read / kmeans
+        / assign / carve)."""
         return dict(getattr(self._last_writer, "last_build_stats", {}) or {})
 
     # -- data access ------------------------------------------------------
@@ -123,10 +131,23 @@ class HyperspaceSession:
 
 
 class Hyperspace:
-    """The user API (Hyperspace.scala:32-104); `create_index` is ported."""
+    """The user API (Hyperspace.scala:32-104); `create_index`,
+    `create_vector_index` and `ann_search` are ported."""
 
     def __init__(self, session: HyperspaceSession):
         self.session = session
 
     def create_index(self, plan: LogicalPlan, index_config: IndexConfig) -> None:
         self.session.manager.create(plan, index_config)
+
+    def create_vector_index(self, plan: LogicalPlan, config) -> None:
+        """Build an ANN index over an embedding column (VectorIndexConfig)."""
+        self.session.manager.create_vector(plan, config)
+
+    def ann_search(self, plan: LogicalPlan, queries, k: int, nprobe: int | None = None,
+                   embedding_column: str | None = None, metric: str | None = None):
+        """Top-k nearest neighbours; probes a matching vector index when
+        hyperspace is enabled, else brute-forces the source (exact)."""
+        from hyperspace_tpu_torch.vector.search import ann_search
+
+        return ann_search(self.session, plan, queries, k, nprobe, embedding_column, metric)

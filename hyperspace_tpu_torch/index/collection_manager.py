@@ -6,9 +6,9 @@ every index dir under the system path), and
 index/CachingIndexCollectionManager.scala:37-160 (read-path TTL cache,
 cleared by every mutating API).
 
-A trimmed copy of the JAX package's module: `create` and the listing are
-ported; the other lifecycle actions (delete, restore, vacuum, refresh,
-optimize, cancel, recover) are not ported yet.
+A trimmed copy of the JAX package's module: `create`, `create_vector`
+and the listing are ported; the other lifecycle actions (delete,
+restore, vacuum, refresh, optimize, cancel, recover) are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,12 +30,13 @@ from hyperspace_tpu_torch.plan.nodes import LogicalPlan
 class IndexCollectionManager:
     """Concrete manager: one log/data manager pair per index directory."""
 
-    def __init__(self, conf: HyperspaceConf, writer_factory):
+    def __init__(self, conf: HyperspaceConf, writer_factory, vector_builder_factory):
         self.conf = conf
         self.path_resolver = PathResolver(conf)
         # The DI seam (analog of index/factories.scala:22-52): the writer
-        # builds index data.
+        # builds covering-index data, the vector builder vector-index data.
         self.writer_factory = writer_factory
+        self.vector_builder_factory = vector_builder_factory
 
     def _managers(self, name: str) -> tuple[IndexLogManager, IndexDataManager, Path]:
         index_path = self.path_resolver.get_index_path(name)
@@ -44,6 +45,12 @@ class IndexCollectionManager:
     def create(self, plan: LogicalPlan, config: IndexConfig) -> None:
         lm, dm, path = self._managers(config.index_name)
         CreateAction(plan, config, lm, dm, path, self.conf, self.writer_factory()).run()
+
+    def create_vector(self, plan: LogicalPlan, config) -> None:
+        from hyperspace_tpu_torch.vector.index import VectorCreateAction
+
+        lm, dm, path = self._managers(config.index_name)
+        VectorCreateAction(plan, config, lm, dm, path, self.conf, self.vector_builder_factory()).run()
 
     def get_indexes(self, states_filter=(states.ACTIVE,)) -> list[IndexLogEntry]:
         """Enumerate every index dir under the system path and read each
@@ -61,8 +68,8 @@ class CachingIndexCollectionManager(IndexCollectionManager):
     every mutating API clears the cache first
     (CachingIndexCollectionManager.scala:60-98)."""
 
-    def __init__(self, conf: HyperspaceConf, writer_factory):
-        super().__init__(conf, writer_factory)
+    def __init__(self, conf: HyperspaceConf, writer_factory, vector_builder_factory):
+        super().__init__(conf, writer_factory, vector_builder_factory)
         self._cache = CreationTimeBasedCache(DEFAULT_CACHE_EXPIRY_SECONDS)
 
     def clear_cache(self) -> None:
@@ -81,3 +88,7 @@ class CachingIndexCollectionManager(IndexCollectionManager):
     def create(self, plan, config):
         self.clear_cache()
         super().create(plan, config)
+
+    def create_vector(self, plan, config):
+        self.clear_cache()
+        super().create_vector(plan, config)

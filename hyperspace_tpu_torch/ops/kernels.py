@@ -24,6 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "segment_reduce": _PKG / "csrc" / "segment_reduce.cu",
     "run_bounds": _PKG / "csrc" / "run_bounds.cu",
+    "topk": _PKG / "csrc" / "topk.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [

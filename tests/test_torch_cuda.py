@@ -239,3 +239,118 @@ def test_join_queries_on_the_card_match_the_cpu(cuda, tmp_path):
                 assert np.all(np.abs(got[c].to_numpy() - want[c].to_numpy()) <= tol), name
             else:
                 np.testing.assert_array_equal(got[c].to_numpy(), want[c].to_numpy(), err_msg=f"{name} {c}")
+
+
+def _topk_inputs(rng, q, n, kind):
+    """float32 [q, n] scores: 'random' normal scores; 'ties' the scores
+    rounded to 16 distinct values, with a NaN row, scattered NaN, -inf
+    and signed zeros."""
+    x = rng.standard_normal((q, n)).astype(np.float32)
+    if kind == "ties":
+        x = np.round(x * 4).clip(-8, 7).astype(np.float32)
+        x[0, :] = np.nan
+        pos = rng.integers(0, n, (q, 12))
+        rows = np.arange(q)[:, None]
+        x[rows, pos[:, :3]] = np.nan
+        x[rows, pos[:, 3:6]] = -np.inf
+        x[rows, pos[:, 6:9]] = -0.0
+        x[rows, pos[:, 9:]] = 0.0
+    return x
+
+
+# (q, n, k): routing [32, 64] k=8, small rows, a row of one tile, rows of
+# many tiles at k = 10, 100 and the kernel's limit, and the brute-force
+# shape [32, 1M] at k = 10 and 100.
+_K3_SHAPES = [
+    (32, 64, 8), (1, 1, 1), (3, 5, 9), (4, 4096, 64), (5, 4097, 10), (32, 125_000, 10),
+    (8, 50_000, 100), (2, 20_000, 2048), (32, 1_000_000, 10), (32, 1_000_000, 100),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("q,n,k", _K3_SHAPES)
+def test_topk_kernel_is_bit_equal_to_plain(cuda, q, n, k, kind):
+    from hyperspace_tpu_torch.ops.topk import topk, topk_plain
+
+    x = torch.from_numpy(_topk_inputs(np.random.default_rng(q + n + k), q, n, kind)).to(cuda)
+    before = topk.launches
+    vals, idx = topk(x, k)
+    torch.cuda.synchronize()
+    assert topk.launches == before + 1
+    want_vals, want_idx = topk_plain(x, k)
+    assert vals.shape == want_vals.shape == (q, min(k, n))
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(vals.view(torch.int32), want_vals.view(torch.int32))  # bit-equal
+
+
+@pytest.mark.gpu
+def test_topk_kernel_on_a_1d_row_and_past_its_limit(cuda):
+    from hyperspace_tpu_torch.exceptions import HyperspaceError
+    from hyperspace_tpu_torch.ops.topk import MAX_K, topk, topk_plain
+
+    x = torch.from_numpy(_topk_inputs(np.random.default_rng(1), 1, 3000, "ties")[0]).to(cuda)
+    vals, idx = topk(x, 7)
+    want_vals, want_idx = topk_plain(x, 7)
+    assert vals.shape == (7,) and torch.equal(idx, want_idx) and torch.equal(vals, want_vals)
+    with pytest.raises(HyperspaceError, match=str(MAX_K)):
+        topk(torch.zeros((2, MAX_K + 1), device=cuda), MAX_K + 1)
+
+
+@pytest.mark.gpu
+def test_topk_on_the_card_never_calls_a_library_selection(cuda, monkeypatch):
+    from hyperspace_tpu_torch.ops.topk import topk
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library selection was called on the card")
+
+    x = torch.from_numpy(_topk_inputs(np.random.default_rng(2), 32, 300_000, "ties")).to(cuda)
+    monkeypatch.setattr(torch, "topk", refuse)
+    monkeypatch.setattr(torch, "sort", refuse)
+    monkeypatch.setattr(torch.Tensor, "topk", refuse)
+    monkeypatch.setattr(torch.Tensor, "sort", refuse)
+    for k in (8, 10, 100):
+        vals, idx = topk(x, k)
+        assert vals.shape == (32, k)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_vector_search_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One index (built on the CPU) searched from a card session and a CPU
+    session: the card launches K3 twice per indexed search (routing,
+    candidates) and once per brute-force search, and finds the CPU's rows.
+    Scores agree within 16 units of float32 rounding of (|q| + |x|)², the
+    scale of an l2 score's terms; ids agree where the CPU's scores stand
+    apart by more than that."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, VectorIndexConfig
+    from hyperspace_tpu_torch.datagen import gen_embeddings
+    from hyperspace_tpu_torch.ops.topk import topk
+
+    emb = gen_embeddings(tmp_path / "emb", 20_000, 64, clusters=16, seed=3)
+    queries = emb[np.random.default_rng(4).choice(len(emb), 8, replace=False)] + 0.01
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = HyperspaceSession(system_path=str(tmp_path / "idx"), device=dev)
+        hs, df = Hyperspace(s), s.parquet(tmp_path / "emb")
+        if dev == "cpu":
+            hs.create_vector_index(df, VectorIndexConfig("v", "emb", ["id"], num_partitions=16))
+        before = topk.launches
+        s.enable_hyperspace()
+        ann = hs.ann_search(df, queries, k=10, nprobe=4)
+        s.disable_hyperspace()
+        brute = hs.ann_search(df, queries, k=100)
+        out[dev] = (ann, brute, topk.launches - before)
+    assert out["cuda"][2] == 3 and out["cpu"][2] == 0
+    norms = np.linalg.norm(emb, axis=1)
+    qn = np.linalg.norm(queries, axis=1)[:, None]
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        ids = want.rows.host_column("id").reshape(len(queries), -1)
+        tol = 16 * 2.0**-24 * (qn + norms[ids]) ** 2
+        assert np.all(np.abs(got.scores - want.scores) <= tol)
+        apart = np.ones(ids.shape, dtype=bool)
+        apart[:, 1:] &= -np.diff(want.scores, axis=1) > 2 * tol[:, 1:]
+        apart[:, :-1] &= -np.diff(want.scores, axis=1) > 2 * tol[:, :-1]
+        apart[:, -1] = False  # the next row, outside the k, may tie with the last
+        got_ids = got.rows.host_column("id").reshape(len(queries), -1)
+        np.testing.assert_array_equal(got_ids[apart], ids[apart])

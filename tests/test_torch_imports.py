@@ -42,6 +42,12 @@ def test_port_imports_without_jax_or_the_jax_package():
         "hyperspace_tpu_torch.execution.exec_join",
         "hyperspace_tpu_torch.execution.exec_join_agg",
         "hyperspace_tpu_torch.rules.join_index_rule",
+        "hyperspace_tpu_torch.ops.topk",
+        "hyperspace_tpu_torch.ops.kmeans",
+        "hyperspace_tpu_torch.vector",
+        "hyperspace_tpu_torch.vector.index",
+        "hyperspace_tpu_torch.vector.lifecycle",
+        "hyperspace_tpu_torch.vector.search",
     ):
         assert name in report["modules"]
 

@@ -41,15 +41,18 @@ What it does, in order (any failure raises and exits non-zero):
    other;
 5. kernel phase: holds each kernel against its plain PyTorch version on
    the card at the shapes the paths gave it (K1: the aggregates' row
-   count, group counts and channels, and the very inputs of its four
-   launches in the indexed J2 and J3 — the secondary run extrema and the
-   group fold; K2: the join's real key codes at the aligned J2 and J3
-   shapes and the un-indexed J2 shape, in the regime the kernel picks
+   count, group counts and channels on seeded channels with uniformly
+   random group ids, the very inputs the two aggregates gave it, and
+   those of its four launches in the indexed J2 and J3 — the secondary
+   run extrema and the group fold; K2: the join's real key codes at the
+   aligned J2 and J3 shapes and the un-indexed J2 shape, in the regime the kernel picks
    and, at the aligned shapes, in the other one too; K3: the vector
    path's routing, candidate and brute-force score matrices, and a
    tie-heavy matrix at the brute-force shape, bit-equal), and times
    kernel, plain version and the library yardstick with CUDA events
-   (median of 12 runs after warm-up);
+   (median of 12 runs after warm-up), and each K1 and K3 call's kernels
+   alone with torch.profiler (one window for each kernel's shapes);
+   a profiled window that misses a kernel it should hold fails the run;
 6. prints one JSON line describing every kernel, the card's name and
    power limit again, and, last, `{"ok": true, "device": {...}}`.
 
@@ -209,7 +212,9 @@ def k1_phase(device, vals, gid, k: int, fns: tuple, exact: list[bool]) -> dict:
 
     import torch
 
-    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce, segment_reduce_plain
+    from hyperspace_tpu_torch.ops.segment_reduce import (
+        _sm_count, kernels_per_launch, reduce_plan, segment_reduce, segment_reduce_plain,
+    )
 
     gid_np, vals_np = gid.cpu().numpy(), vals.cpu().numpy()
     n = len(gid_np)
@@ -264,8 +269,9 @@ def k1_phase(device, vals, gid, k: int, fns: tuple, exact: list[bool]) -> dict:
             )
 
     library_calls_ms = cuda_ms(library)
+    regime = reduce_plan(c_num, k, n, _sm_count(torch.cuda.current_device()))[0]  # c_num <= 64 here
     return {
-        "n": n, "k": k, "channels": c_num,
+        "n": n, "k": k, "channels": c_num, "regime": regime, "kernels_per_call": kernels_per_launch(regime, fns),
         "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_calls_ms if len(blocks) == 1 else None,
         "library_calls": len(blocks), "library_calls_ms": library_calls_ms,
@@ -273,6 +279,8 @@ def k1_phase(device, vals, gid, k: int, fns: tuple, exact: list[bool]) -> dict:
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "bytes": nbytes, "max_abs_err": max_abs_err, "rel_err_vs_exact": rel_err,
         "deterministic_channels": sum(exact),
+        # One call, for device_ms_each.
+        "call": lambda: segment_reduce(vals, gid, k, fns),
     }
 
 
@@ -330,42 +338,80 @@ def check_revenue(got, source) -> None:
         raise AssertionError("revenue beyond the float64 summation bound")
 
 
+def _profiled_kernels(fn) -> tuple[list, float]:
+    """Runs `fn` once under torch.profiler and returns (start, us, name)
+    of every device activity it recorded, in start order, and the wall
+    milliseconds of `fn` (the profiler's own start and stop left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    card = torch.cuda.is_available()  # a CPU rehearsal has no card to wait for
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        if card:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(
+        (e.time_range.start, e.time_range.elapsed_us(), e.name)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return kernels, wall_ms
+
+
 def device_time(fn, prefixes: tuple) -> dict:
     """Runs `fn` once under torch.profiler and sums, per name prefix, the
     device time (and count) of the kernels whose names hold it, and the
     time of all device work; `kernel_ms_each` lists each such kernel's
     time in the order they started. The times are None when the profiler
-    recorded no device activity."""
+    recorded no device activity, which only a CPU rehearsal may do: on the
+    card, a profile without device activity or without a kernel of every
+    prefix fails the run."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        if torch.cuda.is_available():  # a CPU rehearsal has no card to wait for
-            torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    each = {p: [] for p in prefixes}  # (start, us) of each matching kernel
-    busy = 0.0
-    seen = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        seen += 1
-        busy += us
-        for p in prefixes:
-            if p in e.name:
-                each[p].append((e.time_range.start, us))
+    kernels, wall_ms = _profiled_kernels(fn)
+    each = {p: [us for _, us, name in kernels if p in name] for p in prefixes}
     matched = {p: len(each[p]) for p in prefixes}
-    if seen == 0:
+    if torch.cuda.is_available() and not (kernels and all(matched.values())):
+        raise AssertionError(f"the profiler saw {len(kernels)} device activities; kernels by prefix: {matched}")
+    if not kernels:
         return {"kernel_ms": dict.fromkeys(prefixes), "kernel_ms_each": dict.fromkeys(prefixes),
                 "device_busy_ms": None, "profiled_wall_ms": wall_ms, "kernels": matched}
     return {
-        "kernel_ms": {p: sum(us for _, us in each[p]) / 1e3 for p in prefixes},
-        "kernel_ms_each": {p: [us / 1e3 for _, us in sorted(each[p])] for p in prefixes},
-        "device_busy_ms": busy / 1e3, "profiled_wall_ms": wall_ms, "kernels": matched,
+        "kernel_ms": {p: sum(each[p]) / 1e3 for p in prefixes},
+        "kernel_ms_each": {p: [us / 1e3 for us in each[p]] for p in prefixes},
+        "device_busy_ms": sum(us for _, us, _ in kernels) / 1e3, "profiled_wall_ms": wall_ms, "kernels": matched,
     }
+
+
+def device_ms_each(calls: dict, prefix: str) -> dict:
+    """Each call's kernels alone on the card: every call runs once, in
+    order, and then the whole sequence once more, inside one
+    torch.profiler window (the profiler hands back no device events after
+    about a dozen sessions in one process, and can miss kernels launched
+    soon after it starts); the last pass's kernels whose names hold
+    `prefix` are dealt to the calls in start order by each call's kernel
+    count. Returns name -> ms."""
+    import torch
+
+    def run_all():
+        for _ in range(2):
+            for fn, _ in calls.values():
+                fn()
+                torch.cuda.synchronize()
+
+    kernels = [(us, name) for _, us, name in _profiled_kernels(run_all)[0] if prefix in name]
+    want = sum(count for _, count in calls.values())
+    last = kernels[-want:]
+    if len(kernels) < want or (len(kernels) == 2 * want and [n for _, n in kernels[:want]] != [n for _, n in last]):
+        names = [name[:70] for _, name in kernels]
+        raise AssertionError(f"the profiler saw {len(kernels)} kernels named {prefix}*, two passes launch {2 * want}: {names}")
+    out, at = {}, 0
+    for name, (_, count) in calls.items():
+        out[name] = sum(us for us, _ in last[at : at + count]) / 1e3
+        at += count
+    return out
 
 
 def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 200) -> tuple[dict, dict]:
@@ -381,6 +427,7 @@ def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 20
 
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, col
     from hyperspace_tpu_torch.datagen import TPCH_SF1_ORDERS_ROWS, gen_tpch_lineitem
+    from hyperspace_tpu_torch.ops import aggregate
 
     def sync():
         if device.type == "cuda":
@@ -439,6 +486,7 @@ def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 20
         raise AssertionError(f"lookups found {sum(counts['index'])} rows, the source holds {want_rows}")
 
     session.enable_hyperspace()
+    k1_inputs = {}
     for name, plan, check in (
         ("q1", df.aggregate(Q1_GROUP, Q1_AGGS), check_q1),
         ("revenue", df.aggregate(["l_orderkey"], [("sum", "l_extendedprice", "rev")]), check_revenue),
@@ -454,8 +502,13 @@ def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 20
         # K1's device time inside the query (the kernels of segment_reduce.cu
         # are all named segment_reduce_*).
         phases[f"agg_{name}_profiled"] = device_time(lambda: session.run(plan), ("segment_reduce_",))
+        # K1's inputs as the query gives them, from one more run.
+        calls = capture_k1(lambda: session.run(plan), aggregate)
+        if len(calls) != 1:
+            raise AssertionError(f"{name}: expected one K1 call, got {len(calls)}")
+        k1_inputs[f"{name} (path ids)"] = calls[0]
     result = {"rows": rows, "lookup_rows": sum(counts["index"]), "phases": phases}
-    return result, {"session": session, "lineitem": df, "source": source, "workdir": workdir}
+    return result, {"session": session, "lineitem": df, "source": source, "workdir": workdir, "k1_inputs": k1_inputs}
 
 
 # -- join path ----------------------------------------------------------------
@@ -542,6 +595,7 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
 
     from hyperspace_tpu_torch import Hyperspace, IndexConfig
     from hyperspace_tpu_torch.datagen import gen_tpch_orders
+    from hyperspace_tpu_torch.ops import join_agg
     from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
     from hyperspace_tpu_torch.ops.sortkeys import run_bounds
 
@@ -666,7 +720,7 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
     # of each: the secondary run extrema, then the group fold.
     k1_inputs = {}
     for name in ("J2", "J3"):
-        calls = capture_k1(session, queries[name])
+        calls = capture_k1(lambda: session.run(queries[name]), join_agg)
         if len(calls) != 2:
             raise AssertionError(f"{name}: expected K1 calls for the run extrema and the fold, got {len(calls)}")
         k1_inputs[f"{name} run extrema"], k1_inputs[f"{name} fold"] = calls
@@ -691,24 +745,23 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
     return {"groups": {"J2": len(ref_j2), "J3": len(ref_j3)}, "rows": counts, "phases": phases}, k1_inputs, k2_inputs
 
 
-def capture_k1(session, plan) -> list:
-    """Runs `plan` once with every K1 call of the fused Aggregate(Join)
-    recorded, in call order: (vals, gid, number of groups, reduce kinds),
-    copied on the card. The calls still launch K1."""
-    from hyperspace_tpu_torch.ops import join_agg
-
-    real = join_agg.segment_reduce
+def capture_k1(fn, module) -> list:
+    """Runs `fn` once with every K1 call made through `module` (the
+    aggregate or the fused Aggregate(Join)) recorded, in call order:
+    (vals, gid, number of groups, reduce kinds), copied on the card. The
+    calls still launch K1."""
+    real = module.segment_reduce
     calls = []
 
     def recording(vals, gid, k, fns):
-        calls.append((vals.clone(), gid.clone(), k, fns))
+        calls.append((vals.clone(), gid.clone(), k, tuple(fns)))
         return real(vals, gid, k, fns)
 
-    join_agg.segment_reduce = recording
+    module.segment_reduce = recording
     try:
-        session.run(plan)
+        fn()
     finally:
-        join_agg.segment_reduce = real
+        module.segment_reduce = real
     return calls
 
 
@@ -836,7 +889,7 @@ def vector_path(device, workdir: Path, n: int, dim: int = 128, partitions: int =
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, VectorIndexConfig
     from hyperspace_tpu_torch.datagen import gen_embeddings
     from hyperspace_tpu_torch.execution.io import read_manifest
-    from hyperspace_tpu_torch.ops.topk import pass_plan, topk, topk_plain
+    from hyperspace_tpu_torch.ops.topk import launches_per_call, topk, topk_plain
 
     def sync():
         if device.type == "cuda":
@@ -914,11 +967,12 @@ def vector_path(device, workdir: Path, n: int, dim: int = 128, partitions: int =
     from hyperspace_tpu_torch.vector.search import find_vector_index
 
     timed("ann_find_index_s", lambda: find_vector_index(session, df))
-    profiled = device_time(lambda: hs.ann_search(df, queries, k=10, nprobe=8), ("topk_tile",))
+    # The kernels of topk.cu are all named topk_*.
+    profiled = device_time(lambda: hs.ann_search(df, queries, k=10, nprobe=8), ("topk_",))
     # Each call's share of K3's device time: routing runs first, in
-    # pass_plan(partitions, 8)'s passes, and the candidates' passes follow.
-    each = profiled["kernel_ms_each"]["topk_tile"]
-    split = len(pass_plan(partitions, 8))
+    # launches_per_call(partitions) kernels, and the candidates' follow.
+    each = profiled["kernel_ms_each"]["topk_"]
+    split = launches_per_call(partitions)
     profiled["topk_ms"] = (
         None if each is None else {"routing": sum(each[:split]), "candidates": sum(each[split:])}
     )
@@ -970,7 +1024,7 @@ def k3_phase(device, scores, k: int) -> dict:
     is timed only) with CUDA events."""
     import torch
 
-    from hyperspace_tpu_torch.ops.topk import pass_plan, topk, topk_plain
+    from hyperspace_tpu_torch.ops.topk import _sm_count, launches_per_call, select_plan, topk, topk_plain
 
     vals, idx = topk(scores, k)
     torch.cuda.synchronize()
@@ -989,9 +1043,14 @@ def k3_phase(device, scores, k: int) -> dict:
     ops = q * n  # at least one compare a score
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops / INT32_OPS * 1e3
+    blocks, chunk = select_plan(q, n, _sm_count(torch.cuda.current_device()))
     return {
-        "q": q, "n": n, "k": k, "passes": pass_plan(n, k),
+        "q": q, "n": n, "k": k,
+        # The design's split of a row (0 blocks: one block sorts the row)
+        # and its kernels a call.
+        "blocks_per_row": blocks, "chunk": chunk, "kernels_per_call": launches_per_call(n),
         "ms": cuda_ms(lambda: topk(scores, k)),
+        "call": lambda: topk(scores, k),
         "plain_ms": cuda_ms(lambda: topk_plain(scores, k)),
         "library_ms": cuda_ms(lambda: torch.topk(scores, k, dim=1)),
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
@@ -1050,6 +1109,7 @@ def main(argv=None) -> int:
         join["phases"]["join_path_s"] = time.perf_counter() - t0
         launches["join"] = read_counts("join", ("run_bounds", "segment_reduce"))
         log(json.dumps({"join_path": join, "launches": launches["join"]}))
+        k1_agg_inputs = ctx["k1_inputs"]
         del ctx
         zero_counts()
         t0 = time.perf_counter()
@@ -1062,8 +1122,11 @@ def main(argv=None) -> int:
 
     # Kernel phase at the aggregate path's two shapes: its row count and
     # group counts. Q1 by (l_returnflag, l_linestatus): 6 groups, 12
-    # channels — the shared-memory regime. Revenue by l_orderkey: 1.5M
-    # groups at SF1, 2 channels — the global-atomic regime.
+    # channels — the thread regime. Revenue by l_orderkey: 1.5M groups at
+    # SF1, 2 channels — the global regime. First on seeded channels with
+    # uniformly random group ids, then on the inputs the queries gave K1,
+    # whose ids come as the source's rows do (revenue's in runs of one to
+    # seven: lineitem is written in l_orderkey order).
     n = result["rows"]
     phases = result["phases"]
     q1_kinds = ("qty", "ind", "price", "ind", "disc", "ind", "price", "ind", "disc", "ind", "ind", "ind")
@@ -1076,10 +1139,13 @@ def main(argv=None) -> int:
     # And at the join path's four, on the inputs the indexed J2 and J3 gave
     # it: the secondary run extrema (min/max over about 1.5M runs, global
     # atomics) and the group fold over the padded [B·Lp] rows.
-    for name, (vals, gid, k, fns) in k1_join_inputs.items():
+    for name, (vals, gid, k, fns) in {**k1_agg_inputs, **k1_join_inputs}.items():
         shapes[name] = k1_phase(device, vals, gid, k, fns, _k1_exact_from_data(vals.cpu().numpy(), fns))
-    del k1_join_inputs
+    del k1_agg_inputs, k1_join_inputs
+    device_ms = device_ms_each({name: (r.pop("call"), r["kernels_per_call"]) for name, r in shapes.items()},
+                               "segment_reduce_")
     for name, r in shapes.items():
+        r["device_ms"] = device_ms[name]
         log(json.dumps({"kernel": "segment_reduce", "shape": name, **r}))
 
     entries = []
@@ -1099,11 +1165,18 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            # Where the kinds differ, no one call computes the function:
+            # torch's scatter_reduce_ once per kind, timed together.
+            "library_calls": r["library_calls"],
+            "library_calls_ms": r["library_calls_ms"],
+            "regime": r["regime"],
+            "kernels_per_call": r["kernels_per_call"],
+            "device_ms": r["device_ms"],
             # The kernel's device time inside the main path's query
-            # (torch.profiler; None where it saw no device activity); for
-            # J2 and J3 both K1 launches of the query together.
+            # (torch.profiler); for J2 and J3 both K1 launches of the query
+            # together.
             "main_path_ms": (
-                phases[f"agg_{name}_profiled"] if query in ("q1", "revenue") else join["phases"][f"{query}_profiled"]
+                phases[f"agg_{query}_profiled"] if query in ("q1", "revenue") else join["phases"][f"{query}_profiled"]
             )["kernel_ms"]["segment_reduce_"],
             # k1_phase raised had the kernel disagreed with its plain version.
             "plain_check": "passed",
@@ -1141,14 +1214,18 @@ def main(argv=None) -> int:
 
     # K3 at the vector path's four shapes, on its real score matrices: the
     # routing scores [32, 64] (k = 8), the probed candidates' [32, about
-    # 125k] (k = 10) and brute force's [32, 1M] at k = 10 and 100; then
+    # 690k] (k = 10) and brute force's [32, 1M] at k = 10 and 100; then
     # the tie-heavy matrix at the brute-force shape.
     ties = tie_heavy(k3_inputs["brute force"][0])
     k3_inputs["tie-heavy"] = (ties, 10)
     k3_inputs["tie-heavy k=100"] = (ties, 100)
     profiled = vector["phases"]["ann_nprobe8_profiled"]["topk_ms"] or {}
-    for name, (scores, k) in k3_inputs.items():
-        r = k3_phase(device, scores, k)
+    k3 = {name: k3_phase(device, scores, k) for name, (scores, k) in k3_inputs.items()}
+    # Each call's kernels alone on the card, beside the event time, which
+    # also holds the wrapper's host work.
+    device_ms = device_ms_each({name: (r.pop("call"), r["kernels_per_call"]) for name, r in k3.items()}, "topk_")
+    for name, r in k3.items():
+        r["device_ms"] = device_ms[name]
         log(json.dumps({"kernel": "topk", "shape": name, **r}))
         entries.append({
             "name": f"topk[{name}: q={r['q']}, n={r['n']}, k={r['k']}]",
@@ -1162,6 +1239,9 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "blocks_per_row": r["blocks_per_row"],
+            "kernels_per_call": r["kernels_per_call"],
+            "device_ms": r["device_ms"],
             # K3's device time for this call inside one warm nprobe-8 query
             # (torch.profiler); brute force is not profiled.
             "main_path_ms": profiled.get(name),

@@ -12,14 +12,17 @@ segments; here it serves every shape on the main path, on the card.
 
 On a CUDA tensor the wrapper launches the kernel in
 `hyperspace_tpu_torch/csrc/segment_reduce.cu` (whose header says what
-bounds it on the H100 and how its design answers that) or raises; on a
-CPU tensor it runs `segment_reduce_plain`. One launch takes up to 64
-channels, so a wider input (more than 32 aggregates) launches once per
-block of 64 channels; `segment_reduce.launches` counts those launches.
+bounds it on the H100 and how its design answers that) in the regime
+`reduce_plan` picks, or raises; on a CPU tensor it runs
+`segment_reduce_plain`. One launch takes up to 64 channels, so a wider
+input (more than 32 aggregates) launches once per block of 64 channels;
+`segment_reduce.launches` counts those launches, each of which runs
+`kernels_per_launch` kernels on the card.
 
 Determinism: integral sums, extrema and counts are exact in any order and
 so identical from run to run; non-integral sums come out of float64
-atomics whose order varies, so their last bits may differ between runs.
+atomics in the block and global regimes, whose order varies, so their last
+bits may differ between runs (the lanes regime's repeat bit for bit).
 """
 
 from __future__ import annotations
@@ -31,17 +34,27 @@ import torch
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 
 FNS = ("sum", "min", "max")
+_FNS = frozenset(FNS)
 _CHANNEL_BLOCK = 64  # one launch carries its channels' kinds in two 64-bit masks
+THREADS = 256  # threads a block in the block and global regimes
+LANE_GROUPS = 8  # the lanes regime keeps a channel's groups in a lane's registers
+LANE_TILE = 128  # rows a block of the lanes regime takes at a time (4 a lane)
+GLOBAL_UNROLL = 4  # tiles of THREADS rows a block of the global regime takes at a time
+MAX_LANE_WARPS = 16  # a lanes block has a warp a channel, at most this many
+SMEM_OPTIN = 232_448  # shared memory a block may use on sm_90 (227 KB)
+SMEM_SM = 233_472  # shared memory of an SM; each resident block also reserves 1 KB
+REGIMES = ("lanes", "block", "global")
 
 
 def _check(vals: torch.Tensor, gid: torch.Tensor, num_segments: int, fns: tuple) -> None:
-    if vals.dim() != 2 or vals.dtype != torch.float64:
-        raise HyperspaceError(f"vals must be a [C, n] float64 tensor, got {vals.dtype} {tuple(vals.shape)}")
-    if gid.dim() != 1 or gid.dtype != torch.int32 or len(gid) != vals.shape[1]:
-        raise HyperspaceError(f"gid must be an int32 [n] tensor matching vals, got {gid.dtype} {tuple(gid.shape)}")
-    if gid.device != vals.device:
+    vshape, gshape = vals.shape, gid.shape
+    if len(vshape) != 2 or vals.dtype != torch.float64:
+        raise HyperspaceError(f"vals must be a [C, n] float64 tensor, got {vals.dtype} {tuple(vshape)}")
+    if len(gshape) != 1 or gid.dtype != torch.int32 or gshape[0] != vshape[1]:
+        raise HyperspaceError(f"gid must be an int32 [n] tensor matching vals, got {gid.dtype} {tuple(gshape)}")
+    if gid.get_device() != vals.get_device():
         raise HyperspaceError("vals and gid must lie on one device")
-    if len(fns) != vals.shape[0] or any(f not in FNS for f in fns):
+    if len(fns) != vshape[0] or not _FNS.issuperset(fns):
         raise HyperspaceError(f"fns must name one of {FNS} per channel, got {fns}")
     if num_segments < 0:
         raise HyperspaceError("num_segments must be >= 0")
@@ -68,52 +81,125 @@ def segment_reduce_plain(vals: torch.Tensor, gid: torch.Tensor, num_segments: in
     return out
 
 
+def reduce_plan(c_num: int, k: int, n: int, sms: int) -> tuple[str, int, int, int]:
+    """(regime, most blocks, threads a block, dynamic shared memory bytes)
+    for one launch of 1 <= c_num <= 64 channels over n rows into k >= 1
+    groups on a card with `sms` SMs. lanes (k <= LANE_GROUPS): a warp a
+    channel, its groups in registers; block (C·K·8 bytes fit a block's
+    shared memory): one shared [C, K] a block; global: device atomics into
+    out. The grid is what the threads and shared memory let the SMs hold
+    at once and no more than the rows fill; the kernel cuts it further
+    where registers hold fewer blocks (a grid-wide barrier needs every
+    block resident)."""
+    if k <= LANE_GROUPS:
+        regime, threads, smem, rows = "lanes", 32 * min(c_num, MAX_LANE_WARPS), 0, LANE_TILE
+    elif c_num * k * 8 <= SMEM_OPTIN:
+        regime, threads, smem, rows = "block", THREADS, c_num * k * 8, THREADS
+    else:
+        regime, threads, smem, rows = "global", THREADS, 0, THREADS * GLOBAL_UNROLL
+    per_sm = min(2048 // threads, 32, SMEM_SM // (smem + 1024))
+    return regime, max(1, min(sms * per_sm, -(-n // rows))), threads, smem
+
+
 def segment_reduce(vals: torch.Tensor, gid: torch.Tensor, num_segments: int, fns: tuple) -> torch.Tensor:
     """[C, num_segments] float64 segment reduce: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
     fns = tuple(fns)
-    if vals.device.type == "cpu":
-        return segment_reduce_plain(vals, gid, num_segments, fns)
-    if vals.device.type != "cuda":
+    if not vals.is_cuda:
+        if vals.device.type == "cpu":
+            return segment_reduce_plain(vals, gid, num_segments, fns)
         raise HyperspaceError(f"segment_reduce runs on cuda or cpu, not {vals.device}")
     _check(vals, gid, num_segments, fns)
     c_num, n = vals.shape
+    k = num_segments
+    index = vals.get_device()
+    if c_num == 0 or k == 0:
+        return torch.empty((c_num, k), dtype=torch.float64, device=vals.device)
     vals = vals.contiguous()
     gid = gid.contiguous()
-    out = torch.empty((c_num, num_segments), dtype=torch.float64, device=vals.device)
-    if c_num == 0 or num_segments == 0:
-        return out
-    lib = _library()
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        # Channels are independent: one launch per block of at most 64.
-        for c0 in range(0, c_num, _CHANNEL_BLOCK):
+    launches, scratch_rows = _launch_plan(fns, k, n, _sm_count(index))
+    # The shared regimes' partials ([blocks, C, K] int64) are rows below
+    # out in one allocation; channel blocks run in stream order and reuse
+    # them.
+    full = torch.empty((c_num + scratch_rows, k), dtype=torch.float64, device=vals.device)
+    if index == torch._C._cuda_getDevice():
+        _run(launches, vals, gid, full, n, k, c_num, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            _run(launches, vals, gid, full, n, k, c_num, torch._C._cuda_getCurrentRawStream(index))
+    return full[:c_num] if scratch_rows else full
+
+
+def _run(launches, vals, gid, full, n, k, c_num, stream) -> None:
+    fn = _launch()
+    g, v, o = gid.data_ptr(), vals.data_ptr(), full.data_ptr()
+    partial = o + 8 * c_num * k
+    for c0, count, min_mask, max_mask, regime, grid, threads in launches:
+        err = fn(g, v + 8 * c0 * n, o + 8 * c0 * k, count, n, k, min_mask, max_mask, regime, grid, threads,
+                 partial, stream)
+        if err != 0:
+            raise HyperspaceError(f"segment_reduce kernel launch failed ({REGIMES[regime]} regime): CUDA error {err}")
+        segment_reduce.launches += 1
+
+
+def kernels_per_launch(regime: str, fns: tuple) -> int:
+    """Kernels on the card for one launch of channels `fns`: one
+    cooperative kernel in the lanes and block regimes; init and reduce in
+    the global one, and finish where a channel is a min."""
+    if regime != "global":
+        return 1
+    return 3 if "min" in fns else 2
+
+
+_plans: dict = {}
+
+
+def _launch_plan(fns: tuple, k: int, n: int, sms: int):
+    """(one (first channel, channels, min mask, max mask, regime index,
+    grid, threads) per block of at most 64 channels, the rows of [*, k]
+    float64 the partials need) on a card with `sms` SMs, cached."""
+    key = (fns, k, n, sms)
+    plan = _plans.get(key)
+    if plan is None:
+        launches, words = [], 0
+        for c0 in range(0, len(fns), _CHANNEL_BLOCK):
             block = fns[c0 : c0 + _CHANNEL_BLOCK]
+            regime, grid, threads, _ = reduce_plan(len(block), k, n, sms)
             min_mask = sum(1 << c for c, f in enumerate(block) if f == "min")
             max_mask = sum(1 << c for c, f in enumerate(block) if f == "max")
-            err = lib.hs_segment_reduce(
-                gid.data_ptr(), vals[c0].data_ptr(), out[c0].data_ptr(), len(block), n,
-                num_segments, min_mask, max_mask, stream,
-            )
-            if err != 0:
-                raise HyperspaceError(f"segment_reduce kernel launch failed: CUDA error {err}")
-            segment_reduce.launches += 1
-    return out
+            launches.append((c0, len(block), min_mask, max_mask, REGIMES.index(regime), grid, threads))
+            if regime != "global":
+                words = max(words, grid * len(block) * k)
+        if len(_plans) > 256:
+            _plans.clear()
+        plan = _plans[key] = (tuple(launches), -(-words // k))
+    return plan
 
 
 segment_reduce.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    from hyperspace_tpu_torch.ops.kernels import load
+_sms: dict[int, int] = {}
+_fn = []
 
-    lib = load("segment_reduce")
-    if not getattr(lib, "_hs_typed", False):
-        lib.hs_segment_reduce.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_ulonglong,
-            ctypes.c_void_p,
+
+def _sm_count(index: int) -> int:
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
+def _launch():
+    """hs_segment_reduce from the kernel's library, typed once."""
+    if not _fn:
+        from hyperspace_tpu_torch.ops.kernels import load
+
+        fn = load("segment_reduce").hs_segment_reduce
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
-        lib.hs_segment_reduce.restype = ctypes.c_int
-        lib._hs_typed = True
-    return lib
+        fn.restype = ctypes.c_int
+        _fn.append(fn)
+    return _fn[0]

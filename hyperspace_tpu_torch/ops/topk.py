@@ -15,8 +15,10 @@ raises.
 
 On a CUDA tensor the wrapper launches `hyperspace_tpu_torch/csrc/topk.cu`
 (whose header says what bounds it on the H100 and how its design answers
-that) in one or more passes (`pass_plan`) or raises; on a CPU tensor it
-runs `topk_plain`. `topk.launches` counts one per call that launches.
+that) or raises: a radix select in `LAUNCHES_RADIX` launches over
+`select_plan`'s split of each row into blocks, or, for a row of at most
+`SMALL_N` columns, one launch. On a CPU tensor it runs `topk_plain`.
+`topk.launches` counts one per call that launches.
 """
 
 from __future__ import annotations
@@ -27,8 +29,13 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 
-MAX_TILE = 4096  # keys a block sorts in shared memory (32 KB)
-MAX_K = MAX_TILE // 2  # a tile must hold at least 2k keys to shrink a row
+MAX_K = 2048  # candidates the last step sorts in shared memory (16 KB)
+SMALL_N = 4096  # a row this short is sorted whole by one block, in one launch
+DIGIT_BITS = (11, 11, 10)  # the radix select's digits of the 32-bit key, high to low
+HIST_BINS = 2048  # a block's histogram: 2^max(DIGIT_BITS) counts
+LAUNCHES_RADIX = 2 * len(DIGIT_BITS) + 2  # a digit pass and a scan each, gather, sort
+BLOCKS_PER_SM = 4  # the digit and gather blocks (512 threads) an SM holds
+MIN_CHUNK = 4096  # fewest columns a block of the radix select takes
 
 
 def _check(scores: torch.Tensor, k: int) -> None:
@@ -54,33 +61,40 @@ def topk_plain(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
 
 
-def _tile(length: int, k: int) -> int:
-    """The smallest power of two holding the row (and 2k), at most
-    MAX_TILE."""
-    need = max(length, 2 * k, 2)
-    return min(MAX_TILE, 1 << (need - 1).bit_length())
+def select_plan(q: int, n: int, sms: int) -> tuple[int, int]:
+    """(blocks a row, columns a block) of the radix select for [q, n]
+    scores on a card with `sms` SMs: at most BLOCKS_PER_SM blocks an SM in
+    all (where q allows), each taking at least MIN_CHUNK columns, no block empty, chunks a
+    multiple of 4 columns where n is. (0, n) for a row of at most SMALL_N
+    columns: the one-launch path."""
+    if n <= SMALL_N:
+        return 0, n
+    want = max(1, BLOCKS_PER_SM * sms // q)  # one wave: a second would hold the whole pass
+    blocks = max(1, min(want, -(-n // MIN_CHUNK)))
+    chunk = -(-n // blocks)
+    if n % 4 == 0:  # every chunk then starts on 16 bytes: the kernel loads float4s
+        chunk = -(-chunk // 4) * 4
+    return -(-n // chunk), chunk
 
 
-def pass_plan(n: int, k: int) -> list[tuple[int, int]]:
-    """(row length, tile) of each kernel pass for [q, n] scores and
-    1 <= k <= min(n, MAX_K): every pass but the last leaves ceil(length /
-    tile) * k keys a row, and the last has one tile a row."""
-    plan = []
-    length = n
-    while True:
-        tile = _tile(length, k)
-        plan.append((length, tile))
-        if length <= tile:
-            return plan
-        length = -(-length // tile) * k
+def launches_per_call(n: int) -> int:
+    """Kernel launches of one call on rows of n columns."""
+    return 1 if n <= SMALL_N else LAUNCHES_RADIX
+
+
+def workspace_bytes(q: int, k: int, blocks: int) -> int:
+    """The radix select's scratch: k 64-bit candidates a row, then int32
+    words: a histogram and a tie offset a block, and 4 words of state a
+    row (csrc/topk.cu::carve)."""
+    return 8 * q * k + 4 * q * (blocks * HIST_BINS + blocks + 4)
 
 
 def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k per row: the CUDA kernel for a CUDA tensor, at every shape up
     to k = MAX_K, and the plain version for a CPU tensor."""
-    if scores.device.type == "cpu":
-        return topk_plain(scores, k)
-    if scores.device.type != "cuda":
+    if not scores.is_cuda:
+        if scores.device.type == "cpu":
+            return topk_plain(scores, k)
         raise HyperspaceError(f"topk runs on cuda or cpu, not {scores.device}")
     _check(scores, k)
     if scores.dim() == 1:
@@ -90,31 +104,33 @@ def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     k = min(k, n)
     if k > MAX_K:
         raise HyperspaceError(f"topk kernel holds k <= {MAX_K}; got k = {k}")
-    vals = torch.empty((q, k), dtype=torch.float32, device=scores.device)
-    idx = torch.empty((q, k), dtype=torch.int32, device=scores.device)
+    dev = scores.device
+    vals = torch.empty((q, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0 or k == 0:
         return vals, idx
     if n >= 2**32 - 1:
         raise HyperspaceError(f"topk kernel holds rows of fewer than 2^32 - 1 columns; got {n}")
-    lib = _library()
+    index = scores.get_device()
     src = scores.contiguous()
-    with torch.cuda.device(scores.device):
-        stream = torch.cuda.current_stream(scores.device).cuda_stream
-        plan = pass_plan(n, k)
-        for p, (length, tile) in enumerate(plan):
-            final = p == len(plan) - 1
-            keys = None
-            if not final:
-                keys = torch.empty((q, -(-length // tile) * k), dtype=torch.int64, device=scores.device)
-            err = lib.hs_topk_pass(
-                src.data_ptr(), int(p > 0), q, length, k, tile,
-                None if final else keys.data_ptr(),
-                vals.data_ptr() if final else None, idx.data_ptr() if final else None,
-                stream,
-            )
-            if err != 0:
-                raise HyperspaceError(f"topk kernel pass {p} failed at [{q}, {length}], k={k}, tile={tile}: error {err}")
-            src = keys
+    key = (q, n, k, index)
+    plan = _plans.get(key)
+    if plan is None:
+        blocks, chunk = select_plan(q, n, _sm_count(index))
+        if len(_plans) > 256:
+            _plans.clear()
+        plan = _plans[key] = (blocks, chunk, workspace_bytes(q, k, blocks) if blocks else 0)
+    blocks, chunk, work_bytes = plan
+    work = torch.empty(work_bytes, dtype=torch.uint8, device=dev) if blocks else None
+    args = (src.data_ptr(), q, n, k, blocks, chunk, work.data_ptr() if blocks else None,
+            vals.data_ptr(), idx.data_ptr())
+    if index == torch._C._cuda_getDevice():
+        err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise HyperspaceError(f"topk kernel failed at [{q}, {n}], k={k}, {blocks} blocks a row: error {err}")
     topk.launches += 1
     return vals, idx
 
@@ -122,15 +138,27 @@ def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 topk.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    from hyperspace_tpu_torch.ops.kernels import load
+_sms: dict[int, int] = {}
+_plans: dict = {}  # (q, n, k, device) -> (blocks a row, chunk, workspace bytes)
+_fn = []
 
-    lib = load("topk")
-    if not getattr(lib, "_hs_typed", False):
-        lib.hs_topk_pass.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+
+def _sm_count(index: int) -> int:
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
+def _launch():
+    """hs_topk from the kernel's library, typed once."""
+    if not _fn:
+        from hyperspace_tpu_torch.ops.kernels import load
+
+        fn = load("topk").hs_topk
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
-        lib.hs_topk_pass.restype = ctypes.c_int
-        lib._hs_typed = True
-    return lib
+        fn.restype = ctypes.c_int
+        _fn.append(fn)
+    return _fn[0]

@@ -75,6 +75,126 @@ def test_kernel_non_integral_sums_within_rtol_of_abs_sum(cuda, k):
     np.testing.assert_array_equal(got[2:], want[2:])
 
 
+def _assert_equal_to_plain(vals, gid, k, fns, cuda):
+    """The kernel's result bit-equal to the plain version's (NaN = NaN),
+    and one launch per block of 64 channels."""
+    before = segment_reduce.launches
+    got = segment_reduce(torch.from_numpy(vals).to(cuda), torch.from_numpy(gid).to(cuda), k, fns)
+    torch.cuda.synchronize()
+    assert segment_reduce.launches == before + -(-len(fns) // 64)
+    keep = (gid >= 0) & (gid < k)  # the plain version takes only ids in [0, k); the kernel skips the rest
+    want = segment_reduce_plain(torch.from_numpy(vals[:, keep]), torch.from_numpy(gid[keep]), k, fns)
+    assert got.shape == want.shape == (len(fns), k)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def _runs(rng, n, longest):
+    """Non-decreasing group ids in runs of 1 to `longest` rows, as a
+    source written in key order gives them. Returns (gid, K)."""
+    starts = np.cumsum(rng.integers(1, longest + 1, n))
+    gid = np.searchsorted(starts, np.arange(n), side="right").astype(np.int32)
+    return gid, int(gid[-1]) + 1
+
+
+_K1_FNS = ("sum", "min", "max", "sum")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case",
+    ["one group", "one run, many groups", "runs of one", "runs of one to seven", "sorted runs with nan",
+     "skipped ids, few groups", "skipped ids, block", "skipped ids, many groups", "no rows", "one group, one row"],
+)
+def test_segment_reduce_hard_cases_equal_plain(cuda, case):
+    """K1's hard cases for its three regimes, bit-equal to the plain
+    version on integral sums, extrema (NaN and ±inf included) and counts:
+    one group over 6M rows (a run spanning every block) in the lanes
+    regime and in the global one (one id among 1.5M groups), runs of one
+    row (K = n) and of one to seven, NaN inside a run, ids -1 and K
+    (skipped) in each regime, no rows, and K = 1."""
+    from hyperspace_tpu_torch.ops.segment_reduce import _sm_count, reduce_plan
+
+    rng = np.random.default_rng(len(case))
+    n = {"one group": 6_000_000, "one run, many groups": 6_000_000, "no rows": 0, "one group, one row": 1}.get(case, 1_000_000)
+    vals = rng.integers(-1000, 1000, (len(_K1_FNS), n)).astype(np.float64)
+    vals[3] = 1.0  # a count channel
+    if case == "one group" or case == "one group, one row":
+        gid, k = np.zeros(n, np.int32), 1
+    elif case == "one run, many groups":
+        gid, k = np.full(n, 7, np.int32), 1_500_000
+    elif case == "runs of one":
+        gid, k = np.arange(n, dtype=np.int32), n
+    elif case in ("runs of one to seven", "sorted runs with nan"):
+        gid, k = _runs(rng, n, 7)
+    elif case == "no rows":
+        gid, k = np.zeros(0, np.int32), 5
+    else:
+        k = {"skipped ids, few groups": 6, "skipped ids, block": 3000, "skipped ids, many groups": 300_000}[case]
+        gid = rng.integers(-1, k + 1, n).astype(np.int32)  # -1 and k are outside [0, k)
+    if case == "sorted runs with nan":
+        at = rng.integers(0, n, 40)
+        vals[1:3, at[:20]] = np.nan
+        vals[1:3, at[20:30]] = np.inf
+        vals[1:3, at[30:]] = -np.inf
+    regime = reduce_plan(len(_K1_FNS), k, n, _sm_count(torch.cuda.current_device()))[0]
+    assert regime == {"one group": "lanes", "skipped ids, few groups": "lanes", "no rows": "lanes",
+                      "one group, one row": "lanes", "skipped ids, block": "block"}.get(case, "global")
+    _assert_equal_to_plain(vals, gid, k, _K1_FNS, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_num", [64, 65])
+@pytest.mark.parametrize("k", [1, 6, 200_000])
+def test_segment_reduce_at_64_and_65_channels(cuda, c_num, k):
+    """One launch carries 64 channels; 65 take two, each in the regime its
+    own channels give."""
+    rng = np.random.default_rng(c_num + k)
+    n = 300_000
+    gid = rng.integers(0, k, n).astype(np.int32)
+    vals = rng.integers(-50, 50, (c_num, n)).astype(np.float64)
+    vals[:, rng.integers(0, n, 20)] = np.nan
+    fns = (_K1_FNS * 17)[:c_num]
+    _assert_equal_to_plain(vals, gid, k, fns, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [6, 50_000])
+def test_segment_reduce_non_integral_sums_over_runs_within_the_bound(cuda, k):
+    """Non-integral sums over sorted runs (combined in the warp before the
+    atomic) and over few groups (the lanes regime's registers),
+    within the two-order float64 bound of test_kernel_non_integral_sums."""
+    rng = np.random.default_rng(k)
+    n = 2_000_000
+    gid = np.sort(rng.integers(0, k, n)).astype(np.int32)
+    vals = rng.normal(size=(2, n)) * 1e3
+    got = segment_reduce(torch.from_numpy(vals).to(cuda), torch.from_numpy(gid).to(cuda), k, ("sum", "sum"))
+    want = segment_reduce_plain(torch.from_numpy(vals), torch.from_numpy(gid), k, ("sum", "sum")).numpy()
+    rows = np.bincount(gid, minlength=k)
+    bound = np.maximum(1e-12, 2 * np.maximum(rows - 1, 0) * 2.0**-53)
+    for c in range(2):
+        tol = bound * np.bincount(gid, weights=np.abs(vals[c]), minlength=k)
+        assert np.all(np.abs(got[c].cpu().numpy() - want[c]) <= tol)
+
+
+@pytest.mark.gpu
+def test_segment_reduce_on_the_card_never_calls_a_library_reduce(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library reduction was called on the card")
+
+    rng = np.random.default_rng(3)
+    n = 500_000
+    vals = torch.from_numpy(rng.integers(-9, 9, (4, n)).astype(np.float64)).to(cuda)
+    gids = {k: torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).to(cuda) for k in (6, 3000, 400_000)}
+    for name in ("scatter_reduce_", "scatter_reduce", "index_add_", "index_add", "scatter_add_", "scatter_add"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+        if hasattr(torch, name):
+            monkeypatch.setattr(torch, name, refuse)
+    for k, gid in gids.items():  # the lanes, block and global regimes
+        out = segment_reduce(vals, gid, k, _K1_FNS)
+        assert out.shape == (4, k)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_slice_on_the_card_matches_the_cpu(cuda, tmp_path):
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, col
@@ -313,6 +433,76 @@ def test_topk_on_the_card_never_calls_a_library_selection(cuda, monkeypatch):
         vals, idx = topk(x, k)
         assert vals.shape == (32, k)
     torch.cuda.synchronize()
+
+
+def _k3_hard_case(case, plan):
+    """(scores [q, n] float32, k) for one hard case of K3; `plan(q, n)`
+    is the kernel's (blocks a row, columns a block) on this card."""
+    rng = np.random.default_rng(len(case))
+    if case == "all equal":
+        return np.full((4, 300_000), 2.5, np.float32), 100
+    if case == "ties straddle the block split":
+        q, n, k = 2, 200_000, 10
+        blocks, chunk = plan(q, n)
+        assert blocks > 3
+        x = rng.uniform(-2, 0, (q, n)).astype(np.float32)
+        x[:, rng.integers(0, n, k - 4)] = 5.0  # above the cut
+        for b in (1, 2, 3):  # ties at the k-th value on both sides of three splits
+            x[:, b * chunk - 3 : b * chunk + 3] = 1.0
+        return x, k
+    if case == "k = n":
+        return rng.standard_normal((3, 2048)).astype(np.float32), 2048
+    if case == "k = MAX_K at n = 20,000":
+        return np.round(rng.standard_normal((2, 20_000)) * 3).astype(np.float32), 2048
+    if case.startswith("n = chunk·m"):
+        q, m, d = {"n = chunk·m - 1": (32, 16, -1), "n = chunk·m + 1": (32, 16, 1),
+                   "n = chunk·m - 1, q = 1": (1, 7, -1), "n = chunk·m + 1, q = 1": (1, 7, 1)}[case]
+        blocks, chunk = plan(q, 4096 * m)
+        return np.round(rng.standard_normal((q, blocks * chunk + d)) * 8).astype(np.float32), 100
+    if case == "only -inf and only NaN":
+        x = np.full((3, 100_000), -np.inf, np.float32)
+        x[1] = np.nan
+        x[2, ::2] = np.nan  # -inf and NaN alternate: all tie at -inf
+        return x, 100
+    if case == "subnormals and signed zeros at the cut":
+        x = np.full((4, 50_000), -1.0, np.float32)
+        pos = rng.permutation(50_000)[:405]
+        x[:, pos[400:]] = 3.0
+        x[:, pos[:100]] = -0.0
+        x[:, pos[100:200]] = 0.0
+        x[:, pos[200:300]] = np.float32(1e-45)  # the smallest subnormal
+        x[:, pos[300:]] = np.float32(-1e-40)
+        return x, 205  # 5 above, 100 subnormals, then 100 of the 200 zeros
+    if case == "q = 1 at n = 1M":
+        return rng.standard_normal((1, 1_000_000)).astype(np.float32), 10
+    raise ValueError(case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case",
+    ["all equal", "ties straddle the block split", "k = n", "k = MAX_K at n = 20,000", "n = chunk·m - 1",
+     "n = chunk·m + 1", "n = chunk·m - 1, q = 1", "n = chunk·m + 1, q = 1", "only -inf and only NaN",
+     "subnormals and signed zeros at the cut", "q = 1 at n = 1M"],
+)
+def test_topk_hard_cases_are_bit_equal_to_plain(cuda, case):
+    """K3's radix select where it can go wrong: ties at the k-th key (a
+    row all equal, ties across the row's block split, all -inf or NaN),
+    k = n and k = MAX_K, ragged chunks, q = 1, subnormals and -0.0/+0.0 at
+    the cut. (q = 32 at n = 1M is in test_topk_kernel_is_bit_equal_to_plain.)"""
+    from hyperspace_tpu_torch.ops.topk import _sm_count, select_plan, topk, topk_plain
+
+    sms = _sm_count(torch.cuda.current_device())
+    x, k = _k3_hard_case(case, lambda q, n: select_plan(q, n, sms))
+    scores = torch.from_numpy(x).to(cuda)
+    before = topk.launches
+    vals, idx = topk(scores, k)
+    torch.cuda.synchronize()
+    assert topk.launches == before + 1
+    want_vals, want_idx = topk_plain(scores, k)
+    assert vals.shape == want_vals.shape == (x.shape[0], min(k, x.shape[1]))
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(vals.view(torch.int32), want_vals.view(torch.int32))
 
 
 @pytest.mark.gpu

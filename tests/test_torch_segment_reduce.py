@@ -128,3 +128,63 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(vals, gid, fns):
 
     with pytest.raises(HyperspaceError):
         segment_reduce_plain(vals, gid, 1, fns)
+
+
+# (channels, groups, rows, the regime): the main path's shapes — Q1, the
+# join's group folds, revenue and the run extrema — and the edges of
+# each regime.
+_PLANS = [
+    (12, 6, 6_001_991, "lanes"), (11, 7, 1_551_800, "lanes"), (7, 52, 6_225_800, "block"),
+    (2, 1_500_000, 6_001_991, "global"), (1, 1_551_800, 1_551_800, "global"), (2, 1_500_000, 6_225_800, "global"),
+    (64, 8, 100, "lanes"), (1, 9, 1000, "block"), (64, 454, 10, "block"), (64, 455, 10, "global"),
+    (4, 5, 0, "lanes"),
+]
+
+
+@pytest.mark.parametrize("c_num,k,n,regime", _PLANS)
+def test_reduce_plan_picks_the_regime_and_a_resident_grid(c_num, k, n, regime):
+    from hyperspace_tpu_torch.ops.segment_reduce import (
+        GLOBAL_UNROLL, LANE_TILE, SMEM_OPTIN, SMEM_SM, THREADS, reduce_plan,
+    )
+
+    sms = 132
+    got, grid, threads, smem = reduce_plan(c_num, k, n, sms)
+    assert got == regime
+    assert threads == (32 * min(c_num, 16) if regime == "lanes" else THREADS)
+    assert smem == (c_num * k * 8 if regime == "block" else 0) <= SMEM_OPTIN
+    per_sm = min(2048 // threads, (SMEM_SM // (smem + 1024)))
+    assert 1 <= grid <= sms * per_sm
+    rows = {"lanes": LANE_TILE, "block": THREADS, "global": THREADS * GLOBAL_UNROLL}[regime]
+    assert grid <= max(1, -(-n // rows))
+
+
+@pytest.mark.parametrize("c_num", [1, 64, 65, 140])
+def test_launch_plan_splits_channels_into_blocks_of_64_with_their_kinds(c_num):
+    from hyperspace_tpu_torch.ops.segment_reduce import REGIMES, _launch_plan
+
+    fns = (("sum", "min", "max", "sum") * 40)[:c_num]
+    k, n = 6, 50_000
+    launches, scratch_rows = _launch_plan(fns, k, n, 132)
+    assert [c0 for c0, *_ in launches] == list(range(0, c_num, 64))
+    words = 0
+    for c0, count, min_mask, max_mask, regime, grid, _ in launches:
+        block = fns[c0 : c0 + count]
+        assert count == len(block) <= 64
+        assert [c for c in range(count) if min_mask >> c & 1] == [c for c, f in enumerate(block) if f == "min"]
+        assert [c for c in range(count) if max_mask >> c & 1] == [c for c, f in enumerate(block) if f == "max"]
+        assert REGIMES[regime] == "lanes"
+        words = max(words, grid * count * k)
+    assert scratch_rows * k >= words  # every launch's partials fit the rows below out
+
+
+@pytest.mark.parametrize(
+    "regime,fns,kernels",
+    [("lanes", ("sum", "min"), 1), ("block", ("max",), 1), ("global", ("sum", "sum"), 2),
+     ("global", ("max",), 2), ("global", ("min", "max"), 3)],
+)
+def test_kernels_per_launch_follow_the_regime_and_kinds(regime, fns, kernels):
+    """One cooperative kernel in the shared regimes; init and reduce in the
+    global one, and finish only where a min channel holds order keys."""
+    from hyperspace_tpu_torch.ops.segment_reduce import kernels_per_launch
+
+    assert kernels_per_launch(regime, fns) == kernels

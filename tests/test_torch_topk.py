@@ -18,7 +18,10 @@ import pytest
 import torch
 
 from hyperspace_tpu.ops.topk import topk as ref_topk
-from hyperspace_tpu_torch.ops.topk import MAX_K, pass_plan, topk, topk_plain
+from hyperspace_tpu_torch.ops.topk import (
+    DIGIT_BITS, HIST_BINS, LAUNCHES_RADIX, MAX_K, MIN_CHUNK, SMALL_N, launches_per_call, select_plan, topk,
+    topk_plain, workspace_bytes,
+)
 
 
 def _scores(kind: str, q: int, n: int, seed: int) -> np.ndarray:
@@ -134,18 +137,43 @@ def test_reference_pallas_repeats_a_lane_once_only_minus_inf_is_left():
     np.testing.assert_array_equal(v.numpy(), np.asarray(pv))
 
 
+# (q, n): the routing shape, the one-launch limit and one past it, the
+# candidates and brute-force shapes at q = 32, q = 1, a ragged n and a
+# row that MIN_CHUNK cuts short of the SMs' share.
 @pytest.mark.parametrize(
-    "n,k", [(1, 1), (64, 8), (64, 64), (4097, 10), (125_000, 10), (1_000_000, 10), (1_000_000, 100), (20_000, MAX_K)]
+    "q,n",
+    [(32, 64), (1, 1), (32, SMALL_N), (32, SMALL_N + 1), (32, 687_464), (32, 1_000_000), (1, 1_000_000),
+     (3, 28_673), (200, 50_000), (1, 20_000)],
 )
-def test_pass_plan_shrinks_every_row_to_one_tile(n, k):
-    plan = pass_plan(n, k)
-    assert plan[0][0] == n
-    for (length, tile), nxt in zip(plan, plan[1:] + [None]):
-        assert tile & (tile - 1) == 0 and 2 * k <= tile <= 4096
-        if nxt is None:
-            assert length <= tile
-        else:
-            assert nxt[0] == -(-length // tile) * k < length
+def test_select_plan_splits_every_row_into_nonempty_chunks(q, n):
+    """Block b of a row takes columns [b·chunk, min((b+1)·chunk, n)): the
+    blocks cover every column once, none is empty, there are at most
+    ceil(n / MIN_CHUNK) of them, and they fill the SMs in one wave (4 an
+    SM) once the row is long enough."""
+    sms = 132
+    blocks, chunk = select_plan(q, n, sms)
+    if n <= SMALL_N:
+        assert (blocks, chunk) == (0, n) and launches_per_call(n) == 1
+        return
+    assert launches_per_call(n) == LAUNCHES_RADIX == 8
+    covered = np.zeros(n, np.int32)
+    for b in range(blocks):
+        lo, hi = b * chunk, min((b + 1) * chunk, n)
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert blocks <= -(-n // MIN_CHUNK)
+    assert n % 4 or chunk % 4 == 0  # float4 loads where the row allows them
+    assert q * blocks <= max(4 * sms, q)  # one wave of blocks
+    if n >= 4 * sms * MIN_CHUNK // q and q <= 4 * sms:
+        assert q * blocks > 4 * sms - q  # and a full one
+    assert workspace_bytes(q, 10, blocks) == 8 * q * 10 + 4 * q * (blocks * HIST_BINS + blocks + 4)
+
+
+def test_radix_digits_cover_the_32_bit_key_in_the_histogram():
+    assert sum(DIGIT_BITS) == 32
+    assert HIST_BINS == 2 ** max(DIGIT_BITS)
+    assert LAUNCHES_RADIX == 2 * len(DIGIT_BITS) + 2
 
 
 def test_topk_rejects_what_it_does_not_take():

@@ -24,8 +24,8 @@ What it does, in order (any failure raises and exits non-zero):
    lineitem side), each cold and warm with the index enabled (the
    zero-exchange aligned path) and disabled (one partition), each checked
    against pyarrow's join and group-by on the same parquet (J1 pair by
-   pair); J2 and J3 run once more under `torch.profiler`, and once more
-   with K1's inputs recorded;
+   pair); J2 and J3 run once more under `torch.profiler` (indexed, and
+   J2 also without the index), and once more with K1's inputs recorded;
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
@@ -45,13 +45,15 @@ What it does, in order (any failure raises and exits non-zero):
    random group ids, the very inputs the two aggregates gave it, and
    those of its four launches in the indexed J2 and J3 — the secondary
    run extrema and the group fold; K2: the join's real key codes at the
-   aligned J2 and J3 shapes and the un-indexed J2 shape, in the regime the kernel picks
-   and, at the aligned shapes, in the other one too; K3: the vector
+   aligned J2 and J3 shapes and the un-indexed J2 shape, and the aligned
+   J2 codes with each primary row shuffled, so that the kernel's windows
+   span the row and it searches device memory; K3: the vector
    path's routing, candidate and brute-force score matrices, and a
    tie-heavy matrix at the brute-force shape, bit-equal), and times
    kernel, plain version and the library yardstick with CUDA events
-   (median of 12 runs after warm-up), and each K1 and K3 call's kernels
-   alone with torch.profiler (one window for each kernel's shapes);
+   (median of 12 runs after warm-up; for K2 also a device copy moving as
+   many bytes), and each call's kernels alone with torch.profiler (one
+   window for all the kernels' calls);
    a profiled window that misses a kernel it should hold fails the run;
 6. prints one JSON line describing every kernel, the card's name and
    power limit again, and, last, `{"ok": true, "device": {...}}`.
@@ -385,32 +387,39 @@ def device_time(fn, prefixes: tuple) -> dict:
     }
 
 
-def device_ms_each(calls: dict, prefix: str) -> dict:
-    """Each call's kernels alone on the card: every call runs once, in
-    order, and then the whole sequence once more, inside one
-    torch.profiler window (the profiler hands back no device events after
-    about a dozen sessions in one process, and can miss kernels launched
-    soon after it starts); the last pass's kernels whose names hold
-    `prefix` are dealt to the calls in start order by each call's kernel
-    count. Returns name -> ms."""
+def device_ms_each(calls: dict) -> dict:
+    """Each call's kernels alone on the card. `calls` maps a key to (the
+    call, its kernel count, the prefix its kernels' names hold). Every
+    call runs once, in order, and then the whole sequence once more,
+    inside ONE torch.profiler window for all of them (the profiler hands
+    back no device events after some sessions in one process, and can
+    miss kernels launched soon after it starts); for each prefix, the last
+    pass's kernels whose names hold it are dealt to its calls in start
+    order by each call's kernel count. Returns key -> ms."""
     import torch
 
     def run_all():
         for _ in range(2):
-            for fn, _ in calls.values():
+            for fn, _, _ in calls.values():
                 fn()
                 torch.cuda.synchronize()
 
-    kernels = [(us, name) for _, us, name in _profiled_kernels(run_all)[0] if prefix in name]
-    want = sum(count for _, count in calls.values())
-    last = kernels[-want:]
-    if len(kernels) < want or (len(kernels) == 2 * want and [n for _, n in kernels[:want]] != [n for _, n in last]):
-        names = [name[:70] for _, name in kernels]
-        raise AssertionError(f"the profiler saw {len(kernels)} kernels named {prefix}*, two passes launch {2 * want}: {names}")
-    out, at = {}, 0
-    for name, (_, count) in calls.items():
-        out[name] = sum(us for us, _ in last[at : at + count]) / 1e3
-        at += count
+    profiled = _profiled_kernels(run_all)[0]
+    out = {}
+    for prefix in dict.fromkeys(p for _, _, p in calls.values()):
+        mine = {key: count for key, (_, count, p) in calls.items() if p == prefix}
+        kernels = [(us, name) for _, us, name in profiled if prefix in name]
+        want = sum(mine.values())
+        last = kernels[-want:]
+        if len(kernels) < want or (len(kernels) == 2 * want and [n for _, n in kernels[:want]] != [n for _, n in last]):
+            names = [name[:70] for _, name in kernels]
+            raise AssertionError(
+                f"the profiler saw {len(kernels)} kernels named {prefix}*, two passes launch {2 * want}: {names}"
+            )
+        at = 0
+        for key, count in mine.items():
+            out[key] = sum(us for us, _ in last[at : at + count]) / 1e3
+            at += count
     return out
 
 
@@ -711,11 +720,11 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
                 raise AssertionError(f"{name} {mode}: K1 never launched")
             check(name, result, mode == "index")
             counts[f"{name}_{mode}"] = result.num_rows
+    for name, mode in (("J2", "index"), ("J3", "index"), ("J2", "no_index")):
+        session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
+        label = f"{name}_profiled" if mode == "index" else f"{name}_{mode}_profiled"
+        phases[label] = device_time(lambda: session.run(queries[name]), ("run_bounds_", "segment_reduce_"))
     session.enable_hyperspace()
-    for name in ("J2", "J3"):
-        phases[f"{name}_profiled"] = device_time(
-            lambda: session.run(queries[name]), ("run_bounds_", "segment_reduce_")
-        )
     # K1's inputs at the fused aggregates' shapes, from one more indexed run
     # of each: the secondary run extrema, then the group fold.
     k1_inputs = {}
@@ -765,20 +774,21 @@ def capture_k1(fn, module) -> list:
     return calls
 
 
-def k2_phase(device, pk_np, sk_np, other_regime: bool) -> dict:
-    """K2 against its plain version on the card at one main-path shape
-    (exactly equal: the bounds are integers), with CUDA-event times of
-    kernel, plain version and the library yardstick (two batched
-    torch.searchsorted calls). With `other_regime`, the regime the kernel
-    did not pick is checked and timed too."""
+def k2_phase(device, pk_np, sk_np) -> dict:
+    """K2 against its plain version on the card at one shape (exactly
+    equal: the bounds are integers), with CUDA-event times of kernel,
+    plain version and the library yardstick (two batched
+    torch.searchsorted calls), a device copy moving as many bytes (half
+    read, half written: what the card's memory gives a plain stream of
+    this size, beside the byte bound), the launch geometry (`bounds_plan`)
+    and one call for device_ms_each."""
     import torch
 
-    from hyperspace_tpu_torch.ops.sortkeys import run_bounds, run_bounds_plain
+    from hyperspace_tpu_torch.ops.sortkeys import _sm_count, bounds_plan, run_bounds, run_bounds_plain
 
     pk = torch.from_numpy(pk_np).to(device)
     sk = torch.from_numpy(sk_np).to(device)
     st, en = run_bounds(pk, sk)
-    regime = run_bounds.last_regime
     torch.cuda.synchronize()
     want_st, want_en = run_bounds_plain(pk, sk)
     max_abs_err = max(int((st - want_st).abs().max()), int((en - want_en).abs().max()))
@@ -790,24 +800,22 @@ def k2_phase(device, pk_np, sk_np, other_regime: bool) -> dict:
     ops = 2 * b * lp * max(int(ls).bit_length(), 1)  # two binary searches a row
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops / INT32_OPS * 1e3
+    threads, tiles, grid, window, smem = bounds_plan(b, lp, ls, _sm_count(torch.cuda.current_device()))
 
     def library():
         torch.searchsorted(sk, pk, side="left", out_int32=True)
         torch.searchsorted(sk, pk, side="right", out_int32=True)
 
-    other_ms = None
-    if other_regime:
-        other = "global" if regime == "shared" else "shared"
-        st, en = run_bounds(pk, sk, regime=other)
-        if not (torch.equal(st, want_st) and torch.equal(en, want_en)):
-            raise AssertionError(f"K2's {other} regime differs from its plain version at {tuple(pk.shape)}")
-        other_ms = {other: cuda_ms(lambda: run_bounds(pk, sk, regime=other))}
+    copy_from = torch.empty(nbytes // 8, dtype=torch.int32, device=device)
+    copy_to = torch.empty_like(copy_from)
     return {
         "b": b, "lp": lp, "ls": ls,
-        "regime": regime, "other_regime_ms": other_ms,
+        "threads": threads, "tiles": b * tiles, "grid": grid, "window": window, "smem": smem,
         "ms": cuda_ms(lambda: run_bounds(pk, sk)),
+        "call": lambda: run_bounds(pk, sk),
         "plain_ms": cuda_ms(lambda: run_bounds_plain(pk, sk)),
         "library_ms": cuda_ms(library),
+        "copy_ms": cuda_ms(lambda: copy_to.copy_(copy_from)),
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "bytes": nbytes, "max_abs_err": float(max_abs_err),
@@ -1142,10 +1150,35 @@ def main(argv=None) -> int:
     for name, (vals, gid, k, fns) in {**k1_agg_inputs, **k1_join_inputs}.items():
         shapes[name] = k1_phase(device, vals, gid, k, fns, _k1_exact_from_data(vals.cpu().numpy(), fns))
     del k1_agg_inputs, k1_join_inputs
-    device_ms = device_ms_each({name: (r.pop("call"), r["kernels_per_call"]) for name, r in shapes.items()},
-                               "segment_reduce_")
+    # K2 at the join path's shapes, on its real key codes: the aligned J2
+    # (orders buckets searched in lineitem buckets), the aligned J3 (the
+    # reverse) and the un-indexed J2 (one partition: 1.5M codes searched in
+    # 6.0M); then the aligned J2 with each primary row shuffled (seed 3),
+    # which no caller gives it: a tile's keys then span its bucket's row,
+    # and the kernel searches device memory.
+    pk_j2 = k2_inputs["J2 aligned"][0]
+    k2_inputs["J2 aligned, shuffled"] = (np.random.default_rng(3).permuted(pk_j2, axis=1), k2_inputs["J2 aligned"][1])
+    k2 = {name: k2_phase(device, pk, sk) for name, (pk, sk) in k2_inputs.items()}
+    del k2_inputs
+    # K3 at the vector path's four shapes, on its real score matrices: the
+    # routing scores [32, 64] (k = 8), the probed candidates' [32, about
+    # 690k] (k = 10) and brute force's [32, 1M] at k = 10 and 100; then
+    # the tie-heavy matrix at the brute-force shape.
+    ties = tie_heavy(k3_inputs["brute force"][0])
+    k3_inputs["tie-heavy"] = (ties, 10)
+    k3_inputs["tie-heavy k=100"] = (ties, 100)
+    profiled = vector["phases"]["ann_nprobe8_profiled"]["topk_ms"] or {}
+    k3 = {name: k3_phase(device, scores, k) for name, (scores, k) in k3_inputs.items()}
+    # Each call's kernels alone on the card, beside the event time, which
+    # also holds the wrapper's host work: every kernel's calls in one
+    # profiler window.
+    device_ms = device_ms_each({
+        **{("segment_reduce", n): (r.pop("call"), r["kernels_per_call"], "segment_reduce_") for n, r in shapes.items()},
+        **{("run_bounds", n): (r.pop("call"), 1, "run_bounds_") for n, r in k2.items()},
+        **{("topk", n): (r.pop("call"), r["kernels_per_call"], "topk_") for n, r in k3.items()},
+    })
     for name, r in shapes.items():
-        r["device_ms"] = device_ms[name]
+        r["device_ms"] = device_ms["segment_reduce", name]
         log(json.dumps({"kernel": "segment_reduce", "shape": name, **r}))
 
     entries = []
@@ -1182,18 +1215,15 @@ def main(argv=None) -> int:
             "plain_check": "passed",
         })
 
-    # K2 at the join path's shapes, on its real key codes: the aligned J2
-    # (orders buckets searched in lineitem buckets), the aligned J3 (the
-    # reverse) and the un-indexed J2 (one partition: 1.5M codes searched in
-    # 6.0M). Each reports the regime the kernel picked; the aligned shapes
-    # also time the regime it did not pick.
-    k2 = {name: k2_phase(device, pk, sk, "aligned" in name) for name, (pk, sk) in k2_inputs.items()}
+    profiled_k2 = {
+        "J2 aligned": join["phases"]["J2_profiled"], "J3 aligned": join["phases"]["J3_profiled"],
+        "J2 no index": join["phases"]["J2_no_index_profiled"],
+    }
     for name, r in k2.items():
+        r["device_ms"] = device_ms["run_bounds", name]
         log(json.dumps({"kernel": "run_bounds", "shape": name, **r}))
-        query = name.split()[0]
         entries.append({
-            "name": f"run_bounds[{name}: B={r['b']}, Lp={r['lp']}, Ls={r['ls']}, {r['regime']}]",
-            "other_regime_ms": r["other_regime_ms"],
+            "name": f"run_bounds[{name}: B={r['b']}, Lp={r['lp']}, Ls={r['ls']}]",
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
             "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
@@ -1204,28 +1234,18 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            # K2's device time inside the indexed query of that name
-            # (torch.profiler), for the aligned shapes.
-            "main_path_ms": (
-                join["phases"][f"{query}_profiled"]["kernel_ms"]["run_bounds_"] if "aligned" in name else None
-            ),
+            "copy_ms": r["copy_ms"],
+            "tiles": r["tiles"],
+            "window": r["window"],
+            "device_ms": r["device_ms"],
+            # K2's device time inside the query of that name (torch.profiler);
+            # the shuffled primary is no query's.
+            "main_path_ms": profiled_k2[name]["kernel_ms"]["run_bounds_"] if name in profiled_k2 else None,
             "plain_check": "passed",
         })
 
-    # K3 at the vector path's four shapes, on its real score matrices: the
-    # routing scores [32, 64] (k = 8), the probed candidates' [32, about
-    # 690k] (k = 10) and brute force's [32, 1M] at k = 10 and 100; then
-    # the tie-heavy matrix at the brute-force shape.
-    ties = tie_heavy(k3_inputs["brute force"][0])
-    k3_inputs["tie-heavy"] = (ties, 10)
-    k3_inputs["tie-heavy k=100"] = (ties, 100)
-    profiled = vector["phases"]["ann_nprobe8_profiled"]["topk_ms"] or {}
-    k3 = {name: k3_phase(device, scores, k) for name, (scores, k) in k3_inputs.items()}
-    # Each call's kernels alone on the card, beside the event time, which
-    # also holds the wrapper's host work.
-    device_ms = device_ms_each({name: (r.pop("call"), r["kernels_per_call"]) for name, r in k3.items()}, "topk_")
     for name, r in k3.items():
-        r["device_ms"] = device_ms[name]
+        r["device_ms"] = device_ms["topk", name]
         log(json.dumps({"kernel": "topk", "shape": name, **r}))
         entries.append({
             "name": f"topk[{name}: q={r['q']}, n={r['n']}, k={r['k']}]",

@@ -8,7 +8,10 @@ sorted expansion:
 
 - count: the run [st, en) of every left code in the sorted right codes —
   K2, the port's one batched searchsorted (ops/sortkeys.py::run_bounds;
-  the JAX package runs `jnp.searchsorted` here, the same function);
+  the JAX package runs `jnp.searchsorted` here, the same function). The
+  left codes being sorted too is what makes K2 fast, not what makes it
+  right: a tile of them spans a narrow window of right codes, staged once
+  and walked;
 - expand: `repeat_interleave` of the left rows by their run lengths and a
   `cumsum` give every (left row, right row) pair, bucket-major, then by
   left row, then by right row — the JAX package's `join_expand` order.

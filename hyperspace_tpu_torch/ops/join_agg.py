@@ -20,7 +20,9 @@ A port of the JAX package's `ops/join_agg.py::fused_join_aggregate` and
 its channel program (`_one_bucket` / `_combine_buckets`). The run bounds
 always come from K2 (ops/sortkeys.py::run_bounds) on the card, at any
 width: the JAX package's 8,192-row and 128-multiple gates have no
-counterpart. Two things differ from the JAX program, neither in value:
+counterpart. The primary codes arrive sorted within each bucket row, so
+each of K2's tiles of them searches only the window of secondary codes
+it spans. Two things differ from the JAX program, neither in value:
 
 - the secondary run extrema are one K1 reduction (ops/segment_reduce.py)
   over (bucket, key) run ids followed by a gather, where the JAX package

@@ -19,13 +19,16 @@ The decomposition is a copy of the JAX package's `ops/sortkeys.py`
 `device_sort_perms`: one stable `torch.sort` per lane on the device, least
 significant lane first (LSD), which reproduces the JAX package's
 `lexsort_lanes` exactly.
-
-`run_bounds(pk, sk)` is the port of the JAX package's Pallas run-bounds
-kernel (K2, `_make_run_bounds_kernel` / `pallas_run_bounds`): the batched
-searchsorted the joins take their match runs from.
 Torch can neither sort nor shift `uint32`, so every lane travels as int64:
 unsigned lanes zero-extend and signed lanes sign-extend, which keeps each
 lane's own (signed or unsigned) order.
+
+`run_bounds(pk, sk)` is the port of the JAX package's Pallas run-bounds
+kernel (K2, `_make_run_bounds_kernel` / `pallas_run_bounds`): the batched
+searchsorted the joins take their match runs from. On the card it is one
+windowed pass over tiles of primary rows (`csrc/run_bounds.cu`, whose
+header says what bounds it on the H100 and how the design answers that),
+in the geometry `bounds_plan` gives; on the CPU, `run_bounds_plain`.
 """
 
 from __future__ import annotations
@@ -146,6 +149,15 @@ def device_sort_perm(table, key_columns: list[str], device: torch.device) -> tor
 
 # -- run bounds (K2) ------------------------------------------------------------
 
+ROWS_PER_THREAD = 4  # a thread's consecutive primary rows
+THREADS = 256  # a block's threads: a tile of 1,024 rows
+SMALL_THREADS = 128  # where 1,024-row tiles would leave SMs without a block
+WINDOW_SLACK = 1.25  # the window budget over the keys a sorted tile spans on average
+WINDOW_ROUND = 256  # the budget is a multiple of this many keys
+MIN_WINDOW = 2048  # keys: never a smaller budget (8 KB)...
+MAX_WINDOW = 16384  # ...nor a larger one (64 KB: three blocks an SM)
+MAX_GRID = 2**31 - 1  # CUDA's limit on a grid's x dimension
+
 
 def _check_run_bounds(pk: torch.Tensor, sk: torch.Tensor) -> None:
     if pk.dim() != 2 or sk.dim() != 2 or pk.dtype != torch.int32 or sk.dtype != torch.int32:
@@ -155,7 +167,7 @@ def _check_run_bounds(pk: torch.Tensor, sk: torch.Tensor) -> None:
         )
     if pk.shape[0] != sk.shape[0]:
         raise HyperspaceError(f"run_bounds: bucket counts differ ({pk.shape[0]} vs {sk.shape[0]})")
-    if pk.device != sk.device:
+    if pk.get_device() != sk.get_device():
         raise HyperspaceError("run_bounds: pk and sk must lie on one device")
     if not (pk.is_contiguous() and sk.is_contiguous()):
         raise HyperspaceError("run_bounds takes contiguous tensors")
@@ -171,56 +183,102 @@ def run_bounds_plain(pk: torch.Tensor, sk: torch.Tensor) -> tuple[torch.Tensor, 
     return st, en
 
 
-_REGIMES = {"auto": 0, "global": 1, "shared": 2}
+def bounds_plan(b: int, lp: int, ls: int, sms: int) -> tuple[int, int, int, int, int]:
+    """(threads a block, tiles a bucket row, grid, window budget in keys,
+    dynamic shared memory bytes) of K2 for pk [b, lp] and sk [b, ls],
+    b * lp > 0, on a card with `sms` SMs.
+
+    A thread takes ROWS_PER_THREAD consecutive rows starting on a 16-byte
+    boundary of pk, so a bucket row of lp rows starts up to 3 rows before
+    its first boundary; a tile is ROWS_PER_THREAD * threads such rows, and
+    a bucket takes ceil((lp + 3) / rows) tiles (its last may be empty). A
+    block takes one tile: THREADS threads, or SMALL_THREADS where tiles of
+    THREADS would not give every SM a block. The grid is the b * tiles
+    tiles, folded past MAX_GRID into a block loop (block i takes tiles i,
+    i + grid, ...). The window budget is WINDOW_SLACK times the secondary
+    keys a sorted tile spans on average (rows * ls / lp), rounded up to
+    WINDOW_ROUND and held between MIN_WINDOW and MAX_WINDOW, and never more
+    than the row (ls, to 4 keys); a tile whose window is wider searches
+    device memory. Shared memory: the window and 4 keys of alignment
+    slack."""
+    def tiles_of(threads):
+        return -(-(lp + 3) // (ROWS_PER_THREAD * threads))
+
+    threads = THREADS if b * tiles_of(THREADS) >= sms else SMALL_THREADS
+    rows = ROWS_PER_THREAD * threads
+    tiles = tiles_of(threads)
+    spans = -(-int(WINDOW_SLACK * rows * ls) // lp)
+    window = max(MIN_WINDOW, -(-spans // WINDOW_ROUND) * WINDOW_ROUND)
+    window = min(window, MAX_WINDOW, -(-ls // 4) * 4)
+    return threads, tiles, min(b * tiles, MAX_GRID), window, 4 * (window + 4)
 
 
-def run_bounds(pk: torch.Tensor, sk: torch.Tensor, *, regime: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+def run_bounds(pk: torch.Tensor, sk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(st, en) int32 [B, Lp]: the run of every primary code `pk` [B, Lp]
     in its bucket's sorted secondary codes `sk` [B, Ls] (pads at the int32
-    max; `pk` need not be sorted). The CUDA kernel
-    `csrc/run_bounds.cu` for a CUDA tensor, whatever the shape; the plain
-    version for a CPU tensor. `run_bounds.launches` counts the kernel's
-    launches and `run_bounds.last_regime` names the regime the kernel
-    picked ("shared" or "global"); `regime` forces one, for measuring."""
-    if pk.device.type == "cpu":
-        return run_bounds_plain(pk, sk)
-    if pk.device.type != "cuda":
+    max; `pk` need not be sorted). For a CUDA tensor, one launch of the
+    kernel `csrc/run_bounds.cu` in `bounds_plan`'s geometry, at any shape:
+    a pass over tiles of primary rows, each searching only the window of
+    `sk[b]` its keys span (staged in shared memory where it fits the
+    budget, in device memory where not; the kernel picks per tile). For a
+    CPU tensor, the plain version. `run_bounds.launches` counts the
+    kernel's launches."""
+    if not pk.is_cuda:
+        if pk.device.type == "cpu":
+            return run_bounds_plain(pk, sk)
         raise HyperspaceError(f"run_bounds runs on cuda or cpu, not {pk.device}")
     _check_run_bounds(pk, sk)
     b, lp = pk.shape
-    st = torch.empty_like(pk)
-    en = torch.empty_like(pk)
+    ls = sk.shape[1]
+    st, en = torch.empty_like(pk), torch.empty_like(pk)
     if b * lp == 0:
         return st, en
-    lib = _run_bounds_library()
-    picked = ctypes.c_int(_REGIMES[regime])
-    with torch.cuda.device(pk.device):
-        stream = torch.cuda.current_stream(pk.device).cuda_stream
-        err = lib.hs_run_bounds(
-            pk.data_ptr(), sk.data_ptr(), st.data_ptr(), en.data_ptr(), b, lp, sk.shape[1],
-            ctypes.byref(picked), stream,
-        )
+    index = pk.get_device()
+    key = (b, lp, ls, index)
+    plan = _plans.get(key)
+    if plan is None:
+        if len(_plans) > 256:
+            _plans.clear()
+        plan = _plans[key] = bounds_plan(b, lp, ls, _sm_count(index))
+    threads, tiles, grid, window, _ = plan
+    args = (pk.data_ptr(), sk.data_ptr(), st.data_ptr(), en.data_ptr(), b, lp, ls, threads, tiles, grid, window,
+            index)
+    if index == torch._C._cuda_getDevice():
+        err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        raise HyperspaceError(f"run_bounds kernel launch failed ({regime} regime): CUDA error {err}")
+        raise HyperspaceError(f"run_bounds kernel launch failed at [{b}, {lp}] x [{b}, {ls}]: CUDA error {err}")
     run_bounds.launches += 1
-    run_bounds.last_regime = "shared" if picked.value == 2 else "global"
     return st, en
 
 
 run_bounds.launches = 0
-run_bounds.last_regime = None
 
 
-def _run_bounds_library() -> ctypes.CDLL:
-    from hyperspace_tpu_torch.ops.kernels import load
+_sms: dict[int, int] = {}
+_plans: dict = {}  # (b, lp, ls, device) -> bounds_plan
+_fn = []
 
-    lib = load("run_bounds")
-    if not getattr(lib, "_hs_typed", False):
-        lib.hs_run_bounds.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
-            ctypes.c_void_p,
+
+def _sm_count(index: int) -> int:
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
+def _launch():
+    """hs_run_bounds from the kernel's library, typed once."""
+    if not _fn:
+        from hyperspace_tpu_torch.ops.kernels import load
+
+        fn = load("run_bounds").hs_run_bounds
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
         ]
-        lib.hs_run_bounds.restype = ctypes.c_int
-        lib._hs_typed = True
-    return lib
+        fn.restype = ctypes.c_int
+        _fn.append(fn)
+    return _fn[0]

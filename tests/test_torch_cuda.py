@@ -245,51 +245,91 @@ def test_forty_aggregates_on_the_card_match_the_cpu(cuda, tmp_path):
     pd.testing.assert_frame_equal(out["cuda"][0], out["cpu"][0])
 
 
-def _run_bounds_inputs(rng, b, lp, ls, domain):
-    """Unsorted primary codes and sorted secondary rows, pads at the
-    int32 max, null codes -2 / -1."""
+def _run_bounds_inputs(rng, b, lp, ls, domain, order):
+    """Primary codes and sorted secondary rows, pads at the int32 max, null
+    codes -2 / -1. `order` "sorted" gives the join's layout (each primary
+    row sorted: nulls first, pads last), "shuffled" the same codes
+    permuted within each row."""
     big = np.iinfo(np.int32).max
     pk = np.full((b, lp), big, np.int32)
     sk = np.full((b, ls), big, np.int32)
     for i in range(b):
         n_p, n_s = int(rng.integers(lp // 2, lp + 1)), int(rng.integers(ls // 2, ls + 1))
-        pk[i, :n_p] = rng.integers(-2, domain, n_p)
+        pk[i, :n_p] = np.sort(rng.integers(-2, domain, n_p))
         sk[i, :n_s] = np.sort(rng.integers(-1, domain, n_s))
-    return pk, sk
+    return (pk if order == "sorted" else rng.permuted(pk, axis=1)), sk
 
 
-# (B, Lp, Ls, the regime the kernel picks). Shared when sk[b] fits the
-# opt-in shared memory (about 58k keys) and Lp >= Ls; else global.
+# (B, Lp, Ls): the join's aligned shapes (200 buckets) J2 (orders searched
+# in lineitem) and J3 (the reverse), J2 on one partition, a secondary row
+# past the first design's shared-memory limit (about 58k keys), and edges.
+# Sorted, a tile's window fits its shared-memory budget (staged); shuffled,
+# it spans the row and the kernel searches device memory.
 _K2_SHAPES = [
-    (1, 1, 1, "shared"), (3, 5, 0, "shared"), (8, 1000, 700, "shared"),
-    # the join's aligned shapes (200 buckets): J3 (lineitem primary), J2
-    (200, 31000, 7600, "shared"), (200, 7600, 31000, "global"),
-    # a secondary row past the shared-memory limit
-    (2, 50_000, 70_000, "global"), (1, 1_500_000, 6_000_000, "global"),
+    (200, 7759, 31129), (200, 31129, 7759), (1, 1_500_000, 6_000_000),
+    (2, 50_000, 70_000), (8, 1000, 700), (1, 1, 1), (3, 5, 0), (1, 1, 6_000_000),
 ]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize(
-    "b,lp,ls,regime",
-    # Each shape as the kernel picks it, and forced into the other regime
-    # wherever sk[b] fits shared memory.
-    [(b, lp, ls, "auto") for b, lp, ls, _ in _K2_SHAPES]
-    + [(b, lp, ls, "global" if pick == "shared" else "shared") for b, lp, ls, pick in _K2_SHAPES if ls < 58_000],
-)
-def test_run_bounds_kernel_equals_plain_in_both_regimes(cuda, b, lp, ls, regime):
+def _assert_run_bounds_equal_plain(pk, sk, cuda):
     from hyperspace_tpu_torch.ops.sortkeys import run_bounds, run_bounds_plain
 
-    pk, sk = _run_bounds_inputs(np.random.default_rng(b + lp + ls), b, lp, ls, max(ls // 4, 3))
     pkt, skt = torch.from_numpy(pk).to(cuda), torch.from_numpy(sk).to(cuda)
     before = run_bounds.launches
-    st, en = run_bounds(pkt, skt, regime=regime)
+    st, en = run_bounds(pkt, skt)
     torch.cuda.synchronize()
     assert run_bounds.launches == before + 1
-    picked = next(pick for sb, slp, sls, pick in _K2_SHAPES if (sb, slp, sls) == (b, lp, ls))
-    assert run_bounds.last_regime == (picked if regime == "auto" else regime)
     want_st, want_en = run_bounds_plain(pkt, skt)
     assert torch.equal(st, want_st) and torch.equal(en, want_en)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("b,lp,ls", _K2_SHAPES)
+def test_run_bounds_kernel_equals_plain_in_both_regimes(cuda, b, lp, ls, order):
+    """Bit-equal to the plain version with the windows staged (sorted
+    primary) and searched in device memory (shuffled), one launch a call."""
+    pk, sk = _run_bounds_inputs(np.random.default_rng(b + lp + ls), b, lp, ls, max(ls // 4, 3), order)
+    _assert_run_bounds_equal_plain(pk, sk, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("b,lp,ls", [(8, 1000, 700), (200, 7759, 31129)])
+def test_run_bounds_primary_off_a_16_byte_boundary(cuda, b, lp, ls, offset):
+    """pk a view `offset` int32s past a 16-byte boundary: the tiles start
+    `offset` rows early, and st and en (fresh, on a boundary) are written
+    one int32 at a time."""
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds, run_bounds_plain
+
+    pk, sk = _run_bounds_inputs(np.random.default_rng(lp + offset), b, lp, ls, max(ls // 4, 3), "sorted")
+    flat = np.zeros(b * lp + offset, np.int32)
+    flat[offset:] = pk.reshape(-1)
+    pkt = torch.from_numpy(flat).to(cuda)[offset:].view(b, lp)
+    assert pkt.data_ptr() % 16 == 4 * offset
+    skt = torch.from_numpy(sk).to(cuda)
+    st, en = run_bounds(pkt, skt)
+    want_st, want_en = run_bounds_plain(pkt, skt)
+    assert torch.equal(st, want_st) and torch.equal(en, want_en)
+
+
+@pytest.mark.gpu
+def test_run_bounds_window_past_the_budget(cuda):
+    """A run of 100k equal secondary keys, matched by 3,000 primary rows
+    across tile edges: the tiles holding them have windows past any
+    shared-memory budget and search device memory, while their neighbours
+    stage theirs."""
+    from hyperspace_tpu_torch.ops.sortkeys import MAX_WINDOW
+
+    rng = np.random.default_rng(5)
+    b, lp, ls, key = 2, 20_000, 300_000, 40_000
+    sk = np.sort(rng.integers(-1, 80_000, (b, ls)), axis=1).astype(np.int32)
+    sk[0] = np.sort(np.concatenate([sk[0, :200_000], np.full(100_000, key)]))
+    pk = rng.integers(-2, 80_000, (b, lp)).astype(np.int32)
+    pk[0, :3000] = key
+    pk = np.sort(pk, axis=1)
+    assert (sk[0] == key).sum() >= 100_000 > MAX_WINDOW
+    _assert_run_bounds_equal_plain(pk, sk, cuda)
 
 
 @pytest.mark.gpu

@@ -4,8 +4,8 @@
 
 What it does, in order (any failure raises and exits non-zero):
 
-1. prints the card's name and power limit (nvidia-smi), then builds every
-   CUDA kernel of the port from `hyperspace_tpu_torch/csrc/` (one nvcc per
+1. starts nvidia-smi's query of the card's name and power limit in the
+   background (read at the end), then builds every CUDA kernel of the port from `hyperspace_tpu_torch/csrc/` (one nvcc per
    source, started together) into `build/kernels/`;
 2. aggregate path, through the user entry points: generates TPC-H
    lineitem (16 columns; 6,001,991 rows at SF1 with seed 42, where
@@ -13,9 +13,22 @@ What it does, in order (any failure raises and exits non-zero):
    index with 200 buckets, runs 12 point lookups with the index enabled
    and disabled, and runs the Q1-shaped group-by and the per-order
    revenue aggregate, each checked against an independent pyarrow
-   computation on the same parquet. Each aggregate runs cold, warm
-   (timed), and once more under `torch.profiler` for the kernels' device
-   time inside the query;
+   computation on the same parquet. Every query of the run goes through
+   `HyperspaceSession.run_query` and one `PlanCache`, once cold and once
+   warm: the warm run must hit the plan cache (index enabled), read no
+   file (the device cache), hit HOST_DERIVED for its group ids or join
+   codes, and give the cold run's result; it prints its host time by
+   step (plan, read, derive, the rest). Each aggregate runs twice more
+   under `torch.profiler`, for the kernels' device time inside the warm
+   query (the second run: the profiler can miss kernels launched soon
+   after it starts).
+   Then the range queries on the index's sorted key, index on and off,
+   against pyarrow: `l_orderkey` between two literals 1% of the key
+   domain apart, a strict open range over its top 1%, and the computed
+   projection `l_extendedprice * (1 - l_discount)` over the first, with
+   files read and pruned, rows pruned and the slice's exactness. The two
+   caches' bytes, entries, hits, misses and evictions print after each
+   path, and the run fails if either holds more than its budget;
 3. join path, on the same lineitem index: generates TPC-H orders (9
    columns, 1.5M rows at SF1, seed 43), builds the `o_orderkey` index
    with `o_totalprice, o_orderpriority` (200 buckets), and runs J1 (the
@@ -24,18 +37,22 @@ What it does, in order (any failure raises and exits non-zero):
    lineitem side), each cold and warm with the index enabled (the
    zero-exchange aligned path) and disabled (one partition), each checked
    against pyarrow's join and group-by on the same parquet (J1 pair by
-   pair); J2 and J3 run once more under `torch.profiler` (indexed, and
-   J2 also without the index), and once more with K1's inputs recorded;
+   pair); J2 and J3 run three times more, the last two under
+   `torch.profiler` (indexed, and J2 also without the index), and once
+   more with K1's inputs recorded;
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
    assign, carve), checks its partition row counts against the manifest,
    runs brute force (index disabled) at k = 10 and k = 100 and
    `ann_search` at nprobe 8 and 64, each cold and warm, for 32 queries
-   (rows drawn with seed 9, plus 0.01), one more nprobe-8 query under
+   (rows drawn with seed 9, plus 0.01), two more nprobe-8 queries under
    `torch.profiler`, and one nprobe-8 and one brute-force query with
    K3's inputs recorded; brute force and full probe are checked against a
    float64 top-k on the host, and recall@10 at nprobe 8 must reach 0.8;
+   brute force and nprobe 8 run once more at k = 5,000 (past K3's
+   shared-memory sort), brute force against the exact top 5,000 and
+   nprobe 8 with every score its row's exact distance;
    kernel launch counts are zeroed just before each path and read just
    after it: every kernel a path runs must have launched in it, and no
    other;
@@ -49,14 +66,16 @@ What it does, in order (any failure raises and exits non-zero):
    J2 codes with each primary row shuffled, so that the kernel's windows
    span the row and it searches device memory; K3: the vector
    path's routing, candidate and brute-force score matrices, and a
-   tie-heavy matrix at the brute-force shape, bit-equal), and times
+   tie-heavy matrix at the brute-force shape, bit-equal; and at
+   k = 5,000 on the candidate and brute-force matrices), and times
    kernel, plain version and the library yardstick with CUDA events
    (median of 12 runs after warm-up; for K2 also a device copy moving as
    many bytes), and each call's kernels alone with torch.profiler (one
    window for all the kernels' calls);
    a profiled window that misses a kernel it should hold fails the run;
 6. prints one JSON line describing every kernel, the card's name and
-   power limit again, and, last, `{"ok": true, "device": {...}}`.
+   power limit (nvidia-smi's answer; through NVML, the library it reads,
+   if it gave none), and, last, `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it; without either it
 fails before printing any result.
@@ -66,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -82,6 +102,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
 INT32_OPS = 67e12
 REPEATS = 12
+BIG_K = 5000  # a vector search's k past K3's shared-memory sort (2,048)
 UNIT_ROUNDOFF = 2.0**-53  # float64
 INDEXED = ["l_orderkey"]
 INCLUDED = ["l_partkey", "l_quantity", "l_extendedprice", "l_discount"]
@@ -129,12 +150,74 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+NVIDIA_SMI = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+
+
+def start_card_query() -> subprocess.Popen | None:
+    """Start nvidia-smi's query of the card's name and power limit in the
+    background. On a card whose driver is not kept loaded, nvidia-smi may
+    take minutes to answer, so it runs beside the whole smoke run and is
+    read at its end (`card_line`). None where there is no nvidia-smi."""
+    try:
+        return subprocess.Popen(NVIDIA_SMI, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    except FileNotFoundError:
+        return None
+
+
+def stop_process(proc: subprocess.Popen | None) -> None:
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _smi_line(proc: subprocess.Popen, wait_s: float) -> str | None:
+    """nvidia-smi's first line, or None if it failed or gave no answer
+    within `wait_s` seconds (and was then stopped)."""
+    try:
+        out, _ = proc.communicate(timeout=wait_s)
+    except subprocess.TimeoutExpired:
+        stop_process(proc)
+        return None
+    lines = out.strip().splitlines()
+    return lines[0] if proc.returncode == 0 and lines else None
+
+
+def nvml_card_line() -> str:
+    """The same two fields in nvidia-smi's format, read through NVML, the
+    library nvidia-smi itself reads (power.limit is NVML's power
+    management limit, in milliwatts)."""
+    import ctypes
+
+    nvml = ctypes.CDLL("libnvidia-ml.so.1")
+
+    def check(rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"NVML {what} returned {rc}")
+
+    check(nvml.nvmlInit_v2(), "nvmlInit_v2")
+    try:
+        handle = ctypes.c_void_p()
+        check(nvml.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(handle)), "nvmlDeviceGetHandleByIndex_v2")
+        name = ctypes.create_string_buffer(96)
+        check(nvml.nvmlDeviceGetName(handle, name, ctypes.c_uint(96)), "nvmlDeviceGetName")
+        milliwatts = ctypes.c_uint()
+        check(nvml.nvmlDeviceGetPowerManagementLimit(handle, ctypes.byref(milliwatts)),
+              "nvmlDeviceGetPowerManagementLimit")
+    finally:
+        nvml.nvmlShutdown()
+    return f"{name.value.decode()}, {milliwatts.value / 1000:.2f} W"
+
+
+def card_line(query: subprocess.Popen | None) -> str:
+    """The card's name and power limit as nvidia-smi gives them: the
+    background query's answer, waited for up to 180 s more; else a second
+    nvidia-smi, which finds the driver loaded by now, for up to 120 s;
+    else the same fields through NVML."""
+    line = _smi_line(query, 180) if query is not None else None
+    if line is None:
+        retry = start_card_query()
+        line = _smi_line(retry, 120) if retry is not None else None
+    return line if line is not None else nvml_card_line()
 
 
 def cuda_ms(fn, repeats: int = REPEATS) -> float:
@@ -340,39 +423,56 @@ def check_revenue(got, source) -> None:
         raise AssertionError("revenue beyond the float64 summation bound")
 
 
-def _profiled_kernels(fn) -> tuple[list, float]:
-    """Runs `fn` once under torch.profiler and returns (start, us, name)
-    of every device activity it recorded, in start order, and the wall
-    milliseconds of `fn` (the profiler's own start and stop left out)."""
+def _profiled_kernels(fn, twice: bool = False) -> tuple[list, float]:
+    """Runs `fn` under torch.profiler and returns (start, us, name) of
+    every device activity it recorded, in start order, and the wall
+    milliseconds of `fn` (the profiler's own start and stop left out).
+    With `twice`, `fn` runs two times and only the second run is kept:
+    the profiler can miss kernels launched soon after it starts, which a
+    call with little host work before its first kernel does."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     card = torch.cuda.is_available()  # a CPU rehearsal has no card to wait for
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         t0 = time.perf_counter()
         fn()
         if card:
             torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if twice:
+            run()
+            with record_function("chip_smoke_kept_run"):
+                wall_ms = run()
+        else:
+            wall_ms = run()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    start = 0
+    if twice:  # the kept run's range on the host; its copy on the card's timeline spans its kernels
+        start = min(e.time_range.start for e in events if e.name == "chip_smoke_kept_run" and e.device_type != cuda)
     kernels = sorted(
         (e.time_range.start, e.time_range.elapsed_us(), e.name)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
+        for e in events
+        if e.device_type == cuda and e.time_range.start >= start and e.name != "chip_smoke_kept_run"
     )
     return kernels, wall_ms
 
 
 def device_time(fn, prefixes: tuple) -> dict:
-    """Runs `fn` once under torch.profiler and sums, per name prefix, the
-    device time (and count) of the kernels whose names hold it, and the
-    time of all device work; `kernel_ms_each` lists each such kernel's
-    time in the order they started. The times are None when the profiler
-    recorded no device activity, which only a CPU rehearsal may do: on the
-    card, a profile without device activity or without a kernel of every
-    prefix fails the run."""
+    """Runs `fn` twice under torch.profiler and sums over the second run,
+    per name prefix, the device time (and count) of the kernels whose
+    names hold it, and the time of all device work; `kernel_ms_each`
+    lists each such kernel's time in the order they started. The times
+    are None when the profiler recorded no device activity, which only a
+    CPU rehearsal may do: on the card, a profile without device activity
+    or without a kernel of every prefix fails the run."""
     import torch
 
-    kernels, wall_ms = _profiled_kernels(fn)
+    kernels, wall_ms = _profiled_kernels(fn, twice=True)
     each = {p: [us for _, us, name in kernels if p in name] for p in prefixes}
     matched = {p: len(each[p]) for p in prefixes}
     if torch.cuda.is_available() and not (kernels and all(matched.values())):
@@ -423,6 +523,91 @@ def device_ms_each(calls: dict) -> dict:
     return out
 
 
+def cache_stats() -> dict:
+    """The two caches' budgets, resident bytes, entries, hits, misses and
+    evictions; fails if either holds more bytes than its budget."""
+    from hyperspace_tpu_torch.execution import device_cache as dc
+
+    out = {}
+    for name, cache in (("device_cache", dc.DEVICE_CACHE), ("host_derived", dc.HOST_DERIVED)):
+        st = cache.stats()
+        if st["bytes"] > st["budget"]:
+            raise AssertionError(f"{name} holds {st['bytes']} bytes, over its budget of {st['budget']}")
+        out[name] = {k: st[k] for k in ("budget", "bytes", "entries", "hits", "misses", "evictions")}
+    return out
+
+
+def same_result(name: str, a, b, tolerant=()) -> None:
+    """Two results of one query (ColumnTables on one device): the same
+    schema, rows and validity, every column bit-equal but the `tolerant`
+    ones (non-integral sums and means, whose last bits vary with K1's
+    float64 atomics; the path's pyarrow check bounds each run's)."""
+    import torch
+
+    if a.schema.names != b.schema.names or a.num_rows != b.num_rows:
+        raise AssertionError(f"{name}: the warm run gave {b.num_rows} rows of {b.schema.names}, "
+                             f"the cold {a.num_rows} of {a.schema.names}")
+    for f in a.schema.fields:
+        if f.name in tolerant:
+            continue
+        if not torch.equal(a.columns[f.name], b.columns[f.name]):
+            raise AssertionError(f"{name}: the warm run differs from the cold in {f.name}")
+        va, vb = a.validity.get(f.name), b.validity.get(f.name)
+        if (va is None) != (vb is None) or (va is not None and not torch.equal(va, vb)):
+            raise AssertionError(f"{name}: the warm run's nulls differ from the cold's in {f.name}")
+        if not np.array_equal(a.dictionaries.get(f.name, []), b.dictionaries.get(f.name, [])):
+            raise AssertionError(f"{name}: the warm run's dictionary differs in {f.name}")
+
+
+def cold_warm(name: str, session, plans: list, cache, sync, derived=(), tolerant=()) -> tuple[list, dict]:
+    """Runs `plans` once cold and once warm through `run_query` and the
+    PlanCache `cache`. The warm pass must hit the plan cache on every
+    plan (where hyperspace is enabled), hit HOST_DERIVED on every kind in
+    `derived` and miss none of them, read no file, and give the cold
+    pass's results. Returns (the warm results, the cold and warm walls
+    with the warm pass's host time by step: plan, read, derive, and the
+    rest up to the synchronized wall)."""
+    from hyperspace_tpu_torch.execution import device_cache as dc
+
+    def run_all():
+        out, host = [], dict.fromkeys(("plan", "read", "derive"), 0.0)
+        t0 = time.perf_counter()
+        for plan in plans:
+            outcome = session.run_query(plan, plan_cache=cache)
+            for step in host:
+                host[step] += outcome.stats["host_s"][step]
+            out.append(outcome)
+        sync()
+        return out, time.perf_counter() - t0, host
+
+    cold, cold_s, _ = run_all()
+    p0, d0, r0 = cache.stats(), dc.HOST_DERIVED.stats()["by_kind"], dc.DEVICE_CACHE.stats()
+    warm, warm_s, host = run_all()
+    p1, d1, r1 = cache.stats(), dc.HOST_DERIVED.stats()["by_kind"], dc.DEVICE_CACHE.stats()
+    if session.is_hyperspace_enabled() and p1["hits"] - p0["hits"] != len(plans):
+        raise AssertionError(f"{name}: {p1['hits'] - p0['hits']} of {len(plans)} warm plans hit the plan cache")
+    for kind in derived:
+        hits = d1.get(kind, {}).get("hits", 0) - d0.get(kind, {}).get("hits", 0)
+        misses = d1.get(kind, {}).get("misses", 0) - d0.get(kind, {}).get("misses", 0)
+        if hits < len(plans) or misses:
+            raise AssertionError(f"{name}: the warm pass hit HOST_DERIVED {hits} times and missed {misses} on {kind}")
+    read = sum(o.stats["files_read"] for o in warm)
+    if read:
+        raise AssertionError(f"{name}: the warm pass read {read} files")
+    for c, w in zip(cold, warm):
+        same_result(name, c.result, w.result, tolerant)
+    split = {**host, "rest": warm_s - sum(host.values())}
+    return [o.result for o in warm], {
+        "cold_s": cold_s, "warm_s": warm_s, "warm_host_s": split,
+        "plan_cache": "hit" if session.is_hyperspace_enabled() else "not used (hyperspace off)",
+        "device_cache_hits": r1["hits"] - r0["hits"], "device_cache_misses": r1["misses"] - r0["misses"],
+        "derived_hits": sum(v["hits"] for v in d1.values()) - sum(v["hits"] for v in d0.values()),
+        "derived_misses": sum(v["misses"] for v in d1.values()) - sum(v["misses"] for v in d0.values()),
+        "warm_stats": {k: warm[-1].stats[k] for k in ("scan", "files_read", "files_pruned", "rows_pruned",
+                                                     "range_exact", "agg_path", "join_path")},
+    }
+
+
 def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 200) -> tuple[dict, dict]:
     """The port's aggregate path through its user entry points; returns
     (the phase wall times and row counts, what the join path reuses: the
@@ -434,7 +619,7 @@ def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 20
     import pyarrow.parquet as pq
     import torch
 
-    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, col
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, PlanCache, col
     from hyperspace_tpu_torch.datagen import TPCH_SF1_ORDERS_ROWS, gen_tpch_lineitem
     from hyperspace_tpu_torch.ops import aggregate
 
@@ -459,27 +644,18 @@ def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 20
     rows = session.last_build_stats["rows"]
 
     keys = np.random.default_rng(7).integers(0, int(TPCH_SF1_ORDERS_ROWS * sf), 12).astype(np.int64)
-
-    def lookups():
-        got = []
-        for k in keys:
-            q = df.filter(col("l_orderkey") == int(k)).select("l_orderkey", "l_partkey", "l_extendedprice")
-            got.append(session.to_pandas(q))
-        return got
-
+    lookup_plans = [df.filter(col("l_orderkey") == int(k)).select("l_orderkey", "l_partkey", "l_extendedprice")
+                    for k in keys]
+    # One plan cache for every query of the run, as a server keeps one.
+    plan_cache = PlanCache()
     counts = {}
     for mode in ("index", "no_index"):
         session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
-        t0 = time.perf_counter()
-        lookups()  # cold: reads the files onto the device
-        phases[f"lookups_{mode}_cold_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got = lookups()
-        phases[f"lookups_{mode}_s"] = time.perf_counter() - t0
-        counts[mode] = [len(g) for g in got]
-        stats = session.last_query_stats
+        got, phases[f"lookups_{mode}"] = cold_warm(f"lookups {mode}", session, lookup_plans, plan_cache, sync)
+        counts[mode] = [g.num_rows for g in got]
+        stats = phases[f"lookups_{mode}"]["warm_stats"]
         # The rule rewrite alone (signature, index listing, manifest): the
-        # host's share of each warm lookup.
+        # host's share of each lookup without the plan cache.
         t0 = time.perf_counter()
         for k in keys:
             session.optimized_plan(df.filter(col("l_orderkey") == int(k)).select("l_orderkey"))
@@ -493,31 +669,96 @@ def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 20
     want_rows = int(pc.sum(pc.is_in(source["l_orderkey"], value_set=pa.array(keys))).as_py())
     if sum(counts["index"]) != want_rows:
         raise AssertionError(f"lookups found {sum(counts['index'])} rows, the source holds {want_rows}")
+    phases["caches_after_lookups"] = cache_stats()
 
     session.enable_hyperspace()
     k1_inputs = {}
-    for name, plan, check in (
-        ("q1", df.aggregate(Q1_GROUP, Q1_AGGS), check_q1),
-        ("revenue", df.aggregate(["l_orderkey"], [("sum", "l_extendedprice", "rev")]), check_revenue),
+    for name, plan, check, tolerant in (
+        ("q1", df.aggregate(Q1_GROUP, Q1_AGGS), check_q1, ("sum_price", "avg_disc")),
+        ("revenue", df.aggregate(["l_orderkey"], [("sum", "l_extendedprice", "rev")]), check_revenue, ("rev",)),
     ):
-        session.run(plan)  # cold: reads the columns onto the device
-        sync()
-        t0 = time.perf_counter()
-        result = session.run(plan)
-        sync()
-        phases[f"agg_{name}_s"] = time.perf_counter() - t0
+        # Cold (reads the columns onto the device, derives the group ids),
+        # then warm: the group ids must come from HOST_DERIVED.
+        (result,), phases[f"agg_{name}"] = cold_warm(name, session, [plan], plan_cache, sync, ("gid",), tolerant)
+        phases[f"agg_{name}_s"] = phases[f"agg_{name}"]["warm_s"]
         check(pd.DataFrame(result.decode()), source)
         phases[f"agg_{name}_groups"] = result.num_rows
-        # K1's device time inside the query (the kernels of segment_reduce.cu
-        # are all named segment_reduce_*).
-        phases[f"agg_{name}_profiled"] = device_time(lambda: session.run(plan), ("segment_reduce_",))
+        # K1's device time inside the warm query (the kernels of
+        # segment_reduce.cu are all named segment_reduce_*).
+        phases[f"agg_{name}_profiled"] = device_time(
+            lambda: session.run_query(plan, plan_cache=plan_cache), ("segment_reduce_",)
+        )
         # K1's inputs as the query gives them, from one more run.
         calls = capture_k1(lambda: session.run(plan), aggregate)
         if len(calls) != 1:
             raise AssertionError(f"{name}: expected one K1 call, got {len(calls)}")
         k1_inputs[f"{name} (path ids)"] = calls[0]
+    phases["caches_after_aggregates"] = cache_stats()
+    phases["range"] = range_queries(session, df, source, plan_cache, sync, sf)
+    phases["caches_after_range"] = cache_stats()
     result = {"rows": rows, "lookup_rows": sum(counts["index"]), "phases": phases}
-    return result, {"session": session, "lineitem": df, "source": source, "workdir": workdir, "k1_inputs": k1_inputs}
+    return result, {"session": session, "lineitem": df, "source": source, "workdir": workdir,
+                    "k1_inputs": k1_inputs, "plan_cache": plan_cache}
+
+
+def range_queries(session, df, source, plan_cache, sync, sf: float) -> dict:
+    """Range predicates on the lineitem index's sorted key, index on and
+    off, each checked against pyarrow on the same parquet: l_orderkey
+    between two literals 1% of the key domain apart, a strict open range
+    over the domain's top 1%, and the computed projection
+    l_extendedprice * (1 - l_discount) over the first range. Records the
+    files read and pruned, the rows pruned and whether the slice was the
+    predicate (the mask skipped)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from hyperspace_tpu_torch import col, lit
+    from hyperspace_tpu_torch.datagen import TPCH_SF1_ORDERS_ROWS
+
+    domain = int(TPCH_SF1_ORDERS_ROWS * sf)
+    lo, hi = int(domain * 0.47), int(domain * 0.48)
+    top = int(domain * 0.99)
+    cols = ["l_orderkey", "l_partkey", "l_extendedprice"]
+    between = (col("l_orderkey") >= lit(lo)) & (col("l_orderkey") <= lit(hi))
+    queries = {
+        "between": (df.filter(between).select(*cols),
+                    pc.and_(pc.greater_equal(source["l_orderkey"], lo), pc.less_equal(source["l_orderkey"], hi))),
+        "open_strict": (df.filter(col("l_orderkey") > lit(top)).select(*cols), pc.greater(source["l_orderkey"], top)),
+        "projection": (df.filter(between).select(
+            "l_orderkey", ("disc_price", col("l_extendedprice") * (lit(1) - col("l_discount")))),
+            pc.and_(pc.greater_equal(source["l_orderkey"], lo), pc.less_equal(source["l_orderkey"], hi))),
+    }
+    out = {"bounds": {"between": [lo, hi], "open_strict_above": top}}
+    # What the device cache's mtime check costs: one os.stat a bucket file.
+    files = sorted(Path(session.conf.system_path).glob("lineitem_orderkey/*/bucket-*.parquet"))
+    t0 = time.perf_counter()
+    for f in files:
+        os.stat(f)
+    out["stat_bucket_files"] = {"files": len(files), "s": time.perf_counter() - t0}
+    for mode in ("index", "no_index"):
+        session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
+        for name, (plan, mask) in queries.items():
+            (result,), timing = cold_warm(f"range {name} {mode}", session, [plan], plan_cache, sync)
+            want = source.filter(mask)
+            if name == "projection":
+                want = pa.table({"l_orderkey": want["l_orderkey"], "disc_price": pc.multiply(
+                    want["l_extendedprice"], pc.subtract(1, want["l_discount"]))})
+            else:
+                want = want.select(cols)
+            got = result.decode()
+            order = np.lexsort([got[c] for c in reversed(want.column_names)])
+            ref = want.sort_by([(c, "ascending") for c in want.column_names])
+            if result.num_rows != want.num_rows or result.num_rows == 0:
+                raise AssertionError(f"range {name} {mode}: {result.num_rows} rows, pyarrow {want.num_rows}")
+            for c in want.column_names:
+                if not np.array_equal(got[c][order], ref[c].to_numpy()):
+                    raise AssertionError(f"range {name} {mode}: column {c} differs from pyarrow")
+            stats = timing["warm_stats"]
+            if mode == "index" and (stats["scan"] != "IndexRangeScan" or stats["rows_pruned"] == 0):
+                raise AssertionError(f"range {name}: the index scan did not slice: {stats}")
+            out[f"{name}_{mode}"] = {"rows": result.num_rows, **timing}
+    session.enable_hyperspace()
+    return out
 
 
 # -- join path ----------------------------------------------------------------
@@ -694,20 +935,21 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
             )
 
     counts: dict = {}
+    tolerant = {"J1": (), "J2": ("sum_price", "avg_total"), "J3": ("sum_total", "sum_price")}
     for mode in ("index", "no_index"):
         session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
         want_path = "zero-exchange-aligned" if mode == "index" else "single-partition"
         for name, plan in queries.items():
             k2, k1 = run_bounds.launches, segment_reduce.launches
-            t0 = time.perf_counter()
-            session.run(plan)  # cold: reads the index or source columns onto the device
-            sync()
-            phases[f"{name}_{mode}_cold_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            result = session.run(plan)
-            sync()
-            phases[f"{name}_{mode}_s"] = time.perf_counter() - t0
-            stats_q = session.last_query_stats
+            # Cold (reads the index or source columns onto the device, derives
+            # the key codes and group ids), then warm: the join codes, and a
+            # fused aggregate's group ids, must come from HOST_DERIVED.
+            derived = ("fact",) if name == "J1" else ("fact", "gid")
+            (result,), timing = cold_warm(f"{name} {mode}", session, [plan], ctx["plan_cache"], sync, derived,
+                                          tolerant[name])
+            phases[f"{name}_{mode}"] = timing
+            phases[f"{name}_{mode}_cold_s"], phases[f"{name}_{mode}_s"] = timing["cold_s"], timing["warm_s"]
+            stats_q = timing["warm_stats"]
             if stats_q["join_path"] != want_path:
                 raise AssertionError(f"{name} {mode}: join path {stats_q['join_path']}, expected {want_path}")
             if name != "J1" and stats_q["agg_path"] != "fused-join-agg":
@@ -720,10 +962,16 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
                 raise AssertionError(f"{name} {mode}: K1 never launched")
             check(name, result, mode == "index")
             counts[f"{name}_{mode}"] = result.num_rows
+        phases[f"caches_after_{mode}"] = cache_stats()
     for name, mode in (("J2", "index"), ("J3", "index"), ("J2", "no_index")):
         session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
         label = f"{name}_profiled" if mode == "index" else f"{name}_{mode}_profiled"
-        phases[label] = device_time(lambda: session.run(queries[name]), ("run_bounds_", "segment_reduce_"))
+        # Warm: one run first rebuilds what HOST_DERIVED evicted since the
+        # query's own warm run (J2's and J3's derivations pass its budget).
+        session.run_query(queries[name], plan_cache=ctx["plan_cache"])
+        phases[label] = device_time(
+            lambda: session.run_query(queries[name], plan_cache=ctx["plan_cache"]), ("run_bounds_", "segment_reduce_")
+        )
     session.enable_hyperspace()
     # K1's inputs at the fused aggregates' shapes, from one more indexed run
     # of each: the secondary run extrema, then the group fold.
@@ -865,6 +1113,26 @@ def check_against_exact(name: str, scores, ids, exact_ids, exact_d2, emb, querie
     return {"queries_set_checked": int(separated.sum()), "max_abs_score_err": float(err.max())}
 
 
+def check_scores_of_rows(name: str, scores, ids, exact_top, emb, queries) -> dict:
+    """An approximate search result (scores [q, k], row ids [q, k]): the
+    ids of a row distinct, its scores descending, and each score its
+    row's float64 l2 score within rtol 1e-4 plus the float32 rounding
+    bound (l2_rounding). Returns the recall against `exact_top`."""
+    if scores.shape != ids.shape or not np.isfinite(scores).all():
+        raise AssertionError(f"{name}: scores of shape {scores.shape}, finite {np.isfinite(scores).all()}")
+    if any(len(set(r.tolist())) != len(r) for r in ids):
+        raise AssertionError(f"{name}: a query returned a row twice")
+    if np.any(np.diff(scores, axis=1) > 0):
+        raise AssertionError(f"{name}: scores are not in descending order")
+    q = queries.astype(np.float64)
+    d2 = np.stack([((emb[ids[i]].astype(np.float64) - q[i]) ** 2).sum(1) for i in range(len(q))])
+    err = np.abs(scores + d2)
+    if not np.all(err <= 1e-4 * d2 + l2_rounding(emb, queries, ids)):
+        raise AssertionError(f"{name}: scores beyond rtol 1e-4 plus the float32 bound ({err.max()})")
+    recall = np.mean([len(set(ids[i].tolist()) & set(exact_top[i].tolist())) / ids.shape[1] for i in range(len(q))])
+    return {"recall": float(recall), "max_abs_score_err": float(err.max())}
+
+
 def capture_topk(fn) -> list:
     """Runs `fn` once with every K3 call of the vector search recorded, in
     call order: (scores, k), copied on the device. The calls still launch
@@ -928,8 +1196,11 @@ def vector_path(device, workdir: Path, n: int, dim: int = 128, partitions: int =
     checks["partition_rows"] = {"min": min(file_rows), "max": max(file_rows)}
 
     queries = emb[np.random.default_rng(9).choice(n, 32, replace=False)] + 0.01
+    # Past K3's shared-memory sort; at most half the rows an nprobe-8 query
+    # probes (n / 8), which only a rehearsal's small n makes the limit.
+    big_k = min(BIG_K, n // 16)
     t0 = time.perf_counter()
-    exact_ids, exact_d2 = exact_l2_topk(emb, queries, 100)
+    exact_ids, exact_d2 = exact_l2_topk(emb, queries, big_k)
     phases["exact_host_float64_s"] = time.perf_counter() - t0
 
     def timed(label, fn):
@@ -980,16 +1251,30 @@ def vector_path(device, workdir: Path, n: int, dim: int = 128, partitions: int =
     # Each call's share of K3's device time: routing runs first, in
     # launches_per_call(partitions) kernels, and the candidates' follow.
     each = profiled["kernel_ms_each"]["topk_"]
-    split = launches_per_call(partitions)
+    split = launches_per_call(partitions, 8)
     profiled["topk_ms"] = (
         None if each is None else {"routing": sum(each[:split]), "candidates": sum(each[split:])}
     )
     phases["ann_nprobe8_profiled"] = profiled
+    # Past K3's shared-memory sort (k > 2,048): brute force against the
+    # exact top k, and an nprobe-8 search whose every score must be its
+    # row's exact distance (it may miss rows of unprobed partitions).
+    session.disable_hyperspace()
+    res = timed(f"brute_k{big_k}_s", lambda: hs.ann_search(df, queries, k=big_k))
+    checks[f"brute_k{big_k}"] = check_against_exact(
+        f"brute force k={big_k}", res.scores, ids_of(res, big_k), exact_ids, exact_d2, emb, queries, big_k
+    )
+    session.enable_hyperspace()
+    res = timed(f"ann_nprobe8_k{big_k}_s", lambda: hs.ann_search(df, queries, k=big_k, nprobe=8))
+    checks[f"ann_nprobe8_k{big_k}"] = check_scores_of_rows(
+        f"nprobe 8, k={big_k}", res.scores, ids_of(res, big_k), exact_ids[:, :big_k], emb, queries
+    )
     # 2 brute force x (cold, warm) + 2 nprobe x (cold, warm) x 2 (route,
-    # candidates) + the profiled query's 2.
+    # candidates) + the profiled query's 2, twice + brute force and nprobe
+    # 8 at big_k (1 and 2).
     launched = topk.launches - before
-    if device.type == "cuda" and launched != 4 + 8 + 2:
-        raise AssertionError(f"K3 launched {launched} times on the vector path, expected 14")
+    if device.type == "cuda" and launched != 4 + 8 + 4 + 3:
+        raise AssertionError(f"K3 launched {launched} times on the vector path, expected 19")
 
     # K3's inputs at the path's shapes: the routing and candidate scores
     # of one nprobe-8 query, and the brute-force score matrix (for k = 10
@@ -998,11 +1283,13 @@ def vector_path(device, workdir: Path, n: int, dim: int = 128, partitions: int =
     probed = torch.unique(topk_plain(*routing)[1])
     checks["nprobe8_partitions_in_union"] = len(probed)
     checks["nprobe8_candidates"] = candidates[0].shape[1]
+    _, (big_candidates, _) = capture_topk(lambda: hs.ann_search(df, queries, k=big_k, nprobe=8))
     session.disable_hyperspace()
     (brute_scores, _), = capture_topk(lambda: hs.ann_search(df, queries, k=10))
     k3_inputs = {
         "routing": routing, "candidates": candidates,
         "brute force": (brute_scores, 10), "brute force k=100": (brute_scores, 100),
+        f"candidates k={big_k}": (big_candidates, big_k), f"brute force k={big_k}": (brute_scores, big_k),
     }
     del emb
     return {"rows": n, "dim": dim, "partitions": partitions, "queries": len(queries),
@@ -1056,7 +1343,7 @@ def k3_phase(device, scores, k: int) -> dict:
         "q": q, "n": n, "k": k,
         # The design's split of a row (0 blocks: one block sorts the row)
         # and its kernels a call.
-        "blocks_per_row": blocks, "chunk": chunk, "kernels_per_call": launches_per_call(n),
+        "blocks_per_row": blocks, "chunk": chunk, "kernels_per_call": launches_per_call(n, k),
         "ms": cuda_ms(lambda: topk(scores, k)),
         "call": lambda: topk(scores, k),
         "plain_ms": cuda_ms(lambda: topk_plain(scores, k)),
@@ -1072,7 +1359,14 @@ def main(argv=None) -> int:
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor (1.0 = 1.5M orders, about 6.0M rows)")
     ap.add_argument("--seed", type=int, default=42)
     args = ap.parse_args(argv)
+    card_query = start_card_query()
+    try:
+        return run(args, card_query)
+    finally:
+        stop_process(card_query)
 
+
+def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1083,8 +1377,6 @@ def main(argv=None) -> int:
     from hyperspace_tpu_torch.ops.sortkeys import run_bounds
     from hyperspace_tpu_torch.ops.topk import topk
 
-    card = card_line()
-    log(card)
     device = torch.device("cuda")
     t0 = time.perf_counter()
     kernels.build()
@@ -1111,12 +1403,14 @@ def main(argv=None) -> int:
         result["phases"]["main_path_s"] = time.perf_counter() - t0
         launches = {"aggregates": read_counts("aggregate", ("segment_reduce",))}
         log(json.dumps({"main_path": result, "launches": launches["aggregates"]}))
+        log(json.dumps({"caches_after_path": "aggregate", **cache_stats()}))
         zero_counts()
         t0 = time.perf_counter()
         join, k1_join_inputs, k2_inputs = join_path(device, ctx, args.sf)
         join["phases"]["join_path_s"] = time.perf_counter() - t0
         launches["join"] = read_counts("join", ("run_bounds", "segment_reduce"))
         log(json.dumps({"join_path": join, "launches": launches["join"]}))
+        log(json.dumps({"caches_after_path": "join", **cache_stats()}))
         k1_agg_inputs = ctx["k1_inputs"]
         del ctx
         zero_counts()
@@ -1125,6 +1419,7 @@ def main(argv=None) -> int:
         vector["phases"]["vector_path_s"] = time.perf_counter() - t0
         launches["vector"] = read_counts("vector", ("topk",))
         log(json.dumps({"vector_path": vector, "launches": launches["vector"]}))
+        log(json.dumps({"caches_after_path": "vector", **cache_stats()}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1268,7 +1563,7 @@ def main(argv=None) -> int:
             "plain_check": "passed",
         })
     log(json.dumps({"kernels": entries}))
-    log(card_line())
+    log(card_line(card_query))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

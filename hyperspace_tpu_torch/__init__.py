@@ -14,7 +14,7 @@ the JAX package.
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.index_config import IndexConfig
-from hyperspace_tpu_torch.plan.expr import col, lit
+from hyperspace_tpu_torch.plan.expr import col, lit, when
 from hyperspace_tpu_torch.plan.nodes import AggSpec, Join
 from hyperspace_tpu_torch.schema import Field, Schema
 
@@ -28,15 +28,18 @@ __all__ = [
     "HyperspaceSession",
     "IndexConfig",
     "Join",
+    "PlanCache",
+    "QueryOutcome",
     "Schema",
     "VectorIndexConfig",
     "col",
     "lit",
+    "when",
 ]
 
 
 def __getattr__(name):
-    if name in ("Hyperspace", "HyperspaceSession"):
+    if name in ("Hyperspace", "HyperspaceSession", "QueryOutcome"):
         from hyperspace_tpu_torch import hyperspace as _h
 
         return getattr(_h, name)
@@ -44,4 +47,8 @@ def __getattr__(name):
         from hyperspace_tpu_torch.vector.index import VectorIndexConfig
 
         return VectorIndexConfig
+    if name == "PlanCache":
+        from hyperspace_tpu_torch.serve.plan_cache import PlanCache
+
+        return PlanCache
     raise AttributeError(name)

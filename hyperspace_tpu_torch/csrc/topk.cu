@@ -36,13 +36,24 @@
 //     that is the "ties -> lowest column" rule exactly, with no atomic
 //     order involved. Only the block where the cut falls ranks; a block
 //     all of whose ties are taken places them in any order;
-//   * sort (1 launch, one block a row): a bitonic sort of the k 64-bit
-//     candidates in shared memory (at most 2,048: 16 KB), decoded into
-//     values and indices.
+//   * sort (1 launch, one block a row): for k <= 2,048 a bitonic sort of
+//     the k 64-bit candidates in shared memory (16 KB), decoded into
+//     values and indices;
+//   * or, for k > 2,048, a merge sort in device memory: one launch sorts
+//     runs of 2,048 candidates in shared memory (the last run padded with
+//     ~0 keys that sort last and are never written back), then each of
+//     ceil(log2(runs)) launches merges pairs of runs, ping-ponging between
+//     the candidate list and a second buffer of the same size, the last
+//     one decoding. A key's place in a merged run is its rank in its own
+//     run plus the count of smaller keys in the partner run (one binary
+//     search): the 64-bit keys of a row are distinct (the column is the
+//     low word), so the places never collide and the order is the one
+//     unsigned compare of the whole key, ties to the lowest column.
 // Where n and the chunk are multiples of 4, the digit and gather passes
-// load float4s. So the row is read four times, in 8 launches whatever k is. A row of at
-// most 4,096 columns (the routing shape, n = 64) takes one launch instead:
-// one block sorts the whole row's 64-bit keys and keeps the first k.
+// load float4s. So the row is read four times, in 8 launches for k <=
+// 2,048 (8 + ceil(log2(ceil(k / 2048))) above). A row of at most 4,096
+// columns (the routing shape, n = 64) takes one launch instead, for any
+// k <= n: one block sorts the whole row's 64-bit keys and keeps the first k.
 // The kernel allocates nothing: the caller passes the outputs and the
 // workspace (ops/topk.py::workspace_bytes).
 
@@ -52,7 +63,8 @@
 namespace {
 
 constexpr int kSmallMax = 4096;  // columns a row may have for the one-launch path
-constexpr int kMaxK = 2048;
+constexpr int kMaxK = 2048;  // candidates sorted in one block's shared memory: a run of the merge sort
+constexpr int kMergeThreads = 256;
 constexpr int kThreads = 512;  // digit and gather blocks
 constexpr int kScanThreads = 1024;
 constexpr int kBins = 2048;  // histogram stride: 11-bit digits (the last has 10 bits)
@@ -93,16 +105,18 @@ template <int P> struct Digit {
 constexpr int kState = 4;
 
 struct Workspace {
-    unsigned long long* cand;  // [q, k]
-    int* hist;                 // [q, bpr, kBins]
-    int* tiebase;              // [q, bpr]
-    int* state;                // [q, kState]
+    unsigned long long* cand;   // [q, k]
+    unsigned long long* cand2;  // [q, k] for k > kMaxK (the merge's second buffer), else null
+    int* hist;                  // [q, bpr, kBins]
+    int* tiebase;               // [q, bpr]
+    int* state;                 // [q, kState]
 };
 
 Workspace carve(void* base, long long q, int k, int bpr) {
     Workspace w;
     w.cand = static_cast<unsigned long long*>(base);
-    w.hist = reinterpret_cast<int*>(w.cand + q * k);
+    w.cand2 = k > kMaxK ? w.cand + q * k : nullptr;
+    w.hist = reinterpret_cast<int*>(w.cand + (k > kMaxK ? 2 : 1) * q * k);
     w.tiebase = w.hist + q * bpr * (long long)kBins;
     w.state = w.tiebase + q * bpr;
     return w;
@@ -380,6 +394,62 @@ __global__ void topk_sort(const unsigned long long* __restrict__ cand, int k, in
     for (int i = threadIdx.x; i < k; i += blockDim.x) write_result(s[i], row * k + i, vals, idx);
 }
 
+// One block a run of kMaxK candidates of one row (the row's last run may
+// be shorter): sorted ascending in shared memory, written back in place.
+__global__ void topk_sort_runs(unsigned long long* __restrict__ cand, int k, int runs) {
+    __shared__ unsigned long long s[kMaxK];
+    const long long row = blockIdx.x / runs;
+    const int lo = (blockIdx.x % runs) * kMaxK;
+    const int len = k - lo < kMaxK ? k - lo : kMaxK;
+    unsigned long long* c = cand + row * k + lo;
+    for (int i = threadIdx.x; i < kMaxK; i += blockDim.x) s[i] = i < len ? c[i] : kPad;
+    __syncthreads();
+    bitonic_sort(s, kMaxK);
+    for (int i = threadIdx.x; i < len; i += blockDim.x) c[i] = s[i];
+}
+
+// One merge pass over every row's sorted runs of `width` keys (the last
+// may be shorter): runs 2j and 2j + 1 become run j of 2 * width. A thread
+// a key: its place is its rank in its own run plus the count of keys of
+// the partner run below it (keys of a row are distinct). `dst` null:
+// the last pass, which decodes into vals / idx.
+__global__ void __launch_bounds__(kMergeThreads) topk_merge(const unsigned long long* __restrict__ src,
+                                                            unsigned long long* __restrict__ dst, long long q,
+                                                            int k, long long width, float* __restrict__ vals,
+                                                            int* __restrict__ idx) {
+    const long long g = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
+    if (g >= q * k) return;
+    const long long row = g / k;
+    const long long i = g - row * k;
+    const long long run = i / width;
+    const long long base = (run & ~1LL) * width;  // the merged run's first key
+    long long lo, hi;                               // the partner run
+    if (run & 1) {
+        lo = base;
+        hi = base + width;
+    } else {
+        lo = base + width < k ? base + width : k;
+        hi = base + 2 * width < k ? base + 2 * width : k;
+    }
+    const unsigned long long* r = src + row * k;
+    const unsigned long long key = r[i];
+    const long long first = lo;
+    while (lo < hi) {
+        const long long mid = (lo + hi) >> 1;
+        if (r[mid] < key) {
+            lo = mid + 1;
+        } else {
+            hi = mid;
+        }
+    }
+    const long long at = row * k + base + (i - run * width) + (lo - first);
+    if (dst != nullptr) {
+        dst[at] = key;
+    } else {
+        write_result(key, at, vals, idx);
+    }
+}
+
 int pow2_at_least(long long v) {
     int p = 1;
     while (p < v) p <<= 1;
@@ -414,13 +484,14 @@ extern "C" {
 // workspace); otherwise each row is split into blocks_per_row chunks of
 // `chunk` columns (the last may be shorter, none empty) and `workspace`
 // holds ops/topk.py::workspace_bytes(q, k, blocks_per_row) bytes.
-// Returns the CUDA error of the launches (0 on success); 1000 + n for a
-// bad argument n.
+// Any k <= n: for k > 2,048 on the radix path the workspace holds the
+// merge sort's second buffer too. Returns the CUDA error of the launches
+// (0 on success); 1000 + n for a bad argument n.
 int hs_topk(const float* scores, long long q, long long n, int k, int blocks_per_row, long long chunk,
             void* workspace, float* vals, int* idx, void* stream) {
     if (q < 1) return 1002;
     if (n < 1 || n >= 0xFFFFFFFFLL) return 1003;
-    if (k < 1 || k > kMaxK || k > n) return 1004;
+    if (k < 1 || k > n) return 1004;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaGetLastError();  // clear any stale error so the return is ours
     if (blocks_per_row == 0) {
@@ -440,8 +511,24 @@ int hs_topk(const float* scores, long long q, long long n, int k, int blocks_per
     } else {
         radix_select<1>(scores, q, n, k, bpr, chunk, w, s);
     }
-    int size = pow2_at_least(k);
-    topk_sort<<<(unsigned int)q, sort_threads(size), 0, s>>>(w.cand, k, size, vals, idx);
+    if (k <= kMaxK) {
+        int size = pow2_at_least(k);
+        topk_sort<<<(unsigned int)q, sort_threads(size), 0, s>>>(w.cand, k, size, vals, idx);
+        return (int)cudaGetLastError();
+    }
+    const int runs = (k + kMaxK - 1) / kMaxK;
+    if (q * runs > 0x7FFFFFFFLL || (q * k + kMergeThreads - 1) / kMergeThreads > 0x7FFFFFFFLL) return 1008;
+    topk_sort_runs<<<(unsigned int)(q * runs), sort_threads(kMaxK), 0, s>>>(w.cand, k, runs);
+    const unsigned int grid = (unsigned int)((q * k + kMergeThreads - 1) / kMergeThreads);
+    unsigned long long* from = w.cand;
+    unsigned long long* to = w.cand2;
+    for (long long width = kMaxK; width < k; width *= 2) {
+        const bool last = 2 * width >= k;
+        topk_merge<<<grid, kMergeThreads, 0, s>>>(from, last ? nullptr : to, q, k, width, vals, idx);
+        unsigned long long* t = from;
+        from = to;
+        to = t;
+    }
     return (int)cudaGetLastError();
 }
 

@@ -1,36 +1,41 @@
-"""Executor support for joins: side descriptors, the shared key
-factorization, bucket-major padding and the aggregate channel inputs.
+"""Executor support: side descriptors, key-bound analysis, the identity
+caches, the shared key factorization, bucket-major padding and the
+aggregate channel inputs.
 
 A port of the subset of the JAX package's `execution/exec_common.py` that
-the bucket-aligned inner join and the fused Aggregate(Join) run:
-`AlignedSide` (without hybrid-scan deltas, and without the projection:
-the join gather emits the join's schema directly), `SideData` (without
-the hash domain, which only the re-bucketing exchange and the
-bucket-preserved reuse read — neither is ported), `_filter_side`,
-`_bucket_sorted_codes`, `_pad_bucket_major` and `_factorize_keys` with
-its helpers. The key
-factorization is a copy and runs on the host (numpy): it yields int32
-rank codes whose order is the key tuples' order and whose equality across
-sides is key equality. Sorting, padding and everything after run as torch
-ops on the tables' device. The JAX package's identity caches (memoized
-factorizations, pads, channel stacks) have no counterpart yet: every
-query recomputes them.
+the bucket-aligned inner join, the fused Aggregate(Join) and the
+range-pruned index scan run: `AlignedSide` (without hybrid-scan deltas,
+and without the projection: the join gather emits the join's schema
+directly), `SideData` (without the hash domain, which only the
+re-bucketing exchange and the bucket-preserved reuse read — neither is
+ported), `_filter_side`, `_bucket_sorted_codes`, `_pad_bucket_major` and
+`_factorize_keys` with its helpers; `KeyBounds`, `key_bounds`,
+`predicate_all_key_bounds`, `_stats_overlap` and `_convert_bounds`; and
+the identity caches `_stable_table_refs`, `_group_ids_cached`,
+`_agg_channels_cached`, `_factorize_keys_cached`,
+`_pad_bucket_major_cached` and `_stack_cached` (execution/device_cache.py
+says what "stable" means here). The key factorization is a copy and runs
+on the host (numpy): it yields int32 rank codes whose order is the key
+tuples' order and whose equality across sides is key equality. Sorting,
+padding and everything after run as torch ops on the tables' device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 
 import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.execution import device_cache as dc
 from hyperspace_tpu_torch.execution.table import ColumnTable
-from hyperspace_tpu_torch.ops.aggregate import agg_input
+from hyperspace_tpu_torch.ops.aggregate import agg_input, group_ids
 from hyperspace_tpu_torch.ops.filter import eval_predicate_mask
 from hyperspace_tpu_torch.ops.join import sentinel_for
-from hyperspace_tpu_torch.plan.expr import Expr
+from hyperspace_tpu_torch.plan.expr import BinOp, Col, Expr, InList, Lit, split_conjuncts
 from hyperspace_tpu_torch.plan.nodes import Scan
 
 
@@ -121,15 +126,18 @@ def _padded_key_codes(
     """Per side (left, right): the join keys' int32 codes from the shared
     factorization, sorted within each bucket and padded bucket-major to
     [B, L] (pads at the int32 max), and the perm from sorted positions
-    back to the side's rows (None when the buckets were sorted already)."""
+    back to the side's rows (None when the buckets were sorted already).
+    Every step goes through the identity caches: over stable tables a
+    repeat join factorizes, uploads, sorts and pads nothing."""
     lt, rt = lside.table, rside.table
     lkeys = [lt.schema.field(c).name for c in left_on]
     rkeys = [rt.schema.field(c).name for c in right_on]
-    lc, rc = _factorize_keys([lt], [rt], lkeys, rkeys)
+    lc, rc = _factorize_keys_cached(lt, rt, lkeys, rkeys)
     out = []
-    for side, codes in ((lside, lc[0]), (rside, rc[0])):
-        sorted_codes, perm = _bucket_sorted_codes(torch.from_numpy(codes).to(side.table.device), side)
-        out.append((_pad_bucket_major(sorted_codes, side.offsets), perm))
+    for side, codes in ((lside, lc), (rside, rc)):
+        codes_t = dc.device_put_cached(codes, side.table.device)
+        sorted_codes, perm = _bucket_sorted_codes_cached(codes_t, side)
+        out.append((_pad_bucket_major_cached(sorted_codes, side.offsets), perm))
     return out
 
 
@@ -142,6 +150,269 @@ def _agg_channels(table: ColumnTable, spec) -> tuple[torch.Tensor, torch.Tensor]
     if valid is None:
         return vals, torch.ones_like(vals)
     return torch.where(valid, vals, torch.zeros_like(vals)), valid.to(torch.float64)
+
+
+# -- identity caches (execution/device_cache.py) ------------------------------------
+
+
+def _stable_table_refs(table: ColumnTable, names: set[str]):
+    """(refs, id-parts) over every array the named columns touch (data,
+    dictionary, validity), or (None, None) when any is unstable."""
+    refs: list = []
+    parts: list = []
+    for nm in sorted(names):
+        f = table.schema.field(nm)
+        for a in (table.columns[f.name], table.dictionaries.get(f.name), table.validity.get(f.name)):
+            if a is None:
+                parts.append(None)
+                continue
+            if not dc.is_stable(a):
+                return None, None
+            refs.append(a)
+            parts.append(dc.ident(a))
+    return tuple(refs), tuple(parts)
+
+
+def _group_ids_cached(table: ColumnTable, group_by: list[str]):
+    """group_ids memoized on the identity of the (stable) group-key
+    columns: repeat aggregations over the same index version or source
+    skip the host factorization of millions of keys."""
+    if not group_by:
+        return group_ids(table, group_by)
+    refs, parts = _stable_table_refs(table, {c.lower() for c in group_by})
+    if refs is None:
+        return group_ids(table, group_by)
+    return dc.derived(
+        ("gid", tuple(c.lower() for c in group_by), parts), refs, lambda: group_ids(table, group_by)
+    )
+
+
+def _agg_channels_cached(tbl: ColumnTable, spec) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_agg_channels` memoized per (expression, input identity) for
+    stable tables."""
+    refs, parts = _stable_table_refs(tbl, {r.lower() for r in spec.references()})
+    if not refs:  # unstable or constant expression: no identity to key on
+        return _agg_channels(tbl, spec)
+    key = ("aggin", json.dumps(spec.expr.to_json(), sort_keys=True), parts)
+    return dc.derived(key, refs, lambda: _agg_channels(tbl, spec))
+
+
+def _factorize_keys_cached(lt: ColumnTable, rt: ColumnTable, lkeys, rkeys) -> tuple[np.ndarray, np.ndarray]:
+    """Pairwise key factorization memoized on the identity of every input
+    it reads (key columns, dictionaries, validity), valid only when all
+    are stable. Repeat joins over the same index version skip ranking
+    entirely; the codes are frozen, so their uploads and pads cache too.
+    Returns (lcodes, rcodes)."""
+
+    def build():
+        lc, rc = _factorize_keys([lt], [rt], lkeys, rkeys)
+        return lc[0], rc[0]
+
+    lrefs, lparts = _stable_table_refs(lt, {k.lower() for k in lkeys})
+    rrefs, rparts = _stable_table_refs(rt, {k.lower() for k in rkeys})
+    if lrefs is None or rrefs is None:
+        return build()
+    return dc.derived(("fact", (lparts, rparts)), lrefs + rrefs, build)
+
+
+def _bucket_sorted_codes_cached(codes: torch.Tensor, side: SideData) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """`_bucket_sorted_codes` through the derived cache when `codes` is
+    stable; a side already sorted keeps `codes` itself."""
+    if not dc.is_stable(codes):
+        return _bucket_sorted_codes(codes, side)
+
+    def build():
+        out, perm = _bucket_sorted_codes(codes, side)
+        return (None, None) if perm is None else (out, perm)
+
+    out, perm = dc.derived(
+        ("bsort", dc.ident(codes), side.offsets.tobytes(), side.sorted_within), (codes,), build
+    )
+    return (codes, None) if perm is None else (out, perm)
+
+
+def _pad_bucket_major_cached(
+    values: torch.Tensor, offsets: np.ndarray, fill=None, width: int | None = None
+) -> torch.Tensor:
+    """Bucket-major pad through the derived cache when the input is
+    stable."""
+    if dc.is_stable(values):
+        return dc.derived(
+            ("padbm", dc.ident(values), offsets.tobytes(), repr(fill), width),
+            (values,),
+            lambda: _pad_bucket_major(values, offsets, fill=fill, width=width),
+        )
+    return _pad_bucket_major(values, offsets, fill=fill, width=width)
+
+
+def _stack_cached(arrs: list, empty_shape: tuple, device: torch.device) -> torch.Tensor:
+    """torch.stack through the derived cache when every channel is stable
+    (an [A, B, L] float64 stack is a copy of hundreds of MB a query)."""
+    if not arrs:
+        return torch.zeros(empty_shape, dtype=torch.float64, device=device)
+    if all(dc.is_stable(a) for a in arrs):
+        return dc.derived(("stack", tuple(dc.ident(a) for a in arrs)), tuple(arrs), lambda: torch.stack(arrs))
+    return torch.stack(arrs)
+
+
+# -- key bounds for range pruning (a copy of the JAX package's) -----------------------
+
+
+@dataclasses.dataclass
+class KeyBounds:
+    """Conjunct bounds on one column: lo/hi literal (None = unbounded) and
+    whether each bound is strict (< / >) rather than inclusive."""
+
+    lo: object = None
+    lo_strict: bool = False
+    hi: object = None
+    hi_strict: bool = False
+
+
+_FLIP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
+
+
+def _conjunct_col_lit(conj) -> tuple[str, str, object] | None:
+    """Destructure one conjunct as (column, op, literal), normalizing
+    `lit op col` by flipping the comparison. NaN literals are rejected
+    (they defeat ordered-bound reasoning: every comparison is False, but
+    searchsorted treats NaN as largest). Returns None otherwise."""
+    if not isinstance(conj, BinOp):
+        return None
+    op = conj.op
+    if isinstance(conj.left, Col) and isinstance(conj.right, Lit):
+        name, v = conj.left.name, conj.right.value
+    elif isinstance(conj.right, Col) and isinstance(conj.left, Lit):
+        name, v = conj.right.name, conj.left.value
+        op = _FLIP.get(op, op)
+    else:
+        return None
+    if v is None:
+        return None
+    if isinstance(v, (float, np.floating)) and np.isnan(v):
+        return None
+    return name, op, v
+
+
+def _conjunct_bound_ops(conj, key: str) -> list[tuple[str, object]] | None:
+    """One conjunct → literal (op, value) bounds it implies on `key`:
+    plain comparisons pass through; IN gives its min/max envelope. The
+    residual filter mask still applies the exact predicate — bounds only
+    need to be a valid superset. (The JAX package's LIKE-prefix and
+    date-part bounds wait for those expressions' port.)"""
+    if isinstance(conj, InList) and isinstance(conj.child, Col):
+        if conj.child.name.lower() != key:
+            return None
+        vals = conj.values
+        if any(isinstance(v, (float, np.floating)) and np.isnan(v) for v in vals):
+            return None
+        try:
+            return [("ge", min(vals)), ("le", max(vals))]
+        except TypeError:
+            return None
+    dec = _conjunct_col_lit(conj)
+    if dec is None:
+        return None
+    name, op, v = dec
+    if name.lower() != key or op not in ("eq", "lt", "le", "gt", "ge"):
+        return None
+    return [(op, v)]
+
+
+def key_bounds(predicate: Expr, key: str) -> KeyBounds | None:
+    """Extract literal comparison bounds on `key` from the predicate's
+    conjuncts (key op lit / lit op key; eq pins both ends; IN gives its
+    envelope). Returns None when no conjunct bounds the column.
+    Incomparable literal types are ignored (the residual filter mask
+    still applies them exactly)."""
+    key = key.lower()
+    b = KeyBounds()
+    found = False
+    for conj in split_conjuncts(predicate):
+        pairs = _conjunct_bound_ops(conj, key)
+        if pairs is None:
+            continue
+        for op, v in pairs:
+            try:
+                if op in ("gt", "ge", "eq") and (b.lo is None or v > b.lo or (v == b.lo and op == "gt")):
+                    b.lo, b.lo_strict = v, op == "gt"
+                    found = True
+                if op in ("lt", "le", "eq") and (b.hi is None or v < b.hi or (v == b.hi and op == "lt")):
+                    b.hi, b.hi_strict = v, op == "lt"
+                    found = True
+            except TypeError:
+                continue
+    return b if found else None
+
+
+def predicate_all_key_bounds(predicate: Expr, key: str) -> bool:
+    """True iff EVERY conjunct is a comparable literal bound on `key`
+    (eq/lt/le/gt/ge) — i.e. an exact searchsorted slice on the sorted key
+    fully implements the predicate and the residual mask is redundant."""
+    key = key.lower()
+    for conj in split_conjuncts(predicate):
+        dec = _conjunct_col_lit(conj)
+        if dec is None:
+            return False
+        name, op, v = dec
+        if name.lower() != key or op not in ("eq", "lt", "le", "gt", "ge"):
+            return False
+        if not isinstance(v, (int, float, bool, np.number)):
+            return False
+    return True
+
+
+def _stats_overlap(bounds: KeyBounds, mn, mx) -> bool:
+    """Can any value in [mn, mx] satisfy the bounds?"""
+    try:
+        if bounds.hi is not None and (mn > bounds.hi or (bounds.hi_strict and mn == bounds.hi)):
+            return False
+        if bounds.lo is not None and (mx < bounds.lo or (bounds.lo_strict and mx == bounds.lo)):
+            return False
+    except TypeError:
+        return True  # incomparable stats: keep the file
+    return True
+
+
+def _bounds_domain(field, bounds: KeyBounds):
+    """Conversion putting pruning comparisons in the SAME numeric domain
+    the filter mask uses (numpy's promotion, which ops/filter.py keeps):
+    float32 columns compare weak scalars in float32 (the literal ROUNDS),
+    and int columns compare float literals in float64. Without this,
+    pruning could drop rows the mask would keep. Returns None when raw
+    comparison already matches (ints vs ints, strings)."""
+    dt = np.dtype(field.device_dtype)
+    vals = [v for v in (bounds.lo, bounds.hi) if v is not None]
+    if dt.kind == "f":
+        weak = all(type(v) in (int, float, bool) or isinstance(v, (np.bool_, np.float32)) for v in vals)
+        return np.float32 if (dt.itemsize <= 4 and weak) else np.float64
+    if dt.kind in "iu" and any(isinstance(v, (float, np.floating)) for v in vals):
+        return np.float64
+    return None
+
+
+def _convert_bounds(field, bounds: KeyBounds) -> tuple[KeyBounds, object]:
+    """(bounds cast into the comparison domain, stat-value converter)."""
+    conv = _bounds_domain(field, bounds)
+    if conv is None:
+        return bounds, lambda v: v
+    try:
+        cast = KeyBounds(
+            conv(bounds.lo) if bounds.lo is not None else None,
+            bounds.lo_strict,
+            conv(bounds.hi) if bounds.hi is not None else None,
+            bounds.hi_strict,
+        )
+    except (TypeError, ValueError, OverflowError):
+        return bounds, lambda v: v
+
+    def stat_conv(v):
+        try:
+            return conv(v)
+        except (TypeError, ValueError, OverflowError):
+            return v
+
+    return cast, stat_conv
 
 
 # -- key factorization (a copy of the JAX package's, on the host) ---------------

@@ -6,7 +6,9 @@ A port of the JAX package's `execution/exec_join_agg.py`:
 host venue: the channels always run on the session's device through
 ops/join_agg.py (K2 for the run bounds, K1 for the fold). Group ids are
 factorized on the host (ops/aggregate.py::group_ids), as for the plain
-aggregate.
+aggregate. Group ids, channels, pads and channel stacks go through the
+identity caches (exec_common.py), as in the JAX package: a repeat over the
+same index version derives none of them again.
 """
 
 from __future__ import annotations
@@ -14,9 +16,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hyperspace_tpu_torch.execution.exec_common import _agg_channels, _pad_bucket_major, _padded_key_codes
+from hyperspace_tpu_torch.execution.device_cache import device_put_cached
+from hyperspace_tpu_torch.execution.exec_common import (
+    _agg_channels_cached,
+    _group_ids_cached,
+    _pad_bucket_major_cached,
+    _padded_key_codes,
+    _stack_cached,
+)
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_numpy
-from hyperspace_tpu_torch.ops.aggregate import finalize_agg_values, group_ids
+from hyperspace_tpu_torch.ops.aggregate import finalize_agg_values
 from hyperspace_tpu_torch.ops.join_agg import fused_join_aggregate
 from hyperspace_tpu_torch.plan.expr import Col
 from hyperspace_tpu_torch.plan.nodes import Aggregate, Join, Project
@@ -31,7 +40,7 @@ class FusedJoinAggMixin:
         the primary side, whose rows the groups are made of. Anything
         else returns None and runs the materialized join."""
         child = plan.child
-        if isinstance(child, Project):
+        if isinstance(child, Project) and child.is_simple:
             child = child.child
         if not isinstance(child, Join) or child.how != "inner" or child.condition is not None or child.null_safe:
             return None
@@ -78,7 +87,7 @@ class FusedJoinAggMixin:
         keys, perms = {"left": lk, "right": rk}, {"left": lperm, "right": rperm}
 
         ptable = data[primary].table
-        gid, k, rep = group_ids(ptable, plan.group_by)
+        gid, k, rep = _group_ids_cached(ptable, plan.group_by)
         if k == 0:  # empty primary side
             if plan.group_by:
                 return ColumnTable.empty(plan.schema, device=self.device)
@@ -137,11 +146,11 @@ class FusedJoinAggMixin:
             if perms[side] is not None:
                 vals = vals[perms[side]]
             width = lp if side == primary else ls
-            return _pad_bucket_major(vals, data[side].offsets, fill=fill, width=width)
+            return _pad_bucket_major_cached(vals, data[side].offsets, fill=fill, width=width)
 
         ptable = data[primary].table
         # Pads carry group id k: the dead segment.
-        gid_pad = pad_rows(primary, torch.from_numpy(gid).to(ptable.device), fill=k).to(torch.int32)
+        gid_pad = pad_rows(primary, device_put_cached(gid, ptable.device, torch.int32), fill=k)
 
         channels: list[tuple] = [("star",)]
         p_arrays: list[torch.Tensor] = []
@@ -160,21 +169,33 @@ class FusedJoinAggMixin:
             if s is None:  # count(*)
                 spec_layout.append((None, 0))
                 continue
-            vals, ind = _agg_channels(data[s].table, spec)
+            vals, ind = _agg_channels_cached(data[s].table, spec)
             vi = None
             if spec.fn in ("sum", "mean"):
                 vi = add_channel(s, pad_rows(s, vals))
             elif spec.fn in ("min", "max"):
                 # Extremum channels: nulls and pads carry the ±inf identity.
                 ident = float("inf") if spec.fn == "min" else float("-inf")
-                mm = torch.where(ind > 0, vals, torch.full_like(vals, ident))
-                vi = add_channel(s, pad_rows(s, mm, fill=ident), spec.fn)
+                vi = add_channel(s, pad_rows(s, _extremum_input(vals, ind, ident), fill=ident), spec.fn)
             ci = add_channel(s, pad_rows(s, ind))
             spec_layout.append((vi, ci))
 
         dev = pk.device
         b = pk.shape[0]
-        pvals = torch.stack(p_arrays) if p_arrays else torch.zeros((0, b, lp), dtype=torch.float64, device=dev)
-        svals = torch.stack(s_arrays) if s_arrays else torch.zeros((0, b, ls), dtype=torch.float64, device=dev)
+        pvals = _stack_cached(p_arrays, (0, b, lp), dev)
+        svals = _stack_cached(s_arrays, (0, b, ls), dev)
         out = fused_join_aggregate(pk, sk, pvals, svals, gid_pad, k, tuple(channels))
         return to_numpy(out), spec_layout
+
+
+def _extremum_input(vals: torch.Tensor, ind: torch.Tensor, ident: float) -> torch.Tensor:
+    """An extremum channel's input: null slots carry the ±inf identity.
+    Derived from stable channels, it is cached like them."""
+    from hyperspace_tpu_torch.execution import device_cache as dc
+
+    def build():
+        return torch.where(ind > 0, vals, torch.full_like(vals, ident))
+
+    if dc.is_stable(vals) and dc.is_stable(ind):
+        return dc.derived(("extremum", dc.ident(vals), dc.ident(ind), ident), (vals, ind), build)
+    return build()

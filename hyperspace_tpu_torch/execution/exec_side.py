@@ -80,9 +80,11 @@ class JoinSidesMixin:
 
     def _aligned_side(self, plan: LogicalPlan) -> AlignedSide | None:
         """The side as (index or source scan, conjoined filters) when it is
-        a linear Project/Filter chain over one scan."""
+        a linear chain of filters and passthrough projections over one
+        scan (a computed projection is not absorbed: the side then runs
+        whole)."""
         node, predicate = plan, None
-        while isinstance(node, (Project, Filter)):
+        while isinstance(node, Filter) or (isinstance(node, Project) and node.is_simple):
             if isinstance(node, Filter):
                 predicate = node.predicate if predicate is None else And(predicate, node.predicate)
             node = node.child

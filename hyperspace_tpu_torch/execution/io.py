@@ -7,10 +7,11 @@ requested device; writes emit one sorted parquet file per bucket plus a
 
 A port of the JAX package's `execution/io.py`: the bucket-file names, the
 parquet encode and the manifest are the same, so an index written by either
-package is read by the other. The decoded-table and footer caches, the
-chunked row-group read and the fault-injection hooks are not ported; the
-executor keeps decoded index columns on the device instead
-(execution/device_cache.py).
+package is read by the other; `file_key_stats` and `file_column_stats`
+read the manifests' per-bucket min/max for range pruning. The
+decoded-table and footer caches, the chunked row-group read and the
+fault-injection hooks are not ported; the executor keeps decoded columns
+on the device instead (execution/device_cache.py).
 """
 
 from __future__ import annotations
@@ -76,6 +77,16 @@ def read_parquet(
 
 def bucket_file_name(bucket: int) -> str:
     return f"bucket-{bucket:05d}.parquet"
+
+
+def bucket_of_file_name(name: str) -> int | None:
+    """Inverse of bucket_file_name (None for non-bucket files)."""
+    if name.startswith("bucket-") and name.endswith(".parquet"):
+        try:
+            return int(name[len("bucket-") : -len(".parquet")])
+        except ValueError:
+            return None
+    return None
 
 
 def _json_scalar(v):
@@ -182,6 +193,52 @@ def read_manifest_cached(version_dir: Path) -> dict | None:
     with _manifest_lock:
         _manifest_cache[str(mp)] = (mt, m)
     return m
+
+
+def _files_by_dir(files: list[str]) -> dict[Path, list[str]]:
+    by_dir: dict[Path, list[str]] = {}
+    for f in files:
+        by_dir.setdefault(Path(f).parent, []).append(f)
+    return by_dir
+
+
+def file_key_stats(files: list[str]) -> dict[str, list | None]:
+    """Per-file [min, max] of the leading indexed column, looked up in each
+    file's version-dir manifest (cached, mtime-validated). Files whose dir
+    has no manifest or whose manifest has no keyStats are absent from the
+    result; a present-but-None value means the bucket is empty/all-null."""
+    out: dict[str, list | None] = {}
+    for d, fs in _files_by_dir(files).items():
+        m = read_manifest_cached(d)
+        if not m or "keyStats" not in m:
+            continue
+        ks = m["keyStats"]
+        for f in fs:
+            b = bucket_of_file_name(Path(f).name)
+            if b is not None and b < len(ks):
+                out[f] = ks[b]
+    return out
+
+
+def file_column_stats(files: list[str], column: str) -> dict[str, list | None]:
+    """Per-file [min, max] of a NON-leading column from the manifests'
+    columnStats (case-insensitive name match). Same present/None contract
+    as file_key_stats."""
+    out: dict[str, list | None] = {}
+    low = column.lower()
+    for d, fs in _files_by_dir(files).items():
+        cs = (read_manifest_cached(d) or {}).get("columnStats")
+        if not cs:
+            continue
+        for f in fs:
+            b = bucket_of_file_name(Path(f).name)
+            if b is None or b >= len(cs) or cs[b] is None:
+                continue
+            for name, st in cs[b].items():
+                if name.lower() == low:
+                    out[f] = st
+                    break
+    return out
 
 
 def carve_and_write(

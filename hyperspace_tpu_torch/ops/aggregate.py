@@ -181,10 +181,16 @@ def finalize_agg_values(vals: np.ndarray, empty: np.ndarray, dtype) -> np.ndarra
     return safe.astype(dtype)
 
 
-def aggregate_table(table: ColumnTable, group_by: list[str], aggs: list, out_schema: Schema) -> ColumnTable:
+def aggregate_table(
+    table: ColumnTable, group_by: list[str], aggs: list, out_schema: Schema, groups=None
+) -> ColumnTable:
     """Execute a grouped aggregation over a materialized table; the result
-    lies on the table's device."""
-    gid, k, rep = group_ids(table, group_by)
+    lies on the table's device. `groups` is group_ids' (gid, K, rep) when
+    the caller has them (the executor's identity cache); their uploads go
+    through the device cache."""
+    from hyperspace_tpu_torch.execution.device_cache import device_put_cached
+
+    gid, k, rep = group_ids(table, group_by) if groups is None else groups
     inputs = []
     string_dicts: dict[int, np.ndarray] = {}
     for i, spec in enumerate(aggs):
@@ -200,13 +206,13 @@ def aggregate_table(table: ColumnTable, group_by: list[str], aggs: list, out_sch
         inputs.append((vals, valid, fn))
     if k == 0:
         return ColumnTable.empty(out_schema, device=table.device)
-    gid_t = torch.from_numpy(gid.astype(np.int32)).to(table.device)
+    gid_t = device_put_cached(gid, table.device, torch.int32)
     results, counts = aggregate_arrays(inputs, gid_t, k)
 
     cols: dict[str, np.ndarray] = {}
     dicts: dict[str, np.ndarray] = {}
     validity: dict[str, np.ndarray] = {}
-    rep_t = torch.from_numpy(rep).to(table.device)
+    rep_t = device_put_cached(rep, table.device)
     for c in group_by:
         f = table.schema.field(c)
         out_f = out_schema.field(c)

@@ -10,14 +10,15 @@ It replaces the JAX package's Pallas TPU kernel
 `hyperspace_tpu/ops/topk.py:46` (`_make_tile_kernel`). There the kernel
 engages only for k <= 64 and n >= 512, and `lax.top_k` serves every other
 shape (and orders +0.0 above -0.0, which the kernel does not). Here the
-kernel serves every shape on the card, up to k = `MAX_K`; a larger k
-raises.
+kernel serves every shape on the card, every k: up to k = `MAX_K` its last
+step sorts the candidates in one block's shared memory, above it a merge
+sort in device memory takes that step (`merge_passes`).
 
 On a CUDA tensor the wrapper launches `hyperspace_tpu_torch/csrc/topk.cu`
 (whose header says what bounds it on the H100 and how its design answers
-that) or raises: a radix select in `LAUNCHES_RADIX` launches over
-`select_plan`'s split of each row into blocks, or, for a row of at most
-`SMALL_N` columns, one launch. On a CPU tensor it runs `topk_plain`.
+that) or raises: a radix select in `launches_per_call(n, k)` launches
+over `select_plan`'s split of each row into blocks, or, for a row of at
+most `SMALL_N` columns, one launch. On a CPU tensor it runs `topk_plain`.
 `topk.launches` counts one per call that launches.
 """
 
@@ -29,11 +30,11 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 
-MAX_K = 2048  # candidates the last step sorts in shared memory (16 KB)
+MAX_K = 2048  # candidates the last step sorts in shared memory (16 KB); a run of the merge sort above
 SMALL_N = 4096  # a row this short is sorted whole by one block, in one launch
 DIGIT_BITS = (11, 11, 10)  # the radix select's digits of the 32-bit key, high to low
 HIST_BINS = 2048  # a block's histogram: 2^max(DIGIT_BITS) counts
-LAUNCHES_RADIX = 2 * len(DIGIT_BITS) + 2  # a digit pass and a scan each, gather, sort
+LAUNCHES_RADIX = 2 * len(DIGIT_BITS) + 2  # a digit pass and a scan each, gather, sort (k <= MAX_K)
 BLOCKS_PER_SM = 4  # the digit and gather blocks (512 threads) an SM holds
 MIN_CHUNK = 4096  # fewest columns a block of the radix select takes
 
@@ -77,21 +78,33 @@ def select_plan(q: int, n: int, sms: int) -> tuple[int, int]:
     return -(-n // chunk), chunk
 
 
-def launches_per_call(n: int) -> int:
-    """Kernel launches of one call on rows of n columns."""
-    return 1 if n <= SMALL_N else LAUNCHES_RADIX
+def merge_passes(k: int) -> int:
+    """Merge launches after the runs of MAX_K candidates are sorted:
+    ceil(log2(runs)), 0 for k <= MAX_K (no runs: one shared-memory sort)."""
+    runs = -(-k // MAX_K)
+    return (runs - 1).bit_length() if k > MAX_K else 0
+
+
+def launches_per_call(n: int, k: int) -> int:
+    """Kernel launches of one call on rows of n columns for the top k
+    (k cut to n): one for a short row; else the radix select's, and for k
+    above MAX_K the run sort in place of the sort, plus the merges."""
+    if n <= SMALL_N:
+        return 1
+    return LAUNCHES_RADIX + merge_passes(min(k, n))
 
 
 def workspace_bytes(q: int, k: int, blocks: int) -> int:
-    """The radix select's scratch: k 64-bit candidates a row, then int32
-    words: a histogram and a tie offset a block, and 4 words of state a
-    row (csrc/topk.cu::carve)."""
-    return 8 * q * k + 4 * q * (blocks * HIST_BINS + blocks + 4)
+    """The radix select's scratch: k 64-bit candidates a row (twice for k
+    > MAX_K: the merge ping-pongs between two buffers), then int32 words:
+    a histogram and a tie offset a block, and 4 words of state a row
+    (csrc/topk.cu::carve)."""
+    return 8 * q * k * (2 if k > MAX_K else 1) + 4 * q * (blocks * HIST_BINS + blocks + 4)
 
 
 def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k per row: the CUDA kernel for a CUDA tensor, at every shape up
-    to k = MAX_K, and the plain version for a CPU tensor."""
+    """Top-k per row: the CUDA kernel for a CUDA tensor, at every shape
+    and k, and the plain version for a CPU tensor."""
     if not scores.is_cuda:
         if scores.device.type == "cpu":
             return topk_plain(scores, k)
@@ -102,8 +115,6 @@ def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         return v[0], i[0]
     q, n = scores.shape
     k = min(k, n)
-    if k > MAX_K:
-        raise HyperspaceError(f"topk kernel holds k <= {MAX_K}; got k = {k}")
     dev = scores.device
     vals = torch.empty((q, k), dtype=torch.float32, device=dev)
     idx = torch.empty((q, k), dtype=torch.int32, device=dev)

@@ -6,10 +6,11 @@ and pays for it with a 495-LoC Kryo serde layer (index/serde/). Here
 expressions are plain dataclasses with trivial JSON round-trip.
 
 A copy of the JAX package's `plan/expr.py`, cut to the nodes the port's
-slice evaluates: columns, literals, comparisons and arithmetic, AND / OR /
-NOT, IN and IS NULL. CASE, LIKE, SUBSTRING, date parts and math functions
-are not ported yet. The JSON form is the JAX package's, so a plan logged
-by one package reads in the other.
+slices evaluate: columns, literals, comparisons and arithmetic, AND / OR /
+NOT, IN, IS NULL, CASE (`when(...).otherwise(...)`) and SUBSTRING, with
+`expr_dtype` typing a computed projection. LIKE, date parts and math
+functions are not ported yet. The JSON form is the JAX package's, so a
+plan logged by one package reads in the other.
 
 String semantics: device columns hold dictionary codes whose dictionary is
 sorted at encode time, so both equality and range comparisons on codes are
@@ -85,6 +86,10 @@ class Expr:
     def between(self, lo, hi) -> "And":
         """SQL BETWEEN sugar: inclusive on both ends."""
         return And(BinOp("ge", self, _wrap(lo)), BinOp("le", self, _wrap(hi)))
+
+    def substr(self, start: int, length: int) -> "Substr":
+        """SQL SUBSTRING(self, start, length), 1-based."""
+        return Substr(self, start, length)
 
     def __hash__(self):
         return hash(repr(self))
@@ -176,6 +181,50 @@ class Not(Expr):
 
 
 @dataclasses.dataclass(eq=False, repr=True)
+class Case(Expr):
+    """SQL CASE WHEN: ordered (condition, value) branches + default.
+    Conditions use full predicate semantics (3-valued logic; a null
+    condition does not take its branch)."""
+
+    branches: list[tuple[Expr, Expr]]
+    default: Expr
+
+    def to_json(self):
+        return {
+            "type": "case",
+            "branches": [[c.to_json(), v.to_json()] for c, v in self.branches],
+            "default": self.default.to_json(),
+        }
+
+    def references(self):
+        out: set[str] = self.default.references()
+        for c, v in self.branches:
+            out |= c.references() | v.references()
+        return out
+
+
+@dataclasses.dataclass(eq=False, repr=True)
+class Substr(Expr):
+    """SQL SUBSTRING(col, start, length), 1-based, over a string column."""
+
+    child: Expr
+    start: int
+    length: int
+
+    def __post_init__(self):
+        if self.start < 1:
+            raise ValueError("SUBSTRING start is 1-based and must be >= 1")
+        if self.length < 0:
+            raise ValueError("SUBSTRING length must be >= 0")
+
+    def to_json(self):
+        return {"type": "substr", "child": self.child.to_json(), "start": self.start, "length": self.length}
+
+    def references(self):
+        return self.child.references()
+
+
+@dataclasses.dataclass(eq=False, repr=True)
 class IsNull(Expr):
     """SQL IS NULL. Never UNKNOWN (the point of the operator); IS NOT
     NULL is Not(IsNull(...)). For a compound child, null iff any input
@@ -213,6 +262,23 @@ class InList(Expr):
         return self.child.references()
 
 
+class CaseBuilder:
+    """`when(cond, value).when(...).otherwise(default)` sugar."""
+
+    def __init__(self, branches):
+        self._branches = branches
+
+    def when(self, cond: Expr, value) -> "CaseBuilder":
+        return CaseBuilder(self._branches + [(cond, _wrap(value))])
+
+    def otherwise(self, default) -> Case:
+        return Case(self._branches, _wrap(default))
+
+
+def when(cond: Expr, value) -> CaseBuilder:
+    return CaseBuilder([(cond, _wrap(value))])
+
+
 def col(name: str) -> Col:
     return Col(name)
 
@@ -239,11 +305,68 @@ def expr_from_json(d: dict[str, Any]) -> Expr:
         return Or(expr_from_json(d["left"]), expr_from_json(d["right"]))
     if t == "not":
         return Not(expr_from_json(d["child"]))
+    if t == "case":
+        return Case(
+            [(expr_from_json(c), expr_from_json(v)) for c, v in d["branches"]],
+            expr_from_json(d["default"]),
+        )
     if t == "isnull":
         return IsNull(expr_from_json(d["child"]))
     if t == "in":
         return InList(expr_from_json(d["child"]), list(d["values"]))
+    if t == "substr":
+        return Substr(expr_from_json(d["child"]), int(d["start"]), int(d["length"]))
     raise ValueError(f"unknown expr type {t!r}")
+
+
+def expr_dtype(e: Expr, schema) -> str:
+    """Engine dtype an expression produces when evaluated over `schema`
+    (a copy of the JAX package's, over the ported nodes)."""
+    if isinstance(e, Col):
+        return schema.field(e.name).dtype
+    if isinstance(e, Lit):
+        if isinstance(e.value, bool):
+            return "bool"
+        if isinstance(e.value, int):
+            return "int64"
+        if isinstance(e.value, float):
+            return "float64"
+        return "string"
+    if isinstance(e, BinOp):
+        if e.op in _CMP_OPS:
+            return "bool"
+        lt, rt = expr_dtype(e.left, schema), expr_dtype(e.right, schema)
+        if "date" in (lt, rt):
+            # Dates are day numbers: date ± days stays a date, date - date
+            # is the day count; anything else is undefined.
+            if e.op == "sub" and lt == "date" and rt == "date":
+                return "int64"
+            if e.op in ("add", "sub") and lt == "date" and rt in ("int32", "int64", "bool"):
+                return "date"
+            if e.op == "add" and rt == "date" and lt in ("int32", "int64", "bool"):
+                return "date"
+            raise ValueError(f"unsupported date arithmetic {lt} {e.op} {rt}")
+        if e.op == "div" or "float64" in (lt, rt) or "float32" in (lt, rt):
+            return "float64"
+        return "int64"
+    if isinstance(e, (And, Or, Not, IsNull, InList)):
+        return "bool"
+    if isinstance(e, Case):
+        vals = [v for _, v in e.branches] + [e.default]
+        ts = [expr_dtype(v, schema) for v in vals]
+        if all(t == ts[0] for t in ts):
+            return ts[0]
+        nonlit = [t for v, t in zip(vals, ts) if not isinstance(v, Lit)]
+        if nonlit and all(t == "date" for t in nonlit) and all(t in ("int32", "int64", "bool", "date") for t in ts):
+            return "date"
+        if any(t in ("float64", "float32") for t in ts):
+            return "float64"
+        if all(t in ("int32", "int64", "bool") for t in ts):
+            return "int64"
+        raise ValueError(f"CASE branches mix incompatible types {ts}")
+    if isinstance(e, Substr):
+        return "string"
+    raise ValueError(f"cannot type expression {type(e).__name__}")
 
 
 def split_conjuncts(e: Expr) -> list[Expr]:

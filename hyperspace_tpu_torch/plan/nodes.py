@@ -35,9 +35,18 @@ class LogicalPlan:
     def filter(self, predicate: Expr) -> "Filter":
         return Filter(self, predicate)
 
-    def select(self, *columns: str) -> "Project":
-        """Project (pass through) the named columns."""
+    def select(self, *columns) -> "Project":
+        """Project columns. Entries are names (passthrough) or
+        ``(alias, Expr)`` pairs for computed output columns."""
         return Project(self, list(columns))
+
+    def with_column(self, alias: str, expression) -> "Project":
+        """Add one computed column, or replace an existing column of the
+        same name (Spark withColumn semantics)."""
+        entries = [(alias, expression) if c.lower() == alias.lower() else c for c in self.schema.names]
+        if not any(c.lower() == alias.lower() for c in self.schema.names):
+            entries.append((alias, expression))
+        return Project(self, entries)
 
     def join(
         self,
@@ -133,32 +142,56 @@ class Filter(LogicalPlan):
 
 @dataclasses.dataclass
 class Project(LogicalPlan):
-    """Passthrough projection: every entry of `columns` is a column name."""
+    """Projection with optional named computed expressions. Entries of
+    `columns` are either a column name (passthrough) or an ``(alias,
+    Expr)`` pair (`SELECT a*b AS x`), typed via expr_dtype."""
 
     child: LogicalPlan
     columns: list
 
-    def __post_init__(self):
-        if not all(isinstance(c, str) for c in self.columns):
-            raise ValueError("only passthrough (column-name) projections are supported")
+    @property
+    def is_simple(self) -> bool:
+        """True iff every entry is a plain passthrough column name."""
+        return all(isinstance(c, str) for c in self.columns)
 
     @property
     def output_names(self) -> list[str]:
-        return list(self.columns)
+        return [c if isinstance(c, str) else c[0] for c in self.columns]
 
     def input_columns(self) -> set[str]:
-        """Lowercased child columns the projection reads."""
-        return {c.lower() for c in self.columns}
+        """Lowercased child columns the projection reads (what index
+        coverage checks and column pruning need)."""
+        out: set[str] = set()
+        for c in self.columns:
+            if isinstance(c, str):
+                out.add(c.lower())
+            else:
+                out |= c[1].references()
+        return out
 
     @property
     def schema(self) -> Schema:
-        return self.child.schema.select(self.columns)
+        from hyperspace_tpu_torch.plan.expr import expr_dtype
+
+        if self.is_simple:
+            return self.child.schema.select(self.columns)
+        child = self.child.schema
+        fields = []
+        for c in self.columns:
+            if isinstance(c, str):
+                fields.append(child.field(c))
+            else:
+                fields.append(Field(c[0], expr_dtype(c[1], child)))
+        return Schema(tuple(fields))
 
     def children(self) -> list[LogicalPlan]:
         return [self.child]
 
     def to_json(self) -> dict[str, Any]:
-        return {"type": "project", "child": self.child.to_json(), "columns": self.columns}
+        if self.is_simple:
+            return {"type": "project", "child": self.child.to_json(), "columns": self.columns}
+        cols = [c if isinstance(c, str) else {"alias": c[0], "expr": c[1].to_json()} for c in self.columns]
+        return {"type": "project", "child": self.child.to_json(), "columns": cols}
 
 
 JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti")
@@ -348,7 +381,8 @@ def plan_from_json(d: dict[str, Any]) -> LogicalPlan:
     if t == "filter":
         return Filter(plan_from_json(d["child"]), expr_from_json(d["predicate"]))
     if t == "project":
-        return Project(plan_from_json(d["child"]), list(d["columns"]))
+        cols = [c if isinstance(c, str) else (c["alias"], expr_from_json(c["expr"])) for c in d["columns"]]
+        return Project(plan_from_json(d["child"]), cols)
     if t == "join":
         return Join(
             plan_from_json(d["left"]),

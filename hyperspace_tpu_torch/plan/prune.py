@@ -40,8 +40,17 @@ def prune_columns(plan: LogicalPlan, needed: set[str] | None = None) -> LogicalP
             return plan
         return dataclasses.replace(plan, scan_schema=plan.scan_schema.select(cols))
     if isinstance(plan, Project):
-        keep = list(plan.columns) if needed is None else [c for c in plan.columns if c.lower() in needed]
-        return Project(prune_columns(plan.child, {c.lower() for c in keep}), keep)
+        # Inner projections narrow to what ancestors need (the top-level
+        # call has needed=None, so the user-visible schema never changes).
+        # A kept computed entry needs every column its expression reads.
+        if needed is None:
+            keep = list(plan.columns)
+        else:
+            keep = [c for c in plan.columns if (c if isinstance(c, str) else c[0]).lower() in needed]
+        child_needed: set[str] = set()
+        for c in keep:
+            child_needed |= {c.lower()} if isinstance(c, str) else c[1].references()
+        return Project(prune_columns(plan.child, child_needed), keep)
     if isinstance(plan, Filter):
         if needed is None:
             child_needed = None

@@ -6,7 +6,8 @@ plan iff the stored fingerprint equals the recomputed one. Providers are
 looked up by name (reference uses reflection by class name,
 index/LogicalPlanSignatureProvider.scala:55-62). A copy of the JAX
 package's module: the fingerprint must match across packages for an
-index built by one to serve the other.
+index built by one to serve the other. `plan_signature` fingerprints the
+plan itself, for the plan cache (serve/plan_cache.py).
 """
 
 from __future__ import annotations
@@ -42,6 +43,18 @@ def fingerprint_files(files) -> str:
     for fi in files:
         h.update(f"{fi.size},{fi.mtime_ns},{fi.path}\0".encode())
     return h.hexdigest()
+
+
+def plan_signature(plan: LogicalPlan) -> str:
+    """Structural fingerprint of a logical plan: an MD5 over its canonical
+    JSON serialization (sorted keys, so dict ordering cannot perturb it).
+    Two plans with the same signature ask the same question of the same
+    sources; the plan cache keys on this plus the data fingerprint and the
+    index-collection log versions (serve/plan_cache.py)."""
+    import json
+
+    payload = json.dumps(plan.to_json(), sort_keys=True, default=str)
+    return hashlib.md5(payload.encode()).hexdigest()
 
 
 class SignatureProvider:

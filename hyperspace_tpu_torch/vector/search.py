@@ -149,7 +149,7 @@ def ann_search(
             embedding_column = vec_fields[0].name
         from hyperspace_tpu_torch.execution.executor import Executor
 
-        table = Executor(device, session.cache).execute(plan)
+        table = Executor(device).execute(plan)
         return brute_force_search(table, embedding_column, queries, k, metric or "l2")
 
     dd = entry.derived_dataset

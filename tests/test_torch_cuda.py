@@ -446,15 +446,50 @@ def test_topk_kernel_is_bit_equal_to_plain(cuda, q, n, k, kind):
 
 @pytest.mark.gpu
 def test_topk_kernel_on_a_1d_row_and_past_its_limit(cuda):
-    from hyperspace_tpu_torch.exceptions import HyperspaceError
+    """A 1-D row gives 1-D results; a k above n is cut to n, on the
+    one-launch path and on the radix select past MAX_K alike."""
     from hyperspace_tpu_torch.ops.topk import MAX_K, topk, topk_plain
 
     x = torch.from_numpy(_topk_inputs(np.random.default_rng(1), 1, 3000, "ties")[0]).to(cuda)
     vals, idx = topk(x, 7)
     want_vals, want_idx = topk_plain(x, 7)
     assert vals.shape == (7,) and torch.equal(idx, want_idx) and torch.equal(vals, want_vals)
-    with pytest.raises(HyperspaceError, match=str(MAX_K)):
-        topk(torch.zeros((2, MAX_K + 1), device=cuda), MAX_K + 1)
+    for n in (MAX_K + 1, 3 * MAX_K + 5_000):
+        x = torch.from_numpy(_topk_inputs(np.random.default_rng(n), 2, n, "ties")).to(cuda)
+        vals, idx = topk(x, n + 100)
+        torch.cuda.synchronize()
+        want_vals, want_idx = topk_plain(x, n)
+        assert vals.shape == (2, n)
+        assert torch.equal(idx, want_idx)
+        assert torch.equal(vals.view(torch.int32), want_vals.view(torch.int32))
+
+
+# (q, n, k) past MAX_K: one key over it, k = n at a row that is no power of
+# two (its last run padded), the one-launch path's k = 3,000 of 4,000, and
+# the brute-force shape at k = 5,000 (three runs, two merges).
+_K3_LARGE_K = [(4, 20_000, 2049), (2, 50_000, 50_000), (32, 4_000, 3_000), (32, 1_000_000, 5_000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("q,n,k", _K3_LARGE_K)
+def test_topk_past_max_k_is_bit_equal_to_plain(cuda, q, n, k, kind):
+    """K3 for k > MAX_K: the runs of MAX_K candidates sorted in shared
+    memory and merged in device memory give the plain version's values
+    bit for bit and its columns, ties to the lowest column across run
+    boundaries; one call, its launches as launches_per_call says."""
+    from hyperspace_tpu_torch.ops.topk import launches_per_call, merge_passes, topk, topk_plain
+
+    x = torch.from_numpy(_topk_inputs(np.random.default_rng(q + n + k), q, n, kind)).to(cuda)
+    before = topk.launches
+    vals, idx = topk(x, k)
+    torch.cuda.synchronize()
+    assert topk.launches == before + 1
+    assert launches_per_call(n, k) == (1 if n <= 4096 else 8 + merge_passes(k))
+    want_vals, want_idx = topk_plain(x, k)
+    assert vals.shape == want_vals.shape == (q, k)
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(vals.view(torch.int32), want_vals.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -469,7 +504,7 @@ def test_topk_on_the_card_never_calls_a_library_selection(cuda, monkeypatch):
     monkeypatch.setattr(torch, "sort", refuse)
     monkeypatch.setattr(torch.Tensor, "topk", refuse)
     monkeypatch.setattr(torch.Tensor, "sort", refuse)
-    for k in (8, 10, 100):
+    for k in (8, 10, 100, 5_000):
         vals, idx = topk(x, k)
         assert vals.shape == (32, k)
     torch.cuda.synchronize()
@@ -582,5 +617,42 @@ def test_vector_search_on_the_card_matches_the_cpu(cuda, tmp_path):
         apart[:, 1:] &= -np.diff(want.scores, axis=1) > 2 * tol[:, 1:]
         apart[:, :-1] &= -np.diff(want.scores, axis=1) > 2 * tol[:, :-1]
         apart[:, -1] = False  # the next row, outside the k, may tie with the last
+        got_ids = got.rows.host_column("id").reshape(len(queries), -1)
+        np.testing.assert_array_equal(got_ids[apart], ids[apart])
+
+
+@pytest.mark.gpu
+def test_vector_search_past_max_k_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """ann_search(k=5000) and brute force at k = 5,000 answer on the card
+    (K3 past MAX_K) with the CPU's rows: scores within 16 units of float32
+    rounding of (|q| + |x|)², ids equal where the CPU's scores stand apart
+    by more than twice that."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, VectorIndexConfig
+    from hyperspace_tpu_torch.datagen import gen_embeddings
+
+    emb = gen_embeddings(tmp_path / "emb", 20_000, 64, clusters=16, seed=3)
+    queries = emb[np.random.default_rng(4).choice(len(emb), 8, replace=False)] + 0.01
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = HyperspaceSession(system_path=str(tmp_path / "idx"), device=dev)
+        hs, df = Hyperspace(s), s.parquet(tmp_path / "emb")
+        if dev == "cpu":
+            hs.create_vector_index(df, VectorIndexConfig("v", "emb", ["id"], num_partitions=16))
+        s.enable_hyperspace()
+        ann = hs.ann_search(df, queries, k=5_000, nprobe=8)
+        s.disable_hyperspace()
+        brute = hs.ann_search(df, queries, k=5_000)
+        out[dev] = (ann, brute)
+    norms = np.linalg.norm(emb, axis=1)
+    qn = np.linalg.norm(queries, axis=1)[:, None]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        ids = want.rows.host_column("id").reshape(len(queries), -1)
+        assert got.scores.shape == want.scores.shape
+        tol = 16 * 2.0**-24 * (qn + norms[ids]) ** 2
+        assert np.all(np.abs(got.scores - want.scores) <= tol)
+        apart = np.ones(ids.shape, dtype=bool)
+        apart[:, 1:] &= -np.diff(want.scores, axis=1) > 2 * tol[:, 1:]
+        apart[:, :-1] &= -np.diff(want.scores, axis=1) > 2 * tol[:, :-1]
+        apart[:, -1] = False
         got_ids = got.rows.host_column("id").reshape(len(queries), -1)
         np.testing.assert_array_equal(got_ids[apart], ids[apart])

@@ -48,6 +48,13 @@ def test_port_imports_without_jax_or_the_jax_package():
         "hyperspace_tpu_torch.vector.index",
         "hyperspace_tpu_torch.vector.lifecycle",
         "hyperspace_tpu_torch.vector.search",
+        "hyperspace_tpu_torch.execution.device_cache",
+        "hyperspace_tpu_torch.execution.exec_scan",
+        "hyperspace_tpu_torch.serve",
+        "hyperspace_tpu_torch.serve.plan_cache",
+        "hyperspace_tpu_torch.signature",
+        "hyperspace_tpu_torch.plan.pushdown",
+        "hyperspace_tpu_torch.ops.project",
     ):
         assert name in report["modules"]
 

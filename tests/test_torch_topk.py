@@ -19,8 +19,8 @@ import torch
 
 from hyperspace_tpu.ops.topk import topk as ref_topk
 from hyperspace_tpu_torch.ops.topk import (
-    DIGIT_BITS, HIST_BINS, LAUNCHES_RADIX, MAX_K, MIN_CHUNK, SMALL_N, launches_per_call, select_plan, topk,
-    topk_plain, workspace_bytes,
+    DIGIT_BITS, HIST_BINS, LAUNCHES_RADIX, MAX_K, MIN_CHUNK, SMALL_N, launches_per_call, merge_passes, select_plan,
+    topk, topk_plain, workspace_bytes,
 )
 
 
@@ -153,9 +153,9 @@ def test_select_plan_splits_every_row_into_nonempty_chunks(q, n):
     sms = 132
     blocks, chunk = select_plan(q, n, sms)
     if n <= SMALL_N:
-        assert (blocks, chunk) == (0, n) and launches_per_call(n) == 1
+        assert (blocks, chunk) == (0, n) and launches_per_call(n, 10) == launches_per_call(n, n) == 1
         return
-    assert launches_per_call(n) == LAUNCHES_RADIX == 8
+    assert launches_per_call(n, 10) == launches_per_call(n, MAX_K) == LAUNCHES_RADIX == 8
     covered = np.zeros(n, np.int32)
     for b in range(blocks):
         lo, hi = b * chunk, min((b + 1) * chunk, n)
@@ -168,6 +168,35 @@ def test_select_plan_splits_every_row_into_nonempty_chunks(q, n):
     if n >= 4 * sms * MIN_CHUNK // q and q <= 4 * sms:
         assert q * blocks > 4 * sms - q  # and a full one
     assert workspace_bytes(q, 10, blocks) == 8 * q * 10 + 4 * q * (blocks * HIST_BINS + blocks + 4)
+
+
+@pytest.mark.parametrize(
+    "k,passes",
+    [(1, 0), (MAX_K, 0), (MAX_K + 1, 1), (2 * MAX_K, 1), (2 * MAX_K + 1, 2), (5_000, 2), (4 * MAX_K, 2),
+     (4 * MAX_K + 1, 3), (50_000, 5)],
+)
+def test_merge_passes_pair_the_runs_until_one_is_left(k, passes):
+    """Past MAX_K the candidates are sorted in runs of MAX_K and merged in
+    pairs: ceil(log2(runs)) passes, each a launch beside the radix select's
+    (the run sort takes the sort's place); the workspace doubles the
+    candidate list for the merge's second buffer."""
+    assert merge_passes(k) == passes
+    n = max(k, SMALL_N + 1)
+    assert launches_per_call(n, k) == LAUNCHES_RADIX + passes
+    assert launches_per_call(n, n + 7) == launches_per_call(n, n)  # k is cut to n
+    blocks, _ = select_plan(32, n, 132)
+    copies = 2 if k > MAX_K else 1
+    assert workspace_bytes(32, k, blocks) == 8 * 32 * k * copies + 4 * 32 * (blocks * HIST_BINS + blocks + 4)
+
+
+def test_topk_above_max_k_on_the_cpu_cuts_k_to_n():
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(np.round(rng.standard_normal((3, 7_000)) * 4).astype(np.float32))
+    vals, idx = topk(x, 9_000)
+    want_vals, want_idx = topk_plain(x, 7_000)
+    assert vals.shape == (3, 7_000)
+    assert torch.equal(idx, want_idx) and torch.equal(vals, want_vals)
+    assert (np.diff(vals.numpy(), axis=1) <= 0).all()
 
 
 def test_radix_digits_cover_the_32_bit_key_in_the_histogram():

@@ -31,15 +31,32 @@ What it does, in order (any failure raises and exits non-zero):
    path, and the run fails if either holds more than its budget;
 3. join path, on the same lineitem index: generates TPC-H orders (9
    columns, 1.5M rows at SF1, seed 43), builds the `o_orderkey` index
-   with `o_totalprice, o_orderpriority` (200 buckets), and runs J1 (the
-   lineitem ⋈ orders join of benchmarks/bench_join.py), J2 (an aggregate
-   over the join grouped on the orders side) and J3 (grouped on the
-   lineitem side), each cold and warm with the index enabled (the
-   zero-exchange aligned path) and disabled (one partition), each checked
+   with `o_totalprice, o_orderpriority, o_orderdate` (200 buckets), and
+   runs J1 (the lineitem ⋈ orders join of benchmarks/bench_join.py), J2
+   (an aggregate over the join grouped on the orders side) and J3
+   (grouped on the lineitem side), each cold and warm with the index
+   enabled (the zero-exchange aligned path) and disabled (one partition;
+   J1 the broadcast probe, lineitem being at least 4x orders), each checked
    against pyarrow's join and group-by on the same parquet (J1 pair by
    pair); J2 and J3 run three times more, the last two under
    `torch.profiler` (indexed, and J2 also without the index), and once
    more with K1's inputs recorded;
+3b. join-types path, on the join path's session, lineitem and orders:
+   generates TPC-H customer (150,000 rows, seed 45), builds
+   `customer_custkey` (with `c_nationkey, c_acctbal`) and
+   `orders_custkey` (with `o_orderkey, o_totalprice`), 200 buckets, and
+   runs Q13 (customer LEFT JOIN orders with the residual `o_totalprice >
+   400000`, then two aggregates), a RIGHT and a FULL outer join of J1's
+   columns on filtered sides, Q4's SEMI / ANTI joins and Q21's with the
+   residual `l_extendedprice > o_totalprice * 0.1` (counted by priority),
+   INTERSECT and EXCEPT, an aggregate over a join with one indexed side
+   under `hyperspace.join.rebucketize = force` (REB), a semi join chained
+   on J1's bucket-grouped output (CHAIN), and J2's aggregates over orders
+   filtered to a quarter (DPPq) or to 12 keys (DPPk), each cold and warm,
+   index on and off, each against pyarrow (rows exactly; non-integral
+   sums within the join bound), each on the JAX package's path
+   (`JOIN_TYPE_EXPECT`) with K2 and K1 launched where that path runs
+   them and the membership probes launching no K2; one line a query;
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
@@ -119,7 +136,7 @@ Q1_AGGS = [
 # non-null count channel per aggregate.
 Q1_FNS = ("sum", "sum", "sum", "sum", "sum", "sum", "min", "sum", "max", "sum", "sum", "sum")
 O_INDEXED = ["o_orderkey"]
-O_INCLUDED = ["o_totalprice", "o_orderpriority"]
+O_INCLUDED = ["o_totalprice", "o_orderpriority", "o_orderdate"]
 J2_AGGS = [
     ("sum", "l_extendedprice", "sum_price"),
     ("sum", "l_quantity", "sum_qty"),
@@ -604,7 +621,8 @@ def cold_warm(name: str, session, plans: list, cache, sync, derived=(), tolerant
         "derived_hits": sum(v["hits"] for v in d1.values()) - sum(v["hits"] for v in d0.values()),
         "derived_misses": sum(v["misses"] for v in d1.values()) - sum(v["misses"] for v in d0.values()),
         "warm_stats": {k: warm[-1].stats[k] for k in ("scan", "files_read", "files_pruned", "rows_pruned",
-                                                     "range_exact", "agg_path", "join_path")},
+                                                     "range_exact", "agg_path", "join_path", "join_paths",
+                                                     "join_kernel", "exchange_kernel")},
     }
 
 
@@ -901,6 +919,8 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
     o_buckets = _index_buckets(Path(session.conf.system_path), "orders_orderkey", ["o_orderkey", "o_totalprice"])
     stats = {"l_extendedprice": _bucket_stats(li_buckets, "l_extendedprice"),
              "o_totalprice": _bucket_stats(o_buckets, "o_totalprice")}
+    # What the join-types path reuses.
+    ctx.update(orders=orders, o_source=o_source, bucket_stats=stats)
 
     def check(name, result, aligned):
         buckets = num_buckets if aligned else 1
@@ -938,8 +958,12 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
     tolerant = {"J1": (), "J2": ("sum_price", "avg_total"), "J3": ("sum_total", "sum_price")}
     for mode in ("index", "no_index"):
         session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
-        want_path = "zero-exchange-aligned" if mode == "index" else "single-partition"
         for name, plan in queries.items():
+            # Without the index, J1's lineitem (6,001,991 rows at SF1) is at
+            # least 4x orders (1.5M): the JAX package's broadcast probe. The
+            # fused J2 and J3 never broadcast.
+            want_path = ("zero-exchange-aligned" if mode == "index"
+                         else "broadcast-hash" if name == "J1" else "single-partition")
             k2, k1 = run_bounds.launches, segment_reduce.launches
             # Cold (reads the index or source columns onto the device, derives
             # the key codes and group ids), then warm: the join codes, and a
@@ -954,9 +978,9 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
                 raise AssertionError(f"{name} {mode}: join path {stats_q['join_path']}, expected {want_path}")
             if name != "J1" and stats_q["agg_path"] != "fused-join-agg":
                 raise AssertionError(f"{name} {mode}: aggregate path {stats_q['agg_path']}, expected fused-join-agg")
-            # On the card every join launches K2 and every fused aggregate
-            # K1 (a CPU rehearsal runs their plain versions instead).
-            if device.type == "cuda" and run_bounds.launches == k2:
+            # On the card every merge join launches K2 and every fused
+            # aggregate K1 (a CPU rehearsal runs their plain versions).
+            if device.type == "cuda" and want_path != "broadcast-hash" and run_bounds.launches == k2:
                 raise AssertionError(f"{name} {mode}: K2 never launched")
             if device.type == "cuda" and name != "J1" and segment_reduce.launches == k1:
                 raise AssertionError(f"{name} {mode}: K1 never launched")
@@ -1000,6 +1024,314 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
     o_all = np.sort(np.concatenate([t["o_orderkey"].to_numpy() for t in o_buckets]) - lo).astype(np.int32)[None]
     k2_inputs = {"J2 aligned": (o_pad, li_pad), "J3 aligned": (li_pad, o_pad), "J2 no index": (o_all, li_all)}
     return {"groups": {"J2": len(ref_j2), "J3": len(ref_j3)}, "rows": counts, "phases": phases}, k1_inputs, k2_inputs
+
+
+# -- join-types path -----------------------------------------------------------
+
+C_INDEXED, C_INCLUDED = ["c_custkey"], ["c_nationkey", "c_acctbal"]
+OC_INDEXED, OC_INCLUDED = ["o_custkey"], ["o_orderkey", "o_totalprice"]
+SET_KEYS = 12  # DPPk: orders keys drawn with seed 11
+
+
+def _days(iso: str) -> int:
+    import datetime
+
+    return (datetime.date.fromisoformat(iso) - datetime.date(1970, 1, 1)).days
+
+
+def dpp_keys(sf: float) -> list[int]:
+    """DPPk's order keys: SET_KEYS drawn with seed 11 from the domain."""
+    return np.random.default_rng(11).integers(0, int(1_500_000 * sf), SET_KEYS).tolist()
+
+
+def join_type_plans(pkg, li, orders, customer, sf: float) -> dict:
+    """The join-types path's plans, built with `pkg`'s `col` and `lit` so
+    that the same function builds them for either package. Returns name
+    -> (plan, rebucketize mode)."""
+    col, lit = pkg.col, pkg.lit
+    urgent = orders.filter(col("o_orderpriority") == lit("1-URGENT"))
+    j1 = li.select("l_orderkey", "l_extendedprice").join(
+        orders.select("o_orderkey", "o_totalprice", "o_orderpriority"), ["l_orderkey"], ["o_orderkey"])
+    li_j = li.select("l_orderkey", "l_quantity", "l_extendedprice", "l_discount")
+    o_j = ("o_orderkey", "o_totalprice", "o_orderpriority")
+    keys = dpp_keys(sf)
+    q4_right = li.filter(col("l_discount") >= lit(0.08))
+    q13 = customer.select("c_custkey").join(
+        orders.select("o_custkey", "o_orderkey", "o_totalprice"), ["c_custkey"], ["o_custkey"], how="left",
+        condition=col("o_totalprice") > lit(400000.0),
+    ).aggregate(["c_custkey"], [("count", "o_orderkey", "c_count")]).aggregate(
+        ["c_count"], [("count", None, "custdist")])
+    out = {"Q13": (q13, "auto")}
+    for name, how in (("ROJ", "right"), ("FOJ", "full")):
+        out[name] = (li.filter(col("l_discount") >= lit(0.05)).select("l_orderkey", "l_extendedprice").join(
+            urgent.select(*o_j), ["l_orderkey"], ["o_orderkey"], how=how), "auto")
+    for name, how in (("Q4s", "semi"), ("Q4a", "anti")):
+        out[name] = (orders.select("o_orderkey", "o_orderpriority").join(
+            q4_right.select("l_orderkey"), ["o_orderkey"], ["l_orderkey"], how=how,
+        ).aggregate(["o_orderpriority"], [("count", None, "cnt")]), "auto")
+    for name, how in (("Q21s", "semi"), ("Q21a", "anti")):
+        out[name] = (orders.select("o_orderkey", "o_orderpriority", "o_totalprice").join(
+            q4_right.select("l_orderkey", "l_extendedprice"), ["o_orderkey"], ["l_orderkey"], how=how,
+            condition=col("l_extendedprice") > col("o_totalprice") * lit(0.1),
+        ).aggregate(["o_orderpriority"], [("count", None, "cnt")]), "auto")
+    sets_right = li.filter(col("l_discount") == lit(0.10)).select("l_orderkey")
+    out["INTERSECT"] = (urgent.select("o_orderkey").intersect(sets_right), "auto")
+    out["EXCEPT"] = (urgent.select("o_orderkey").except_(sets_right), "auto")
+    out["REB"] = (li.select("l_orderkey", "l_extendedprice").join(
+        orders.select("o_orderkey", "o_orderstatus"), ["l_orderkey"], ["o_orderkey"],
+    ).aggregate(["o_orderstatus"], [("sum", "l_extendedprice", "sum_price"), ("count", None, "cnt")]), "force")
+    out["CHAIN"] = (j1.join(li.filter(col("l_discount") == lit(0.10)).select("l_orderkey", "l_discount"),
+                            ["l_orderkey"], ["l_orderkey"], how="semi"), "auto")
+    quarter = (col("o_orderdate") >= lit(_days("1995-01-01"))) & (col("o_orderdate") < lit(_days("1995-04-01")))
+    out["DPPq"] = (li_j.join(orders.filter(quarter).select(*o_j), ["l_orderkey"], ["o_orderkey"]).aggregate(
+        ["o_orderpriority"], J2_AGGS), "auto")
+    out["DPPk"] = (li_j.join(orders.filter(col("o_orderkey").isin(keys)).select(*o_j), ["l_orderkey"],
+                             ["o_orderkey"]).aggregate(["o_orderpriority"], J2_AGGS), "auto")
+    return out
+
+
+# Per query: the path expected (index, no index) — the JAX package's
+# choice at SF1's row counts —, whether K2 (index, no index) and K1 launch,
+# and whether the join is a membership probe (no pairs: K2 must not run).
+JOIN_TYPE_EXPECT = {
+    # Without the index customer (150k) is under a quarter of orders: the
+    # broadcast probe; so are the filtered sides of ROJ / FOJ.
+    "Q13": (("zero-exchange-aligned", "broadcast-hash"), (True, False), True),
+    "ROJ": (("zero-exchange-aligned", "broadcast-hash"), (True, False), False),
+    "FOJ": (("zero-exchange-aligned", "broadcast-hash"), (True, False), False),
+    "Q4s": (("zero-exchange-aligned", "single-partition"), (False, False), True),
+    "Q4a": (("zero-exchange-aligned", "single-partition"), (False, False), True),
+    # lineitem at l_discount >= 0.08 (about 1.64M rows) is no quarter of
+    # orders' 1.5M: one partition, merged.
+    "Q21s": (("zero-exchange-aligned", "single-partition"), (True, True), True),
+    "Q21a": (("zero-exchange-aligned", "single-partition"), (True, True), True),
+    # The set operations' left side is a DISTINCT (no scan), under a
+    # quarter of lineitem's index: probed on one partition, no pairs.
+    "INTERSECT": (("single-partition", "single-partition"), (False, False), False),
+    "EXCEPT": (("single-partition", "single-partition"), (False, False), False),
+    "REB": (("rebucketized-aligned", "single-partition"), (True, True), True),
+    # Without the index J1 broadcasts and the semi join is a probe.
+    "CHAIN": (("bucket-preserved-aligned", "single-partition"), (True, False), False),
+    "DPPq": (("zero-exchange-aligned", "single-partition"), (True, True), True),
+    "DPPk": (("zero-exchange-aligned", "single-partition"), (True, True), True),
+}
+MEMBERSHIP_PROBES = ("Q4s", "Q4a", "INTERSECT", "EXCEPT")
+
+
+def _row_columns(columns: list) -> np.ndarray:
+    """Rows as a lexicographically sorted float64 matrix: each column a
+    float64 array with NaN for a null (string columns their rank in a
+    sorted dictionary). Exact for the integers and prices compared here."""
+    mat = np.stack(columns)
+    order = np.lexsort(mat[::-1])
+    return mat[:, order]
+
+
+def _result_columns(result, names: list, dictionary: dict) -> list:
+    """A ColumnTable's columns for _row_columns; strings ranked in
+    `dictionary[name]` (a sorted array holding every value)."""
+    out = []
+    for c in names:
+        f = result.schema.field(c)
+        v = result.host_column(c)
+        if f.is_string:
+            v = np.searchsorted(dictionary[c], result.dictionaries[f.name].astype(str))[v]
+        v = v.astype(np.float64)
+        valid = result.host_valid_mask(c)
+        if valid is not None:
+            v[~valid] = np.nan
+        out.append(v)
+    return out
+
+
+def _arrow_columns(table, names: list, dictionary: dict) -> list:
+    import pyarrow.compute as pc
+
+    out = []
+    for c in names:
+        a = table[c].combine_chunks()
+        if c in dictionary:
+            enc = pc.dictionary_encode(a)
+            ranks = np.searchsorted(dictionary[c], np.asarray(enc.dictionary.to_pylist(), dtype=str))
+            v = ranks[np.asarray(enc.indices.fill_null(0))].astype(np.float64)
+        else:
+            v = np.array(a.fill_null(0).to_numpy(zero_copy_only=False), dtype=np.float64)
+        valid = np.asarray(pc.is_valid(a))
+        v[~valid] = np.nan
+        out.append(v)
+    return out
+
+
+def _check_rows(name: str, result, ref, names: list, strings: dict | None = None, cache: dict | None = None) -> None:
+    """Every row of `result` (a ColumnTable) against pyarrow's `ref`,
+    exactly, order aside. `strings` maps each string column to a sorted
+    array holding every value; `cache` keeps `ref`'s sorted rows for the
+    next check of the same query."""
+    strings = strings or {}
+    if result.num_rows != ref.num_rows or result.num_rows == 0:
+        raise AssertionError(f"{name}: {result.num_rows} rows, pyarrow {ref.num_rows}")
+    got = _row_columns(_result_columns(result, names, strings))
+    want = None if cache is None else cache.get(name)
+    if want is None:
+        want = _row_columns(_arrow_columns(ref, names, strings))
+        if cache is not None:
+            cache[name] = want
+    for i, c in enumerate(names):
+        if not np.array_equal(got[i], want[i], equal_nan=True):
+            raise AssertionError(f"{name}: column {c} differs from pyarrow")
+
+
+def join_types_path(device, ctx: dict, sf: float) -> dict:
+    """The join types beyond the inner join at SF1 through the user entry
+    points, on the session, lineitem and orders of the join path: Q13's
+    left join with an ON residual under two aggregates; a right and a full
+    outer join; Q4's semi / anti joins and Q21's with a residual; INTERSECT
+    and EXCEPT; an aggregate over a join with one indexed side under the
+    forced exchange; a semi join chained on J1's bucket-grouped output;
+    and two joins pruned dynamically (a quarter's orders, 12 order keys).
+    Each runs cold and warm, index on and off, checked against pyarrow on
+    the same parquet; each prints one line. Returns the per-query
+    records."""
+    import pandas as pd
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig
+    from hyperspace_tpu_torch.datagen import gen_tpch_customer
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    session, li, orders, workdir = ctx["session"], ctx["lineitem"], ctx["orders"], ctx["workdir"]
+    out: dict = {}
+    t0 = time.perf_counter()
+    gen_tpch_customer(workdir / "customer", sf=sf, seed=45)
+    out["customer_datagen_s"] = time.perf_counter() - t0
+    customer = session.parquet(workdir / "customer")
+    hs = Hyperspace(session)
+    t0 = time.perf_counter()
+    hs.create_index(customer, IndexConfig("customer_custkey", C_INDEXED, C_INCLUDED))
+    hs.create_index(orders, IndexConfig("orders_custkey", OC_INDEXED, OC_INCLUDED))
+    sync()
+    out["indexes_build_s"] = time.perf_counter() - t0
+
+    # The independent reference: pyarrow on the same parquet.
+    li_src, o_src = ctx["source"], ctx["o_source"]
+    c_src = pq.read_table(sorted(str(p) for p in (workdir / "customer").glob("*.parquet")))
+    urgent = o_src.filter(pc.equal(o_src["o_orderpriority"], "1-URGENT"))
+    j_cols = ["l_orderkey", "l_extendedprice", "o_totalprice", "o_orderpriority"]
+    o_j = ["o_orderkey", "o_totalprice", "o_orderpriority"]
+    li5 = li_src.filter(pc.greater_equal(li_src["l_discount"], 0.05)).select(["l_orderkey", "l_extendedprice"])
+    li8 = li_src.filter(pc.greater_equal(li_src["l_discount"], 0.08)).select(["l_orderkey", "l_extendedprice"])
+    li10_keys = pc.unique(li_src.filter(pc.equal(li_src["l_discount"], 0.10))["l_orderkey"])
+    by_priority = lambda t: t.group_by("o_orderpriority").aggregate([("o_orderkey", "count")])  # noqa: E731
+    refs = {}
+    per = c_src.select(["c_custkey"]).join(
+        o_src.filter(pc.greater(o_src["o_totalprice"], 400000.0)).select(["o_custkey", "o_orderkey"]),
+        keys="c_custkey", right_keys="o_custkey", join_type="left outer",
+    ).group_by("c_custkey").aggregate([("o_orderkey", "count")])
+    refs["Q13"] = per.group_by("o_orderkey_count").aggregate([("c_custkey", "count")]).rename_columns(
+        ["c_count", "custdist"])
+    for name, how in (("ROJ", "right outer"), ("FOJ", "full outer")):
+        t = li5.join(urgent.select(o_j), keys="l_orderkey", right_keys="o_orderkey", join_type=how)
+        # pyarrow names a right outer join's key after the right side.
+        refs[name] = t.rename_columns(["l_orderkey" if c == "o_orderkey" else c for c in t.column_names])
+    orders_p = o_src.select(["o_orderkey", "o_orderpriority", "o_totalprice"])
+    in8 = pc.is_in(orders_p["o_orderkey"], value_set=pc.unique(li8["l_orderkey"]))
+    pairs = orders_p.join(li8, keys="o_orderkey", right_keys="l_orderkey", join_type="inner")
+    pairs = pairs.filter(pc.greater(pairs["l_extendedprice"], pc.multiply(pairs["o_totalprice"], 0.1)))
+    in21 = pc.is_in(orders_p["o_orderkey"], value_set=pc.unique(pairs["o_orderkey"]))
+    refs["Q4s"], refs["Q4a"] = by_priority(orders_p.filter(in8)), by_priority(orders_p.filter(pc.invert(in8)))
+    refs["Q21s"], refs["Q21a"] = by_priority(orders_p.filter(in21)), by_priority(orders_p.filter(pc.invert(in21)))
+    left_keys = pc.unique(urgent["o_orderkey"])
+    in_sets = pc.is_in(left_keys, value_set=li10_keys)
+    refs["INTERSECT"] = pa.table({"o_orderkey": left_keys.filter(in_sets)})
+    refs["EXCEPT"] = pa.table({"o_orderkey": left_keys.filter(pc.invert(in_sets))})
+    full = li_src.select(["l_orderkey", "l_quantity", "l_extendedprice", "l_discount"]).join(
+        o_src.select(["o_orderkey", "o_totalprice", "o_orderpriority", "o_orderstatus", "o_orderdate"]),
+        keys="l_orderkey", right_keys="o_orderkey", join_type="inner")
+    refs["REB"] = full.group_by(["o_orderstatus"]).aggregate([("l_extendedprice", "sum"), ("l_orderkey", "count")])
+    j1 = full.select(j_cols)
+    refs["CHAIN"] = j1.filter(pc.is_in(j1["l_orderkey"], value_set=li10_keys))
+    plans = join_type_plans(htorch, li, orders, customer, sf)
+    days = pc.cast(full["o_orderdate"], pa.int32())
+    j2_aggs = [("l_extendedprice", "sum"), ("l_quantity", "sum"), ("l_discount", "min"),
+               ("l_extendedprice", "max"), ("o_totalprice", "sum"), ("l_orderkey", "count")]
+    refs["DPPq"] = full.filter(pc.and_(pc.greater_equal(days, _days("1995-01-01")),
+                                       pc.less(days, _days("1995-04-01")))).group_by(["o_orderpriority"]).aggregate(j2_aggs)
+    refs["DPPk"] = full.filter(pc.is_in(full["l_orderkey"], value_set=pa.array(dpp_keys(sf), pa.int64()))).group_by(
+        ["o_orderpriority"]).aggregate(j2_aggs)
+    del full, j1, pairs
+
+    priorities = {"o_orderpriority": np.unique(np.asarray(pc.unique(o_src["o_orderpriority"]).to_pylist(), dtype=str))}
+    sorted_refs: dict = {}
+
+    def check(name: str, result) -> None:
+        ref = refs[name]
+        if name in ("ROJ", "FOJ", "CHAIN"):
+            _check_rows(name, result, ref, j_cols, priorities, sorted_refs)
+        elif name in ("INTERSECT", "EXCEPT"):
+            _check_rows(name, result, ref, ["o_orderkey"], cache=sorted_refs)
+        elif name == "Q13":
+            _check_rows(name, result, ref, ["c_count", "custdist"])
+        elif name.startswith("Q"):
+            _check_rows(name, result, ref.rename_columns(["o_orderpriority", "cnt"]), ["o_orderpriority", "cnt"],
+                        priorities)
+        elif name == "REB":
+            _check_join_aggregate(name, pd.DataFrame(result.decode()), ref.to_pandas(), ["o_orderstatus"],
+                                  {"cnt": "l_orderkey_count"}, {"sum_price": ("l_extendedprice_sum", "s", False)},
+                                  ctx["bucket_stats"], True, session.conf.num_buckets)
+        else:
+            _check_join_aggregate(
+                name, pd.DataFrame(result.decode()), ref.to_pandas(), ["o_orderpriority"],
+                {"sum_qty": "l_quantity_sum", "min_disc": "l_discount_min",
+                 "max_price": "l_extendedprice_max", "cnt": "l_orderkey_count"},
+                {"sum_price": ("l_extendedprice_sum", "s", False), "avg_total": ("o_totalprice_sum", "p", True)},
+                ctx["bucket_stats"], True, session.conf.num_buckets,
+            )
+
+    tolerant = {"REB": ("sum_price",), "DPPq": ("sum_price", "avg_total"), "DPPk": ("sum_price", "avg_total")}
+    for mode in ("index", "no_index"):
+        session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
+        m = 0 if mode == "index" else 1
+        for name, (plan, rebucketize) in plans.items():
+            paths, k2_wanted, k1_wanted = JOIN_TYPE_EXPECT[name]
+            session.conf.set("hyperspace.join.rebucketize", rebucketize)
+            k2, k1 = run_bounds.launches, segment_reduce.launches
+            try:
+                (result,), timing = cold_warm(f"{name} {mode}", session, [plan], ctx["plan_cache"], sync,
+                                              tolerant=tolerant.get(name, ()))
+            finally:
+                session.conf.set("hyperspace.join.rebucketize", "auto")
+            stats = timing.pop("warm_stats")
+            if stats["join_path"] != paths[m]:
+                raise AssertionError(f"{name} {mode}: join path {stats['join_path']}, expected {paths[m]}")
+            launched = {"run_bounds": run_bounds.launches - k2, "segment_reduce": segment_reduce.launches - k1}
+            if device.type == "cuda":
+                if (launched["run_bounds"] > 0) != k2_wanted[m]:
+                    raise AssertionError(f"{name} {mode}: K2 launched {launched['run_bounds']} times")
+                if (launched["segment_reduce"] > 0) != k1_wanted:
+                    raise AssertionError(f"{name} {mode}: K1 launched {launched['segment_reduce']} times")
+            check(name, result)
+            record = {"query": name, "mode": mode, "rows": result.num_rows, **timing,
+                      **{k: stats[k] for k in ("join_path", "join_paths", "join_kernel", "exchange_kernel",
+                                               "files_pruned", "rows_pruned")},
+                      "launches": launched}
+            out[f"{name}_{mode}"] = record
+            log(json.dumps({"join_types_query": record}))
+        out[f"caches_after_{mode}"] = cache_stats()
+    session.enable_hyperspace()
+    for name, floor in (("DPPk", ("files_pruned", session.conf.num_buckets - SET_KEYS)), ("DPPq", ("rows_pruned", 1))):
+        got = out[f"{name}_index"][floor[0]]
+        if got < floor[1]:
+            raise AssertionError(f"{name}: {floor[0]} {got}, expected at least {floor[1]}")
+    return out
 
 
 def capture_k1(fn, module) -> list:
@@ -1411,6 +1743,13 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
         launches["join"] = read_counts("join", ("run_bounds", "segment_reduce"))
         log(json.dumps({"join_path": join, "launches": launches["join"]}))
         log(json.dumps({"caches_after_path": "join", **cache_stats()}))
+        zero_counts()
+        t0 = time.perf_counter()
+        join_types = join_types_path(device, ctx, args.sf)
+        join_types["join_types_path_s"] = time.perf_counter() - t0
+        launches["join_types"] = read_counts("join types", ("run_bounds", "segment_reduce"))
+        log(json.dumps({"join_types_path": join_types, "launches": launches["join_types"]}))
+        log(json.dumps({"caches_after_path": "join types", **cache_stats()}))
         k1_agg_inputs = ctx["k1_inputs"]
         del ctx
         zero_counts()
@@ -1484,8 +1823,8 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
             "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-            # K1 runs on both paths: its launches on each, summed.
-            "launches": launches["aggregates"]["segment_reduce"] + launches["join"]["segment_reduce"],
+            # K1 runs on three paths: its launches on each, summed.
+            "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types")),
             "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
@@ -1522,7 +1861,9 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
             "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
-            "launches": launches["join"]["run_bounds"],
+            # K2 runs on both join paths: its launches on each, summed.
+            "launches": launches["join"]["run_bounds"] + launches["join_types"]["run_bounds"],
+            "launches_by_path": {p: c["run_bounds"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

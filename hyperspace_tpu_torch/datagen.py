@@ -1,8 +1,9 @@
-"""TPC-H lineitem and orders generators, and the clustered embedding
-table, for the port (tests and chip_smoke.py).
+"""TPC-H lineitem, orders and customer generators, and the clustered
+embedding table, for the port (tests and chip_smoke.py).
 
 The port's own copies of the JAX package's `benchmarks/datagen.py::
-gen_tpch_lineitem` and `gen_tpch_orders`: the full 16-column TPC-H
+gen_tpch_lineitem`, `gen_tpch_orders` and `gen_tpch_customer` (150,000
+rows at SF1, seed 45, `c_custkey` in `o_custkey`'s domain): the full 16-column TPC-H
 lineitem schema, 1 to 7 lines per order (TPC-H's SF1 table holds
 6,001,215 rows; this generator gives 6,001,991 at SF1 with seed 42), and
 the 9-column orders table (1.5M rows at SF1, `o_orderkey` in
@@ -22,6 +23,7 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 TPCH_SF1_ORDERS_ROWS = 1_500_000
+TPCH_SF1_CUSTOMER_ROWS = 150_000
 
 _RETURNFLAGS = np.array(["A", "N", "R"], dtype=object)
 _LINESTATUS = np.array(["F", "O"], dtype=object)
@@ -35,6 +37,7 @@ _ORDERPRIORITY = np.array(
     ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"], dtype=object
 )
 _ORDERSTATUS = np.array(["F", "O", "P"], dtype=object)
+_SEGMENTS = np.array(["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"], dtype=object)
 _EPOCH_1992 = 8035  # days from 1970-01-01 to 1992-01-01
 _DATE_SPAN = 2525  # order dates span 1992-01-01 .. 1998-12-01 (TPC-H 4.2.3)
 
@@ -146,6 +149,36 @@ def gen_tpch_orders(root: Path, sf: float = 1.0, seed: int = 43, files: int | No
         pq.write_table(t, root / f"part-{i}.parquet", row_group_size=262_144)
         total += t.nbytes
     return total
+
+
+def gen_tpch_customer(root: Path, sf: float = 1.0, seed: int = 45, files: int = 2) -> int:
+    """TPC-H customer (SF1 = 150k rows), `c_custkey` in orders'
+    `o_custkey` domain (Q13's shape). Deterministic under the seed;
+    returns the in-memory byte size."""
+    n = int(TPCH_SF1_CUSTOMER_ROWS * sf)
+    rng = np.random.default_rng(seed)
+    t = pa.table(
+        {
+            "c_custkey": np.arange(n, dtype=np.int64),
+            "c_name": pa.array(np.char.add("Customer#", np.arange(n).astype("U9")).astype(object)),
+            "c_phone": pa.array(
+                np.char.add(
+                    np.char.add(rng.integers(10, 35, n).astype("U2"), "-555-"),
+                    rng.integers(1000, 10000, n).astype("U4"),
+                ).astype(object)
+            ),
+            "c_acctbal": np.round(rng.random(n) * 10_000 - 1_000, 2),
+            "c_mktsegment": pa.array(_SEGMENTS[rng.integers(0, 5, n)]),
+            "c_nationkey": rng.integers(0, 25, n).astype(np.int32),
+        }
+    )
+    root.mkdir(parents=True, exist_ok=True)
+    per = (t.num_rows + files - 1) // files
+    for i in range(files):
+        part = t.slice(i * per, per)
+        if part.num_rows:
+            pq.write_table(part, root / f"part-{i}.parquet", row_group_size=262_144)
+    return t.nbytes
 
 
 def gen_embeddings(root: Path, n: int, dim: int, clusters: int, seed: int = 7) -> np.ndarray:

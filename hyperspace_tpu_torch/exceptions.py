@@ -1,4 +1,4 @@
-"""Framework exception types (the subset the port's slice raises).
+"""Framework exception types (the subset the port raises).
 
 Reference parity: com/microsoft/hyperspace/HyperspaceException.scala:17-19 —
 a single exception class carrying a message, plus the typed corruption
@@ -25,3 +25,17 @@ class IndexCorruptionError(HyperspaceError):
         super().__init__(msg)
         self.index_root = index_root
         self.path = path
+
+
+class UnknownConfigKeyError(HyperspaceError):
+    """A `hyperspace.*` config key was get/set that is declared nowhere
+    (almost always a typo). Carries a did-you-mean `suggestion` when a
+    declared key is close."""
+
+    def __init__(self, key: str, suggestion: str | None = None):
+        msg = f"unknown config key {key!r}"
+        if suggestion:
+            msg += f" — did you mean {suggestion!r}?"
+        super().__init__(msg)
+        self.key = key
+        self.suggestion = suggestion

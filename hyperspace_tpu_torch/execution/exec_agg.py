@@ -6,8 +6,10 @@ inner join first tries the fused Aggregate(Join) (exec_join_agg.py), as
 the JAX package does; otherwise the child executes, then one
 segment-reduce over every channel on the session's device. Group ids go
 through the identity cache (exec_common.py::_group_ids_cached), as in the
-JAX package. Grouping sets, count-distinct and partial-aggregation
-pushdown are not ported yet.
+JAX package. An aggregate with no aggregate functions (`distinct()`, the
+set operations' left side) takes the group ids only and launches no
+reduce. Grouping sets, count-distinct and partial-aggregation pushdown
+are not ported yet.
 """
 
 from __future__ import annotations

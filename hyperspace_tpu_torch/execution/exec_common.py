@@ -1,23 +1,25 @@
 """Executor support: side descriptors, key-bound analysis, the identity
-caches, the shared key factorization, bucket-major padding and the
-aggregate channel inputs.
+caches, the shared key factorization, bucket-major padding, the
+broadcast probe, the outer join's null extension and the aggregate
+channel inputs.
 
-A port of the subset of the JAX package's `execution/exec_common.py` that
-the bucket-aligned inner join, the fused Aggregate(Join) and the
-range-pruned index scan run: `AlignedSide` (without hybrid-scan deltas,
-and without the projection: the join gather emits the join's schema
-directly), `SideData` (without the hash domain, which only the
-re-bucketing exchange and the bucket-preserved reuse read — neither is
-ported), `_filter_side`, `_bucket_sorted_codes`, `_pad_bucket_major` and
-`_factorize_keys` with its helpers; `KeyBounds`, `key_bounds`,
-`predicate_all_key_bounds`, `_stats_overlap` and `_convert_bounds`; and
-the identity caches `_stable_table_refs`, `_group_ids_cached`,
-`_agg_channels_cached`, `_factorize_keys_cached`,
+A port of the JAX package's `execution/exec_common.py` without what
+only its unported modules use (hybrid-scan deltas, the run-extremum host
+venue, count-distinct, the partial-aggregation leaf): `AlignedSide`
+(without its projection: the join gather emits the join's schema
+directly), `SideData` with its hash domain and `_hash_fields_compatible`,
+`_filter_side`, `_bucket_sorted_codes`, `_pad_bucket_major`,
+`_composite_keys`, `_broadcast_probe`, `_copy_field`, `_null_field`
+and `_factorize_keys` (null-safe keys included) with its helpers;
+`KeyBounds`, `key_bounds`, `predicate_all_key_bounds`, `_stats_overlap`
+and `_convert_bounds`; and the identity caches `_stable_table_refs`,
+`_group_ids_cached`, `_agg_channels_cached`, `_factorize_keys_cached`,
 `_pad_bucket_major_cached` and `_stack_cached` (execution/device_cache.py
 says what "stable" means here). The key factorization is a copy and runs
 on the host (numpy): it yields int32 rank codes whose order is the key
 tuples' order and whose equality across sides is key equality. Sorting,
-padding and everything after run as torch ops on the tables' device.
+padding, probing and everything after run as torch ops on the tables'
+device.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution import device_cache as dc
-from hyperspace_tpu_torch.execution.table import ColumnTable
+from hyperspace_tpu_torch.execution.table import ColumnTable, to_tensor
 from hyperspace_tpu_torch.ops.aggregate import agg_input, group_ids
 from hyperspace_tpu_torch.ops.filter import eval_predicate_mask
 from hyperspace_tpu_torch.ops.join import sentinel_for
@@ -56,6 +58,21 @@ class SideData:
     table: ColumnTable
     offsets: np.ndarray  # [B+1] int64, on the host
     sorted_within: bool  # buckets key-sorted (index files are)?
+    # Fields defining the bucket hash domain (the dtypes the row hash was
+    # computed in): two bucketings pair only when these are compatible.
+    hash_fields: tuple | None = None
+
+
+def _hash_fields_compatible(a, b) -> bool:
+    """Equal key values bucket identically under both domains."""
+    if a is None or b is None or len(a) != len(b):
+        return False
+    for fa, fb in zip(a, b):
+        if fa.is_string != fb.is_string:
+            return False
+        if not fa.is_string and np.dtype(fa.device_dtype) != np.dtype(fb.device_dtype):
+            return False
+    return True
 
 
 def _bucket_of(offsets: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -67,7 +84,9 @@ def _bucket_of(offsets: np.ndarray, device: torch.device) -> torch.Tensor:
 def _filter_side(side: SideData, predicate: Expr) -> SideData:
     """Apply a side-local filter to bucket-grouped data, recomputing the
     bucket offsets over the surviving rows (grouping and within-bucket
-    order are preserved — a filtered subsequence stays sorted)."""
+    order are preserved — a filtered subsequence stays sorted). As in the
+    JAX package, the filtered side carries no hash domain: a join over it
+    leaves no bucket grouping for a later join to reuse."""
     t = side.table
     if t.num_rows == 0:
         return side
@@ -114,14 +133,111 @@ def _pad_bucket_major(
     if len(values) == 0:
         return torch.full((b, lmax), fill, dtype=values.dtype, device=dev)
     col = torch.arange(lmax, device=dev)
-    idx = torch.from_numpy(offsets[:-1]).to(dev)[:, None] + col[None, :]
+    idx = to_tensor(offsets[:-1], dev)[:, None] + col[None, :]
     mask = col[None, :] < torch.from_numpy(counts).to(dev)[:, None]
     gathered = values[idx.clamp_(max=len(values) - 1)]
     return torch.where(mask, gathered, torch.full((), fill, dtype=values.dtype, device=dev))
 
 
+def _composite_keys(codes: torch.Tensor, offsets: np.ndarray) -> torch.Tensor:
+    """(bucket << 33) + code composites on the codes' device: codes span
+    int32 (±2^31) and buckets are small, so the shifted sum is
+    collision-free in int64 and globally SORTED for bucket-major
+    key-sorted inputs. The semi/anti membership probe's keys."""
+    return (_bucket_of(offsets, codes.device) << 33) + codes.long()
+
+
+def _broadcast_probe(lcodes: torch.Tensor, rcodes: torch.Tensor):
+    """Match pairs through a broadcast table on the codes' device: the
+    smaller side builds a dense code -> (start, count) table (`bincount`,
+    `cumsum`, one stable sort of its codes), every row of the larger side
+    probes it with one gather, and duplicate runs expand with
+    `repeat_interleave`. The larger side is never sorted. Null codes are
+    negative and never match. Returns None when the shared code space is
+    too sparse for a table (the caller merges instead); else (lidx,
+    ridx) int64 in probe order (the JAX package's `_broadcast_probe`,
+    pair for pair)."""
+    dev = lcodes.device
+    swap = len(lcodes) < len(rcodes)
+    build, probe = (lcodes, rcodes) if swap else (rcodes, lcodes)
+    tops = [t.max().long() + 1 for t in (build, probe) if len(t)]
+    top = max(int(torch.stack(tops).max()), 0) if tops else 0
+    if top == 0:
+        # Every key on both sides is null-coded: no row can match.
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        return empty, empty
+    if top > 8 * len(build) + 65_536:
+        return None  # sparse code space: the table would dwarf the side
+    bvalid = build >= 0
+    counts = torch.bincount(build[bvalid].long(), minlength=top)
+    starts = torch.cumsum(counts, 0) - counts
+    order = torch.sort(build, stable=True).indices  # null codes sort first
+    nneg = (~bvalid).sum()
+    pvalid = probe >= 0
+    pc = torch.where(pvalid, probe.long(), torch.zeros((), dtype=torch.int64, device=dev))
+    cnt = torch.where(pvalid, counts[pc], torch.zeros((), dtype=counts.dtype, device=dev))
+    lo = nneg + starts[pc]
+    if int(counts.max()) <= 1:
+        # Unique build keys (the dimension-table case): each probe row
+        # matches 0 or 1 build rows, no run expansion.
+        probe_idx = torch.nonzero(cnt > 0).flatten()
+        build_idx = order[lo[probe_idx]]
+    else:
+        total = int(cnt.sum())
+        probe_idx = torch.repeat_interleave(torch.arange(len(probe), device=dev), cnt, output_size=total)
+        run_starts = torch.cumsum(cnt, 0) - cnt
+        within = torch.arange(total, device=dev) - run_starts[probe_idx]
+        build_idx = order[lo[probe_idx] + within]
+    if swap:
+        return build_idx, probe_idx  # the build side is the LEFT input
+    return probe_idx, build_idx
+
+
+def _torch_dtype(np_dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
+
+
+def _copy_field(out_f, src: ColumnTable, src_name: str, cols, dicts, val) -> None:
+    """Copy src column `src_name` into output field `out_f` (cast where
+    the numeric dtypes differ: a right-unmatched outer-join row takes its
+    left-named key column from the right side)."""
+    sf = src.schema.field(src_name)
+    arr = src.columns[sf.name]
+    if sf.name in src.dictionaries:
+        dicts[out_f.name] = src.dictionaries[sf.name]
+        cols[out_f.name] = arr
+    else:
+        want = _torch_dtype(out_f.device_dtype)
+        cols[out_f.name] = arr if arr.ndim > 1 or arr.dtype == want else arr.to(want)
+    v = src.validity.get(sf.name)
+    if v is not None:
+        val[out_f.name] = v
+
+
+def _null_field(out_f, n: int, dict_src: ColumnTable | None, device, cols, dicts, val) -> None:
+    """All-null column for output field `out_f` (outer-join null
+    extension). A string field reuses `dict_src`'s dictionary for that
+    field, so that the concat with the matched part needs no merge."""
+    if out_f.is_vector:
+        raise HyperspaceError(f"outer join cannot null-extend vector column {out_f.name!r}")
+    if out_f.is_string:
+        d = None
+        if dict_src is not None:
+            try:
+                d = dict_src.dictionaries.get(dict_src.schema.field(out_f.name).name)
+            except Exception:
+                d = None
+        if d is None or len(d) == 0:
+            d = np.array([""], dtype=object)
+        cols[out_f.name] = torch.zeros(n, dtype=torch.int32, device=device)
+        dicts[out_f.name] = d
+    else:
+        cols[out_f.name] = torch.zeros(n, dtype=_torch_dtype(out_f.device_dtype), device=device)
+    val[out_f.name] = torch.zeros(n, dtype=torch.bool, device=device)
+
+
 def _padded_key_codes(
-    lside: SideData, rside: SideData, left_on: list[str], right_on: list[str]
+    lside: SideData, rside: SideData, left_on: list[str], right_on: list[str], null_safe: bool = False
 ) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
     """Per side (left, right): the join keys' int32 codes from the shared
     factorization, sorted within each bucket and padded bucket-major to
@@ -132,7 +248,7 @@ def _padded_key_codes(
     lt, rt = lside.table, rside.table
     lkeys = [lt.schema.field(c).name for c in left_on]
     rkeys = [rt.schema.field(c).name for c in right_on]
-    lc, rc = _factorize_keys_cached(lt, rt, lkeys, rkeys)
+    lc, rc = _factorize_keys_cached(lt, rt, lkeys, rkeys, null_safe=null_safe)
     out = []
     for side, codes in ((lside, lc), (rside, rc)):
         codes_t = dc.device_put_cached(codes, side.table.device)
@@ -197,22 +313,25 @@ def _agg_channels_cached(tbl: ColumnTable, spec) -> tuple[torch.Tensor, torch.Te
     return dc.derived(key, refs, lambda: _agg_channels(tbl, spec))
 
 
-def _factorize_keys_cached(lt: ColumnTable, rt: ColumnTable, lkeys, rkeys) -> tuple[np.ndarray, np.ndarray]:
+def _factorize_keys_cached(
+    lt: ColumnTable, rt: ColumnTable, lkeys, rkeys, null_safe: bool = False
+) -> tuple[np.ndarray, np.ndarray]:
     """Pairwise key factorization memoized on the identity of every input
     it reads (key columns, dictionaries, validity), valid only when all
     are stable. Repeat joins over the same index version skip ranking
     entirely; the codes are frozen, so their uploads and pads cache too.
-    Returns (lcodes, rcodes)."""
+    `null_safe` is part of the key: a set operation and a join over the
+    same columns code their nulls differently. Returns (lcodes, rcodes)."""
 
     def build():
-        lc, rc = _factorize_keys([lt], [rt], lkeys, rkeys)
+        lc, rc = _factorize_keys([lt], [rt], lkeys, rkeys, null_safe=null_safe)
         return lc[0], rc[0]
 
     lrefs, lparts = _stable_table_refs(lt, {k.lower() for k in lkeys})
     rrefs, rparts = _stable_table_refs(rt, {k.lower() for k in rkeys})
     if lrefs is None or rrefs is None:
         return build()
-    return dc.derived(("fact", (lparts, rparts)), lrefs + rrefs, build)
+    return dc.derived(("fact", (lparts, rparts, null_safe)), lrefs + rrefs, build)
 
 
 def _bucket_sorted_codes_cached(codes: torch.Tensor, side: SideData) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -442,19 +561,28 @@ def _apply_null_codes(lcodes, rcodes, lnulls, rnulls):
     return lcodes, rcodes
 
 
-def _factorize_keys(ltables, rtables, lkeys, rkeys) -> tuple[list[np.ndarray], list[np.ndarray]]:
+def _factorize_keys(
+    ltables, rtables, lkeys, rkeys, null_safe: bool = False
+) -> tuple[list[np.ndarray], list[np.ndarray]]:
     """Map each partition's key tuples to a shared int32 rank-code space
     whose order matches the lexicographic order of the raw key tuples
     (host numpy arrays; ranks always fit, bounded by the row count).
-    Null-keyed rows get side-distinct negative codes. The JAX package's
-    null-safe variant (set operations) is not ported."""
+
+    `null_safe` switches the NULL treatment from SQL join equality (a
+    null-keyed row never matches: side-distinct negative codes) to SQL
+    set / IS NOT DISTINCT FROM equality: per key column, NULL becomes one
+    extra domain value SHARED across sides (code `len(uniq)`), so
+    (1, NULL) matches (1, NULL) but still not (1, 0) — the physical
+    zero or "" a null slot holds can no longer collide with a real
+    value."""
     lnulls = [_key_null_mask(t, lkeys) for t in ltables]
     rnulls = [_key_null_mask(t, rkeys) for t in rtables]
     has_nulls = any(m is not None for m in lnulls + rnulls)
     # Fast path: a single integer key whose value SPAN fits int32 needs no
     # ranking — values shifted by the minimum are order-preserving,
-    # non-negative codes. (Skipped with nulls: raw values could collide
-    # with the null codes.)
+    # non-negative codes, so a negative code always means a null-keyed
+    # row (what the broadcast and membership probes rely on). (Skipped
+    # with nulls: raw values could collide with the null codes.)
     if len(lkeys) == 1 and not has_nulls:
         lvals = [_logical_key(t, lkeys[0]) for t in ltables]
         rvals = [_logical_key(t, rkeys[0]) for t in rtables]
@@ -470,6 +598,9 @@ def _factorize_keys(ltables, rtables, lkeys, rkeys) -> tuple[list[np.ndarray], l
                     [(v.astype(np.int64) - shift).astype(np.int32) for v in rvals],
                 )
 
+    def null_masks(lname, rname):
+        return [t.host_valid_mask(lname) for t in ltables] + [t.host_valid_mask(rname) for t in rtables]
+
     per_col_codes_l: list[list[np.ndarray]] = [[] for _ in ltables]
     per_col_codes_r: list[list[np.ndarray]] = [[] for _ in rtables]
     cards: list[int] = []
@@ -480,6 +611,18 @@ def _factorize_keys(ltables, rtables, lkeys, rkeys) -> tuple[list[np.ndarray], l
             # domain: merge the small sorted dictionaries and remap each
             # side's codes with one gather.
             lvals, rvals, card = dict_res
+            if null_safe and has_nulls:
+                masks = null_masks(lname, rname)
+                if any(m is not None for m in masks):
+                    lvals = [v.copy() for v in lvals]
+                    rvals = [v.copy() for v in rvals]
+                    any_null = False
+                    for v, m in zip(lvals + rvals, masks):
+                        if m is not None and (~m).any():
+                            v[~m] = card
+                            any_null = True
+                    if any_null:
+                        card += 1
             cards.append(max(card, 1))
             for i, v in enumerate(lvals):
                 per_col_codes_l[i].append(v)
@@ -491,7 +634,21 @@ def _factorize_keys(ltables, rtables, lkeys, rkeys) -> tuple[list[np.ndarray], l
         allv = np.concatenate(lvals + rvals) if (lvals or rvals) else np.array([])
         uniq, inv = np.unique(allv, return_inverse=True)
         inv = inv.reshape(-1)
-        cards.append(max(len(uniq), 1))
+        card = max(len(uniq), 1)
+        if null_safe and has_nulls:
+            # NULL = one extra domain value of this column, shared across
+            # sides.
+            masks = null_masks(lname, rname)
+            if any(m is not None for m in masks):
+                alln = np.concatenate([
+                    (~m if m is not None else np.zeros(len(v), dtype=bool))
+                    for m, v in zip(masks, lvals + rvals)
+                ])
+                if alln.any():
+                    inv = inv.copy()
+                    inv[alln] = len(uniq)
+                    card = len(uniq) + 1
+        cards.append(card)
         pos = 0
         for i, v in enumerate(lvals):
             per_col_codes_l[i].append(inv[pos : pos + len(v)])
@@ -517,6 +674,9 @@ def _factorize_keys(ltables, rtables, lkeys, rkeys) -> tuple[list[np.ndarray], l
     if math.prod(cards) < int32_max:
         lc = [c.astype(np.int32) for c in lcomb]
         rc = [c.astype(np.int32) for c in rcomb]
+        if null_safe:
+            # Nulls are real domain values in these codes already.
+            return lc, rc
         return _apply_null_codes(lc, rc, lnulls, rnulls)
     # Otherwise re-rank the combined codes down to int32 (order preserved
     # by np.unique).
@@ -534,6 +694,8 @@ def _factorize_keys(ltables, rtables, lkeys, rkeys) -> tuple[list[np.ndarray], l
     for c in rcomb:
         out_r.append(inv[pos : pos + len(c)])
         pos += len(c)
+    if null_safe:
+        return out_l, out_r
     return _apply_null_codes(out_l, out_r, lnulls, rnulls)
 
 

@@ -4,7 +4,11 @@ materializing the joined pairs (Executor mixin).
 A port of the JAX package's `execution/exec_join_agg.py`:
 `_try_fused_join_aggregate` and `_device_fused_channels`. There is no
 host venue: the channels always run on the session's device through
-ops/join_agg.py (K2 for the run bounds, K1 for the fold). Group ids are
+ops/join_agg.py (K2 for the run bounds, K1 for the fold). Its sides come
+from `_join_sides`, so they may be zero-exchange aligned, re-bucketized,
+bucket-preserved or cut by dynamic partition pruning; a side whose
+buckets are not sorted within (an exchanged one) is sorted by
+(bucket, code) on the device first. It never takes the broadcast probe. Group ids are
 factorized on the host (ops/aggregate.py::group_ids), as for the plain
 aggregate. Group ids, channels, pads and channel stacks go through the
 identity caches (exec_common.py), as in the JAX package: a repeat over the
@@ -42,7 +46,7 @@ class FusedJoinAggMixin:
         child = plan.child
         if isinstance(child, Project) and child.is_simple:
             child = child.child
-        if not isinstance(child, Join) or child.how != "inner" or child.condition is not None or child.null_safe:
+        if not isinstance(child, Join) or child.how != "inner" or child.condition is not None:
             return None
         join = child
         lnames = {n.lower() for n in join.left.schema.names}
@@ -79,11 +83,12 @@ class FusedJoinAggMixin:
         secondary = "right" if primary == "left" else "left"
 
         lside, rside = self._join_sides(join)
+        self.stats["join_paths"].append(self.stats["join_path"])
         data = {"left": lside, "right": rside}
         self.stats["agg_path"] = "fused-join-agg"
         self.stats["num_buckets"] = len(lside.offsets) - 1
 
-        (lk, lperm), (rk, rperm) = _padded_key_codes(lside, rside, join.left_on, join.right_on)
+        (lk, lperm), (rk, rperm) = _padded_key_codes(lside, rside, join.left_on, join.right_on, join.null_safe)
         keys, perms = {"left": lk, "right": rk}, {"left": lperm, "right": rperm}
 
         ptable = data[primary].table

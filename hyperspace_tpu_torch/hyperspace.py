@@ -13,9 +13,12 @@ enable_hyperspace / disable_hyperspace / run / to_pandas` and
 `run_query(plan, plan_cache=)` and `QueryOutcome`. The session runs on
 the CUDA card unless the caller passes `device="cpu"`. `last_query_stats`
 reports what ran: the scan kind, files read or pruned, rows pruned by a
-range slice and whether the slice was exact, the aggregate path, for a
-join its path (`zero-exchange-aligned` or `single-partition`), kernel and
-bucket count, and the host's seconds by step (`host_s`: plan, read,
+range slice or a join's dynamic partition pruning and whether a range
+slice was exact, the aggregate path, for a
+join its path (`zero-exchange-aligned`, `single-partition`,
+`broadcast-hash`, `rebucketized-aligned` or `bucket-preserved-aligned`;
+`join_paths` lists every join's), kernel, exchange kernel and bucket
+count, and the host's seconds by step (`host_s`: plan, read,
 derive, execute). Decoded columns and derived arrays are cached per
 process (execution/device_cache.py). Corruption fallback, profiles, the
 server, the advisor and the lifecycle APIs other than create are not
@@ -160,7 +163,7 @@ class HyperspaceSession:
             optimized = self.optimized_plan(plan)
         t1 = time.perf_counter()
         derive0 = device_cache.derive_seconds()
-        executor = Executor(self.device)
+        executor = Executor(self.device, self.conf)
         result = executor.execute(optimized)
         stats = executor.stats
         stats["host_s"] = {

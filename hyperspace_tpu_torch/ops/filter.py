@@ -10,7 +10,10 @@ A port of the JAX package's `ops/filter.py` (`eval_predicate_mask`,
 `apply_filter`, and the Kleene evaluation of `_host_mask`). The card has
 native int64 and float64, so the TPU's lowering of 64-bit comparisons
 onto pairs of 32-bit words is not needed. String literals translate into
-the sorted dictionary's code domain on the host first, as there.
+the sorted dictionary's code domain on the host first, as there; a
+comparison of two string columns maps both dictionaries into one merged
+sorted dictionary first (the JAX package's `_StrColCmp`), since codes of
+two dictionaries are not comparable.
 """
 
 from __future__ import annotations
@@ -71,6 +74,32 @@ def _normalize_int_literal(value, op: str):
     return ("cmp", op, v)
 
 
+class _StrColCmp(Expr):
+    """Internal leaf: a comparison of two string columns whose
+    dictionaries differ (codes from two dictionaries are not comparable).
+    Each side's codes map through `lmap` / `rmap` into one MERGED sorted
+    dictionary, where integer order is string order."""
+
+    def __init__(self, op: str, left: Col, right: Col, lmap: np.ndarray, rmap: np.ndarray):
+        self.op = op
+        self.left = left
+        self.right = right
+        self.lmap = lmap  # [left dict size] int32 positions in the merged dict
+        self.rmap = rmap
+
+    def references(self):
+        return self.left.references() | self.right.references()
+
+
+def _string_col(table: ColumnTable, e: Expr) -> str | None:
+    """The field name when `e` is a string column of `table`."""
+    if isinstance(e, Col):
+        f = table.schema.field(e.name)
+        if f.is_string:
+            return f.name
+    return None
+
+
 class _Const(Expr):
     """Internal leaf: a comparison decided at translation time."""
 
@@ -89,6 +118,19 @@ def translate_predicate(table: ColumnTable, e: Expr) -> Expr:
     Pure — returns a new tree, never mutates the plan's predicate."""
     if isinstance(e, BinOp) and e.is_comparison:
         l, r = e.left, e.right
+        ls, rs = _string_col(table, l), _string_col(table, r)
+        if ls is not None and rs is not None:
+            # String column vs string column: remap both dictionaries into
+            # one merged sorted dictionary first (comparing raw codes of
+            # two dictionaries gives wrong rows).
+            lvals = np.asarray(table.dictionaries[ls]).astype(str)
+            rvals = np.asarray(table.dictionaries[rs]).astype(str)
+            merged = np.unique(np.concatenate([lvals, rvals]))
+            lmap = np.searchsorted(merged, lvals).astype(np.int32)
+            rmap = np.searchsorted(merged, rvals).astype(np.int32)
+            return _StrColCmp(e.op, Col(ls), Col(rs), lmap, rmap)
+        if (ls is None) != (rs is None) and not isinstance(r if ls is not None else l, Lit):
+            raise HyperspaceError("cannot compare a string column with a non-string expression")
         if isinstance(r, Col) and isinstance(l, Lit):
             return translate_predicate(table, BinOp(_FLIP[e.op], r, l))
         if isinstance(l, Col) and isinstance(r, Lit):
@@ -149,7 +191,14 @@ def _mask(table: ColumnTable, predicate: Expr) -> torch.Tensor:
         if isinstance(e, IsNull):
             known = known_mask(e.child)
             return ~known, known  # IS NULL is never UNKNOWN
-        if isinstance(e, _Const):
+        if isinstance(e, _StrColCmp):
+            lmap = torch.from_numpy(e.lmap).to(device)
+            rmap = torch.from_numpy(e.rmap).to(device)
+            lv = lmap[resolve(e.left.name).long()]
+            rv = rmap[resolve(e.right.name).long()]
+            v = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
+                 "gt": torch.gt, "ge": torch.ge}[e.op](lv, rv)
+        elif isinstance(e, _Const):
             v = torch.full((n_rows,), e.value, dtype=torch.bool, device=device)
         else:
             # Leaf comparison: any null input makes it unknown.

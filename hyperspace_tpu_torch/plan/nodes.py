@@ -11,13 +11,13 @@ A `Scan` stores the dataset root + format + schema — NOT a pinned file list.
 On (re-)execution the file list is derived from the live filesystem.
 
 A copy of the JAX package's `plan/nodes.py`, cut to the nodes the port
-executes: Scan, Filter, a passthrough Project, an equi-Join, and a plain
-GROUP BY Aggregate over sum / count / min / max / mean. The Join node
-keeps the JAX package's full shape (every join type, the ON residual,
-null-safe keys) so plans and their JSON round-trip alike; the executor
-runs the inner equi-join only and raises on the rest. Union, Window,
-Sort, Limit, computed projections, grouping sets and count-distinct are
-not ported yet. The JSON form is the JAX package's.
+executes: Scan, Filter, Project (passthrough and computed), the
+equi-Join with every join type (inner, left / right / full outer, semi,
+anti), an ON residual and null-safe keys, and a plain GROUP BY Aggregate
+over sum / count / min / max / mean; with the builders `intersect`,
+`except_` and `distinct`, which desugar to those nodes. Union, Window,
+Sort, Limit, grouping sets and count-distinct are not ported yet. The
+JSON form is the JAX package's.
 """
 
 from __future__ import annotations
@@ -68,6 +68,46 @@ class LogicalPlan:
         (fn, expr|column|None, alias) tuples; fn ∈ sum/count/min/max/mean."""
         specs = [a if isinstance(a, AggSpec) else AggSpec.of(*a) for a in aggs]
         return Aggregate(self, list(group_by), specs)
+
+    def intersect(self, other: "LogicalPlan") -> "Join":
+        """SQL INTERSECT (set semantics, positional columns): distinct left
+        rows that also appear in `other`. Desugars to DISTINCT + NULL-SAFE
+        SEMI JOIN on every column: set comparison treats NULL as equal to
+        NULL (SQL's IS NOT DISTINCT FROM), so a NULL-bearing row
+        intersects with its NULL-bearing twin — unlike the ordinary join,
+        where NULL never equals anything."""
+        return self._set_op(other, "semi")
+
+    def except_(self, other: "LogicalPlan") -> "Join":
+        """SQL EXCEPT: distinct left rows absent from `other`. Desugars to
+        DISTINCT + NULL-SAFE ANTI JOIN on every column (the NULL semantics
+        of intersect)."""
+        return self._set_op(other, "anti")
+
+    def _set_op(self, other: "LogicalPlan", how: str) -> "Join":
+        if len(self.schema.names) != len(other.schema.names):
+            raise ValueError(
+                f"set operation inputs must have equal width: {self.schema.names} vs {other.schema.names}"
+            )
+        for lf, rf in zip(self.schema.fields, other.schema.fields):
+            # Positional pairs must share a comparison domain: a silent
+            # string/number coercion would "match" 1 with '1'.
+            if lf.is_string != rf.is_string:
+                raise ValueError(
+                    f"set operation column types are incompatible: {lf.name} ({lf.dtype}) vs {rf.name} ({rf.dtype})"
+                )
+        return Join(self.distinct(), other, list(self.schema.names), list(other.schema.names), how, null_safe=True)
+
+    def distinct(self) -> "Aggregate":
+        """Distinct rows = group by every column with no aggregates.
+        Vector (embedding) columns have no grouping semantics — select the
+        scalar columns first."""
+        vec = [f.name for f in self.schema.fields if f.is_vector]
+        if vec:
+            raise ValueError(
+                f"distinct() is not defined over vector columns {vec}; select the scalar columns first"
+            )
+        return Aggregate(self, list(self.schema.names), [])
 
     # -- interface --------------------------------------------------------
     @property
@@ -202,8 +242,8 @@ class Join(LogicalPlan):
     """Equi-join on key column lists (reference matches CNF of EqualTo,
     JoinIndexRule.scala:179-185; the equi-join is structural here). `how`
     covers inner / left / right / full outer, plus (left) semi and anti;
-    the port executes `inner` without a `condition` and raises on the
-    rest."""
+    `condition` is the ON clause's non-equi residual, and `null_safe`
+    makes NULL keys equal (the set operations)."""
 
     left: LogicalPlan
     right: LogicalPlan
@@ -213,7 +253,7 @@ class Join(LogicalPlan):
     # Non-equi residual of the ON clause (equality stays structural).
     condition: Expr | None = None
     # NULL-safe key equality (SQL IS NOT DISTINCT FROM), used by the set
-    # operations of the JAX package.
+    # operations (intersect / except_).
     null_safe: bool = False
 
     def __post_init__(self):

@@ -23,8 +23,9 @@ guaranteed by the `Join` node shape. What remains:
 A copy of the JAX package's rule. Hybrid scan is not ported, so a side
 matches an index only when its signature equals the source's. When only
 one side has a usable index, that side alone is rewritten (as in the JAX
-package); the port's executor then runs the join on one partition, since
-the re-bucketing exchange is not ported yet.
+package); the executor then re-bucketizes the other side into the
+index's bucket layout (the re-bucketing exchange) or, where that side is
+small, probes a broadcast table of it (execution/exec_side.py).
 """
 
 from __future__ import annotations

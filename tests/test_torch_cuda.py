@@ -656,3 +656,124 @@ def test_vector_search_past_max_k_on_the_card_matches_the_cpu(cuda, tmp_path):
         apart[:, -1] = False
         got_ids = got.rows.host_column("id").reshape(len(queries), -1)
         np.testing.assert_array_equal(got_ids[apart], ids[apart])
+
+
+# -- the join types: probes, exchange and DPP cut on the card -------------------------
+
+
+@pytest.mark.gpu
+def test_broadcast_and_membership_probes_on_the_card_match_the_cpu(cuda):
+    """The broadcast probe (unique and duplicate build keys, null codes,
+    both orientations) and the membership probe give the CPU's pairs and
+    bits, on the card."""
+    from hyperspace_tpu_torch.execution.exec_common import _broadcast_probe, _composite_keys
+
+    rng = np.random.default_rng(31)
+    for n_l, n_r, dup in ((200_000, 5_000, False), (200_000, 5_000, True), (3_000, 100_000, True)):
+        lc = rng.integers(-2, 6_000, n_l).astype(np.int32)
+        rc = (np.repeat(np.arange(n_r // 3), 3)[:n_r] if dup else rng.permutation(n_r)).astype(np.int32)
+        rc[rng.integers(0, n_r, 50)] = -1
+        got = _broadcast_probe(torch.from_numpy(lc).to(cuda), torch.from_numpy(rc).to(cuda))
+        want = _broadcast_probe(torch.from_numpy(lc), torch.from_numpy(rc))
+        assert got[0].is_cuda and got[1].is_cuda
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    offsets = np.array([0, 70_000, 140_000, 200_000], dtype=np.int64)
+    roff = np.array([0, 1_000, 3_000, 5_000], dtype=np.int64)
+    lc = torch.from_numpy(rng.integers(-2, 3_000, 200_000).astype(np.int32))
+    rc = torch.from_numpy(rng.integers(-1, 3_000, 5_000).astype(np.int32))
+    for dev in (cuda, torch.device("cpu")):
+        comp_r = torch.sort(_composite_keys(rc.to(dev), roff)).values
+        comp_l = _composite_keys(lc.to(dev), offsets)
+        pos = torch.searchsorted(comp_r, comp_l).clamp_(max=len(comp_r) - 1)
+        bits = (comp_r[pos] == comp_l).cpu().numpy()
+        if dev == cuda:
+            got_bits = bits
+    np.testing.assert_array_equal(got_bits, bits)
+
+
+@pytest.mark.gpu
+def test_exchange_and_dpp_cut_on_the_card_match_the_cpu(cuda, tmp_path):
+    """The re-bucketing exchange (host row hash, one stable sort of the
+    bucket ids on the card) groups rows as on the CPU, and the DPP cut of
+    an indexed side (range and key-set) keeps the CPU's rows, on the
+    card."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.execution.executor import Executor
+    from hyperspace_tpu_torch.execution.table import ColumnTable
+    from hyperspace_tpu_torch.schema import Schema
+
+    rng = np.random.default_rng(8)
+    (tmp_path / "f").mkdir()
+    pq.write_table(pa.table({"k": rng.integers(0, 50_000, 300_000).astype(np.int64),
+                             "v": rng.normal(size=300_000)}), tmp_path / "f" / "p.parquet")
+    keys = pa.array([None if i % 9 == 0 else int(i * 7) for i in range(20_000)], type=pa.int64())
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = HyperspaceSession(system_path=str(tmp_path / f"idx_{dev}"), num_buckets=16, device=dev)
+        f = s.parquet(tmp_path / "f")
+        Hyperspace(s).create_index(f, IndexConfig("f_k", ["k"], ["v"]))
+        ex = Executor(s.device, s.conf)
+        t = ColumnTable.from_arrow(pa.table({"k": keys}), Schema.from_arrow(pa.schema([("k", pa.int64())])),
+                                   device=s.device)
+        side = ex._rebucketize_side(t, ["k"], [f.schema.field("k")], 16)
+        assert side.table.device.type == dev and ex.stats["exchange_kernel"] == "device-sort-exchange"
+        s.enable_hyperspace()
+        scan = s.optimized_plan(f.join(f.select("k"), ["k"])).left
+        from hyperspace_tpu_torch.execution.exec_common import AlignedSide
+
+        bounds = ex._table_key_bounds(t, "k")
+        cut = ex._side_data(AlignedSide(scan), 16, dpp_bounds=bounds)
+        out[dev] = (side, cut, ex.stats["rows_pruned"], ex.stats["files_pruned"])
+    for (a, b) in zip(out["cuda"][:2], out["cpu"][:2]):
+        np.testing.assert_array_equal(a.offsets, b.offsets)
+        for c in a.table.columns:
+            np.testing.assert_array_equal(a.table.host_column(c), b.table.host_column(c))
+    assert out["cuda"][2:] == out["cpu"][2:] and out["cuda"][2] > 0
+
+
+@pytest.mark.gpu
+def test_outer_and_residual_semi_joins_on_the_card_match_the_cpu(cuda, tmp_path):
+    """A full outer join (null-extended strings, the right key coalesced)
+    and a residual semi join end to end, index on and off: the card's rows
+    equal the CPU's, and the merge joins launch K2."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, col, lit
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem, gen_tpch_orders
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    gen_tpch_lineitem(tmp_path / "li", sf=0.002)
+    gen_tpch_orders(tmp_path / "o", sf=0.002)
+
+    def queries(li, o):
+        return {
+            "full": li.filter(col("l_discount") >= lit(0.05)).select("l_orderkey", "l_extendedprice").join(
+                o.filter(col("o_orderpriority") == lit("1-URGENT")).select("o_orderkey", "o_orderpriority"),
+                ["l_orderkey"], ["o_orderkey"], how="full"),
+            "semi": o.select("o_orderkey", "o_totalprice", "o_orderpriority").join(
+                li.select("l_orderkey", "l_extendedprice"), ["o_orderkey"], ["l_orderkey"], how="semi",
+                condition=col("l_extendedprice") > col("o_totalprice") * lit(0.1)),
+        }
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = HyperspaceSession(system_path=str(tmp_path / f"idx_{dev}"), num_buckets=8, device=dev)
+        li, o = s.parquet(tmp_path / "li"), s.parquet(tmp_path / "o")
+        Hyperspace(s).create_index(li, IndexConfig("li", ["l_orderkey"], ["l_extendedprice", "l_discount"]))
+        Hyperspace(s).create_index(o, IndexConfig("o", ["o_orderkey"], ["o_totalprice", "o_orderpriority"]))
+        for indexed in (True, False):
+            s.enable_hyperspace() if indexed else s.disable_hyperspace()
+            for name, plan in queries(li, o).items():
+                k2 = run_bounds.launches
+                out[dev, indexed, name] = (s.to_pandas(plan), s.last_query_stats["join_path"])
+                if dev == "cuda" and s.last_query_stats["join_path"] != "broadcast-hash":
+                    assert run_bounds.launches > k2
+    for (dev, indexed, name), (got, path) in out.items():
+        if dev == "cuda":
+            want, want_path = out["cpu", indexed, name]
+            assert path == want_path
+            keys = list(want.columns)
+            pd.testing.assert_frame_equal(got.sort_values(keys).reset_index(drop=True),
+                                          want.sort_values(keys).reset_index(drop=True))

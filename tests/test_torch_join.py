@@ -221,12 +221,19 @@ def _run(entry, plan_fn, indexed):
     return session.to_pandas(plan_fn(a, b)), dict(session.last_query_stats)
 
 
-def _check_port_path(stats, indexed, fused):
-    assert stats["join_path"] == ("zero-exchange-aligned" if indexed else "single-partition")
+def _check_port_path(stats, want, indexed, fused):
+    """The port's path is the JAX package's (`want`, its stats): aligned
+    with the index; without it one partition, or the broadcast probe where
+    the JAX package takes it (a side at least 4x the other's rows)."""
+    assert stats["join_path"] == want["join_path"]
+    if indexed:
+        assert stats["join_path"] == "zero-exchange-aligned"
     assert stats["num_buckets"] == (BUCKETS if indexed else 1)
     if fused:
         assert stats["agg_path"] == "fused-join-agg"
         assert stats["join_kernel"] == "device-run-prefix"
+    elif stats["join_path"] == "broadcast-hash":
+        assert stats["join_kernel"] == "device-broadcast-hash"
     else:
         assert stats["join_kernel"] == "device-searchsorted"
 
@@ -238,8 +245,8 @@ def _check_port_path(stats, indexed, fused):
 @pytest.mark.parametrize("query", sorted(TPCH_QUERIES))
 def test_tpch_join_queries_match_the_jax_package(tpch, query, indexed):
     got, stats = _run(tpch["torch"], TPCH_QUERIES[query], indexed)
-    want, _ = _run(tpch["jax"], TPCH_QUERIES[query], indexed)
-    _check_port_path(stats, indexed, fused=query != "J1")
+    want, want_stats = _run(tpch["jax"], TPCH_QUERIES[query], indexed)
+    _check_port_path(stats, want_stats, indexed, fused=query != "J1")
     if query == "J1":
         _assert_rows_equal(got, want)
     else:
@@ -250,8 +257,8 @@ def test_tpch_join_queries_match_the_jax_package(tpch, query, indexed):
 @pytest.mark.parametrize("query", sorted(FACTDIM_QUERIES))
 def test_fact_dim_queries_match_the_jax_package(factdim, query, indexed):
     got, stats = _run(factdim["torch"], FACTDIM_QUERIES[query], indexed)
-    want, _ = _run(factdim["jax"], FACTDIM_QUERIES[query], indexed)
-    _check_port_path(stats, indexed, fused=query.endswith("_agg"))
+    want, want_stats = _run(factdim["jax"], FACTDIM_QUERIES[query], indexed)
+    _check_port_path(stats, want_stats, indexed, fused=query.endswith("_agg"))
     # Every value here is exact: integral sums, extrema, counts, copies.
     _assert_rows_equal(got, want)
 
@@ -287,36 +294,46 @@ def test_each_package_joins_the_others_indexes(tpch, reader):
             _assert_aggregate_close(got, want, TPCH_CHECKS[name], _column_stats(tpch["root"]))
 
 
-def test_one_usable_index_runs_on_one_partition(tpch):
+def test_one_usable_index_takes_the_jax_packages_path(tpch):
     """orders' index does not cover o_custkey: the rule rewrites the
-    lineitem side alone and the join runs on the single-partition path,
-    with the JAX package's answer."""
+    lineitem side alone. At this size (5,991 lineitem rows, 1,500 orders)
+    orders is more than a quarter of lineitem, so no broadcast: the join
+    takes the JAX package's path, the re-bucketing exchange of orders into
+    the lineitem index's buckets, with its answer."""
     def plan(li, orders):
         return li.select("l_orderkey", "l_extendedprice").join(
             orders.select("o_orderkey", "o_custkey"), ["l_orderkey"], ["o_orderkey"]
         )
 
     got, stats = _run(tpch["torch"], plan, True)
-    want, _ = _run(tpch["jax"], plan, True)
+    want, want_stats = _run(tpch["jax"], plan, True)
     _, session, _, _ = tpch["torch"]
     assert [s.bucket_spec is not None for s in session.last_optimized_plan.leaves()] == [True, False]
-    assert stats["join_path"] == "single-partition"
+    assert stats["join_path"] == want_stats["join_path"] == "rebucketized-aligned"
+    assert stats["exchange_kernel"] == "device-sort-exchange"
+    assert stats["num_buckets"] == BUCKETS
     _assert_rows_equal(got, want)
 
 
 @pytest.mark.parametrize(
     "how,condition", [("left", False), ("semi", False), ("inner", True)], ids=["left", "semi", "residual"]
 )
-def test_unported_join_shapes_raise(factdim, how, condition):
-    _, session, fs, ds = factdim["torch"]
-    cond = htorch.col("q") > htorch.col("w") if condition else None
-    plan = fs.select("k", "q").join(ds.select("k", "w"), ["k"], how=how, condition=cond)
+def test_formerly_unported_join_shapes_match_the_jax_package(factdim, how, condition):
+    """The three shapes the port once refused (a left join, a semi join,
+    an inner join's ON residual) now run, index on and off, with the JAX
+    package's rows and path, also under an aggregate."""
+    plans = {}
+    for name in ("torch", "jax"):
+        pkg, _, fs, ds = factdim[name]
+        cond = pkg.col("q") > pkg.col("w") if condition else None
+        plan = fs.select("k", "q").join(ds.select("k", "w"), ["k"], how=how, condition=cond)
+        plans[name] = (plan, plan.aggregate([], [("count", None, "c")]))
     for indexed in (True, False):
-        session.enable_hyperspace() if indexed else session.disable_hyperspace()
-        with pytest.raises(htorch.HyperspaceError, match="not ported yet"):
-            session.run(plan)
-        with pytest.raises(htorch.HyperspaceError, match="not ported yet"):
-            session.run(plan.aggregate([], [("count", None, "c")]))
+        for i in range(2):
+            got, stats = _run(factdim["torch"], lambda a, b: plans["torch"][i], indexed)
+            want, want_stats = _run(factdim["jax"], lambda a, b: plans["jax"][i], indexed)
+            assert stats["join_path"] == want_stats["join_path"]
+            _assert_rows_equal(got, want)
 
 
 def test_join_plans_serialize_as_the_jax_package_does(tpch):

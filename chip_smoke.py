@@ -44,7 +44,8 @@ What it does, in order (any failure raises and exits non-zero):
 3b. join-types path, on the join path's session, lineitem and orders:
    generates TPC-H customer (150,000 rows, seed 45), builds
    `customer_custkey` (with `c_nationkey, c_acctbal`) and
-   `orders_custkey` (with `o_orderkey, o_totalprice`), 200 buckets, and
+   `orders_custkey` (with `o_orderkey, o_totalprice, o_comment`), 200
+   buckets, and
    runs Q13 (customer LEFT JOIN orders with the residual `o_totalprice >
    400000`, then two aggregates), a RIGHT and a FULL outer join of J1's
    columns on filtered sides, Q4's SEMI / ANTI joins and Q21's with the
@@ -57,6 +58,25 @@ What it does, in order (any failure raises and exits non-zero):
    sums within the join bound), each on the JAX package's path
    (`JOIN_TYPE_EXPECT`) with K2 and K1 launched where that path runs
    them and the membership probes launching no K2; one line a query;
+3c. query-surface path, on the join-types path's session, lineitem,
+   orders and customer (`orders_custkey` also holds `o_comment`):
+   generates the TPC-DS store channel at the same scale (date_dim 73,049
+   rows, item 18,000, store 12, store_sales 2,879,987 at SF1), builds
+   `ss_by_date` and `dd_by_sk` as benchmarks/tpcds.py defines them (64
+   buckets), and runs `query_surface_plans`: TPC-H Q1 as written with its
+   ORDER BY, Q3 (top 10 by revenue), Q12 (the CASE counts on
+   `o_orderpriority`), Q13 (LEFT JOIN on `o_comment NOT LIKE
+   '%special%requests%'`), YEAR (a date part in a projection), LIM (a
+   LIMIT's early-out), TPC-DS q43 (the pushdown), q36 and q67 (ROLLUP
+   with a rank window), q98 (a partition-frame window sum), WIN (every
+   frame, shift and ranking), CD1 and CD2 (count-distinct's two
+   branches) and CUBE; each cold and warm, index on and off, against
+   pandas on the same parquet (rows in the ORDER BY's order; non-integral
+   sums within the float64 join bound, and rows whose float order key
+   ties within it may swap), on the JAX package's path
+   (`QUERY_SURFACE_EXPECT`: the aggregate's branch, the joins' paths, the
+   top-N selection, the early-out) with K1 in every query but LIM, K2
+   where that path merges and K3 in none; one line a query;
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
@@ -576,14 +596,15 @@ def same_result(name: str, a, b, tolerant=()) -> None:
             raise AssertionError(f"{name}: the warm run's dictionary differs in {f.name}")
 
 
-def cold_warm(name: str, session, plans: list, cache, sync, derived=(), tolerant=()) -> tuple[list, dict]:
+def cold_warm(name: str, session, plans: list, cache, sync, derived=(), tolerant=()) -> tuple[list, list, dict]:
     """Runs `plans` once cold and once warm through `run_query` and the
     PlanCache `cache`. The warm pass must hit the plan cache on every
     plan (where hyperspace is enabled), hit HOST_DERIVED on every kind in
     `derived` and miss none of them, read no file, and give the cold
-    pass's results. Returns (the warm results, the cold and warm walls
-    with the warm pass's host time by step: plan, read, derive, and the
-    rest up to the synchronized wall)."""
+    pass's results, bit-equal but in the `tolerant` columns. Returns (the
+    warm results, the cold results, the cold and warm walls with the warm
+    pass's host time by step: plan, read, derive, and the rest up to the
+    synchronized wall)."""
     from hyperspace_tpu_torch.execution import device_cache as dc
 
     def run_all():
@@ -614,7 +635,7 @@ def cold_warm(name: str, session, plans: list, cache, sync, derived=(), tolerant
     for c, w in zip(cold, warm):
         same_result(name, c.result, w.result, tolerant)
     split = {**host, "rest": warm_s - sum(host.values())}
-    return [o.result for o in warm], {
+    return [o.result for o in warm], [o.result for o in cold], {
         "cold_s": cold_s, "warm_s": warm_s, "warm_host_s": split,
         "plan_cache": "hit" if session.is_hyperspace_enabled() else "not used (hyperspace off)",
         "device_cache_hits": r1["hits"] - r0["hits"], "device_cache_misses": r1["misses"] - r0["misses"],
@@ -622,7 +643,7 @@ def cold_warm(name: str, session, plans: list, cache, sync, derived=(), tolerant
         "derived_misses": sum(v["misses"] for v in d1.values()) - sum(v["misses"] for v in d0.values()),
         "warm_stats": {k: warm[-1].stats[k] for k in ("scan", "files_read", "files_pruned", "rows_pruned",
                                                      "range_exact", "agg_path", "join_path", "join_paths",
-                                                     "join_kernel", "exchange_kernel")},
+                                                     "join_kernel", "exchange_kernel", "top_n", "limit_early_out")},
     }
 
 
@@ -669,7 +690,7 @@ def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 20
     counts = {}
     for mode in ("index", "no_index"):
         session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
-        got, phases[f"lookups_{mode}"] = cold_warm(f"lookups {mode}", session, lookup_plans, plan_cache, sync)
+        got, _, phases[f"lookups_{mode}"] = cold_warm(f"lookups {mode}", session, lookup_plans, plan_cache, sync)
         counts[mode] = [g.num_rows for g in got]
         stats = phases[f"lookups_{mode}"]["warm_stats"]
         # The rule rewrite alone (signature, index listing, manifest): the
@@ -697,7 +718,7 @@ def main_path(device, sf: float, seed: int, workdir: Path, num_buckets: int = 20
     ):
         # Cold (reads the columns onto the device, derives the group ids),
         # then warm: the group ids must come from HOST_DERIVED.
-        (result,), phases[f"agg_{name}"] = cold_warm(name, session, [plan], plan_cache, sync, ("gid",), tolerant)
+        (result,), _, phases[f"agg_{name}"] = cold_warm(name, session, [plan], plan_cache, sync, ("gid",), tolerant)
         phases[f"agg_{name}_s"] = phases[f"agg_{name}"]["warm_s"]
         check(pd.DataFrame(result.decode()), source)
         phases[f"agg_{name}_groups"] = result.num_rows
@@ -756,7 +777,7 @@ def range_queries(session, df, source, plan_cache, sync, sf: float) -> dict:
     for mode in ("index", "no_index"):
         session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
         for name, (plan, mask) in queries.items():
-            (result,), timing = cold_warm(f"range {name} {mode}", session, [plan], plan_cache, sync)
+            (result,), _, timing = cold_warm(f"range {name} {mode}", session, [plan], plan_cache, sync)
             want = source.filter(mask)
             if name == "projection":
                 want = pa.table({"l_orderkey": want["l_orderkey"], "disc_price": pc.multiply(
@@ -969,7 +990,7 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
             # the key codes and group ids), then warm: the join codes, and a
             # fused aggregate's group ids, must come from HOST_DERIVED.
             derived = ("fact",) if name == "J1" else ("fact", "gid")
-            (result,), timing = cold_warm(f"{name} {mode}", session, [plan], ctx["plan_cache"], sync, derived,
+            (result,), _, timing = cold_warm(f"{name} {mode}", session, [plan], ctx["plan_cache"], sync, derived,
                                           tolerant[name])
             phases[f"{name}_{mode}"] = timing
             phases[f"{name}_{mode}_cold_s"], phases[f"{name}_{mode}_s"] = timing["cold_s"], timing["warm_s"]
@@ -1029,7 +1050,7 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
 # -- join-types path -----------------------------------------------------------
 
 C_INDEXED, C_INCLUDED = ["c_custkey"], ["c_nationkey", "c_acctbal"]
-OC_INDEXED, OC_INCLUDED = ["o_custkey"], ["o_orderkey", "o_totalprice"]
+OC_INDEXED, OC_INCLUDED = ["o_custkey"], ["o_orderkey", "o_totalprice", "o_comment"]
 SET_KEYS = 12  # DPPk: orders keys drawn with seed 11
 
 
@@ -1305,7 +1326,7 @@ def join_types_path(device, ctx: dict, sf: float) -> dict:
             session.conf.set("hyperspace.join.rebucketize", rebucketize)
             k2, k1 = run_bounds.launches, segment_reduce.launches
             try:
-                (result,), timing = cold_warm(f"{name} {mode}", session, [plan], ctx["plan_cache"], sync,
+                (result,), _, timing = cold_warm(f"{name} {mode}", session, [plan], ctx["plan_cache"], sync,
                                               tolerant=tolerant.get(name, ()))
             finally:
                 session.conf.set("hyperspace.join.rebucketize", "auto")
@@ -1327,10 +1348,750 @@ def join_types_path(device, ctx: dict, sf: float) -> dict:
             log(json.dumps({"join_types_query": record}))
         out[f"caches_after_{mode}"] = cache_stats()
     session.enable_hyperspace()
+    ctx.update(customer=customer)
     for name, floor in (("DPPk", ("files_pruned", session.conf.num_buckets - SET_KEYS)), ("DPPq", ("rows_pruned", 1))):
         got = out[f"{name}_index"][floor[0]]
         if got < floor[1]:
             raise AssertionError(f"{name}: {floor[0]} {got}, expected at least {floor[1]}")
+    return out
+
+
+# The query surface's TPC-DS store channel: the indexes of
+# benchmarks/tpcds.py::tpcds_indexes that its queries read, at the bucket
+# count of benchmarks/bench_tpcds.py.
+SS_BY_DATE = (["ss_sold_date_sk"], [
+    "ss_item_sk", "ss_store_sk", "ss_customer_sk", "ss_cdemo_sk", "ss_hdemo_sk", "ss_addr_sk",
+    "ss_ticket_number", "ss_quantity", "ss_list_price", "ss_sales_price", "ss_ext_sales_price",
+    "ss_ext_wholesale_cost", "ss_coupon_amt", "ss_net_profit"])
+DD_BY_SK = (["d_date_sk"], ["d_date", "d_year", "d_moy", "d_dom", "d_qoy", "d_day_name", "d_month_seq",
+                            "d_week_seq", "d_dow"])
+TPCDS_BUCKETS = 64
+LIMIT_ROWS = 1000
+
+
+def query_surface_plans(pkg, tables: dict) -> dict:
+    """The query-surface phase's plans, built with `pkg`'s expression and
+    plan builders so that the same function builds them for either
+    package. `tables` holds the scans: lineitem, orders, customer,
+    store_sales, date_dim, item and store. Returns name -> plan."""
+    col, lit, when, date_lit, year, spec = pkg.col, pkg.lit, pkg.when, pkg.date_lit, pkg.year, pkg.AggSpec.of
+    li, orders, customer = tables["lineitem"], tables["orders"], tables["customer"]
+    ss, dd, item, store = tables["store_sales"], tables["date_dim"], tables["item"], tables["store"]
+    disc_price = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    out = {}
+    # TPC-H Q1 as written.
+    out["Q1"] = li.filter(col("l_shipdate") <= date_lit("1998-09-02")).aggregate(
+        ["l_returnflag", "l_linestatus"], [
+            ("sum", "l_quantity", "sum_qty"),
+            ("sum", "l_extendedprice", "sum_base_price"),
+            spec("sum", disc_price, "sum_disc_price"),
+            spec("sum", disc_price * (lit(1.0) + col("l_tax")), "sum_charge"),
+            ("mean", "l_quantity", "avg_qty"),
+            ("mean", "l_extendedprice", "avg_price"),
+            ("mean", "l_discount", "avg_disc"),
+            ("count", None, "count_order"),
+        ]).sort(["l_returnflag", "l_linestatus"])
+    # TPC-H Q3: lineitem ⋈ (orders ⋈ customer), so l_orderkey names the key.
+    building = orders.filter(col("o_orderdate") < date_lit("1995-03-15")).select(
+        "o_orderkey", "o_custkey", "o_orderdate", "o_shippriority").join(
+        customer.filter(col("c_mktsegment") == lit("BUILDING")).select("c_custkey"), ["o_custkey"], ["c_custkey"])
+    out["Q3"] = li.filter(col("l_shipdate") > date_lit("1995-03-15")).select(
+        "l_orderkey", "l_extendedprice", "l_discount").join(building, ["l_orderkey"], ["o_orderkey"]).aggregate(
+        ["l_orderkey", "o_orderdate", "o_shippriority"], [spec("sum", disc_price, "revenue")]).sort(
+        [("revenue", False), ("o_orderdate", True)]).limit(10)
+    # TPC-H Q12 with its real predicates.
+    high = col("o_orderpriority").isin(["1-URGENT", "2-HIGH"])
+    out["Q12"] = li.filter(
+        col("l_shipmode").isin(["MAIL", "SHIP"]) & (col("l_commitdate") < col("l_receiptdate"))
+        & (col("l_shipdate") < col("l_commitdate")) & (year(col("l_receiptdate")) == lit(1994))
+    ).select("l_orderkey", "l_shipmode").join(
+        orders.select("o_orderkey", "o_orderpriority"), ["l_orderkey"], ["o_orderkey"]).aggregate(
+        ["l_shipmode"], [spec("sum", when(high, 1).otherwise(0), "high_line_count"),
+                         spec("sum", when(~high, 1).otherwise(0), "low_line_count")]).sort(["l_shipmode"])
+    # TPC-H Q13 as written.
+    out["Q13"] = customer.select("c_custkey").join(
+        orders.select("o_custkey", "o_orderkey", "o_comment"), ["c_custkey"], ["o_custkey"], how="left",
+        condition=~col("o_comment").like("%special%requests%"),
+    ).aggregate(["c_custkey"], [("count", "o_orderkey", "c_count")]).aggregate(
+        ["c_count"], [("count", None, "custdist")]).sort([("custdist", False), ("c_count", False)])
+    # Q9's year grouping, without part, supplier or nation.
+    out["YEAR"] = li.select("l_orderkey", "l_extendedprice", "l_discount").join(
+        orders.select("o_orderkey", "o_orderdate"), ["l_orderkey"], ["o_orderkey"]).with_column(
+        "o_year", year(col("o_orderdate"))).aggregate(["o_year"], [spec("sum", disc_price, "volume")]).sort(["o_year"])
+    out["LIM"] = li.filter(col("l_discount") >= lit(0.05)).select("l_orderkey", "l_extendedprice").limit(LIMIT_ROWS)
+
+    # TPC-DS (benchmarks/tpcds.py): q43's weekly pivot.
+    def day_sum(name, alias):
+        return spec("sum", when(col("d_day_name") == lit(name), col("ss_sales_price")).otherwise(0.0), alias)
+
+    days = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday", "Friday", "Saturday")
+    out["q43"] = ss.select("ss_sold_date_sk", "ss_store_sk", "ss_sales_price").join(
+        dd.select("d_date_sk", "d_year", "d_day_name").filter(col("d_year") == lit(2000)),
+        ["ss_sold_date_sk"], ["d_date_sk"],
+    ).join(store.select("s_store_sk", "s_store_id", "s_store_name"), ["ss_store_sk"], ["s_store_sk"]).aggregate(
+        ["s_store_name", "s_store_id"], [day_sum(d, f"{d[:3].lower()}_sales") for d in days],
+    ).sort(["s_store_name", "s_store_id"]).limit(100)
+    # q36: the gross-margin rollup with the rank within its parent.
+    out["q36"] = ss.select("ss_sold_date_sk", "ss_item_sk", "ss_store_sk", "ss_net_profit", "ss_ext_sales_price").join(
+        dd.select("d_date_sk", "d_year").filter(col("d_year") == lit(2001)), ["ss_sold_date_sk"], ["d_date_sk"],
+    ).join(
+        store.select("s_store_sk", "s_state").filter(col("s_state").isin(["TX", "OH", "OR", "CA", "WA", "NM", "KY", "VA"])),
+        ["ss_store_sk"], ["s_store_sk"],
+    ).join(item.select("i_item_sk", "i_category", "i_class"), ["ss_item_sk"], ["i_item_sk"]).rollup(
+        ["i_category", "i_class"], [
+            spec("sum", "ss_net_profit", "sum_np"), spec("sum", "ss_ext_sales_price", "sum_esp"),
+            spec("grouping", "i_category", "g_cat"), spec("grouping", "i_class", "g_class"),
+        ],
+    ).select(
+        "i_category", "i_class",
+        ("gross_margin", col("sum_np") / col("sum_esp")),
+        ("lochierarchy", col("g_cat") + col("g_class")),
+        ("parent_cat", when(col("g_class") == lit(0), col("i_category")).otherwise(lit(""))),
+    ).window(["lochierarchy", "parent_cat"], order_by=[("gross_margin", True)],
+             funcs=[("rank", None, "rank_within_parent")]).select(
+        "gross_margin", "i_category", "i_class", "lochierarchy", "rank_within_parent",
+    ).sort([("lochierarchy", False), ("i_category", True), ("rank_within_parent", True)]).limit(100)
+    # q67: the 8-level rollup with the top 100 per category.
+    out["q67"] = ss.select("ss_sold_date_sk", "ss_item_sk", "ss_store_sk", "ss_quantity", "ss_sales_price").join(
+        dd.select("d_date_sk", "d_year", "d_qoy", "d_moy", "d_month_seq").filter(col("d_month_seq").between(1200, 1211)),
+        ["ss_sold_date_sk"], ["d_date_sk"],
+    ).join(store.select("s_store_sk", "s_store_id"), ["ss_store_sk"], ["s_store_sk"]).join(
+        item.select("i_item_sk", "i_category", "i_class", "i_brand", "i_item_id"), ["ss_item_sk"], ["i_item_sk"],
+    ).rollup(
+        ["i_category", "i_class", "i_brand", "i_item_id", "d_year", "d_qoy", "d_moy", "s_store_id"],
+        [spec("sum", col("ss_sales_price") * col("ss_quantity"), "sumsales")],
+    ).window(["i_category"], order_by=[("sumsales", False)], funcs=[("rank", None, "rk")]).filter(
+        col("rk") <= lit(100),
+    ).select("i_category", "i_class", "i_brand", "i_item_id", "d_year", "d_qoy", "d_moy", "s_store_id", "sumsales",
+             "rk").sort([("i_category", True), ("rk", True)]).limit(100)
+    # q98: item revenue share within its class over 30 days; WIN orders
+    # the same items within their category under every frame.
+    items = ss.select("ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price").join(
+        dd.select("d_date_sk", "d_date").filter(
+            (col("d_date") >= date_lit("1999-02-22")) & (col("d_date") <= date_lit("1999-03-24"))),
+        ["ss_sold_date_sk"], ["d_date_sk"],
+    ).join(
+        item.select("i_item_sk", "i_item_id", "i_item_desc", "i_category", "i_class", "i_current_price").filter(
+            col("i_category").isin(["Sports", "Books", "Home"])),
+        ["ss_item_sk"], ["i_item_sk"],
+    ).aggregate(["i_item_id", "i_item_desc", "i_category", "i_class", "i_current_price"],
+                [spec("sum", "ss_ext_sales_price", "itemrevenue")])
+    out["q98"] = items.window(["i_class"], funcs=[("sum", "itemrevenue", "class_revenue")]).select(
+        "i_item_id", "i_item_desc", "i_category", "i_class", "i_current_price", "itemrevenue",
+        ("revenueratio", col("itemrevenue") * lit(100.0) / col("class_revenue")),
+    ).sort([("i_category", True), ("i_class", True), ("i_item_id", True), ("i_item_desc", True),
+            ("revenueratio", True)]).limit(100)
+    by_revenue = [("itemrevenue", False)]
+    out["WIN"] = items.window(["i_category"], order_by=by_revenue, frame="rows", funcs=[
+        ("row_number", None, "rn"), ("dense_rank", None, "drk"), ("sum", "itemrevenue", "run_revenue"),
+        pkg.WindowSpec.of("lag", "itemrevenue", "prev_revenue", 1),
+        pkg.WindowSpec.of("lead", "itemrevenue", "next2_revenue", 2),
+    ]).window(["i_category"], order_by=by_revenue, frame="range", funcs=[
+        ("max", "i_current_price", "run_max_price"),
+    ]).sort([("i_category", True), ("rn", True)])
+    # Distinct counts and a cube over the store sales of one year.
+    def store_year(y, *cols):
+        return ss.select("ss_sold_date_sk", "ss_store_sk", *cols).join(
+            dd.select("d_date_sk", "d_year", "d_qoy").filter(col("d_year") == lit(y)), ["ss_sold_date_sk"], ["d_date_sk"],
+        ).join(store.select("s_store_sk", "s_store_id", "s_state"), ["ss_store_sk"], ["s_store_sk"])
+
+    out["CD1"] = store_year(2000, "ss_customer_sk", "ss_net_profit").aggregate(
+        ["s_store_id"], [("count_distinct", "ss_customer_sk", "customers"), ("sum", "ss_net_profit", "profit")],
+    ).sort(["s_store_id"])
+    out["CD2"] = store_year(2000, "ss_customer_sk", "ss_item_sk", "ss_sales_price").aggregate(
+        ["s_store_id"], [("count_distinct", "ss_customer_sk", "customers"), ("count_distinct", "ss_item_sk", "items"),
+                         ("mean", "ss_sales_price", "avg_price")],
+    ).sort(["s_store_id"])
+    out["CUBE"] = store_year(2001, "ss_net_profit").cube(
+        ["s_state", "d_qoy"], [("sum", "ss_net_profit", "profit"), ("count", None, "cnt"),
+                               ("grouping", "s_state", "g_state")],
+    ).sort(["s_state", "d_qoy"])
+    return out
+
+
+# Per query at SF1: the JAX package's choices — the last aggregate's
+# branch, the joins' paths (index on, index off), the top-N selection, the
+# early-out (files scanned of files listed) and the files pruned (index on,
+# off) — and whether K2 launches (index on, off). K1 launches in every
+# query but LIM; K3 in none. tests/test_torch_query_surface_thresholds.py
+# holds every choice to the JAX package's at the smallest scale that
+# crosses SF1's thresholds (TPC-H sf 0.25, TPC-DS sf 0.3).
+def _expect(agg, joins, top_n=None, early=None, k2=(False, False), pruned=(0, 0)) -> dict:
+    return {"agg_path": agg, "join_paths": joins, "top_n": top_n, "limit_early_out": early, "k2": k2,
+            "files_pruned": pruned}
+
+
+BH, ZA, SP = "broadcast-hash", "zero-exchange-aligned", "single-partition"
+QUERY_SURFACE_EXPECT = {
+    "Q1": _expect("segment-reduce", ([], [])),
+    # Customer's BUILDING rows are under a quarter of the orders they
+    # join: a broadcast. The joined orders are too, of lineitem, but their
+    # codes span the ~1.5M order keys of both sides, past 8x the build
+    # side's rows: too sparse for the broadcast table, a merge on one
+    # partition. The ~11k groups are past max(2n, 1,024) rows: the
+    # partition select.
+    "Q3": _expect("segment-reduce", ([BH, SP], [BH, SP]), "partition-select + sort", k2=(True, True)),
+    # The pivot's condition reads orders, but the partial grouping by
+    # (l_orderkey, l_shipmode) shrinks lineitem less than 8x and its side
+    # is a scan: the pushdown bails, the fused Aggregate(Join) merges.
+    "Q12": _expect("fused-join-agg", ([SP], [SP]), k2=(True, True)),
+    "Q13": _expect("segment-reduce", ([ZA], [BH]), k2=(True, False)),
+    "YEAR": _expect("segment-reduce", ([ZA], [BH]), k2=(True, False)),
+    "LIM": _expect(None, ([], []), early={"files_scanned": 1, "files_total": 8}),
+    # Store's 12 keys: the partial aggregate by ss_store_sk has 12 rows.
+    "q43": _expect("PartialAggPushdown", ([SP, ZA], [BH, SP]), "full-sort", k2=(True, True)),
+    "q36": _expect("GroupingSetsReaggregate", ([BH, SP, ZA], [BH, BH, SP]), "full-sort", k2=(True, True)),
+    # rk <= 100 in each of 10 categories (and the grand total's one row)
+    # leaves about 1,001 rows: under 1,024, the full sort.
+    "q67": _expect("GroupingSetsReaggregate", ([BH, BH, ZA], [BH, BH, BH]), "full-sort", k2=(True, False)),
+    # About 5,400 items of three categories: past 1,024, the partition
+    # select. The 31 days' date keys own 27 of ss_by_date's 64 buckets:
+    # dynamic partition pruning skips the other 37.
+    "q98": _expect("fused-join-agg", ([SP, ZA], [BH, SP]), "partition-select + sort", k2=(True, True),
+                   pruned=(37, 0)),
+    "WIN": _expect("fused-join-agg", ([SP, ZA], [BH, SP]), k2=(True, True), pruned=(37, 0)),
+    "CD1": _expect("CountDistinctReaggregate", ([BH, ZA], [BH, BH]), k2=(True, False)),
+    "CD2": _expect("DistinctExpandAggregate", ([BH, ZA], [BH, BH]), k2=(True, False)),
+    "CUBE": _expect("GroupingSetsReaggregate", ([BH, ZA], [BH, BH]), k2=(True, False)),
+}
+
+
+# The queries whose rows are ordered or ranked by a float sum: two runs may
+# swap rows whose sums tie within tolerance (q67's rollup gives a brand and
+# its only item the same sum by two summation orders).
+FLOAT_ORDERED = ("Q3", "q36", "q67", "q98", "WIN")
+
+
+def surface_paths(stats: dict) -> tuple:
+    """A query's choices from the port's stats, in QUERY_SURFACE_EXPECT's
+    terms (the device suffix of a plain aggregate's path dropped)."""
+    agg = stats["agg_path"]
+    if agg is not None and agg.startswith("segment-reduce"):
+        agg = "segment-reduce"
+    top_n = stats["top_n"]["kernel"] if stats["top_n"] else None
+    return agg, sorted(stats["join_paths"]), top_n, stats["limit_early_out"]
+
+
+def _null(v) -> bool:
+    return v is None or (isinstance(v, float) and np.isnan(v))
+
+
+def _sort_rows(rows: list, order: list) -> list:
+    """Rows (dicts) in an ORDER BY's order: nulls first ascending, last
+    descending; stable, one pass per key from the least significant."""
+    for c, asc in reversed(order):
+        rows = sorted(rows, key=lambda r: (0, 0) if _null(r[c]) else (1, r[c]), reverse=not asc)
+    return rows
+
+
+def check_ordered(name: str, got, ref, ids: list, order: list, tol: dict, limit: int | None = None,
+                  near_ties: dict | None = None) -> None:
+    """A result (pandas) against the full reference (pandas, before any
+    LIMIT): every row found in the reference by its `ids` columns, each
+    other column equal but the `tol` ones (column → tolerance column of the
+    reference), which may differ by their tolerance; rows in the ORDER BY's
+    order, where two rows may swap only on a float key whose values lie
+    within tolerance; under a LIMIT, the reference's first rows, but for
+    rows whose float key ties the last one within tolerance. `near_ties`
+    maps a rank column to (its float column, its partition columns): the
+    rank may differ from the reference's within the ranks of the rows of
+    the partition whose values lie within tolerance of the row's."""
+    near_ties = near_ties or {}
+    refrows = ref.to_dict("records")
+    index = {}
+    for r in refrows:
+        key = tuple(None if _null(r[c]) else r[c] for c in ids)
+        if key in index:
+            raise AssertionError(f"{name}: the reference repeats the row {key}")
+        index[key] = r
+    want_n = len(refrows) if limit is None else min(limit, len(refrows))
+    rows = got.to_dict("records")
+    if len(rows) != want_n:
+        raise AssertionError(f"{name}: {len(rows)} rows, the reference {want_n}")
+    cols = [c for c in got.columns if c not in ids]
+    for r in rows:
+        key = tuple(None if _null(r[c]) else r[c] for c in ids)
+        w = index.get(key)
+        if w is None:
+            raise AssertionError(f"{name}: row {key} is not in the reference")
+        for c in cols:
+            a, b = r[c], w[c]
+            if _null(a) or _null(b):
+                ok = _null(a) and _null(b)
+            elif c in tol:
+                ok = abs(a - b) <= w[tol[c]]
+            elif c in near_ties:
+                # A rank over a float: the rows of the partition whose
+                # values lie within tolerance of this one's (itself among
+                # them) may take their places in any order, so the rank
+                # lies between the least of their reference ranks and
+                # that plus their number less one.
+                f, part = near_ties[c]
+                group = [o for o in refrows if o is w or (
+                    all(o[p] == w[p] or (_null(o[p]) and _null(w[p])) for p in part)
+                    and not _null(o[f]) and not _null(w[f])
+                    and abs(o[f] - w[f]) <= max(o[tol[f]], w[tol[f]]))]
+                least = min(o[c] for o in group)
+                ok = least <= a <= least + len(group) - 1
+            else:
+                ok = a == b
+            if not ok:
+                raise AssertionError(f"{name}: row {key} column {c}: {a!r}, the reference {b!r}")
+
+    def tie(a, b, c) -> bool:  # a float key within tolerance
+        return c in tol and not _null(a[c]) and not _null(b[c]) and abs(a[c] - b[c]) <= max(
+            index_of(a)[tol[c]], index_of(b)[tol[c]])
+
+    def index_of(r):
+        return index[tuple(None if _null(r[c]) else r[c] for c in ids)]
+
+    def before(a, b) -> bool:  # a may precede b
+        for c, asc in order:
+            x, y = a[c], b[c]
+            if (_null(x) and _null(y)) or x == y:
+                continue
+            if tie(a, b, c):
+                return True
+            if _null(x) or _null(y):
+                return _null(x) == asc
+            return (x < y) == asc
+        return True
+
+    for i in range(len(rows) - 1):
+        if not before(rows[i], rows[i + 1]):
+            raise AssertionError(f"{name}: rows {i} and {i + 1} are out of the ORDER BY's order")
+    if limit is not None and want_n < len(refrows):
+        top = _sort_rows(refrows, order)[:want_n]
+        want_ids = {tuple(None if _null(r[c]) else r[c] for c in ids) for r in top}
+        got_ids = {tuple(None if _null(r[c]) else r[c] for c in ids) for r in rows}
+        last = top[-1]
+        for key in want_ids ^ got_ids:
+            r = index[key]
+            if not any(tie(r, last, c) for c, _ in order):
+                raise AssertionError(f"{name}: row {key} is on the wrong side of the LIMIT")
+
+
+def _join_tol(frame, value_col: str, key_cols: list, out: str, buckets: int, side=None) -> "pd.DataFrame":
+    """Per group of `key_cols`: the join-sum tolerance (join_sum_tolerance)
+    of a float column summed over a join, from the group's count and max
+    |v|; `side` (the values of the join's side they are read from) adds
+    the term of a sum taken as a difference of that side's prefix sums,
+    which the fused Aggregate(Join) does on its secondary side."""
+    g = frame.assign(__abs=frame[value_col].abs()).groupby(key_cols, dropna=False).agg(
+        __n=(value_col, "size"), __m=("__abs", "max"))
+    ls, abs_sum = (None, None) if side is None else (len(side), float(np.abs(side).sum()))
+    g[out] = join_sum_tolerance(g["__n"].to_numpy(), g["__m"].to_numpy(), buckets, ls, abs_sum)
+    return g.drop(columns=["__n", "__m"])
+
+
+def surface_references(tables: dict, sf: float, buckets: int) -> dict:
+    """The query-surface phase's answers, computed by pandas on the same
+    parquet (the full result before any LIMIT, with a tolerance column
+    beside each non-integral sum): name -> (frame, ids, order, tol,
+    limit, near_ties)."""
+    import pandas as pd
+
+    def day(iso):
+        return pd.Timestamp(iso)
+
+    li, o, c = tables["lineitem"], tables["orders"], tables["customer"]
+    ss, dd, item, store = tables["store_sales"], tables["date_dim"], tables["item"], tables["store"]
+    refs = {}
+    # Q1.
+    q = li[li.l_shipdate <= day("1998-09-02")].assign(
+        disc_price=lambda t: t.l_extendedprice * (1.0 - t.l_discount))
+    q = q.assign(charge=q.disc_price * (1.0 + q.l_tax))
+    g = q.groupby(["l_returnflag", "l_linestatus"])
+    r = g.agg(sum_qty=("l_quantity", "sum"), sum_base_price=("l_extendedprice", "sum"),
+              sum_disc_price=("disc_price", "sum"), sum_charge=("charge", "sum"), avg_qty=("l_quantity", "mean"),
+              avg_price=("l_extendedprice", "mean"), avg_disc=("l_discount", "mean"), count_order=("l_quantity", "size"))
+    a = q.assign(**{k: q[k].abs() for k in ("l_extendedprice", "disc_price", "charge", "l_discount")}).groupby(
+        ["l_returnflag", "l_linestatus"]).sum(numeric_only=True)
+    n = r["count_order"].to_numpy()
+    for col_, src in (("sum_base_price", "l_extendedprice"), ("sum_disc_price", "disc_price"), ("sum_charge", "charge")):
+        r[f"{col_}__tol"] = sum_tolerance(n, a[src].to_numpy())
+    r["avg_price__tol"] = r["sum_base_price__tol"] / n
+    r["avg_disc__tol"] = sum_tolerance(n, a["l_discount"].to_numpy()) / n
+    r["avg_qty__tol"] = sum_tolerance(n, a["l_quantity"].to_numpy()) / n
+    tol = {k: f"{k}__tol" for k in ("sum_base_price", "sum_disc_price", "sum_charge", "avg_price", "avg_disc", "avg_qty")}
+    refs["Q1"] = (r.reset_index(), ["l_returnflag", "l_linestatus"],
+                  [("l_returnflag", True), ("l_linestatus", True)], tol, None, None)
+    # Q3.
+    oc = o[o.o_orderdate < day("1995-03-15")].merge(c[c.c_mktsegment == "BUILDING"][["c_custkey"]],
+                                                    left_on="o_custkey", right_on="c_custkey")
+    q = li[li.l_shipdate > day("1995-03-15")].merge(oc, left_on="l_orderkey", right_on="o_orderkey")
+    q = q.assign(rev=q.l_extendedprice * (1.0 - q.l_discount))
+    keys = ["l_orderkey", "o_orderdate", "o_shippriority"]
+    r = q.groupby(keys).agg(revenue=("rev", "sum")).join(_join_tol(q, "rev", keys, "revenue__tol", buckets))
+    r = r.reset_index()
+    r["o_orderdate"] = (r.o_orderdate - pd.Timestamp("1970-01-01")).dt.days.astype(np.int64)
+    refs["Q3"] = (r, ["l_orderkey"], [("revenue", False), ("o_orderdate", True)],
+                  {"revenue": "revenue__tol"}, 10, None)
+    # Q12.
+    q = li[li.l_shipmode.isin(["MAIL", "SHIP"]) & (li.l_commitdate < li.l_receiptdate)
+           & (li.l_shipdate < li.l_commitdate) & (li.l_receiptdate >= day("1994-01-01"))
+           & (li.l_receiptdate < day("1995-01-01"))].merge(o[["o_orderkey", "o_orderpriority"]],
+                                                            left_on="l_orderkey", right_on="o_orderkey")
+    high = q.o_orderpriority.isin(["1-URGENT", "2-HIGH"])
+    r = q.assign(h=high.astype(float), lo=(~high).astype(float)).groupby("l_shipmode").agg(
+        high_line_count=("h", "sum"), low_line_count=("lo", "sum"))
+    refs["Q12"] = (r.reset_index(), ["l_shipmode"], [("l_shipmode", True)], {}, None, None)
+    # Q13: customers with their orders whose comment is not LIKE
+    # '%special%requests%' (a left join: no such order counts 0).
+    kept = o[~o.o_comment.str.contains("special.*requests", regex=True)]
+    per = c[["c_custkey"]].merge(kept[["o_custkey", "o_orderkey"]], left_on="c_custkey", right_on="o_custkey",
+                                 how="left").groupby("c_custkey").o_orderkey.count()
+    r = per.value_counts().rename_axis("c_count").rename("custdist").reset_index()
+    refs["Q13"] = (r, ["c_count"], [("custdist", False), ("c_count", False)], {}, None, None)
+    # YEAR.
+    q = li[["l_orderkey", "l_extendedprice", "l_discount"]].merge(
+        o[["o_orderkey", "o_orderdate"]], left_on="l_orderkey", right_on="o_orderkey")
+    q = q.assign(o_year=pd.to_datetime(q.o_orderdate).dt.year.astype(np.int64),
+                 vol=q.l_extendedprice * (1.0 - q.l_discount))
+    r = q.groupby("o_year").agg(volume=("vol", "sum")).join(_join_tol(q, "vol", ["o_year"], "volume__tol", buckets))
+    refs["YEAR"] = (r.reset_index(), ["o_year"], [("o_year", True)], {"volume": "volume__tol"}, None, None)
+
+    # TPC-DS.
+    def ss_dd(cols, pred):
+        d = dd[pred(dd)]
+        return ss[["ss_sold_date_sk", *cols]].merge(d, left_on="ss_sold_date_sk", right_on="d_date_sk")
+
+    q = ss_dd(["ss_store_sk", "ss_sales_price"], lambda d: d.d_year == 2000).merge(
+        store[["s_store_sk", "s_store_id", "s_store_name"]], left_on="ss_store_sk", right_on="s_store_sk")
+    days = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday", "Friday", "Saturday")
+    cols = {f"{d[:3].lower()}_sales": np.where(q.d_day_name == d, q.ss_sales_price, 0.0) for d in days}
+    q = q.assign(**cols)
+    keys = ["s_store_name", "s_store_id"]
+    r = q.groupby(keys)[list(cols)].sum()
+    t = _join_tol(q, "ss_sales_price", keys, "__t", buckets)["__t"]
+    for k in cols:
+        r[f"{k}__tol"] = t
+    refs["q43"] = (r.reset_index(), keys, [(k, True) for k in keys], {k: f"{k}__tol" for k in cols}, 100, None)
+
+    def rollup(frame, levels, value_cols):
+        """The union of group-bys over each prefix of `levels`, with the
+        grouping() flags, sums and their tolerances."""
+        parts = []
+        for i in range(len(levels), -1, -1):
+            keep = levels[:i]
+            if keep:
+                g = frame.groupby(keep, dropna=False)[value_cols].sum()
+                tl = {v: _join_tol(frame, v, keep, f"{v}__tol", buckets) for v in value_cols}
+                g = g.join([tl[v] for v in value_cols]).reset_index()
+            else:
+                g = pd.DataFrame({v: [frame[v].sum()] for v in value_cols})
+                for v in value_cols:
+                    g[f"{v}__tol"] = join_sum_tolerance(len(frame), frame[v].abs().max(), buckets)
+            for lv in levels[i:]:
+                g[lv] = None
+            g["__level"] = len(levels) - i
+            parts.append(g)
+        return pd.concat(parts, ignore_index=True)
+
+    # q36.
+    q = ss_dd(["ss_item_sk", "ss_store_sk", "ss_net_profit", "ss_ext_sales_price"], lambda d: d.d_year == 2001)
+    q = q.merge(store[store.s_state.isin(["TX", "OH", "OR", "CA", "WA", "NM", "KY", "VA"])][["s_store_sk"]],
+                left_on="ss_store_sk", right_on="s_store_sk").merge(
+        item[["i_item_sk", "i_category", "i_class"]], left_on="ss_item_sk", right_on="i_item_sk")
+    r = rollup(q, ["i_category", "i_class"], ["ss_net_profit", "ss_ext_sales_price"])
+    r["gross_margin"] = r.ss_net_profit / r.ss_ext_sales_price
+    r["gross_margin__tol"] = (r["ss_net_profit__tol"] + r.gross_margin.abs() * r["ss_ext_sales_price__tol"]) / \
+        r.ss_ext_sales_price.abs() + 4 * UNIT_ROUNDOFF * r.gross_margin.abs()
+    r["lochierarchy"] = r["__level"].astype(np.int64)
+    r["parent_cat"] = np.where(r["__level"] == 0, r.i_category, "")
+    r["rank_within_parent"] = r.groupby(["lochierarchy", "parent_cat"]).gross_margin.rank(method="min").astype(np.int64)
+    r = r[["gross_margin", "i_category", "i_class", "lochierarchy", "rank_within_parent", "gross_margin__tol",
+           "parent_cat"]]
+    refs["q36"] = (r, ["i_category", "i_class"], [("lochierarchy", False), ("i_category", True),
+                                                   ("rank_within_parent", True)],
+                   {"gross_margin": "gross_margin__tol"}, 100,
+                   {"rank_within_parent": ("gross_margin", ["lochierarchy", "parent_cat"])})
+    # q67.
+    q = ss_dd(["ss_item_sk", "ss_store_sk", "ss_quantity", "ss_sales_price"],
+              lambda d: (d.d_month_seq >= 1200) & (d.d_month_seq <= 1211))
+    q = q.merge(store[["s_store_sk", "s_store_id"]], left_on="ss_store_sk", right_on="s_store_sk").merge(
+        item[["i_item_sk", "i_category", "i_class", "i_brand", "i_item_id"]], left_on="ss_item_sk",
+        right_on="i_item_sk")
+    q = q.assign(sumsales=q.ss_sales_price * q.ss_quantity)
+    levels = ["i_category", "i_class", "i_brand", "i_item_id", "d_year", "d_qoy", "d_moy", "s_store_id"]
+    r = rollup(q, levels, ["sumsales"])
+    r["rk"] = r.groupby("i_category", dropna=False).sumsales.rank(method="min", ascending=False).astype(np.int64)
+    r = r[r.rk <= 100][[*levels, "sumsales", "rk", "sumsales__tol"]]
+    refs["q67"] = (r, levels, [("i_category", True), ("rk", True)], {"sumsales": "sumsales__tol"}, 100,
+                   {"rk": ("sumsales", ["i_category"])})
+    # q98 and WIN's items.
+    q = ss_dd(["ss_item_sk", "ss_ext_sales_price"],
+              lambda d: (d.d_date >= day("1999-02-22")) & (d.d_date <= day("1999-03-24")))
+    q = q.merge(item[item.i_category.isin(["Sports", "Books", "Home"])][
+        ["i_item_sk", "i_item_id", "i_item_desc", "i_category", "i_class", "i_current_price"]],
+        left_on="ss_item_sk", right_on="i_item_sk")
+    keys = ["i_item_id", "i_item_desc", "i_category", "i_class", "i_current_price"]
+    # The fused Aggregate(Join) sums the item revenues over the store-sales
+    # side of the 31 days, joined to date_dim.
+    side = ss_dd(["ss_ext_sales_price"], lambda d: (d.d_date >= day("1999-02-22")) & (d.d_date <= day("1999-03-24")))
+    items = q.groupby(keys).agg(itemrevenue=("ss_ext_sales_price", "sum")).join(
+        _join_tol(q, "ss_ext_sales_price", keys, "itemrevenue__tol", buckets, side.ss_ext_sales_price)).reset_index()
+    r = items.copy()
+    grp = r.groupby("i_class")
+    r["class_revenue"] = grp.itemrevenue.transform("sum")
+    cls_tol = grp["itemrevenue__tol"].transform("sum") + grp.itemrevenue.transform("size") * UNIT_ROUNDOFF * \
+        grp.itemrevenue.transform(lambda v: v.abs().sum())
+    r["revenueratio"] = r.itemrevenue * 100.0 / r.class_revenue
+    r["revenueratio__tol"] = 100.0 * (r["itemrevenue__tol"] + r.revenueratio.abs() / 100.0 * cls_tol) / \
+        r.class_revenue.abs() + 4 * UNIT_ROUNDOFF * r.revenueratio.abs()
+    r = r.drop(columns=["class_revenue"])
+    refs["q98"] = (r, ["i_item_id"], [("i_category", True), ("i_class", True), ("i_item_id", True),
+                                      ("i_item_desc", True), ("revenueratio", True)],
+                   {"itemrevenue": "itemrevenue__tol", "revenueratio": "revenueratio__tol"}, 100, None)
+    refs["WIN"] = items
+    # CD1, CD2, CUBE.
+    def store_year(y, cols):
+        return ss_dd(["ss_store_sk", *cols], lambda d: d.d_year == y).merge(
+            store[["s_store_sk", "s_store_id", "s_state"]], left_on="ss_store_sk", right_on="s_store_sk")
+
+    q = store_year(2000, ["ss_customer_sk", "ss_net_profit", "ss_item_sk", "ss_sales_price"])
+    g = q.groupby("s_store_id")
+    r = g.agg(customers=("ss_customer_sk", "nunique"), profit=("ss_net_profit", "sum"),
+              items=("ss_item_sk", "nunique"), avg_price=("ss_sales_price", "mean"))
+    r = r.join(_join_tol(q, "ss_net_profit", ["s_store_id"], "profit__tol", buckets)).join(
+        _join_tol(q, "ss_sales_price", ["s_store_id"], "avg_price__tol", buckets))
+    r["avg_price__tol"] = r["avg_price__tol"] / g.size()
+    r = r.reset_index()
+    refs["CD1"] = (r[["s_store_id", "customers", "profit", "profit__tol"]], ["s_store_id"], [("s_store_id", True)],
+                   {"profit": "profit__tol"}, None, None)
+    refs["CD2"] = (r[["s_store_id", "customers", "items", "avg_price", "avg_price__tol"]], ["s_store_id"],
+                   [("s_store_id", True)], {"avg_price": "avg_price__tol"}, None, None)
+    q = store_year(2001, ["ss_net_profit"]).assign(one=1)
+    parts = []
+    for keep in (["s_state", "d_qoy"], ["s_state"], ["d_qoy"], []):
+        if keep:
+            g = q.groupby(keep).agg(profit=("ss_net_profit", "sum"), cnt=("one", "sum")).join(
+                _join_tol(q, "ss_net_profit", keep, "profit__tol", buckets)).reset_index()
+        else:
+            g = pd.DataFrame({"profit": [q.ss_net_profit.sum()], "cnt": [len(q)], "profit__tol": [
+                join_sum_tolerance(len(q), q.ss_net_profit.abs().max(), buckets)]})
+        for k in ("s_state", "d_qoy"):
+            if k not in keep:
+                g[k] = None
+        g["g_state"] = 0 if "s_state" in keep else 1
+        parts.append(g)
+    r = pd.concat(parts, ignore_index=True)
+    refs["CUBE"] = (r, ["s_state", "d_qoy"], [("s_state", True), ("d_qoy", True)], {"profit": "profit__tol"}, None,
+                    None)
+    return refs
+
+
+def check_window(got, items) -> None:
+    """WIN against pandas: the rows in (i_category, rn) order; each item's
+    revenue within tolerance of the reference; within each category the row numbers 1..m follow the
+    revenue order (a swap only between revenues within tolerance), and the
+    dense rank, running sum, lag, lead and range-frame running max are the
+    ones pandas computes over the result's own revenues in that order."""
+    import pandas as pd
+
+    ref = items.set_index("i_item_id")
+    if len(got) != len(ref):
+        raise AssertionError(f"WIN: {len(got)} rows, the reference {len(ref)}")
+    w = ref.loc[got.i_item_id]
+    if not np.all(np.abs(got.itemrevenue.to_numpy() - w.itemrevenue.to_numpy()) <= w["itemrevenue__tol"].to_numpy()):
+        raise AssertionError("WIN: itemrevenue beyond the float64 join bound")
+    rows = got.to_dict("records")
+    if [(r["i_category"], r["rn"]) for r in rows] != [
+            (r["i_category"], r["rn"]) for r in _sort_rows(rows, [("i_category", True), ("rn", True)])]:
+        raise AssertionError("WIN: the rows are not in (i_category, rn) order")
+    all_abs = float(np.abs(got.itemrevenue.to_numpy()).sum())
+    for cat, part in got.groupby("i_category", sort=False):
+        part = part.sort_values("rn")
+        m = len(part)
+        if part.rn.tolist() != list(range(1, m + 1)):
+            raise AssertionError(f"WIN {cat}: row numbers {part.rn.tolist()[:5]}... are not 1..{m}")
+        rev = part.itemrevenue.to_numpy()
+        tol = ref.loc[part.i_item_id, "itemrevenue__tol"].to_numpy()
+        if np.any(np.diff(rev) > np.maximum(tol[1:], tol[:-1])):
+            raise AssertionError(f"WIN {cat}: the row numbers do not follow the revenue order")
+        want = {
+            "drk": pd.Series(rev).rank(method="dense", ascending=False).astype(np.int64).to_numpy(),
+            "run_revenue": np.cumsum(rev),
+            "prev_revenue": pd.Series(rev).shift(1).to_numpy(),
+            "next2_revenue": pd.Series(rev).shift(-2).to_numpy(),
+        }
+        # The range frame: a row's running max covers its peers (equal
+        # revenue), so it is the cumulative max at its last peer.
+        price = part.i_current_price.to_numpy()
+        last_peer = np.searchsorted(-rev, -rev, side="right") - 1
+        want["run_max_price"] = np.maximum.accumulate(price)[last_peer]
+        for c in ("drk", "prev_revenue", "next2_revenue", "run_max_price"):
+            a = part[c].to_numpy(dtype=np.float64)
+            if not np.array_equal(a, want[c].astype(np.float64), equal_nan=True):
+                raise AssertionError(f"WIN {cat}: {c} differs from pandas over the result's revenues")
+        # The running sum is a difference of two prefix sums over every
+        # partition sorted so far (ops/window.py), each within
+        # (n - 1)·u·Σ|v| of exact in any order; pandas' cumsum within
+        # (m - 1)·u·Σ|v| of the partition's.
+        run_tol = 2 * len(got) * UNIT_ROUNDOFF * all_abs + m * UNIT_ROUNDOFF * np.cumsum(np.abs(rev))
+        if np.any(np.abs(part.run_revenue.to_numpy() - want["run_revenue"]) > run_tol):
+            raise AssertionError(f"WIN {cat}: the running sum differs from pandas' cumsum")
+
+
+def check_limit(got, li) -> None:
+    """LIM: 1,000 rows, each a (l_orderkey, l_extendedprice) of a source
+    row with l_discount >= 0.05 (any 1,000 such rows are an answer)."""
+    import collections
+
+    if len(got) != LIMIT_ROWS:
+        raise AssertionError(f"LIM: {len(got)} rows")
+    src = li[li.l_discount >= 0.05]
+    have = collections.Counter(zip(src.l_orderkey.tolist(), src.l_extendedprice.tolist()))
+    need = collections.Counter(zip(got.l_orderkey.tolist(), got.l_extendedprice.tolist()))
+    if any(have[k] < v for k, v in need.items()):
+        raise AssertionError("LIM: a row is not one of the source's rows that satisfy the predicate")
+
+
+def query_surface_path(device, ctx: dict, sf: float) -> dict:
+    """The query surface at SF1 through the user entry points: the
+    join-types phase's session, lineitem, orders and customer, and the
+    TPC-DS store channel with its two indexes. Each query of
+    query_surface_plans runs cold and warm through run_query and the
+    phase's plan cache, index on and off, against pandas on the same
+    parquet, on the JAX package's path (QUERY_SURFACE_EXPECT) with K1 and
+    K2 launching where that path runs them; each prints one line.
+    Returns the per-query records."""
+    import pandas as pd
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig
+    from hyperspace_tpu_torch.datagen import gen_date_dim, gen_item, gen_store, gen_store_sales
+    from hyperspace_tpu_torch.ops import aggregate
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+    from hyperspace_tpu_torch.ops.topk import topk
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    session, workdir = ctx["session"], ctx["workdir"]
+    out: dict = {}
+    t0 = time.perf_counter()
+    roots = {name: workdir / name for name in ("date_dim", "item", "store", "store_sales")}
+    gen_date_dim(roots["date_dim"])
+    gen_item(roots["item"], sf)
+    gen_store(roots["store"])
+    gen_store_sales(roots["store_sales"], sf)
+    out["tpcds_datagen_s"] = time.perf_counter() - t0
+    scans = {name: session.parquet(root) for name, root in roots.items()}
+    hs = Hyperspace(session)
+    buckets = session.conf.num_buckets
+    session.conf.set("hyperspace.index.num.buckets", TPCDS_BUCKETS)
+    try:
+        for name, scan, (indexed, included) in (("ss_by_date", "store_sales", SS_BY_DATE),
+                                                ("dd_by_sk", "date_dim", DD_BY_SK)):
+            t0 = time.perf_counter()
+            hs.create_index(scans[scan], IndexConfig(name, indexed, included))
+            sync()
+            out[f"{name}_build_s"] = time.perf_counter() - t0
+            out[f"{name}_build_phases_s"] = session.last_build_stats["phases_s"]
+    finally:
+        session.conf.set("hyperspace.index.num.buckets", buckets)
+    tables = {"lineitem": ctx["lineitem"], "orders": ctx["orders"], "customer": ctx["customer"], **scans}
+    plans = query_surface_plans(htorch, tables)
+
+    t0 = time.perf_counter()
+
+    def frame(root, columns=None):
+        files = sorted(str(p) for p in Path(root).glob("*.parquet"))
+        return pq.read_table(files, columns=columns).to_pandas(date_as_object=False)
+
+    src = {
+        "lineitem": ctx["source"].select([
+            "l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_returnflag", "l_linestatus",
+            "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipmode"]).to_pandas(date_as_object=False),
+        "orders": frame(workdir / "orders", ["o_orderkey", "o_custkey", "o_orderdate", "o_orderpriority",
+                                             "o_shippriority", "o_comment"]),
+        "customer": frame(workdir / "customer", ["c_custkey", "c_mktsegment"]),
+        **{name: frame(root) for name, root in roots.items()},
+    }
+    refs = surface_references(src, sf, max(buckets, TPCDS_BUCKETS))
+    out["reference_s"] = time.perf_counter() - t0
+
+    def check_result(label: str, result) -> None:
+        got = pd.DataFrame(result.decode())
+        name = label.split()[0]
+        if name == "LIM":
+            check_limit(got, src["lineitem"])
+        elif name == "WIN":
+            check_window(got, refs["WIN"])
+        else:
+            ref, ids, order, tol, limit, near = refs[name]
+            check_ordered(label, got, ref, ids, order, tol, limit, near)
+
+    tolerant = {name: tuple(ref[3]) for name, ref in refs.items() if isinstance(ref, tuple)}
+    tolerant["WIN"] = ("itemrevenue", "run_revenue", "prev_revenue", "next2_revenue")
+    for mode in ("index", "no_index"):
+        session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
+        m = 0 if mode == "index" else 1
+        for name, plan in plans.items():
+            want = QUERY_SURFACE_EXPECT[name]
+            before = (segment_reduce.launches, run_bounds.launches, topk.launches)
+            # Rows ordered or ranked by a float sum may swap between two
+            # runs where the sums tie within tolerance: the warm run then
+            # need only match the cold one's shape, and both are checked.
+            (result,), (cold,), timing = cold_warm(
+                f"{name} {mode}", session, [plan], ctx["plan_cache"], sync,
+                tolerant=plan.schema.names if name in FLOAT_ORDERED else tolerant.get(name, ()))
+            stats = timing.pop("warm_stats")
+            launched = {k: now - was for k, now, was in zip(
+                ("segment_reduce", "run_bounds", "topk"),
+                (segment_reduce.launches, run_bounds.launches, topk.launches), before)}
+            got_paths = surface_paths(stats)
+            # The broadcast and top-N choices turn on row counts: the
+            # table's are SF1's (and hold from TPC-H sf 0.25, TPC-DS 0.3).
+            at_sf1 = sf >= 1.0
+            want_paths = (want["agg_path"], sorted(want["join_paths"][m]) if at_sf1 else got_paths[1],
+                          want["top_n"] if at_sf1 else got_paths[2], want["limit_early_out"])
+            if got_paths != want_paths:
+                raise AssertionError(f"{name} {mode}: paths {got_paths}, expected {want_paths}")
+            if stats["files_pruned"] != want["files_pruned"][m]:
+                raise AssertionError(f"{name} {mode}: {stats['files_pruned']} files pruned, "
+                                     f"expected {want['files_pruned'][m]}")
+            if device.type == "cuda":
+                if (launched["segment_reduce"] > 0) != (name != "LIM"):
+                    raise AssertionError(f"{name} {mode}: K1 launched {launched['segment_reduce']} times")
+                if (launched["run_bounds"] > 0) != want["k2"][m]:
+                    raise AssertionError(f"{name} {mode}: K2 launched {launched['run_bounds']} times")
+                if launched["topk"]:
+                    raise AssertionError(f"{name} {mode}: K3 launched {launched['topk']} times")
+            # A zero-exchange join factorizes the keys of two indexes'
+            # stable columns: its warm run must find them in HOST_DERIVED.
+            if ZA in got_paths[1] and not timing["derived_hits"]:
+                raise AssertionError(f"{name} {mode}: the warm run hit nothing in HOST_DERIVED")
+            if name in FLOAT_ORDERED:
+                check_result(f"{name} {mode} cold", cold)
+            check_result(f"{name} {mode}", result)
+            record = {"query": name, "mode": mode, "rows": result.num_rows, **timing,
+                      **{k: stats[k] for k in ("agg_path", "join_paths", "top_n", "limit_early_out", "files_pruned",
+                                               "files_read")},
+                      "launches": launched}
+            out[f"{name}_{mode}"] = record
+            log(json.dumps({"query_surface_query": record}))
+        out[f"caches_after_{mode}"] = cache_stats()
+    session.enable_hyperspace()
+    # K1's inputs at the shapes this phase first gives it, from one more
+    # indexed run each: a grouping-set re-fold of many small groups (q67's
+    # rollup level of 7 of its 8 columns, the second of its 9 re-folds,
+    # after the finest-grain aggregate), count-distinct's inner aggregate
+    # by (store, customer) (CD1's first call) and the pushdown's partial
+    # aggregate (q43's first).
+    k1_inputs = {}
+    for label, query, pick, least in (("q67 re-fold", "q67", -8, 10), ("CD1 inner", "CD1", 0, 2),
+                                      ("q43 partial", "q43", 0, 1)):
+        calls = capture_k1(lambda: session.run(plans[query]), aggregate)
+        if len(calls) < least:
+            raise AssertionError(f"{query}: {len(calls)} K1 calls through the aggregate, expected {least} or more")
+        k1_inputs[label] = calls[pick]
+    ctx["k1_surface_inputs"] = k1_inputs
     return out
 
 
@@ -1750,7 +2511,14 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
         launches["join_types"] = read_counts("join types", ("run_bounds", "segment_reduce"))
         log(json.dumps({"join_types_path": join_types, "launches": launches["join_types"]}))
         log(json.dumps({"caches_after_path": "join types", **cache_stats()}))
-        k1_agg_inputs = ctx["k1_inputs"]
+        zero_counts()
+        t0 = time.perf_counter()
+        surface = query_surface_path(device, ctx, args.sf)
+        surface["query_surface_path_s"] = time.perf_counter() - t0
+        launches["query_surface"] = read_counts("query surface", ("run_bounds", "segment_reduce"))
+        log(json.dumps({"query_surface_path": surface, "launches": launches["query_surface"]}))
+        log(json.dumps({"caches_after_path": "query surface", **cache_stats()}))
+        k1_agg_inputs = {**ctx["k1_inputs"], **ctx["k1_surface_inputs"]}
         del ctx
         zero_counts()
         t0 = time.perf_counter()
@@ -1780,7 +2548,9 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
     }
     # And at the join path's four, on the inputs the indexed J2 and J3 gave
     # it: the secondary run extrema (min/max over about 1.5M runs, global
-    # atomics) and the group fold over the padded [B·Lp] rows.
+    # atomics) and the group fold over the padded [B·Lp] rows; and at the
+    # query-surface path's three: q67's re-fold, CD1's inner aggregate and
+    # q43's partial aggregate.
     for name, (vals, gid, k, fns) in {**k1_agg_inputs, **k1_join_inputs}.items():
         shapes[name] = k1_phase(device, vals, gid, k, fns, _k1_exact_from_data(vals.cpu().numpy(), fns))
     del k1_agg_inputs, k1_join_inputs
@@ -1823,8 +2593,9 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
             "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-            # K1 runs on three paths: its launches on each, summed.
-            "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types")),
+            # K1 runs on four paths: its launches on each, summed.
+            "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types",
+                                                                     "query_surface")),
             "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
@@ -1841,10 +2612,12 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "device_ms": r["device_ms"],
             # The kernel's device time inside the main path's query
             # (torch.profiler); for J2 and J3 both K1 launches of the query
-            # together.
+            # together; the query-surface queries are not profiled.
             "main_path_ms": (
-                phases[f"agg_{query}_profiled"] if query in ("q1", "revenue") else join["phases"][f"{query}_profiled"]
-            )["kernel_ms"]["segment_reduce_"],
+                phases[f"agg_{query}_profiled"]["kernel_ms"]["segment_reduce_"] if query in ("q1", "revenue")
+                else join["phases"][f"{query}_profiled"]["kernel_ms"]["segment_reduce_"] if query in ("J2", "J3")
+                else None
+            ),
             # k1_phase raised had the kernel disagreed with its plain version.
             "plain_check": "passed",
         })
@@ -1861,8 +2634,9 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
             "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
-            # K2 runs on both join paths: its launches on each, summed.
-            "launches": launches["join"]["run_bounds"] + launches["join_types"]["run_bounds"],
+            # K2 runs on the join paths and the query surface: its
+            # launches on each, summed.
+            "launches": sum(launches[p]["run_bounds"] for p in ("join", "join_types", "query_surface")),
             "launches_by_path": {p: c["run_bounds"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

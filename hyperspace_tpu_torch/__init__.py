@@ -14,8 +14,8 @@ the JAX package.
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.index_config import IndexConfig
-from hyperspace_tpu_torch.plan.expr import col, lit, when
-from hyperspace_tpu_torch.plan.nodes import AggSpec, Join
+from hyperspace_tpu_torch.plan.expr import abs_, col, date_lit, day, floor, lit, month, sqrt, when, year
+from hyperspace_tpu_torch.plan.nodes import AggSpec, Join, WindowSpec
 from hyperspace_tpu_torch.schema import Field, Schema
 
 __version__ = "0.1.0"
@@ -32,9 +32,17 @@ __all__ = [
     "QueryOutcome",
     "Schema",
     "VectorIndexConfig",
+    "WindowSpec",
+    "abs_",
     "col",
+    "date_lit",
+    "day",
+    "floor",
     "lit",
+    "month",
+    "sqrt",
     "when",
+    "year",
 ]
 
 

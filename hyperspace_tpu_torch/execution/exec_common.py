@@ -5,17 +5,19 @@ channel inputs.
 
 A port of the JAX package's `execution/exec_common.py` without what
 only its unported modules use (hybrid-scan deltas, the run-extremum host
-venue, count-distinct, the partial-aggregation leaf): `AlignedSide`
-(without its projection: the join gather emits the join's schema
-directly), `SideData` with its hash domain and `_hash_fields_compatible`,
-`_filter_side`, `_bucket_sorted_codes`, `_pad_bucket_major`,
-`_composite_keys`, `_broadcast_probe`, `_copy_field`, `_null_field`
-and `_factorize_keys` (null-safe keys included) with its helpers;
-`KeyBounds`, `key_bounds`, `predicate_all_key_bounds`, `_stats_overlap`
-and `_convert_bounds`; and the identity caches `_stable_table_refs`,
-`_group_ids_cached`, `_agg_channels_cached`, `_factorize_keys_cached`,
-`_pad_bucket_major_cached` and `_stack_cached` (execution/device_cache.py
-says what "stable" means here). The key factorization is a copy and runs
+venue): `_TableLeaf` (a materialized table as a plan leaf, which the
+partial-aggregation pushdown and the grouping sets splice in),
+`_desugar_count_distinct`, `AlignedSide` (without its projection: the
+join gather emits the join's schema directly), `SideData` with its hash
+domain and `_hash_fields_compatible`, `_filter_side`,
+`_bucket_sorted_codes`, `_pad_bucket_major`, `_composite_keys`,
+`_broadcast_probe`, `_copy_field`, `_null_field` and `_factorize_keys`
+(null-safe keys included) with its helpers; `KeyBounds`, `key_bounds`
+(with the LIKE-prefix and year bounds), `predicate_all_key_bounds`,
+`_stats_overlap` and `_convert_bounds`; and the identity caches
+`_stable_table_refs`, `_group_ids_cached`, `_agg_channels_cached`,
+`_factorize_keys_cached`, `_pad_bucket_major_cached` and `_stack_cached`
+(execution/device_cache.py says what "stable" means here). The key factorization is a copy and runs
 on the host (numpy): it yields int32 rank codes whose order is the key
 tuples' order and whose equality across sides is key equality. Sorting,
 padding, probing and everything after run as torch ops on the tables'
@@ -35,10 +37,29 @@ from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution import device_cache as dc
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_tensor
 from hyperspace_tpu_torch.ops.aggregate import agg_input, group_ids
-from hyperspace_tpu_torch.ops.filter import eval_predicate_mask
+from hyperspace_tpu_torch.ops.filter import _translate_date_part_cmp, eval_predicate_mask
 from hyperspace_tpu_torch.ops.join import sentinel_for
-from hyperspace_tpu_torch.plan.expr import BinOp, Col, Expr, InList, Lit, split_conjuncts
-from hyperspace_tpu_torch.plan.nodes import Scan
+from hyperspace_tpu_torch.plan.expr import BinOp, Col, DatePart, Expr, InList, Like, Lit, split_conjuncts
+from hyperspace_tpu_torch.plan.nodes import AggSpec, Aggregate, LogicalPlan, Scan
+
+
+@dataclasses.dataclass
+class _TableLeaf(LogicalPlan):
+    """Executor-internal leaf wrapping an already-materialized table
+    (partial-aggregation pushdown splices one under a Join). Never
+    serialized; never seen by the rules."""
+
+    table: ColumnTable
+
+    @property
+    def schema(self):
+        return self.table.schema
+
+    def children(self) -> list[LogicalPlan]:
+        return []
+
+    def to_json(self):
+        raise HyperspaceError("_TableLeaf is executor-internal")
 
 
 @dataclasses.dataclass
@@ -268,6 +289,39 @@ def _agg_channels(table: ColumnTable, spec) -> tuple[torch.Tensor, torch.Tensor]
     return torch.where(valid, vals, torch.zeros_like(vals)), valid.to(torch.float64)
 
 
+def _desugar_count_distinct(plan: Aggregate):
+    """count(distinct col) as a TWO-PHASE re-aggregation: the inner
+    aggregate groups by (group keys, distinct column) — its rows are the
+    distinct (group, value) pairs — and computes partials for every
+    sibling aggregate; the outer counts the distinct column (nulls
+    excluded, SQL semantics) and recombines the partials (sum of sums /
+    counts, min of mins, max of maxes). Returns (desugared plan, aliases
+    of the original count specs — the caller zero-fills their NULLs).
+    The caller routes multi-distinct and mean-sharing aggregates to the
+    distinct expansion; this sees exactly one distinct column and no
+    mean."""
+    dcol = next(a.expr.name for a in plan.aggs if a.fn == "count_distinct")
+    group_low = {c.lower() for c in plan.group_by}
+    inner_groups = list(plan.group_by) + ([dcol] if dcol.lower() not in group_low else [])
+    inner_aggs: list = []
+    outer_aggs: list = []
+    count_aliases: list[str] = []
+    for i, a in enumerate(plan.aggs):
+        if a.fn == "count_distinct":
+            outer_aggs.append(AggSpec("count", Col(dcol), a.alias))
+            continue
+        part = f"__partial_{i}"
+        if a.fn == "count":
+            inner_aggs.append(AggSpec("count", a.expr, part))
+            outer_aggs.append(AggSpec("sum", Col(part), a.alias))
+            count_aliases.append(a.alias)
+        else:  # sum / min / max recombine with themselves
+            inner_aggs.append(AggSpec(a.fn, a.expr, part))
+            outer_aggs.append(AggSpec(a.fn, Col(part), a.alias))
+    inner = Aggregate(plan.child, inner_groups, inner_aggs)
+    return Aggregate(inner, list(plan.group_by), outer_aggs), count_aliases
+
+
 # -- identity caches (execution/device_cache.py) ------------------------------------
 
 
@@ -413,12 +467,31 @@ def _conjunct_col_lit(conj) -> tuple[str, str, object] | None:
     return name, op, v
 
 
+def _like_prefix(pattern: str) -> str | None:
+    """The literal prefix of a prefix-shaped LIKE pattern ('PROMO%'), or
+    None when the pattern isn't prefix-shaped."""
+    if pattern.endswith("%") and len(pattern) > 1:
+        body = pattern[:-1]
+        if "%" not in body and "_" not in body:
+            return body
+    return None
+
+
+def _prefix_upper(prefix: str) -> str | None:
+    """Smallest string ABOVE every string with `prefix` (exclusive upper
+    bound for prefix matching); None when the last char can't increment."""
+    last = ord(prefix[-1])
+    if last >= 0x10FFFF:
+        return None
+    return prefix[:-1] + chr(last + 1)
+
+
 def _conjunct_bound_ops(conj, key: str) -> list[tuple[str, object]] | None:
     """One conjunct → literal (op, value) bounds it implies on `key`:
-    plain comparisons pass through; IN gives its min/max envelope. The
-    residual filter mask still applies the exact predicate — bounds only
-    need to be a valid superset. (The JAX package's LIKE-prefix and
-    date-part bounds wait for those expressions' port.)"""
+    plain comparisons pass through; IN gives its min/max envelope; a
+    prefix LIKE gives [prefix, next-prefix); a year comparison gives its
+    day range. The residual filter mask still applies the exact predicate
+    — bounds only need to be a valid superset."""
     if isinstance(conj, InList) and isinstance(conj.child, Col):
         if conj.child.name.lower() != key:
             return None
@@ -429,6 +502,36 @@ def _conjunct_bound_ops(conj, key: str) -> list[tuple[str, object]] | None:
             return [("ge", min(vals)), ("le", max(vals))]
         except TypeError:
             return None
+    if isinstance(conj, Like) and isinstance(conj.child, Col):
+        if conj.child.name.lower() != key:
+            return None
+        prefix = _like_prefix(conj.pattern)
+        if prefix is None:
+            if "%" not in conj.pattern and "_" not in conj.pattern:
+                return [("eq", conj.pattern)]  # wildcard-free LIKE = equality
+            return None
+        out: list[tuple[str, object]] = [("ge", prefix)]
+        upper = _prefix_upper(prefix)
+        if upper is not None:
+            out.append(("lt", upper))
+        return out
+    if isinstance(conj, BinOp) and conj.is_comparison:
+        l, r, op = conj.left, conj.right, conj.op
+        if isinstance(r, DatePart) and isinstance(l, Lit):
+            l, r, op = r, l, _FLIP.get(op, op)
+        if isinstance(l, DatePart) and isinstance(r, Lit):
+            # year(d) OP lit → the day-range tree the filter lowers to;
+            # recurse so the range feeds pruning too.
+            t = _translate_date_part_cmp(op, l, r.value)
+            if t is None:
+                return None
+            out = []
+            for sub in split_conjuncts(t):
+                pairs = _conjunct_bound_ops(sub, key)
+                if pairs is None:
+                    return None  # ne-shaped (an OR): not a conjunct bound
+                out.extend(pairs)
+            return out
     dec = _conjunct_col_lit(conj)
     if dec is None:
         return None

@@ -31,7 +31,7 @@ from hyperspace_tpu_torch.execution.exec_common import (
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_numpy
 from hyperspace_tpu_torch.ops.aggregate import finalize_agg_values
 from hyperspace_tpu_torch.ops.join_agg import fused_join_aggregate
-from hyperspace_tpu_torch.plan.expr import Col
+from hyperspace_tpu_torch.plan.expr import Case
 from hyperspace_tpu_torch.plan.nodes import Aggregate, Join, Project
 
 
@@ -39,7 +39,7 @@ class FusedJoinAggMixin:
     def _try_fused_join_aggregate(self, plan: Aggregate) -> ColumnTable | None:
         """Aggregate(Join) without materializing the joined pairs. Applies
         when the join is inner without a residual, every aggregate is
-        sum/count/mean/min/max over one side's numeric column (or
+        sum/count/mean/min/max over one side's numeric expression (or
         count(*)), and the grouping columns (if any) come from one side —
         the primary side, whose rows the groups are made of. Anything
         else returns None and runs the materialized join."""
@@ -67,16 +67,23 @@ class FusedJoinAggMixin:
                 return None
         spec_sides: list[str | None] = []
         for a in plan.aggs:
+            if a.fn not in ("sum", "count", "mean", "min", "max"):
+                return None
             if a.expr is None:
                 spec_sides.append(None)  # count(*)
                 continue
-            if not isinstance(a.expr, Col):
-                return None
-            s = side_of(a.references())
+            refs = a.references()
+            # Constant expressions (sum(lit(2))) and cross-side expressions
+            # have no single owning side: the materialized join serves them.
+            s = side_of(refs)
             if s is None:
                 return None
             sch = join.left.schema if s == "left" else join.right.schema
-            if sch.field(a.expr.name).is_string:
+            if any(sch.field(r).is_vector for r in refs):
+                return None
+            # A CASE's conditions read strings through the predicate
+            # machinery; any other string input cannot feed a channel.
+            if not isinstance(a.expr, Case) and any(sch.field(r).is_string for r in refs):
                 return None
             spec_sides.append(s)
         primary = gside or "left"

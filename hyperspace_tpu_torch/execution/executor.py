@@ -21,19 +21,27 @@ types. What matters for speed:
   never materializes the joined pairs (exec_join_agg.py).
 
 A port of the JAX package's `Executor._dispatch` for Scan, Filter,
-Project (with computed entries, ops/project.py), Join (every join type)
-and Aggregate, with its bucket-preserved join outputs
-(`_stash_bucketed`, `_preserved_sidedata`, `_propagate_stash`). There
-are no venues: every operator runs on the session's device. The stats
-name what ran; `join_paths` lists the path of every join of the query in
-the order they finished (`join_path` is the last's), and `exchanges`
-what each exchanging join did to its sides (`rebucketize`, `preserved`,
-`preserved-both` or `preserved+rebucketize`, the JAX package's
-`exchange` detail of its physical plan).
+Project (with computed entries, ops/project.py), Join (every join type),
+Union, Aggregate (grouping sets, count-distinct and the pushdown:
+exec_agg.py), Window (ops/window.py), Sort and Limit, with its
+bucket-preserved join outputs (`_stash_bucketed`, `_preserved_sidedata`,
+`_propagate_stash`), ORDER BY ... LIMIT as a top-N selection (`_top_n`)
+and LIMIT over an unordered scan chain as an early-out read
+(`_limit_early_out`). There are no venues: every operator runs on the
+session's device. The stats name what ran; `join_paths` lists the path of
+every join of the query in the order they finished (`join_path` is the
+last's), and `exchanges` what each exchanging join did to its sides
+(`rebucketize`, `preserved`, `preserved-both` or `preserved+rebucketize`,
+the JAX package's `exchange` detail of its physical plan). `top_n` and
+`limit_early_out` carry the details of the JAX package's `TopN` and
+`LimitEarlyOut` physical nodes (the selection's kernel and candidates;
+the files scanned of the files listed).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import weakref
 
 import numpy as np
@@ -42,14 +50,17 @@ import torch
 from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.exec_agg import AggregateMixin
-from hyperspace_tpu_torch.execution.exec_common import SideData
+from hyperspace_tpu_torch.execution.exec_common import SideData, _TableLeaf
 from hyperspace_tpu_torch.execution.exec_join import JoinMixin
 from hyperspace_tpu_torch.execution.exec_join_agg import FusedJoinAggMixin
-from hyperspace_tpu_torch.execution.exec_scan import ScanFilterMixin
+from hyperspace_tpu_torch.execution.exec_scan import ScanFilterMixin, scan_files
 from hyperspace_tpu_torch.execution.exec_side import JoinSidesMixin
 from hyperspace_tpu_torch.execution.table import ColumnTable
 from hyperspace_tpu_torch.ops.project import project_table
-from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.ops.sortkeys import column_lanes, device_order_perm, lane_tensor, lanes_as_unsigned
+from hyperspace_tpu_torch.ops.window import window_table
+from hyperspace_tpu_torch.plan.expr import And
+from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, Limit, LogicalPlan, Project, Scan, Sort, Union, Window
 from hyperspace_tpu_torch.plan.prune import prune_columns
 
 
@@ -73,6 +84,8 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
             "exchange_kernel": None,
             "exchanges": [],
             "num_buckets": None,
+            "top_n": None,
+            "limit_early_out": None,
         }
         # Bucket-preserving join outputs: id(table) -> (weakref, offsets,
         # lowered key names, hash-domain fields). Bounded; the weakrefs
@@ -120,6 +133,132 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
             return project_table(child, plan.columns, plan.schema)
         if isinstance(plan, Join):
             return self._join(plan)
+        if isinstance(plan, Union):
+            return self._union(plan)
         if isinstance(plan, Aggregate):
             return self._aggregate(plan)
+        if isinstance(plan, Window):
+            t = self._execute(plan.child)
+            return window_table(t, plan.partition_by, plan.order_by, plan.funcs, plan.frame, plan.schema)
+        if isinstance(plan, Sort):
+            return self._sorted_table(self._execute(plan.child), plan)
+        if isinstance(plan, _TableLeaf):
+            return plan.table
+        if isinstance(plan, Limit):
+            if isinstance(plan.child, Sort):
+                return self._top_n(plan.child, plan.n)
+            early = self._limit_early_out(plan.child, plan.n)
+            if early is not None:
+                return early
+            t = self._execute(plan.child)
+            return t.take(torch.arange(min(plan.n, t.num_rows), device=t.device))
         raise HyperspaceError(f"cannot execute plan node {type(plan).__name__}")
+
+    def _limit_early_out(self, child: LogicalPlan, n: int) -> ColumnTable | None:
+        """LIMIT over an unordered linear scan chain: pull rows file by
+        file and STOP once n rows survive, instead of materializing the
+        whole child (any n rows are a correct answer without ORDER BY).
+        Returns None when the shape doesn't apply (non-linear child, a
+        single file)."""
+        chain: list[LogicalPlan] = []
+        node = child
+        while isinstance(node, (Project, Filter)):
+            chain.append(node)
+            node = node.child
+        if not isinstance(node, Scan):
+            return None
+        files = scan_files(node)
+        preds = [w.predicate for w in chain if isinstance(w, Filter)]
+        if node.bucket_spec is not None and preds:
+            # Index scans prune FIRST: a point lookup stays a single-file
+            # read, not a file-by-file walk through non-owning buckets.
+            pred = functools.reduce(And, preds)
+            pruned = self._prune_bucket_files(node, pred)
+            if pruned is None:
+                ranged = self._range_prune_list(node, pred)
+                pruned = ranged[0] if ranged is not None else None
+            if pruned is not None:
+                files = pruned
+        if len(files) <= 1:
+            return None
+        parts: list[ColumnTable] = []
+        total = 0
+        scanned = 0
+        for f in files:
+            sub: LogicalPlan = dataclasses.replace(node, files=[f])
+            for wrapper in reversed(chain):
+                sub = dataclasses.replace(wrapper, child=sub)
+            # Sequential by design: stopping early is the point.
+            t = self._execute(sub)
+            scanned += 1
+            if t.num_rows:
+                parts.append(t)
+                total += t.num_rows
+            if total >= n:
+                break
+        self.stats["limit_early_out"] = {"files_scanned": scanned, "files_total": len(files)}
+        if not parts:
+            return ColumnTable.empty(child.schema, device=self.device)
+        out = ColumnTable.concat(parts) if len(parts) > 1 else parts[0]
+        return out.take(torch.arange(min(n, out.num_rows), device=out.device))
+
+    def _top_n(self, sort_plan: Sort, n: int) -> ColumnTable:
+        """ORDER BY ... LIMIT n as an O(rows) selection: the n-th smallest
+        key of the first sort column is the threshold, and only the
+        (ties-inclusive) candidate set gets the full lexicographic sort.
+        The JAX package packs the column's two leading 32-bit lanes into a
+        uint64 and selects with np.partition; torch orders no uint64, so
+        the same 64 bits travel as an int64 whose high word has its top
+        bit flipped (the order is kept), selected with `torch.kthvalue`.
+        Candidates keep ascending row order, as np.flatnonzero's."""
+        table = self._execute(sort_plan.child)
+        rows = table.num_rows
+        if n <= 0:
+            return table.take(torch.arange(0, device=table.device))
+        if rows <= max(2 * n, 1024):
+            self.stats["top_n"] = {"kernel": "full-sort"}
+            full = self._sorted_table(table, sort_plan)
+            return full.take(torch.arange(min(n, full.num_rows), device=full.device))
+        # The FIRST sort column's lanes (DESC inverted, as the full sort
+        # does); a constant validity lane is dropped so both 32-bit words
+        # carry real key entropy.
+        c0, asc0 = sort_plan.by[0]
+        lanes = column_lanes(table, c0, force_validity=table.valid_mask(c0) is not None)
+        if not asc0:
+            lanes = [~l for l in lanes]
+        lu = lanes_as_unsigned(lanes[:2])
+        hi = lane_tensor(lu[0], table.device) - (1 << 31)  # uint32 order as signed
+        key = hi * (1 << 32) + (lane_tensor(lu[1], table.device) if lu.shape[0] > 1 else 0)
+        thr = torch.kthvalue(key, n).values
+        # The key may be a PREFIX of the column's order (lanes unseen):
+        # prefix ties stay in, every true top-n row has key <= thr, and
+        # the exact sort of the candidates settles the rest.
+        cand = torch.nonzero(key <= thr).flatten()
+        self.stats["top_n"] = {"kernel": "partition-select + sort", "candidates": len(cand)}
+        full = self._sorted_table(table.take(cand), sort_plan)
+        return full.take(torch.arange(min(n, full.num_rows), device=full.device))
+
+    @staticmethod
+    def _sorted_table(table: ColumnTable, plan: Sort) -> ColumnTable:
+        """Total order of a materialized table (one stable device sort)."""
+        if table.num_rows <= 1:
+            return table
+        return table.take(device_order_perm(table, plan.by))
+
+    def _union(self, plan: Union) -> ColumnTable:
+        schema = plan.schema
+        parts = []
+        for child in plan.inputs:
+            t = self._execute(child)
+            # Remap onto the union schema's exact field names and order
+            # (child names match case-insensitively).
+            cols, dicts, val = {}, {}, {}
+            for f in schema.fields:
+                cf = t.schema.field(f.name)
+                cols[f.name] = t.columns[cf.name]
+                if cf.name in t.dictionaries:
+                    dicts[f.name] = t.dictionaries[cf.name]
+                if cf.name in t.validity:
+                    val[f.name] = t.validity[cf.name]
+            parts.append(ColumnTable(schema, cols, dicts, val, t.device))
+        return ColumnTable.concat(parts)

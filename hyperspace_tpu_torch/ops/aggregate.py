@@ -16,6 +16,13 @@ The JAX package picks a venue for the reduce (host numpy by default) and
 engages its Pallas kernel only behind an exactness gate; the port runs
 every aggregate on the session's device, always through the one kernel.
 
+An aggregate's input is a column or an expression (`agg_input`): a CASE
+takes the filter's predicate semantics for its conditions, float64 legs
+and the validity of the branch taken; arithmetic, date parts and math
+functions evaluate as ops/project.py's numeric expressions. Expression
+channels over stable tables are memoized (`prepared_agg_input`); a
+per-query table, such as the pushdown's partial aggregate, never is.
+
 SQL semantics: null inputs are ignored by sum/min/max/mean and count(col);
 count(*) counts rows; a group whose inputs are all null yields NULL
 (validity mask); null group keys form their own group.
@@ -29,7 +36,7 @@ import torch
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_numpy
 from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
-from hyperspace_tpu_torch.plan.expr import Col
+from hyperspace_tpu_torch.plan.expr import Case, Col
 from hyperspace_tpu_torch.schema import Schema
 
 
@@ -135,16 +142,74 @@ def group_ids(table: ColumnTable, group_by: list[str]):
 
 def agg_input(table: ColumnTable, spec) -> tuple[torch.Tensor, torch.Tensor | None, bool]:
     """(values, valid mask or None, is_string_codes) for one AggSpec, on
-    the table's device."""
+    the table's device. A CASE evaluates its conditions with the filter's
+    full predicate semantics and its legs in float64, its validity
+    following the branch taken; any other expression evaluates with the
+    JAX package's numpy dtypes (ops/project.py)."""
+    from hyperspace_tpu_torch.ops.project import _case_input, _expr_input, _full
+
     if spec.expr is None:  # count(*)
         return torch.ones(table.num_rows, dtype=torch.float64, device=table.device), None, False
-    if not isinstance(spec.expr, Col):
-        raise HyperspaceError("aggregates over computed expressions are not ported yet")
-    f = table.schema.field(spec.expr.name)
-    valid = table.valid_mask(f.name)
-    if f.is_string and spec.fn not in ("min", "max", "count"):
-        raise HyperspaceError(f"{spec.fn} over string column {f.name!r}")
-    return table.columns[f.name], valid, f.is_string
+    if isinstance(spec.expr, Case):
+        vals, valid = _case_input(table, spec.expr)
+        return vals, valid, False
+    if isinstance(spec.expr, Col):
+        f = table.schema.field(spec.expr.name)
+        valid = table.valid_mask(f.name)
+        if f.is_string and spec.fn not in ("min", "max", "count"):
+            raise HyperspaceError(f"{spec.fn} over string column {f.name!r}")
+        return table.columns[f.name], valid, f.is_string
+    vals, valid = _expr_input(table, spec.expr)
+    return _full(vals, table.num_rows, table.device), valid, False
+
+
+def _spec_identity(table: ColumnTable, spec):
+    """(refs, id-parts) over every array one AggSpec reads: the identity
+    key of its prepared channels. (None, None) when any input is unstable
+    (a per-query table, such as a pushdown's partial aggregate: nothing
+    to memoize against)."""
+    from hyperspace_tpu_torch.execution import device_cache as dc
+
+    names = sorted({r.lower() for r in spec.references()}) if spec.expr is not None else []
+    refs: list = []
+    parts: list = []
+    for nm in names:
+        f = table.schema.field(nm)
+        for a in (table.columns[f.name], table.dictionaries.get(f.name), table.validity.get(f.name)):
+            if a is None:
+                parts.append(None)
+                continue
+            if not dc.is_stable(a):
+                return None, None
+            refs.append(a)
+            parts.append(dc.ident(a))
+    return tuple(refs), tuple(parts)
+
+
+def prepared_agg_input(table: ColumnTable, spec) -> tuple[torch.Tensor, torch.Tensor | None, str]:
+    """(values, validity, reduce fn) channel inputs for one AggSpec. An
+    expression's are memoized in HOST_DERIVED per (fn, expression, input
+    identity) for stable tables, so that repeat queries skip evaluating
+    it; a plain column's channel is the column itself."""
+    import json
+
+    from hyperspace_tpu_torch.execution import device_cache as dc
+
+    def build():
+        vals, valid, _ = agg_input(table, spec)
+        fn = {"count": "sum", "mean": "sum"}.get(spec.fn, spec.fn)
+        if spec.fn == "count":
+            vals = torch.ones(table.num_rows, dtype=torch.float64, device=table.device) if valid is None else valid
+            valid = None
+        return vals, valid, fn
+
+    if spec.expr is None or isinstance(spec.expr, Col):
+        return build()  # the column itself (or ones): nothing is derived
+    refs, parts = _spec_identity(table, spec)
+    if not refs:  # an unstable input or a constant: nothing to key on
+        return build()
+    key = ("aggprep", spec.fn, json.dumps(spec.expr.to_json(), sort_keys=True), table.num_rows, parts)
+    return dc.derived(key, refs, build)
 
 
 def aggregate_arrays(inputs: list, gid: torch.Tensor, num_groups: int) -> tuple[np.ndarray, np.ndarray]:
@@ -187,32 +252,28 @@ def aggregate_table(
     """Execute a grouped aggregation over a materialized table; the result
     lies on the table's device. `groups` is group_ids' (gid, K, rep) when
     the caller has them (the executor's identity cache); their uploads go
-    through the device cache."""
+    through the device cache; a factorization made on the device
+    (tensors) is used as it is."""
     from hyperspace_tpu_torch.execution.device_cache import device_put_cached
 
     gid, k, rep = group_ids(table, group_by) if groups is None else groups
     inputs = []
     string_dicts: dict[int, np.ndarray] = {}
     for i, spec in enumerate(aggs):
-        vals, valid, is_string = agg_input(table, spec)
-        if is_string:
+        if isinstance(spec.expr, Col) and table.schema.field(spec.expr.name).is_string:
             string_dicts[i] = table.dictionaries[table.schema.field(spec.expr.name).name]
-        fn = spec.fn
-        if fn == "count":
-            vals = torch.ones(table.num_rows, dtype=torch.float64, device=table.device) if valid is None else valid
-            valid, fn = None, "sum"
-        elif fn == "mean":
-            fn = "sum"
-        inputs.append((vals, valid, fn))
+        inputs.append(prepared_agg_input(table, spec))
     if k == 0:
         return ColumnTable.empty(out_schema, device=table.device)
-    gid_t = device_put_cached(gid, table.device, torch.int32)
+    if isinstance(gid, torch.Tensor):  # a factorization made on the device
+        gid_t, rep_t = gid.to(torch.int32), rep
+    else:
+        gid_t, rep_t = device_put_cached(gid, table.device, torch.int32), device_put_cached(rep, table.device)
     results, counts = aggregate_arrays(inputs, gid_t, k)
 
     cols: dict[str, np.ndarray] = {}
     dicts: dict[str, np.ndarray] = {}
     validity: dict[str, np.ndarray] = {}
-    rep_t = device_put_cached(rep, table.device)
     for c in group_by:
         f = table.schema.field(c)
         out_f = out_schema.field(c)

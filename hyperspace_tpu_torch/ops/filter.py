@@ -13,7 +13,12 @@ onto pairs of 32-bit words is not needed. String literals translate into
 the sorted dictionary's code domain on the host first, as there; a
 comparison of two string columns maps both dictionaries into one merged
 sorted dictionary first (the JAX package's `_StrColCmp`), since codes of
-two dictionaries are not comparable.
+two dictionaries are not comparable. LIKE and SUBSTRING comparisons match
+over the dictionary on the host and become code ranges, or a boolean per
+code gathered on the device where the matches scatter (`_codes_runs_expr`,
+`_DictLut`); a comparison of the year of a date with a literal becomes a
+day range (`_translate_date_part_cmp`); month and day parts and
+arithmetic probes evaluate as torch ops (plan/expr.py::evaluate).
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.table import ColumnTable
-from hyperspace_tpu_torch.plan.expr import And, BinOp, Col, Expr, InList, IsNull, Lit, Not, Or, evaluate
+from hyperspace_tpu_torch.plan.expr import (
+    And, BinOp, Col, DatePart, Expr, InList, IsNull, Like, Lit, Not, Or, Substr, evaluate,
+)
 
 _FLIP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq", "ne": "ne"}
 _INT64_MIN, _INT64_MAX = np.iinfo(np.int64).min, np.iinfo(np.int64).max
@@ -91,12 +98,131 @@ class _StrColCmp(Expr):
         return self.left.references() | self.right.references()
 
 
-def _string_col(table: ColumnTable, e: Expr) -> str | None:
-    """The field name when `e` is a string column of `table`."""
+# More code runs than this and a match set becomes a lookup table per code.
+_MAX_CODE_RUNS = 64
+
+
+class _DictLut(Expr):
+    """Internal leaf: boolean lookup over a string column's dictionary
+    codes (lut[code]), for a LIKE / SUBSTRING match set too scattered
+    for code ranges."""
+
+    def __init__(self, col: Col, lut: np.ndarray):
+        self.col = col
+        self.lut = lut  # bool, [dictionary size]
+
+    def references(self):
+        return self.col.references()
+
+
+def _string_valued(table: ColumnTable, e: Expr):
+    """(column name, per-code string values) when `e` is a string column
+    or SUBSTRING of one; None otherwise."""
     if isinstance(e, Col):
         f = table.schema.field(e.name)
         if f.is_string:
-            return f.name
+            return f.name, np.asarray(table.dictionaries[f.name], dtype=object)
+        return None
+    if isinstance(e, Substr) and isinstance(e.child, Col) and table.schema.field(e.child.name).is_string:
+        return _substr_values(table, e)
+    return None
+
+
+def _substr_values(table: ColumnTable, sub: Substr) -> tuple[str, np.ndarray]:
+    """(column name, per-dictionary-entry substring values)."""
+    if not isinstance(sub.child, Col):
+        raise HyperspaceError("SUBSTRING applies to a column")
+    f = table.schema.field(sub.child.name)
+    if not f.is_string:
+        raise HyperspaceError(f"SUBSTRING requires a string column, got {sub.child.name!r}")
+    lo = sub.start - 1
+    d = table.dictionaries[f.name]
+    return f.name, np.array([str(s)[lo : lo + sub.length] for s in d], dtype=object)
+
+
+def _codes_runs_expr(col: Col, codes: np.ndarray, dict_size: int) -> Expr:
+    """Matched dictionary codes (sorted) → the equivalent predicate in the
+    code domain: an OR of contiguous code ranges (a prefix LIKE over a
+    sorted dictionary is one range), or a lookup table when the match set
+    is scattered. Either form keeps SQL's nulls (a null row is unknown)."""
+    if len(codes) == 0:
+        return BinOp("eq", col, Lit(-1))  # -1 is never a code
+    codes = np.asarray(codes, dtype=np.int64)
+    breaks = np.flatnonzero(np.diff(codes) > 1)
+    if len(breaks) + 1 > _MAX_CODE_RUNS:
+        lut = np.zeros(dict_size, dtype=bool)
+        lut[codes] = True
+        return _DictLut(col, lut)
+    starts = np.concatenate([[0], breaks + 1])
+    ends = np.concatenate([breaks, [len(codes) - 1]])
+    parts: list[Expr] = []
+    for s, t in zip(starts, ends):
+        a, b = int(codes[s]), int(codes[t])
+        if a == b:
+            parts.append(BinOp("eq", col, Lit(a)))
+        else:
+            parts.append(And(BinOp("ge", col, Lit(a)), BinOp("le", col, Lit(b))))
+    return _or_chain(parts)
+
+
+def like_regex(pattern: str):
+    """Compiled regex for a SQL LIKE pattern (% = any run, _ = one char)."""
+    import re
+
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return re.compile("".join(out), re.DOTALL)
+
+
+def _like_codes(table: ColumnTable, colname: str, pattern: str) -> np.ndarray:
+    f = table.schema.field(colname)
+    if not f.is_string:
+        raise HyperspaceError(f"LIKE requires a string column, got {colname!r}")
+    rx = like_regex(pattern)
+    d = table.dictionaries[f.name]
+    return np.flatnonzero([rx.fullmatch(str(s)) is not None for s in d])
+
+
+_NP_CMP = {"eq": "__eq__", "ne": "__ne__", "lt": "__lt__", "le": "__le__", "gt": "__gt__", "ge": "__ge__"}
+
+
+def _days(y: int, m: int, d: int) -> int:
+    import datetime
+
+    return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+
+
+def _translate_date_part_cmp(op: str, dp: DatePart, value) -> Expr | None:
+    """year(col) OP literal → the equivalent day-range comparison on the
+    raw date column (it feeds range pruning too). Month and day parts are
+    not intervals over days: None."""
+    if dp.part != "year" or not isinstance(dp.child, Col):
+        return None
+    if isinstance(value, (bool, np.bool_)) or not isinstance(value, (int, np.integer)):
+        return None
+    col = dp.child
+    y = int(value)
+    if y < 1 or y > 9998:  # keep datetime.date in range
+        return None
+    first, next_first = _days(y, 1, 1), _days(y + 1, 1, 1)
+    if op == "eq":
+        return And(BinOp("ge", col, Lit(first)), BinOp("lt", col, Lit(next_first)))
+    if op == "ne":
+        return Or(BinOp("lt", col, Lit(first)), BinOp("ge", col, Lit(next_first)))
+    if op == "lt":
+        return BinOp("lt", col, Lit(first))
+    if op == "le":
+        return BinOp("lt", col, Lit(next_first))
+    if op == "ge":
+        return BinOp("ge", col, Lit(first))
+    if op == "gt":
+        return BinOp("ge", col, Lit(next_first))
     return None
 
 
@@ -118,19 +244,27 @@ def translate_predicate(table: ColumnTable, e: Expr) -> Expr:
     Pure — returns a new tree, never mutates the plan's predicate."""
     if isinstance(e, BinOp) and e.is_comparison:
         l, r = e.left, e.right
-        ls, rs = _string_col(table, l), _string_col(table, r)
+        ls, rs = _string_valued(table, l), _string_valued(table, r)
         if ls is not None and rs is not None:
-            # String column vs string column: remap both dictionaries into
+            # String-valued vs string-valued: remap both dictionaries into
             # one merged sorted dictionary first (comparing raw codes of
             # two dictionaries gives wrong rows).
-            lvals = np.asarray(table.dictionaries[ls]).astype(str)
-            rvals = np.asarray(table.dictionaries[rs]).astype(str)
+            lvals, rvals = ls[1].astype(str), rs[1].astype(str)
             merged = np.unique(np.concatenate([lvals, rvals]))
             lmap = np.searchsorted(merged, lvals).astype(np.int32)
             rmap = np.searchsorted(merged, rvals).astype(np.int32)
-            return _StrColCmp(e.op, Col(ls), Col(rs), lmap, rmap)
+            return _StrColCmp(e.op, Col(ls[0]), Col(rs[0]), lmap, rmap)
         if (ls is None) != (rs is None) and not isinstance(r if ls is not None else l, Lit):
             raise HyperspaceError("cannot compare a string column with a non-string expression")
+        if isinstance(r, (Substr, DatePart)) and isinstance(l, Lit):
+            return translate_predicate(table, BinOp(_FLIP[e.op], r, l))
+        if isinstance(l, Substr) and isinstance(r, Lit):
+            name, vals = _substr_values(table, l)
+            cmp = getattr(vals.astype(str), _NP_CMP[e.op])
+            return _codes_runs_expr(Col(name), np.flatnonzero(cmp(str(r.value))), len(vals))
+        if isinstance(l, DatePart) and isinstance(r, Lit):
+            t = _translate_date_part_cmp(e.op, l, r.value)
+            return e if t is None else translate_predicate(table, t)
         if isinstance(r, Col) and isinstance(l, Lit):
             return translate_predicate(table, BinOp(_FLIP[e.op], r, l))
         if isinstance(l, Col) and isinstance(r, Lit):
@@ -146,9 +280,18 @@ def translate_predicate(table: ColumnTable, e: Expr) -> Expr:
                 return BinOp(norm[1], l, Lit(norm[2]))
         return e
     if isinstance(e, InList):
+        if isinstance(e.child, Substr):
+            name, vals = _substr_values(table, e.child)
+            want = {str(v) for v in e.values}
+            return _codes_runs_expr(Col(name), np.flatnonzero([v in want for v in vals]), len(vals))
         if not isinstance(e.child, Col):
-            raise HyperspaceError("IN applies to a column")
+            return e  # date-part and arithmetic probes evaluate as they are
         return _or_chain([translate_predicate(table, BinOp("eq", e.child, Lit(v))) for v in e.values])
+    if isinstance(e, Like):
+        if not isinstance(e.child, Col):
+            raise HyperspaceError("LIKE applies to a column")
+        f = table.schema.field(e.child.name)
+        return _codes_runs_expr(Col(f.name), _like_codes(table, f.name, e.pattern), len(table.dictionaries[f.name]))
     if isinstance(e, And):
         return And(translate_predicate(table, e.left), translate_predicate(table, e.right))
     if isinstance(e, Or):
@@ -198,6 +341,8 @@ def _mask(table: ColumnTable, predicate: Expr) -> torch.Tensor:
             rv = rmap[resolve(e.right.name).long()]
             v = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
                  "gt": torch.gt, "ge": torch.ge}[e.op](lv, rv)
+        elif isinstance(e, _DictLut):
+            v = torch.from_numpy(e.lut).to(device)[resolve(e.col.name).long()]
         elif isinstance(e, _Const):
             v = torch.full((n_rows,), e.value, dtype=torch.bool, device=device)
         else:

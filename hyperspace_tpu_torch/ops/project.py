@@ -9,10 +9,13 @@ the JAX package's host evaluation: numpy's promotion with each literal a
 0-d int64, float64 or bool array (so a float32 column times 0.1 is
 float64), int / int in float64. Torch's own promotion differs (an int64
 column times 2.5 would be float32), so every operand is cast to that
-dtype first. Boolean expressions ride the filter's
-mask machinery; SUBSTRING and the string CASE map the (small, sorted)
-dictionary on the host and remap the codes on the device, so the
-order-preserving codes invariant holds downstream.
+dtype first. Date parts and the math functions evaluate as torch ops
+(plan/expr.py::eval_date_part). Boolean expressions, LIKE among them,
+ride the filter's mask machinery; SUBSTRING and the string CASE map the
+(small, sorted) dictionary on the host and remap the codes on the device,
+so the order-preserving codes invariant holds downstream. The aggregate
+inputs over expressions (ops/aggregate.py::agg_input) are these same
+numeric evaluations.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_tensor
-from hyperspace_tpu_torch.plan.expr import And, BinOp, Case, Col, Expr, InList, IsNull, Lit, Not, Or, Substr
+from hyperspace_tpu_torch.plan.expr import (
+    And, BinOp, Case, Col, DatePart, Expr, InList, IsNull, Like, Lit, MathFn, Not, Or, Substr, eval_date_part,
+)
 from hyperspace_tpu_torch.schema import Field
 
 
@@ -60,7 +65,8 @@ def _full(vals, n: int, device) -> torch.Tensor:
         return vals if vals.dim() == 1 else vals.expand(n)
     if isinstance(vals, np.ndarray):  # a result of two literals
         return torch.full((n,), vals.item(), dtype=_torch_dtype(vals.dtype), device=device)
-    return torch.full((n,), vals, device=device)
+    # A Python literal keeps numpy's dtype for it (0.1 stays float64).
+    return torch.full((n,), vals, dtype=_torch_dtype(np.asarray(vals).dtype), device=device)
 
 
 def _and_valid(av, bv):
@@ -87,6 +93,17 @@ def _expr_input(table: ColumnTable, e: Expr):
         a, av = _expr_input(table, e.left)
         b, bv = _expr_input(table, e.right)
         return _binop(e.op, a, b), _and_valid(av, bv)
+    if isinstance(e, DatePart):
+        vals, valid = _expr_input(table, e.child)
+        return eval_date_part(e.part, _full(vals, table.num_rows, table.device)), valid
+    if isinstance(e, MathFn):
+        vals, valid = _expr_input(table, e.child)
+        v = _full(vals, table.num_rows, table.device)
+        if e.fn == "sqrt":
+            return torch.sqrt(v if v.is_floating_point() else v.to(torch.float64)), valid
+        if e.fn == "abs":
+            return torch.abs(v), valid
+        return (torch.floor(v) if v.is_floating_point() else v).to(torch.int64), valid
     raise HyperspaceError(f"cannot evaluate expression {type(e).__name__} as a number")
 
 
@@ -199,7 +216,7 @@ def compute_column(table: ColumnTable, e: Expr, dtype: str):
         return table.columns[f.name], table.dictionaries.get(f.name), table.validity.get(f.name)
     if isinstance(e, Substr):
         return _substr_column(table, e)
-    if dtype == "bool" and isinstance(e, (And, Or, Not, IsNull, InList)) or (isinstance(e, BinOp) and e.is_comparison):
+    if dtype == "bool" and isinstance(e, (And, Or, Not, IsNull, InList, Like)) or (isinstance(e, BinOp) and e.is_comparison):
         vals, valid = _bool_column(table, e)
         return vals, None, valid
     if dtype == "string":

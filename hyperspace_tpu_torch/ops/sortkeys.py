@@ -18,7 +18,8 @@ The decomposition is a copy of the JAX package's `ops/sortkeys.py`
 (numpy, on the host). The sort is the port of its `device_lanes_perm` /
 `device_sort_perms`: one stable `torch.sort` per lane on the device, least
 significant lane first (LSD), which reproduces the JAX package's
-`lexsort_lanes` exactly.
+`lexsort_lanes` exactly; `order_lanes` and `device_order_perm` order a
+table by an ORDER BY list (a DESC key's lanes inverted).
 Torch can neither sort nor shift `uint32`, so every lane travels as int64:
 unsigned lanes zero-extend and signed lanes sign-extend, which keeps each
 lane's own (signed or unsigned) order.
@@ -138,6 +139,33 @@ def device_lanes_perm(lanes: list[torch.Tensor]) -> torch.Tensor:
         _, p = torch.sort(lane[perm], stable=True)
         perm = perm[p]
     return perm
+
+
+def invert_lane(lane: np.ndarray) -> np.ndarray:
+    """Order-reversing bijection on a lane (~x flips both int32 signed
+    order and uint32 unsigned order): DESC sort keys. A flipped validity
+    lane also lands nulls last, SQL's nulls-first-ASC / nulls-last-DESC
+    convention."""
+    return ~lane
+
+
+def order_lanes(table, by: list[tuple[str, bool]]) -> list[np.ndarray]:
+    """Lanes for an ORDER BY (column, ascending) list."""
+    out: list[np.ndarray] = []
+    for c, asc in by:
+        lanes = column_lanes(table, c, force_validity=True)
+        if not asc:
+            lanes = [invert_lane(l) for l in lanes]
+        out.extend(lanes)
+    return out
+
+
+def device_order_perm(table, by: list[tuple[str, bool]]) -> torch.Tensor:
+    """Stable permutation ordering `table` by the (column, ascending)
+    keys: the stable device sort over the decomposed lanes."""
+    if table.num_rows <= 1:
+        return torch.arange(table.num_rows, device=table.device)
+    return device_lanes_perm([lane_tensor(l, table.device) for l in order_lanes(table, by)])
 
 
 def device_sort_perm(table, key_columns: list[str], device: torch.device) -> torch.Tensor:

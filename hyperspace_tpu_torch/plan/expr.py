@@ -5,12 +5,15 @@ expressions (e.g. CNF of EqualTo at index/rules/JoinIndexRule.scala:179-185)
 and pays for it with a 495-LoC Kryo serde layer (index/serde/). Here
 expressions are plain dataclasses with trivial JSON round-trip.
 
-A copy of the JAX package's `plan/expr.py`, cut to the nodes the port's
-slices evaluate: columns, literals, comparisons and arithmetic, AND / OR /
-NOT, IN, IS NULL, CASE (`when(...).otherwise(...)`) and SUBSTRING, with
-`expr_dtype` typing a computed projection. LIKE, date parts and math
-functions are not ported yet. The JSON form is the JAX package's, so a
-plan logged by one package reads in the other.
+A copy of the JAX package's `plan/expr.py`: columns, literals,
+comparisons and arithmetic, AND / OR / NOT, IN, IS NULL, CASE
+(`when(...).otherwise(...)`), LIKE, SUBSTRING, the math functions (sqrt,
+abs, floor) and the date parts (year, month, day), with `expr_dtype`
+typing a computed projection. The JSON form is the JAX package's, so a
+plan logged by one package reads in the other. `evaluate` runs on
+tensors: the date parts convert days since the epoch to the civil
+calendar with integer arithmetic on the device (`eval_date_part`), where
+the JAX package converts through numpy's datetime64 on the host.
 
 String semantics: device columns hold dictionary codes whose dictionary is
 sorted at encode time, so both equality and range comparisons on codes are
@@ -82,6 +85,10 @@ class Expr:
 
     def isin(self, values) -> "InList":
         return InList(self, list(values))
+
+    def like(self, pattern: str) -> "Like":
+        """SQL LIKE (% = any run, _ = any one char), case-sensitive."""
+        return Like(self, pattern)
 
     def between(self, lo, hi) -> "And":
         """SQL BETWEEN sugar: inclusive on both ends."""
@@ -262,6 +269,93 @@ class InList(Expr):
         return self.child.references()
 
 
+@dataclasses.dataclass(eq=False, repr=True)
+class Like(Expr):
+    """SQL LIKE (% = any run, _ = any one char), case-sensitive, against
+    a string column. Evaluates over the (small, sorted) dictionary and
+    desugars to code-range / code-equality tests — a prefix pattern
+    becomes ONE contiguous code range."""
+
+    child: Expr
+    pattern: str
+
+    def to_json(self):
+        return {"type": "like", "child": self.child.to_json(), "pattern": self.pattern}
+
+    def references(self):
+        return self.child.references()
+
+
+@dataclasses.dataclass(eq=False, repr=True)
+class MathFn(Expr):
+    """Unary numeric function: sqrt / abs / floor."""
+
+    fn: str  # sqrt | abs | floor
+    child: Expr
+
+    def __post_init__(self):
+        if self.fn not in ("sqrt", "abs", "floor"):
+            raise ValueError(f"unknown math fn {self.fn!r}")
+
+    def to_json(self):
+        return {"type": "mathfn", "fn": self.fn, "child": self.child.to_json()}
+
+    def references(self):
+        return self.child.references()
+
+
+def sqrt(e: Expr) -> MathFn:
+    return MathFn("sqrt", e)
+
+
+def abs_(e: Expr) -> MathFn:
+    return MathFn("abs", e)
+
+
+def floor(e: Expr) -> MathFn:
+    return MathFn("floor", e)
+
+
+@dataclasses.dataclass(eq=False, repr=True)
+class DatePart(Expr):
+    """Extract year/month/day from a date column (int32 days since
+    epoch). Comparisons of the year against literals translate to
+    equivalent day ranges, so they drive range pruning."""
+
+    part: str  # year | month | day
+    child: Expr
+
+    def __post_init__(self):
+        if self.part not in ("year", "month", "day"):
+            raise ValueError(f"unknown date part {self.part!r}")
+
+    def to_json(self):
+        return {"type": "datepart", "part": self.part, "child": self.child.to_json()}
+
+    def references(self):
+        return self.child.references()
+
+
+def year(e) -> DatePart:
+    return DatePart("year", _wrap(e))
+
+
+def month(e) -> DatePart:
+    return DatePart("month", _wrap(e))
+
+
+def day(e) -> DatePart:
+    return DatePart("day", _wrap(e))
+
+
+def date_lit(iso: str) -> Lit:
+    """A date literal from ISO text, as the engine's physical day count."""
+    import datetime
+
+    d = datetime.date.fromisoformat(iso)
+    return Lit((d - datetime.date(1970, 1, 1)).days)
+
+
 class CaseBuilder:
     """`when(cond, value).when(...).otherwise(default)` sugar."""
 
@@ -314,8 +408,14 @@ def expr_from_json(d: dict[str, Any]) -> Expr:
         return IsNull(expr_from_json(d["child"]))
     if t == "in":
         return InList(expr_from_json(d["child"]), list(d["values"]))
+    if t == "like":
+        return Like(expr_from_json(d["child"]), d["pattern"])
     if t == "substr":
         return Substr(expr_from_json(d["child"]), int(d["start"]), int(d["length"]))
+    if t == "datepart":
+        return DatePart(d["part"], expr_from_json(d["child"]))
+    if t == "mathfn":
+        return MathFn(d["fn"], expr_from_json(d["child"]))
     raise ValueError(f"unknown expr type {t!r}")
 
 
@@ -349,7 +449,7 @@ def expr_dtype(e: Expr, schema) -> str:
         if e.op == "div" or "float64" in (lt, rt) or "float32" in (lt, rt):
             return "float64"
         return "int64"
-    if isinstance(e, (And, Or, Not, IsNull, InList)):
+    if isinstance(e, (And, Or, Not, IsNull, InList, Like)):
         return "bool"
     if isinstance(e, Case):
         vals = [v for _, v in e.branches] + [e.default]
@@ -364,6 +464,14 @@ def expr_dtype(e: Expr, schema) -> str:
         if all(t in ("int32", "int64", "bool") for t in ts):
             return "int64"
         raise ValueError(f"CASE branches mix incompatible types {ts}")
+    if isinstance(e, DatePart):
+        return "int64"
+    if isinstance(e, MathFn):
+        if e.fn == "sqrt":
+            return "float64"
+        if e.fn == "floor":
+            return "int64"
+        return expr_dtype(e.child, schema)  # abs preserves
     if isinstance(e, Substr):
         return "string"
     raise ValueError(f"cannot type expression {type(e).__name__}")
@@ -379,35 +487,109 @@ def split_conjuncts(e: Expr) -> list[Expr]:
     return [e]
 
 
+def _arith(op: str, a, b):
+    """a OP b on tensors or Python scalars in numpy's result dtype, where
+    torch's differs: an integer tensor meets a float (tensor or Python
+    float) in float64, not in torch's default float32; int / int is
+    float64."""
+    import torch
+
+    ta, tb = isinstance(a, torch.Tensor), isinstance(b, torch.Tensor)
+    if ta or tb:
+        a_float = a.dtype.is_floating_point if ta else isinstance(a, float)
+        b_float = b.dtype.is_floating_point if tb else isinstance(b, float)
+        if op == "div" or a_float != b_float:
+            if ta and not a.dtype.is_floating_point:
+                a = a.to(torch.float64)
+            if tb and not b.dtype.is_floating_point:
+                b = b.to(torch.float64)
+    return {
+        "eq": lambda: a == b,
+        "ne": lambda: a != b,
+        "lt": lambda: a < b,
+        "le": lambda: a <= b,
+        "gt": lambda: a > b,
+        "ge": lambda: a >= b,
+        "add": lambda: a + b,
+        "sub": lambda: a - b,
+        "mul": lambda: a * b,
+        "div": lambda: a / b,
+        "mod": lambda: a % b,
+    }[op]()
+
+
+def _tensor(v, device=None):
+    """A tensor or a Python literal as a tensor, a literal in numpy's dtype
+    for it (a float stays float64, as numpy's host evaluation has it)."""
+    import numpy as np
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return v
+    t = torch.from_numpy(np.asarray(v))
+    return t if device is None else t.to(device)
+
+
 def evaluate(e: Expr, resolve: Callable[[str], Any]) -> Any:
-    """Evaluate a comparison / arithmetic / boolean expression given
-    `resolve(name) -> tensor`. Literal translation for string columns
-    happens in the caller (see execution/table.py); null semantics are
-    the caller's (ops/filter.py)."""
+    """Evaluate an expression given `resolve(name) -> tensor`. Literal
+    translation for string columns happens in the caller (see
+    execution/table.py); null semantics are the caller's (ops/filter.py
+    knows which inputs are null)."""
+    import torch
+
     if isinstance(e, Col):
         return resolve(e.name)
     if isinstance(e, Lit):
         return e.value
     if isinstance(e, BinOp):
-        a = evaluate(e.left, resolve)
-        b = evaluate(e.right, resolve)
-        return {
-            "eq": lambda: a == b,
-            "ne": lambda: a != b,
-            "lt": lambda: a < b,
-            "le": lambda: a <= b,
-            "gt": lambda: a > b,
-            "ge": lambda: a >= b,
-            "add": lambda: a + b,
-            "sub": lambda: a - b,
-            "mul": lambda: a * b,
-            "div": lambda: a / b,
-            "mod": lambda: a % b,
-        }[e.op]()
+        return _arith(e.op, evaluate(e.left, resolve), evaluate(e.right, resolve))
     if isinstance(e, And):
         return evaluate(e.left, resolve) & evaluate(e.right, resolve)
     if isinstance(e, Or):
         return evaluate(e.left, resolve) | evaluate(e.right, resolve)
     if isinstance(e, Not):
         return ~evaluate(e.child, resolve)
+    if isinstance(e, Case):
+        out = evaluate(e.default, resolve)
+        for cond, val in reversed(e.branches):
+            c = _tensor(evaluate(cond, resolve))
+            out = torch.where(c, _tensor(evaluate(val, resolve), c.device), _tensor(out, c.device))
+        return out
+    if isinstance(e, DatePart):
+        return eval_date_part(e.part, _tensor(evaluate(e.child, resolve)))
+    if isinstance(e, MathFn):
+        v = _tensor(evaluate(e.child, resolve))
+        if e.fn == "sqrt":
+            return torch.sqrt(v if v.dtype.is_floating_point else v.to(torch.float64))
+        if e.fn == "abs":
+            return torch.abs(v)
+        return (torch.floor(v) if v.dtype.is_floating_point else v).to(torch.int64)
+    if isinstance(e, InList):
+        v = evaluate(e.child, resolve)
+        out = None
+        for lv in e.values:
+            m = v == lv
+            out = m if out is None else out | m
+        return out
     raise ValueError(f"cannot evaluate {e!r}")
+
+
+def eval_date_part(part: str, days) -> Any:
+    """year / month / day of int days since 1970-01-01, as int64, on the
+    tensor's device: the proleptic Gregorian civil-from-days conversion in
+    integer arithmetic (eras of 400 years, March-based years), equal to
+    numpy's datetime64 conversion for every day, negative days included."""
+    import torch
+
+    z = days.to(torch.int64) + 719468
+    era = torch.div(z, 146097, rounding_mode="floor")
+    doe = z - era * 146097  # day of era, [0, 146096]
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365  # year of era
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)  # day of the March-based year
+    mp = (5 * doy + 2) // 153  # month, March = 0
+    if part == "day":
+        return doy - (153 * mp + 2) // 5 + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    if part == "month":
+        return m
+    return yoe + era * 400 + (m <= 2).to(torch.int64)

@@ -8,16 +8,16 @@ keeping the same capability: the log entry stores the plan as lineage and
 `refresh` re-executes it (actions/RefreshAction.scala:45-50).
 
 A `Scan` stores the dataset root + format + schema — NOT a pinned file list.
-On (re-)execution the file list is derived from the live filesystem.
+On (re-)execution the file list is derived from the live filesystem, which is
+exactly how the reference's deserialize rebuilds `InMemoryFileIndex` against
+the live session to pick up new source files
+(index/serde/LogicalPlanSerDeUtils.scala:156-223).
 
-A copy of the JAX package's `plan/nodes.py`, cut to the nodes the port
-executes: Scan, Filter, Project (passthrough and computed), the
-equi-Join with every join type (inner, left / right / full outer, semi,
-anti), an ON residual and null-safe keys, and a plain GROUP BY Aggregate
-over sum / count / min / max / mean; with the builders `intersect`,
-`except_` and `distinct`, which desugar to those nodes. Union, Window,
-Sort, Limit, grouping sets and count-distinct are not ported yet. The
-JSON form is the JAX package's.
+A copy of the JAX package's `plan/nodes.py`: Scan, Filter, Project
+(passthrough and computed), Union, the equi-Join with every join type, an
+ON residual and null-safe keys, Aggregate with count-distinct and grouping
+sets (ROLLUP / CUBE), Window, Sort and Limit. The JSON form is the JAX
+package's, so a plan logged by one package reads in the other.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from hyperspace_tpu_torch.plan.expr import Col, Expr, expr_from_json
-from hyperspace_tpu_torch.schema import Field, Schema
+from hyperspace_tpu_torch.plan.expr import Expr, expr_from_json
+from hyperspace_tpu_torch.schema import Schema
 
 
 class LogicalPlan:
@@ -43,7 +43,10 @@ class LogicalPlan:
     def with_column(self, alias: str, expression) -> "Project":
         """Add one computed column, or replace an existing column of the
         same name (Spark withColumn semantics)."""
-        entries = [(alias, expression) if c.lower() == alias.lower() else c for c in self.schema.names]
+        entries = [
+            (alias, expression) if c.lower() == alias.lower() else c
+            for c in self.schema.names
+        ]
         if not any(c.lower() == alias.lower() for c in self.schema.names):
             entries.append((alias, expression))
         return Project(self, entries)
@@ -57,55 +60,123 @@ class LogicalPlan:
         condition: "Expr | None" = None,
     ) -> "Join":
         """Equi-join on key lists; `condition` adds a non-equi residual
-        (`ON a.k = b.k AND a.lo <= b.hi` shapes)."""
+        (`ON a.k = b.k AND a.lo <= b.hi` shapes). For inner joins it
+        filters the matched rows; for outer/semi/anti joins it alters
+        MATCHING — a pair failing the residual does not count as a
+        match, so the left/right row null-extends (outer) or flips its
+        existence verdict (semi/anti), per SQL ON-clause semantics."""
         return Join(
             self, other, list(left_on), list(right_on or left_on), how,
             condition=condition,
         )
 
-    def aggregate(self, group_by: list[str], aggs: list) -> "Aggregate":
+    def aggregate(
+        self, group_by: list[str], aggs: list, grouping_sets: list[list[str]] | None = None
+    ) -> "Aggregate":
         """Grouped aggregation. `aggs` entries are AggSpec or
-        (fn, expr|column|None, alias) tuples; fn ∈ sum/count/min/max/mean."""
+        (fn, expr|column|None, alias) tuples; fn ∈ sum/count/min/max/mean
+        (+ count_distinct, and grouping with grouping_sets)."""
         specs = [a if isinstance(a, AggSpec) else AggSpec.of(*a) for a in aggs]
-        return Aggregate(self, list(group_by), specs)
+        return Aggregate(self, list(group_by), specs, grouping_sets=grouping_sets)
+
+    def rollup(self, group_by: list[str], aggs: list) -> "Aggregate":
+        """SQL GROUP BY ROLLUP(c1..cn): grouping sets are the prefixes
+        (c1..cn), (c1..cn-1), ..., () — subtotals at every level plus the
+        grand total."""
+        sets = [list(group_by[:i]) for i in range(len(group_by), -1, -1)]
+        return self.aggregate(group_by, aggs, grouping_sets=sets)
+
+    def cube(self, group_by: list[str], aggs: list) -> "Aggregate":
+        """SQL GROUP BY CUBE(c1..cn): all 2^n column subsets."""
+        import itertools
+
+        sets = [
+            [c for c in group_by if c in chosen]
+            for r in range(len(group_by), -1, -1)
+            for chosen in map(set, itertools.combinations(group_by, r))
+        ]
+        return self.aggregate(group_by, aggs, grouping_sets=sets)
+
+    def window(
+        self,
+        partition_by: list[str],
+        order_by: list | None = None,
+        funcs: list | None = None,
+        frame: str | None = None,
+    ) -> "Window":
+        """Window functions. `funcs` entries are WindowSpec or
+        (fn, expr|column|None, alias) tuples; `order_by` entries are
+        names or (name, asc) pairs. Default frame: SQL's — "range"
+        (peers share) when an ORDER BY is present, else the whole
+        partition."""
+        ob = []
+        for b in order_by or []:
+            ob.append((b[0], bool(b[1])) if isinstance(b, tuple) else (b, True))
+        specs = [f if isinstance(f, WindowSpec) else WindowSpec.of(*f) for f in funcs or []]
+        if frame is None:
+            frame = "range" if ob else "partition"
+        return Window(self, list(partition_by), ob, specs, frame)
+
+    def sort(self, by: list, ascending: bool | list[bool] = True) -> "Sort":
+        """Order by columns. `by` entries are names or (name, asc) pairs."""
+        keys = []
+        asc_list = ascending if isinstance(ascending, list) else [ascending] * len(by)
+        for b, a in zip(by, asc_list):
+            if isinstance(b, tuple):
+                keys.append((b[0], bool(b[1])))
+            else:
+                keys.append((b, bool(a)))
+        return Sort(self, keys)
+
+    def limit(self, n: int) -> "Limit":
+        return Limit(self, int(n))
 
     def intersect(self, other: "LogicalPlan") -> "Join":
-        """SQL INTERSECT (set semantics, positional columns): distinct left
-        rows that also appear in `other`. Desugars to DISTINCT + NULL-SAFE
-        SEMI JOIN on every column: set comparison treats NULL as equal to
-        NULL (SQL's IS NOT DISTINCT FROM), so a NULL-bearing row
-        intersects with its NULL-bearing twin — unlike the ordinary join,
+        """SQL INTERSECT (set semantics, positional columns like the
+        reference round-trips via Catalyst's Intersect node,
+        LogicalPlanSerDeUtils.scala:82-145): distinct left rows that also
+        appear in `other`. Desugars to DISTINCT + NULL-SAFE SEMI JOIN on
+        every column: set comparison treats NULL as equal to NULL (SQL's
+        IS NOT DISTINCT FROM), so a NULL-bearing row intersects with its
+        NULL-bearing twin — unlike the engine's ordinary join semantics
         where NULL never equals anything."""
         return self._set_op(other, "semi")
 
     def except_(self, other: "LogicalPlan") -> "Join":
-        """SQL EXCEPT: distinct left rows absent from `other`. Desugars to
-        DISTINCT + NULL-SAFE ANTI JOIN on every column (the NULL semantics
-        of intersect)."""
+        """SQL EXCEPT: distinct left rows absent from `other`. Desugars
+        to DISTINCT + NULL-SAFE ANTI JOIN on every column (same NULL
+        semantics as intersect: a left NULL-bearing row is removed when
+        `other` holds an identical NULL-bearing row)."""
         return self._set_op(other, "anti")
 
     def _set_op(self, other: "LogicalPlan", how: str) -> "Join":
         if len(self.schema.names) != len(other.schema.names):
             raise ValueError(
-                f"set operation inputs must have equal width: {self.schema.names} vs {other.schema.names}"
+                f"set operation inputs must have equal width: "
+                f"{self.schema.names} vs {other.schema.names}"
             )
         for lf, rf in zip(self.schema.fields, other.schema.fields):
-            # Positional pairs must share a comparison domain: a silent
+            # Positional pairs must share a comparison domain — a silent
             # string/number coercion would "match" 1 with '1'.
             if lf.is_string != rf.is_string:
                 raise ValueError(
-                    f"set operation column types are incompatible: {lf.name} ({lf.dtype}) vs {rf.name} ({rf.dtype})"
+                    f"set operation column types are incompatible: "
+                    f"{lf.name} ({lf.dtype}) vs {rf.name} ({rf.dtype})"
                 )
-        return Join(self.distinct(), other, list(self.schema.names), list(other.schema.names), how, null_safe=True)
+        return Join(
+            self.distinct(), other, list(self.schema.names),
+            list(other.schema.names), how, null_safe=True,
+        )
 
     def distinct(self) -> "Aggregate":
         """Distinct rows = group by every column with no aggregates.
-        Vector (embedding) columns have no grouping semantics — select the
-        scalar columns first."""
+        Vector (embedding) columns have no grouping semantics — select
+        the scalar columns first."""
         vec = [f.name for f in self.schema.fields if f.is_vector]
         if vec:
             raise ValueError(
-                f"distinct() is not defined over vector columns {vec}; select the scalar columns first"
+                f"distinct() is not defined over vector columns {vec}; "
+                "select the scalar columns first"
             )
         return Aggregate(self, list(self.schema.names), [])
 
@@ -128,6 +199,12 @@ class LogicalPlan:
             out.extend(c.leaves())
         return out
 
+    def is_linear(self) -> bool:
+        """True iff no node has more than one child (reference requires
+        linear sub-plans for join sides, JoinIndexRule.scala:210-211)."""
+        cs = self.children()
+        return len(cs) <= 1 and all(c.is_linear() for c in cs)
+
 
 @dataclasses.dataclass
 class Scan(LogicalPlan):
@@ -137,8 +214,8 @@ class Scan(LogicalPlan):
     root: str
     format: str
     scan_schema: Schema
-    # Optional pinned file subset (used for index scans); None ⇒ list the
-    # live filesystem at execution time.
+    # Optional pinned file subset (used for index scans / hybrid scan);
+    # None ⇒ list the live filesystem at execution time.
     files: list[str] | None = None
     # Bucket spec when scanning bucketed index data (num_buckets, bucket_cols)
     bucket_spec: tuple[int, list[str]] | None = None
@@ -183,8 +260,10 @@ class Filter(LogicalPlan):
 @dataclasses.dataclass
 class Project(LogicalPlan):
     """Projection with optional named computed expressions. Entries of
-    `columns` are either a column name (passthrough) or an ``(alias,
-    Expr)`` pair (`SELECT a*b AS x`), typed via expr_dtype."""
+    `columns` are either a column name (passthrough) or an
+    ``(alias, Expr)`` pair (`SELECT a*b AS x` — the reference gets
+    computed select lists from Catalyst's Project for free; our IR
+    carries them explicitly and types them via expr_dtype)."""
 
     child: LogicalPlan
     columns: list
@@ -212,6 +291,7 @@ class Project(LogicalPlan):
     @property
     def schema(self) -> Schema:
         from hyperspace_tpu_torch.plan.expr import expr_dtype
+        from hyperspace_tpu_torch.schema import Field
 
         if self.is_simple:
             return self.child.schema.select(self.columns)
@@ -230,8 +310,41 @@ class Project(LogicalPlan):
     def to_json(self) -> dict[str, Any]:
         if self.is_simple:
             return {"type": "project", "child": self.child.to_json(), "columns": self.columns}
-        cols = [c if isinstance(c, str) else {"alias": c[0], "expr": c[1].to_json()} for c in self.columns]
+        cols = [
+            c if isinstance(c, str) else {"alias": c[0], "expr": c[1].to_json()}
+            for c in self.columns
+        ]
         return {"type": "project", "child": self.child.to_json(), "columns": cols}
+
+
+@dataclasses.dataclass
+class Union(LogicalPlan):
+    """Concatenate rows of name-compatible children. Exists for Hybrid Scan:
+    an index scan unioned with a scan pinned to source files appended since
+    the index build (the analog of later-Hyperspace's hybrid scan plan,
+    which unions index data with an on-the-fly scan of appended files)."""
+
+    inputs: list[LogicalPlan]
+
+    def __post_init__(self):
+        if not self.inputs:
+            raise ValueError("union needs at least one input")
+        first = [n.lower() for n in self.inputs[0].schema.names]
+        for child in self.inputs[1:]:
+            if [n.lower() for n in child.schema.names] != first:
+                raise ValueError(
+                    f"union inputs must share column names: {first} vs {child.schema.names}"
+                )
+
+    @property
+    def schema(self) -> Schema:
+        return self.inputs[0].schema
+
+    def children(self) -> list[LogicalPlan]:
+        return list(self.inputs)
+
+    def to_json(self) -> dict[str, Any]:
+        return {"type": "union", "inputs": [c.to_json() for c in self.inputs]}
 
 
 JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti")
@@ -240,20 +353,27 @@ JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti")
 @dataclasses.dataclass
 class Join(LogicalPlan):
     """Equi-join on key column lists (reference matches CNF of EqualTo,
-    JoinIndexRule.scala:179-185; the equi-join is structural here). `how`
-    covers inner / left / right / full outer, plus (left) semi and anti;
-    `condition` is the ON clause's non-equi residual, and `null_safe`
-    makes NULL keys equal (the set operations)."""
+    JoinIndexRule.scala:179-185; we make the equi-join structural). `how`
+    covers the join types Spark's SortMergeJoinExec serves over the
+    reference's rewritten bucketed relations (JoinIndexRule.scala:124-153
+    swaps only the relations inside whatever join node it matched):
+    inner / left / right / full outer, plus (left) semi and anti."""
 
     left: LogicalPlan
     right: LogicalPlan
     left_on: list[str]
     right_on: list[str]
     how: str = "inner"
-    # Non-equi residual of the ON clause (equality stays structural).
+    # Non-equi residual of the ON clause (equality stays structural):
+    # evaluated with full 3-valued semantics over the equi-matched
+    # pairs. Inner joins filter; outer/semi/anti joins treat a failing
+    # pair as NO MATCH (null-extension / existence semantics).
     condition: Expr | None = None
-    # NULL-safe key equality (SQL IS NOT DISTINCT FROM), used by the set
-    # operations (intersect / except_).
+    # NULL-safe key equality (SQL IS NOT DISTINCT FROM): NULL matches
+    # NULL per key column instead of never matching. The set operations
+    # (intersect/except_) desugar with this on; the key factorization
+    # gives NULL its own code-domain value per column, shared across
+    # sides (execution/exec_common.py).
     null_safe: bool = False
 
     def __post_init__(self):
@@ -262,10 +382,15 @@ class Join(LogicalPlan):
         if self.how not in JOIN_TYPES:
             raise ValueError(f"unknown join type {self.how!r}; one of {JOIN_TYPES}")
         if self.condition is not None:
-            # Validate references against the MATCH schema now, so a typo
-            # or a merged-away key fails here, not mid-execution.
+            # Validate references against the MATCH schema now (right
+            # key names merge into the left-named column; semi/anti
+            # conditions may read right non-key columns even though the
+            # output is left-only), so a typo or a merged-away key fails
+            # here, not mid-execution.
             out_names = {n.lower() for n in self.match_schema.names}
-            missing = sorted(r for r in self.condition.references() if r not in out_names)
+            missing = sorted(
+                r for r in self.condition.references() if r not in out_names
+            )
             if missing:
                 raise ValueError(
                     f"join condition references {missing} not present in the "
@@ -275,7 +400,8 @@ class Join(LogicalPlan):
 
     @property
     def match_schema(self) -> Schema:
-        """Left columns plus right non-key columns — the inner-join shape.
+        """The schema an ON residual evaluates over: left columns plus
+        right non-key columns — the inner-join shape, whatever `how` is.
         A non-key name collision is ambiguous and rejected."""
         lf = self.left.schema.fields
         left_names = {f.name.lower() for f in lf}
@@ -286,14 +412,17 @@ class Join(LogicalPlan):
             if low in keys:
                 continue  # merged into the left key column
             if low in left_names:
-                raise ValueError(f"ambiguous non-key column {f.name!r} appears on both join sides")
+                raise ValueError(
+                    f"ambiguous non-key column {f.name!r} appears on both join sides"
+                )
             rf.append(f)
         return Schema(tuple(lf) + tuple(rf))
 
     @property
     def schema(self) -> Schema:
-        """Join key columns appear once; semi/anti produce the left side's
-        schema only."""
+        """Join key columns appear once (equal for matches; outer joins
+        coalesce the surviving side's key into the left-named column).
+        Semi/anti produce the left side's schema only."""
         if self.how in ("semi", "anti"):
             return Schema(tuple(self.left.schema.fields))
         return self.match_schema
@@ -313,28 +442,40 @@ class Join(LogicalPlan):
         if self.condition is not None:
             d["condition"] = self.condition.to_json()
         if self.null_safe:
+            # Emitted only when set, so pre-existing plan signatures and
+            # logged lineage stay byte-identical for ordinary joins.
             d["nullSafe"] = True
         return d
 
 
 @dataclasses.dataclass
 class AggSpec:
-    """One aggregation: fn over an expression (None = count(*))."""
+    """One aggregation: fn over an expression (None = count(*)).
+    count_distinct counts distinct non-null values of a column and
+    executes as a two-phase re-aggregation (the executor desugars it)."""
 
-    fn: str  # sum | count | min | max | mean
+    fn: str  # sum | count | min | max | mean | count_distinct | grouping
     expr: Expr | None
     alias: str
 
-    _FNS = ("sum", "count", "min", "max", "mean")
+    _FNS = ("sum", "count", "min", "max", "mean", "count_distinct", "grouping")
 
     def __post_init__(self):
+        from hyperspace_tpu_torch.plan.expr import Col
+
         if self.fn not in self._FNS:
             raise ValueError(f"unknown aggregate fn {self.fn!r}")
         if self.expr is None and self.fn != "count":
             raise ValueError(f"{self.fn} requires an input expression")
+        if self.fn == "grouping" and not isinstance(self.expr, Col):
+            # SQL GROUPING(col): 1 when the output row aggregates the
+            # column away (a coarser grouping set), else 0.
+            raise ValueError("grouping() takes a single group-by column")
 
     @staticmethod
     def of(fn: str, expr=None, alias: str | None = None) -> "AggSpec":
+        from hyperspace_tpu_torch.plan.expr import Col
+
         if isinstance(expr, str):
             expr = Col(expr)
         if alias is None:
@@ -360,11 +501,21 @@ class AggSpec:
 
 @dataclasses.dataclass
 class Aggregate(LogicalPlan):
-    """Grouped aggregation: plain GROUP BY over the child's rows."""
+    """Grouped aggregation — one of the engine-side operators the TPU build
+    owns (SURVEY.md §2.2 lists the WholeStageCodegen'd operators Spark
+    'provided' to the reference). Sorted-key segments post-index make the
+    device reduction cheap; Aggregate(Join) additionally fuses into a
+    run-prefix aggregation that never materializes the joined pairs."""
 
     child: LogicalPlan
     group_by: list[str]
     aggs: list[AggSpec]
+    # GROUPING SETS: each entry is a subset of group_by; the output is
+    # the union of re-groupings (ROLLUP/CUBE desugar to this). None =
+    # plain GROUP BY. Executes as ONE finest-grain aggregate + cheap
+    # re-aggregations of its partials (the two-phase machinery that
+    # count_distinct pioneered, generalized).
+    grouping_sets: list[list[str]] | None = None
 
     def __post_init__(self):
         seen: set[str] = set()
@@ -372,13 +523,27 @@ class Aggregate(LogicalPlan):
             if name in seen:
                 raise ValueError(f"duplicate output column {name!r} in aggregate")
             seen.add(name)
+        gset = {c.lower() for c in self.group_by}
+        if self.grouping_sets is not None:
+            for s in self.grouping_sets:
+                if not {c.lower() for c in s} <= gset:
+                    raise ValueError(f"grouping set {s} is not a subset of group_by")
+        for a in self.aggs:
+            if a.fn == "grouping":
+                if self.grouping_sets is None:
+                    raise ValueError("grouping() requires grouping sets / rollup")
+                if a.expr.name.lower() not in gset:
+                    raise ValueError(f"grouping({a.expr.name}) is not a group-by column")
 
     @property
     def schema(self) -> Schema:
+        from hyperspace_tpu_torch.plan.expr import Col
+        from hyperspace_tpu_torch.schema import Field
+
         child = self.child.schema
         fields = [child.field(c) for c in self.group_by]
         for a in self.aggs:
-            if a.fn == "count":
+            if a.fn in ("count", "count_distinct", "grouping"):
                 dtype = "int64"
             elif a.fn == "mean":
                 dtype = "float64"
@@ -397,12 +562,193 @@ class Aggregate(LogicalPlan):
         return [self.child]
 
     def to_json(self) -> dict[str, Any]:
-        return {
+        d = {
             "type": "aggregate",
             "child": self.child.to_json(),
             "groupBy": self.group_by,
             "aggs": [a.to_json() for a in self.aggs],
         }
+        if self.grouping_sets is not None:
+            d["groupingSets"] = [list(s) for s in self.grouping_sets]
+        return d
+
+
+@dataclasses.dataclass
+class WindowSpec:
+    """One window function: fn over an expression (None for the ranking
+    family and count(*)). lag/lead shift the value within the partition
+    by `offset` rows of the ORDER BY (SQL LAG/LEAD with a NULL default);
+    they ignore the frame."""
+
+    fn: str  # row_number | rank | dense_rank | sum | count | mean | min | max | lag | lead
+    expr: Expr | None
+    alias: str
+    offset: int = 1  # lag/lead only
+
+    _FNS = ("row_number", "rank", "dense_rank", "sum", "count", "mean", "min", "max", "lag", "lead")
+    RANKING = ("row_number", "rank", "dense_rank")
+    SHIFT = ("lag", "lead")
+
+    def __post_init__(self):
+        if self.fn not in self._FNS:
+            raise ValueError(f"unknown window fn {self.fn!r}")
+        if self.expr is None and self.fn not in (*self.RANKING, "count"):
+            raise ValueError(f"{self.fn} requires an input expression")
+        if self.expr is not None and self.fn in self.RANKING:
+            raise ValueError(f"{self.fn} takes no input expression")
+        if self.fn in self.SHIFT and self.offset < 1:
+            raise ValueError(f"{self.fn} offset must be >= 1")
+
+    @staticmethod
+    def of(fn: str, expr=None, alias: str | None = None, offset: int = 1) -> "WindowSpec":
+        from hyperspace_tpu_torch.plan.expr import Col
+
+        if isinstance(expr, str):
+            expr = Col(expr)
+        if alias is None:
+            base = expr.name if isinstance(expr, Col) else ("star" if expr is None else "expr")
+            alias = f"{fn}_{base}" if expr is not None else fn
+        return WindowSpec(fn, expr, alias, offset)
+
+    def references(self) -> set[str]:
+        return self.expr.references() if self.expr is not None else set()
+
+    def to_json(self) -> dict[str, Any]:
+        d = {
+            "fn": self.fn,
+            "expr": self.expr.to_json() if self.expr is not None else None,
+            "alias": self.alias,
+        }
+        if self.fn in self.SHIFT:
+            d["offset"] = self.offset
+        return d
+
+    @staticmethod
+    def from_json(d: dict[str, Any]) -> "WindowSpec":
+        e = expr_from_json(d["expr"]) if d.get("expr") is not None else None
+        return WindowSpec(d["fn"], e, d["alias"], d.get("offset", 1))
+
+
+WINDOW_FRAMES = ("partition", "rows", "range")
+
+
+@dataclasses.dataclass
+class Window(LogicalPlan):
+    """Window functions over partitions: every child row passes through
+    with one extra column per WindowSpec. The reference's environment gets
+    Spark's Window exec; the engine formulates it as sorted segments
+    over the engine's order-preserving key lanes (ops/window.py).
+
+    `frame` applies to the aggregate functions:
+      - "partition": the whole partition (no ORDER BY needed);
+      - "rows":  ROWS BETWEEN UNBOUNDED PRECEDING AND CURRENT ROW;
+      - "range": RANGE ... CURRENT ROW (peer rows by the order key share
+        the frame result — SQL's default frame when ORDER BY is present).
+    Ranking functions always need an ORDER BY and ignore the frame."""
+
+    child: LogicalPlan
+    partition_by: list[str]
+    order_by: list[tuple[str, bool]]
+    funcs: list["WindowSpec"]
+    frame: str = "partition"
+
+    def __post_init__(self):
+        if not self.funcs:
+            raise ValueError("window requires at least one function")
+        if self.frame not in WINDOW_FRAMES:
+            raise ValueError(f"unknown window frame {self.frame!r}; one of {WINDOW_FRAMES}")
+        if self.frame != "partition" and not self.order_by:
+            raise ValueError(f"window frame {self.frame!r} requires an ORDER BY")
+        if not self.order_by and any(
+            f.fn in (*WindowSpec.RANKING, *WindowSpec.SHIFT) for f in self.funcs
+        ):
+            raise ValueError("ranking and lag/lead window functions require an ORDER BY")
+        child_names = {n.lower() for n in self.child.schema.names}
+        seen = set(child_names)
+        for f in self.funcs:
+            low = f.alias.lower()
+            if low in seen:
+                raise ValueError(f"window output column {f.alias!r} collides")
+            seen.add(low)
+
+    @property
+    def schema(self) -> Schema:
+        from hyperspace_tpu_torch.plan.expr import Col
+        from hyperspace_tpu_torch.schema import Field
+
+        child = self.child.schema
+        fields = list(child.fields)
+        for f in self.funcs:
+            if f.fn in (*WindowSpec.RANKING, "count"):
+                dtype = "int64"
+            elif f.fn == "mean":
+                dtype = "float64"
+            elif isinstance(f.expr, Col):
+                src = child.field(f.expr.name)
+                if f.fn in ("min", "max", "lag", "lead"):
+                    dtype = src.dtype  # extremum / shift preserve the input type
+                else:  # sum widens integers
+                    dtype = "int64" if src.dtype in ("int32", "int64", "bool", "date") else "float64"
+            else:
+                dtype = "float64"
+            fields.append(Field(f.alias, dtype))
+        return Schema(tuple(fields))
+
+    def children(self) -> list[LogicalPlan]:
+        return [self.child]
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "type": "window",
+            "child": self.child.to_json(),
+            "partitionBy": self.partition_by,
+            "orderBy": [[c, bool(a)] for c, a in self.order_by],
+            "funcs": [f.to_json() for f in self.funcs],
+            "frame": self.frame,
+        }
+
+
+@dataclasses.dataclass
+class Sort(LogicalPlan):
+    """Total order by (column, ascending) keys — executes as one stable
+    device sort over order-preserving 32-bit lanes (ops/sortkeys.py)."""
+
+    child: LogicalPlan
+    by: list[tuple[str, bool]]
+
+    def __post_init__(self):
+        if not self.by:
+            raise ValueError("sort requires at least one order-by key")
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def children(self) -> list[LogicalPlan]:
+        return [self.child]
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "type": "sort",
+            "child": self.child.to_json(),
+            "by": [[c, bool(a)] for c, a in self.by],
+        }
+
+
+@dataclasses.dataclass
+class Limit(LogicalPlan):
+    child: LogicalPlan
+    n: int
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def children(self) -> list[LogicalPlan]:
+        return [self.child]
+
+    def to_json(self) -> dict[str, Any]:
+        return {"type": "limit", "child": self.child.to_json(), "n": self.n}
 
 
 def plan_from_json(d: dict[str, Any]) -> LogicalPlan:
@@ -421,8 +767,13 @@ def plan_from_json(d: dict[str, Any]) -> LogicalPlan:
     if t == "filter":
         return Filter(plan_from_json(d["child"]), expr_from_json(d["predicate"]))
     if t == "project":
-        cols = [c if isinstance(c, str) else (c["alias"], expr_from_json(c["expr"])) for c in d["columns"]]
+        cols = [
+            c if isinstance(c, str) else (c["alias"], expr_from_json(c["expr"]))
+            for c in d["columns"]
+        ]
         return Project(plan_from_json(d["child"]), cols)
+    if t == "union":
+        return Union([plan_from_json(c) for c in d["inputs"]])
     if t == "join":
         return Join(
             plan_from_json(d["left"]),
@@ -434,9 +785,23 @@ def plan_from_json(d: dict[str, Any]) -> LogicalPlan:
             null_safe=bool(d.get("nullSafe", False)),
         )
     if t == "aggregate":
+        gs = d.get("groupingSets")
         return Aggregate(
             plan_from_json(d["child"]),
             list(d["groupBy"]),
             [AggSpec.from_json(a) for a in d["aggs"]],
+            grouping_sets=[list(s) for s in gs] if gs is not None else None,
         )
+    if t == "window":
+        return Window(
+            plan_from_json(d["child"]),
+            list(d["partitionBy"]),
+            [(c, bool(a)) for c, a in d["orderBy"]],
+            [WindowSpec.from_json(f) for f in d["funcs"]],
+            d.get("frame", "partition"),
+        )
+    if t == "sort":
+        return Sort(plan_from_json(d["child"]), [(c, bool(a)) for c, a in d["by"]])
+    if t == "limit":
+        return Limit(plan_from_json(d["child"]), int(d["n"]))
     raise ValueError(f"unknown plan node type {t!r}")

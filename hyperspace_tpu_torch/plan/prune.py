@@ -7,15 +7,16 @@ The pass rewrites each Scan's `scan_schema` to the subset of columns
 required by its ancestors; the executor then feeds the pruned schema
 straight into the parquet column projection.
 
-A copy of the JAX package's pass over the plan nodes the port has: a
-Join narrows each side to its own needed columns plus its join keys.
+A copy of the JAX package's pass: a Join narrows each side to its own
+needed columns plus its join keys; a Window keeps its partition and order
+columns and a Sort its keys, whatever the ancestors need.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, Limit, LogicalPlan, Project, Scan, Sort, Union, Window
 
 
 def _one_cheap_column(schema) -> set[str]:
@@ -78,4 +79,26 @@ def prune_columns(plan: LogicalPlan, needed: set[str] | None = None) -> LogicalP
         if not child_needed:
             child_needed = _one_cheap_column(plan.child.schema)
         return dataclasses.replace(plan, child=prune_columns(plan.child, child_needed))
+    if isinstance(plan, Union):
+        return Union([prune_columns(c, needed) for c in plan.inputs])
+    if isinstance(plan, Window):
+        aliases = {f.alias.lower() for f in plan.funcs}
+        if needed is None:
+            child_needed = None
+        else:
+            child_needed = {c for c in needed if c not in aliases}
+            child_needed |= {c.lower() for c in plan.partition_by}
+            child_needed |= {c.lower() for c, _ in plan.order_by}
+            for f in plan.funcs:
+                child_needed |= f.references()
+            if not child_needed:
+                # count(*)-style window over no keys: keep one cheap
+                # column so the child's row count survives pruning.
+                child_needed = _one_cheap_column(plan.child.schema)
+        return dataclasses.replace(plan, child=prune_columns(plan.child, child_needed))
+    if isinstance(plan, Sort):
+        child_needed = None if needed is None else set(needed) | {c.lower() for c, _ in plan.by}
+        return dataclasses.replace(plan, child=prune_columns(plan.child, child_needed))
+    if isinstance(plan, Limit):
+        return dataclasses.replace(plan, child=prune_columns(plan.child, needed))
     return plan

@@ -16,7 +16,7 @@ import dataclasses
 import functools
 
 from hyperspace_tpu_torch.plan.expr import And, Expr, split_conjuncts
-from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan
+from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Union
 
 
 def _conjoin(conjuncts: list[Expr]) -> Expr:
@@ -61,6 +61,8 @@ def push_down_filters(plan: LogicalPlan) -> LogicalPlan:
     kids = plan.children()
     if not kids:
         return plan
+    if isinstance(plan, Union):
+        return Union([push_down_filters(c) for c in plan.inputs])
     if isinstance(plan, Join):
         return dataclasses.replace(plan, left=push_down_filters(plan.left), right=push_down_filters(plan.right))
     return dataclasses.replace(plan, child=push_down_filters(plan.child))

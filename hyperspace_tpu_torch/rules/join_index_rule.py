@@ -33,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 
 from hyperspace_tpu_torch.metadata.log_entry import IndexLogEntry
-from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, Limit, LogicalPlan, Project, Scan, Sort, Union, Window
 from hyperspace_tpu_torch.rules.base import Rule, SignatureMatcher, index_scan_for
 from hyperspace_tpu_torch.rules.ranker import JoinIndexRanker
 
@@ -99,8 +99,11 @@ class JoinIndexRule(Rule):
             return Project(self._rewrite(plan.child, indexes, matcher), plan.columns)
         if isinstance(plan, Filter):
             return Filter(self._rewrite(plan.child, indexes, matcher), plan.predicate)
-        if isinstance(plan, Aggregate):
+        if isinstance(plan, (Aggregate, Sort, Limit, Window)):
             return dataclasses.replace(plan, child=self._rewrite(plan.child, indexes, matcher))
+        if isinstance(plan, Union):
+            # User-written UNION ALL branches each get their own rewrite.
+            return Union([self._rewrite(c, indexes, matcher) for c in plan.inputs])
         return plan
 
     def _try_rewrite_join(self, plan: Join, indexes, matcher) -> LogicalPlan | None:

@@ -777,3 +777,70 @@ def test_outer_and_residual_semi_joins_on_the_card_match_the_cpu(cuda, tmp_path)
             keys = list(want.columns)
             pd.testing.assert_frame_equal(got.sort_values(keys).reset_index(drop=True),
                                           want.sort_values(keys).reset_index(drop=True))
+
+
+@pytest.mark.gpu
+def test_sort_top_n_and_windows_on_the_card_match_the_cpu(cuda, tmp_path):
+    """Sort (several keys, DESC, NULLs, strings, NaN and signed zeros),
+    ORDER BY ... LIMIT on both top-N branches (the int64 selection key on
+    the card) and windows under every frame, on the card and on the CPU:
+    the same rows in the same order. The float values are integral and
+    small, so every sum is exact in any order and the answers are equal
+    bit for bit."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import HyperspaceSession, WindowSpec, col
+
+    rng = np.random.default_rng(17)
+    n = 20_000
+    f = rng.integers(-50, 50, n).astype(np.float64)
+    f[rng.random(n) < 0.02] = np.nan
+    f[rng.random(n) < 0.02] = -0.0
+    t = pa.table({
+        "i": np.arange(n, dtype=np.int64),
+        "g": rng.integers(0, 40, n).astype(np.int64),
+        "o": rng.integers(0, 300, n).astype(np.int32),
+        "f": pa.array([None if rng.random() < 0.03 else float(x) for x in f], type=pa.float64()),
+        "big": pa.array([None if rng.random() < 0.03 else int(x) for x in
+                         (rng.integers(0, 3, n) << 40) + rng.integers(0, 1 << 20, n)], type=pa.int64()),
+        "s": pa.array(np.array(["a", "bb", "c", "dd"], dtype=object)[rng.integers(0, 4, n)]),
+    })
+    (tmp_path / "t").mkdir()
+    pq.write_table(t, tmp_path / "t" / "p.parquet")
+
+    def plans(scan):
+        spec = WindowSpec.of
+        return {
+            "sort": scan.sort([("s", False), ("f", True), ("i", True)]),
+            "top_n_select": scan.sort([("big", False), ("i", True)]).limit(25),
+            "top_n_float": scan.sort([("f", True), ("i", False)]).limit(40),
+            "top_n_full": scan.sort([("o", False), ("i", True)]).limit(15_000),
+            **{f"window_{frame}": scan.window(
+                ["g"], order_by=[] if frame == "partition" else [("o", True)], frame=frame, funcs=[
+                    ("sum", "f", "sf"), ("count", "f", "cf"), ("mean", "o", "mo"), ("min", "f", "mn"),
+                    ("max", "big", "mx"), ("sum", "big", "sb")])
+               for frame in ("partition", "rows", "range")},
+            "ranks": scan.window(["g"], order_by=[("f", False), ("s", True)], funcs=[
+                ("row_number", None, "rn"), ("rank", None, "rk"), ("dense_rank", None, "dr"),
+                spec("lag", "s", "ls", 2), spec("lead", "f", "lf", 1)]),
+            "filtered": scan.filter(col("o") < 150).sort([("g", True), ("f", False), ("i", True)]).limit(100),
+        }
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = HyperspaceSession(system_path=str(tmp_path / f"idx_{dev}"), num_buckets=4, device=dev)
+        for name, plan in plans(s.parquet(tmp_path / "t")).items():
+            out[dev, name] = (s.to_pandas(plan), s.last_query_stats["top_n"])
+    for name in plans(HyperspaceSession(system_path=str(tmp_path / "x"), num_buckets=4, device="cpu").parquet(
+            tmp_path / "t")):
+        (got, gtop), (want, wtop) = out["cuda", name], out["cpu", name]
+        assert gtop == wtop, name
+        assert list(got.columns) == list(want.columns) and len(got) == len(want) > 0, name
+        for c in want.columns:
+            a, b = got[c].to_numpy(dtype=object), want[c].to_numpy(dtype=object)
+            same = [(x is None and y is None) or (isinstance(x, float) and isinstance(y, float) and np.isnan(x)
+                                                  and np.isnan(y)) or x == y for x, y in zip(a, b)]
+            assert all(same), (name, c)
+    assert out["cuda", "top_n_select"][1]["kernel"] == "partition-select + sort"
+    assert out["cuda", "top_n_full"][1]["kernel"] == "full-sort"

@@ -431,3 +431,46 @@ def test_plan_signature_matches_the_jax_package(fact_dim):
     for j, t in zip(plans["hyperspace_tpu"], plans["hyperspace_tpu_torch"]):
         assert torch_signature(t) == jax_signature(j)
     assert len({torch_signature(p) for p in plans["hyperspace_tpu_torch"]}) == 3
+
+
+@pytest.mark.parametrize("variant", ["limit n", "sort direction", "window frame", "grouping sets"])
+def test_plans_that_differ_only_in_a_new_nodes_field_get_distinct_entries(fact_dim, variant):
+    """Limit's n, a sort key's direction, a window's frame and an
+    aggregate's grouping sets are part of `to_json`, so of the plan cache's
+    key: two such plans never share an entry, and each gets its own
+    answer (the JAX package's)."""
+    from hyperspace_tpu_torch.signature import plan_signature
+
+    both, _, _ = fact_dim
+
+    def plans(pkg, fs, ds):
+        j = fs.join(ds, ["k"])
+        if variant == "limit n":
+            return [j.sort([("a", True), ("k", True)]).limit(n) for n in (5, 9)]
+        if variant == "sort direction":
+            return [j.sort([("a", asc), ("k", True)]).limit(7) for asc in (True, False)]
+        if variant == "window frame":
+            # Peers (equal g) share the RANGE frame's sum, not the ROWS'.
+            return [j.window(["t"], order_by=[("g", True)], funcs=[("sum", "g", "rs")], frame=f)
+                    .select("k", "t", "rs") for f in ("rows", "range")]
+        return [fs.aggregate(["g", "k"], [("count", None, "n")], grouping_sets=s) for s in ([["g"]], [["g"], []])]
+
+    pkg, session, fs, ds = both["hyperspace_tpu_torch"]
+    mine = plans(pkg, fs, ds)
+    assert plan_signature(mine[0]) != plan_signature(mine[1])
+    cache = PlanCache(max_entries=8)
+    got = [session.run_query(p, plan_cache=cache).result for p in mine]
+    again = [session.run_query(p, plan_cache=cache).result for p in mine]
+    assert cache.stats()["entries"] == 2 and cache.stats()["hits"] == 2
+    jpkg, jsession, jfs, jds = both["hyperspace_tpu"]
+    want = [jsession.to_pandas(p) for p in plans(jpkg, jfs, jds)]
+    frames = [pd.DataFrame(r.decode()) for r in got]
+    assert not frames[0].equals(frames[1])
+    for g, a, w in zip(frames, again, want):
+        assert g.equals(pd.DataFrame(a.decode()))
+        assert list(g.columns) == list(w.columns) and len(g) == len(w)
+        for c in w.columns:
+            if w[c].dtype.kind == "f":
+                np.testing.assert_allclose(g[c].to_numpy(float), w[c].to_numpy(float), rtol=1e-12)
+            else:
+                assert g[c].tolist() == w[c].tolist(), c

@@ -77,6 +77,29 @@ What it does, in order (any failure raises and exits non-zero):
    (`QUERY_SURFACE_EXPECT`: the aggregate's branch, the joins' paths, the
    top-N selection, the early-out) with K1 in every query but LIM, K2
    where that path merges and K3 in none; one line a query;
+3d. lifecycle path, on the join path's session and orders: BASELINE
+   config 3 (hybrid scan, as benchmarks/bench_hybrid.py runs it on
+   lineitem): hard-links lineitem's files into a directory of its own,
+   builds `li_live` on it (`l_orderkey`, 200 buckets), appends the port's
+   lineitem at a tenth of the scale (seed 46: about 600,000 rows at SF1)
+   and, with hybrid scan on, runs `lifecycle_plans` (the 12 lookups, the
+   1% range, an aggregate over it and J2 with orders) cold and warm,
+   index on and off, against pyarrow on the grown data: the filters
+   through `HybridScanFilter`, J2 zero-exchange aligned with the appended
+   rows bucketized on the fly and sorted per bucket before K2; appends a
+   second file (a twentieth, seed 47), whose next run misses the plan
+   cache; then times an incremental refresh (two version dirs), optimize
+   (one file a bucket, no bucket sorted before K2) and a full refresh,
+   each followed by the queries; then BASELINE config 4, the NYC-Taxi
+   loop of benchmarks/bench_refresh.py at one month of trips a batch
+   (six batches of 3,000,000 rows, `trips_zone` with 32 buckets: create,
+   five appends with an incremental refresh and two queries against
+   pyarrow, optimize after batch 3, a full refresh, the
+   `taxi_incremental_ingest_throughput`); then delete / restore, a
+   recover of the superseded versions, a crashed refresh (a REFRESHING
+   entry and a partial version dir) recovered, delete / vacuum, with
+   `indexes()` listing each state; K1's and K2's inputs from one hybrid
+   J2 run join the kernel phase; K1 and K2 launch, K3 does not;
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
@@ -90,6 +113,13 @@ What it does, in order (any failure raises and exits non-zero):
    brute force and nprobe 8 run once more at k = 5,000 (past K3's
    shared-memory sort), brute force against the exact top 5,000 and
    nprobe 8 with every score its row's exact distance;
+4b. vector lifecycle, on the vector path's index: appends 100,000 rows
+   from the same clusters (`gen_embeddings(..., appended=)`), refreshes
+   incrementally (two version dirs, the centroids unchanged) and
+   optimizes (retrained, one version), each followed by brute force,
+   nprobe 8 and full probe (k = 10) against a float64 top-10 over the
+   1,100,000 rows: full probe equal to brute force, recall@10 at nprobe 8
+   at least 0.8; K3 launches;
    kernel launch counts are zeroed just before each path and read just
    after it: every kernel a path runs must have launched in it, and no
    other;
@@ -98,9 +128,10 @@ What it does, in order (any failure raises and exits non-zero):
    count, group counts and channels on seeded channels with uniformly
    random group ids, the very inputs the two aggregates gave it, and
    those of its four launches in the indexed J2 and J3 — the secondary
-   run extrema and the group fold; K2: the join's real key codes at the
-   aligned J2 and J3 shapes and the un-indexed J2 shape, and the aligned
-   J2 codes with each primary row shuffled, so that the kernel's windows
+   run extrema and the group fold — and of the hybrid J2's two; K2: the
+   join's real key codes at the aligned J2 and J3 shapes, the hybrid
+   J2's and the un-indexed J2 shape, and the aligned J2 codes with each
+   primary row shuffled, so that the kernel's windows
    span the row and it searches device memory; K3: the vector
    path's routing, candidate and brute-force score matrices, and a
    tie-heavy matrix at the brute-force shape, bit-equal; and at
@@ -2163,6 +2194,516 @@ def k2_phase(device, pk_np, sk_np) -> dict:
     }
 
 
+# -- lifecycle path -------------------------------------------------------------
+
+LIVE_INDEX = "li_live"
+# The two appended lineitem files: (their scale as a fraction of the run's,
+# seed). The first is 10% of the rows, as benchmarks/bench_hybrid.py
+# appends (800,000 on 8,000,000), under maxAppendedRatio 0.3; its order
+# keys fall in the first tenth of orders' domain.
+LIVE_APPENDS = ((0.1, 46), (0.05, 47))
+# BASELINE config 4 (benchmarks/bench_refresh.py): the NYC-Taxi loop, in
+# batches of one month of NYC TLC yellow-taxi trips (the TLC's 2023
+# monthly files hold about 3M rows each).
+TAXI_BATCH_ROWS = 3_000_000
+TAXI_BATCHES = 6
+TAXI_BUCKETS = 32
+TAXI_ZONES = [4, 13, 42, 48, 68, 79, 107, 132, 138, 161, 230, 236]
+
+
+def lifecycle_plans(pkg, li, orders, sf: float) -> tuple[dict, tuple]:
+    """The lifecycle phase's queries over the lineitem source `li`, built
+    with `pkg`'s builders (either package): the 12 point lookups of the
+    aggregate path, its 1% range, an aggregate over that range
+    (sum(l_extendedprice * (1 - l_discount)) by l_orderkey) and J2 with
+    `orders`. Returns (name -> list of plans, the range's bounds and the
+    lookups' keys)."""
+    col, lit, spec = pkg.col, pkg.lit, pkg.AggSpec.of
+    domain = int(1_500_000 * sf)  # orders' key domain
+    lo, hi = int(domain * 0.47), int(domain * 0.48)
+    between = (col("l_orderkey") >= lit(lo)) & (col("l_orderkey") <= lit(hi))
+    keys = np.random.default_rng(7).integers(0, domain, 12).astype(np.int64)
+    j = li.select("l_orderkey", "l_quantity", "l_extendedprice", "l_discount").join(
+        orders.select("o_orderkey", "o_totalprice", "o_orderpriority"), ["l_orderkey"], ["o_orderkey"])
+    return {
+        "lookups": [li.filter(col("l_orderkey") == int(k)).select("l_orderkey", "l_partkey", "l_extendedprice")
+                    for k in keys],
+        "range": [li.filter(between).select("l_orderkey", "l_partkey", "l_extendedprice")],
+        "range_agg": [li.filter(between).aggregate(["l_orderkey"], [
+            spec("sum", col("l_extendedprice") * (lit(1) - col("l_discount")), "rev"),
+            ("count", None, "n")])],
+        "J2": [j.aggregate(["o_orderpriority"], J2_AGGS)],
+    }, (lo, hi, keys)
+
+
+def lifecycle_check(kind: str, name: str, results: list, grown, o_source, bounds, buckets: int) -> None:
+    """The lifecycle queries' results against pyarrow on the grown lineitem
+    (`grown`, every live file): rows exactly; the range aggregate's sums
+    within sum_tolerance, J2's within the join bound taken over the whole
+    table (a bucket's rows and Σ|v| are at most the table's)."""
+    import pandas as pd
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    lo, hi, keys = bounds
+    cols = ["l_orderkey", "l_partkey", "l_extendedprice"]
+    if kind == "lookups":
+        for k, result in zip(keys, results):
+            _check_rows(f"{name} {k}", result, grown.filter(pc.equal(grown["l_orderkey"], int(k))).select(cols), cols)
+        return
+    (result,) = results
+    in_range = grown.filter(pc.and_(pc.greater_equal(grown["l_orderkey"], lo), pc.less_equal(grown["l_orderkey"], hi)))
+    if kind == "range":
+        _check_rows(name, result, in_range.select(cols), cols)
+        return
+    if kind == "range_agg":
+        rev = pc.multiply(in_range["l_extendedprice"], pc.subtract(1, in_range["l_discount"]))
+        ref = pa.table({"l_orderkey": in_range["l_orderkey"], "rev": rev}).group_by("l_orderkey").aggregate(
+            [("rev", "sum"), ("rev", "count")]).to_pandas().sort_values("l_orderkey").reset_index(drop=True)
+        got = pd.DataFrame(result.decode()).sort_values("l_orderkey").reset_index(drop=True)
+        if len(got) != len(ref) or len(got) == 0 or list(got["l_orderkey"]) != list(ref["l_orderkey"]):
+            raise AssertionError(f"{name}: {len(got)} groups, pyarrow {len(ref)}")
+        np.testing.assert_array_equal(got["n"].to_numpy(), ref["rev_count"].to_numpy(), err_msg=f"{name} n")
+        tol = sum_tolerance(ref["rev_count"].to_numpy(), ref["rev_sum"].to_numpy())
+        if not np.all(np.abs(got["rev"].to_numpy() - ref["rev_sum"].to_numpy()) <= tol):
+            raise AssertionError(f"{name}: sums beyond the float64 bound")
+        return
+    ref = grown.select(["l_orderkey", "l_quantity", "l_extendedprice", "l_discount"]).join(
+        o_source.select(["o_orderkey", "o_totalprice", "o_orderpriority"]),
+        keys="l_orderkey", right_keys="o_orderkey", join_type="inner",
+    ).group_by(["o_orderpriority"]).aggregate([
+        ("l_extendedprice", "sum"), ("l_quantity", "sum"), ("l_discount", "min"),
+        ("l_extendedprice", "max"), ("o_totalprice", "sum"), ("l_orderkey", "count"),
+    ]).to_pandas()
+    stats = {"l_extendedprice": _bucket_stats([grown.select(["l_extendedprice"])], "l_extendedprice"),
+             "o_totalprice": _bucket_stats([o_source.select(["o_totalprice"])], "o_totalprice")}
+    _check_join_aggregate(
+        name, pd.DataFrame(result.decode()), ref, ["o_orderpriority"],
+        {"sum_qty": "l_quantity_sum", "min_disc": "l_discount_min",
+         "max_price": "l_extendedprice_max", "cnt": "l_orderkey_count"},
+        {"sum_price": ("l_extendedprice_sum", "s", False), "avg_total": ("o_totalprice_sum", "p", True)},
+        stats, True, buckets,
+    )
+
+
+def record_bucket_sorts(fn) -> list:
+    """Runs `fn` once, recording for every join side whose key codes were
+    sorted within buckets before K2 whether a sort ran (a side read from
+    one sorted file a bucket needs none)."""
+    from hyperspace_tpu_torch.execution import exec_common
+
+    real = exec_common._bucket_sorted_codes_cached
+    sorted_ = []
+
+    def recording(codes, side):
+        out = real(codes, side)
+        sorted_.append(out[1] is not None)
+        return out
+
+    exec_common._bucket_sorted_codes_cached = recording
+    try:
+        fn()
+    finally:
+        exec_common._bucket_sorted_codes_cached = real
+    return sorted_
+
+
+def capture_k2(fn, module) -> list:
+    """Runs `fn` once with every K2 call made through `module` recorded:
+    (primary, secondary) codes copied to the host. The calls still launch
+    K2."""
+    real = module.run_bounds
+    calls = []
+
+    def recording(pk, sk):
+        calls.append((pk.cpu().numpy(), sk.cpu().numpy()))
+        return real(pk, sk)
+
+    module.run_bounds = recording
+    try:
+        fn()
+    finally:
+        module.run_bounds = real
+    return calls
+
+
+def lifecycle_path(device, ctx: dict, sf: float, taxi_rows: int = TAXI_BATCH_ROWS) -> tuple[dict, dict, dict]:
+    """The index lifecycle through the user entry points, on the session
+    and orders of the join path. BASELINE config 3 (hybrid scan, as
+    benchmarks/bench_hybrid.py runs it on lineitem): `li_live`, the
+    lineitem index over a hard-linked copy of its files, then an appended
+    file (10%); the queries of `lifecycle_plans` with hybrid scan on, cold
+    and warm, index on and off, against pyarrow on the grown data; a
+    second append, whose next warm run misses the plan cache; then
+    incremental refresh, optimize and full refresh, each timed and
+    followed by the queries. BASELINE config 4 (`taxi_loop`). Then
+    delete / restore, a crashed refresh recovered, delete / vacuum.
+    Returns (the records, K1's and K2's inputs from one hybrid J2 run)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem
+    from hyperspace_tpu_torch.metadata.log_manager import IndexLogManager
+    from hyperspace_tpu_torch.ops import join_agg
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+    from hyperspace_tpu_torch.plan.nodes import Union
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    session, orders, workdir, cache = ctx["session"], ctx["orders"], ctx["workdir"], ctx["plan_cache"]
+    buckets = session.conf.num_buckets
+    hs = Hyperspace(session)
+    session.enable_hyperspace()
+    out: dict = {"actions_s": {}, "index_states": []}
+    live = workdir / "lineitem_live"
+    live.mkdir()
+    for p in sorted((workdir / "lineitem").glob("*.parquet")):
+        os.link(p, live / p.name)  # no bytes copied: the main path's indexes stay exact
+    li = session.parquet(live)
+    t0 = time.perf_counter()
+    hs.create_index(li, IndexConfig(LIVE_INDEX, INDEXED, INCLUDED))
+    sync()
+    out["actions_s"]["create"] = time.perf_counter() - t0
+    index_dir = Path(session.conf.system_path) / LIVE_INDEX
+    parts = [ctx["source"]]
+
+    def append(i: int) -> None:
+        frac, seed = LIVE_APPENDS[i]
+        stage = workdir / f"stage_{i}"
+        gen_tpch_lineitem(stage, sf=frac * sf, seed=seed, files=1)
+        parts.append(pq.read_table(stage / "part-0.parquet"))
+        out.setdefault("appended_rows", []).append(parts[-1].num_rows)
+        (stage / "part-0.parquet").rename(live / f"append-{i}.parquet")
+
+    def state() -> None:
+        frame = hs.indexes()
+        out["index_states"].append(dict(zip(frame["name"], frame["state"])))
+
+    def union_in(plan) -> bool:
+        return isinstance(plan, Union) or any(union_in(c) for c in plan.children())
+
+    plans, bounds = lifecycle_plans(htorch, li, orders, sf)
+    # Plain scans where hyperspace is off; with it, the hybrid scan's
+    # HybridScanFilter and the aligned fused join, then the index's own.
+    expect_index = {"lookups": "IndexPointLookup", "range": "IndexRangeScan", "range_agg": "IndexRangeScan"}
+
+    def run_queries(stage: str, modes=("index",), hybrid=False) -> None:
+        grown = pa.concat_tables(parts, promote_options="default")
+        for mode in modes:
+            session.enable_hyperspace() if mode == "index" else session.disable_hyperspace()
+            for name, qs in plans.items():
+                k2, k1 = run_bounds.launches, segment_reduce.launches
+                derived = ("fact", "gid") if name == "J2" and mode == "index" else ()
+                tolerant = {"J2": ("sum_price", "avg_total"), "range_agg": ("rev",)}.get(name, ())
+                results, _, timing = cold_warm(f"{stage} {name} {mode}", session, qs, cache, sync, derived, tolerant)
+                stats = timing.pop("warm_stats")
+                lifecycle_check(name, f"{stage} {name} {mode}", results, grown, ctx["o_source"], bounds, buckets)
+                if mode == "index" and name == "J2":
+                    want = ("zero-exchange-aligned", "fused-join-agg")
+                    if (stats["join_path"], stats["agg_path"]) != want:
+                        raise AssertionError(f"{stage} J2: {stats['join_path']}, {stats['agg_path']}")
+                elif mode == "index":
+                    want = "HybridScanFilter" if hybrid else expect_index[name]
+                    if stats["scan"] != want:
+                        raise AssertionError(f"{stage} {name}: scan {stats['scan']}, expected {want}")
+                    if name == "lookups" and stats["files_pruned"] < buckets - 1:
+                        raise AssertionError(f"{stage} lookups: {stats['files_pruned']} files pruned")
+                launched = {"run_bounds": run_bounds.launches - k2, "segment_reduce": segment_reduce.launches - k1}
+                if device.type == "cuda" and name in ("J2", "range_agg") and launched["segment_reduce"] == 0:
+                    raise AssertionError(f"{stage} {name} {mode}: K1 never launched")
+                if device.type == "cuda" and name == "J2" and launched["run_bounds"] == 0:
+                    raise AssertionError(f"{stage} J2 {mode}: K2 never launched")
+                record = {"stage": stage, "query": name, "mode": mode, "rows": sum(r.num_rows for r in results),
+                          **timing, **{k: stats[k] for k in ("scan", "files_read", "files_pruned", "rows_pruned",
+                                                             "join_path", "agg_path")},
+                          "launches": launched}
+                out[f"{stage}_{name}_{mode}"] = record
+                log(json.dumps({"lifecycle_query": record}))
+        session.enable_hyperspace()
+
+    # Config 3: hybrid scan over the index and the appended 10%.
+    session.conf.set("hyperspace.index.hybridscan.enabled", True)
+    try:
+        append(0)
+        for name, qs in plans.items():
+            if not union_in(session.optimized_plan(qs[0])):
+                raise AssertionError(f"hybrid {name}: the plan holds no hybrid union")
+        sorts = record_bucket_sorts(lambda: session.run(plans["J2"][0]))
+        if sorts != [True, False]:
+            raise AssertionError(f"hybrid J2: bucket sorts {sorts}, expected the lineitem side's only")
+        run_queries("hybrid", ("index", "no_index"), hybrid=True)
+        # K1's and K2's inputs from one hybrid J2 run: buckets of index
+        # rows and delta rows, sorted per bucket.
+        session.enable_hyperspace()
+        k2_calls = capture_k2(lambda: session.run(plans["J2"][0]), join_agg)
+        k1_calls = capture_k1(lambda: session.run(plans["J2"][0]), join_agg)
+        if len(k2_calls) != 1 or len(k1_calls) != 2:
+            raise AssertionError(f"hybrid J2: {len(k2_calls)} K2 and {len(k1_calls)} K1 calls")
+        k1_inputs = {"hybrid J2 run extrema": k1_calls[0], "hybrid J2 fold": k1_calls[1]}
+        k2_inputs = {"hybrid J2": k2_calls[0]}
+        # A second append: the next warm run must miss the plan cache and
+        # answer the grown data.
+        append(1)
+        misses = cache.stats()["misses"]
+        outcome = session.run_query(plans["J2"][0], plan_cache=cache)
+        if cache.stats()["misses"] != misses + 1:
+            raise AssertionError("the run after the second append hit the plan cache")
+        lifecycle_check("J2", "after the second append J2", [outcome.result],
+                        pa.concat_tables(parts, promote_options="default"), ctx["o_source"], bounds, buckets)
+        state()
+    finally:
+        session.conf.set("hyperspace.index.hybridscan.enabled", False)
+
+    # The actions on li_live, each timed, each followed by the queries.
+    for action, call, dirs in (
+        ("refresh_incremental", lambda: hs.refresh_index(LIVE_INDEX, mode="incremental"), ["v__=0", "v__=1"]),
+        ("optimize", lambda: hs.optimize_index(LIVE_INDEX), ["v__=2"]),
+        ("refresh_full", lambda: hs.refresh_index(LIVE_INDEX), ["v__=3"]),
+    ):
+        t0 = time.perf_counter()
+        call()
+        sync()
+        out["actions_s"][action] = time.perf_counter() - t0
+        out[f"{action}_build_phases_s"] = session.last_build_stats["phases_s"]
+        out[f"{action}_rows"] = session.last_build_stats["rows"]
+        entry = next(e for e in session.manager.get_indexes() if e.name == LIVE_INDEX)
+        if entry.content.directories != dirs:
+            raise AssertionError(f"{action}: version dirs {entry.content.directories}, expected {dirs}")
+        for name, qs in plans.items():
+            if union_in(session.optimized_plan(qs[0])):
+                raise AssertionError(f"{action} {name}: the plan still holds a hybrid union")
+        if action == "optimize":
+            files = sorted((index_dir / dirs[0]).glob("bucket-*.parquet"))
+            if len(files) != buckets:
+                raise AssertionError(f"optimize left {len(files)} files for {buckets} buckets")
+        sorts = record_bucket_sorts(lambda: session.run(plans["J2"][0]))
+        want_sorts = [True, False] if action == "refresh_incremental" else [False, False]
+        if sorts != want_sorts:
+            raise AssertionError(f"{action} J2: bucket sorts {sorts}, expected {want_sorts}")
+        run_queries(action)
+        state()
+    out["taxi"] = taxi_loop(device, workdir, taxi_rows)
+
+    # The other actions: delete / restore, a crashed refresh recovered,
+    # delete / vacuum.
+    lookup = plans["lookups"][0]
+
+    def uses_index() -> bool:
+        return any(getattr(s, "bucket_spec", None) is not None for s in session.optimized_plan(lookup).leaves())
+
+    hs.delete_index(LIVE_INDEX)
+    state()
+    if uses_index():
+        raise AssertionError("a deleted index still serves")
+    hs.restore_index(LIVE_INDEX)
+    state()
+    if not uses_index():
+        raise AssertionError("the restored index does not serve")
+    # recover on the healthy index collects the versions the refreshes and
+    # optimize superseded; then a refresh that died after begin(): its
+    # REFRESHING entry and a partial version dir
+    # (tests/test_fault_injection.py's fake).
+    out["recover_superseded"] = hs.recover(LIVE_INDEX)
+    if out["recover_superseded"] != {"rolled": False, "quarantined_entries": 0, "orphans_removed": 3}:
+        raise AssertionError(f"recover of the superseded versions reported {out['recover_superseded']}")
+    lm = IndexLogManager(index_dir)
+    if not lm.write_log(lm.get_latest_id() + 1, lm.get_latest_log().with_state("REFRESHING")):
+        raise AssertionError("could not write the crashed refresh's entry")
+    orphan = index_dir / "v__=4"
+    orphan.mkdir()
+    (orphan / "bucket-00000.parquet").write_bytes(b"partial")
+    state()
+    out["recover"] = [hs.recover(LIVE_INDEX), hs.recover(LIVE_INDEX)]
+    if out["recover"] != [{"rolled": True, "quarantined_entries": 0, "orphans_removed": 1},
+                          {"rolled": False, "quarantined_entries": 0, "orphans_removed": 0}]:
+        raise AssertionError(f"recover reported {out['recover']}")
+    state()
+    run_queries("recovered")
+    hs.delete_index(LIVE_INDEX)
+    hs.vacuum_index(LIVE_INDEX)
+    state()
+    if list(index_dir.glob("v__=*")):
+        raise AssertionError("vacuum left version dirs")
+    want_states = ["ACTIVE", "ACTIVE", "ACTIVE", "ACTIVE", "DELETED", "ACTIVE", "REFRESHING", "ACTIVE", "DOESNOTEXIST"]
+    got_states = [s.get(LIVE_INDEX) for s in out["index_states"]]
+    if got_states != want_states:
+        raise AssertionError(f"li_live's states {got_states}, expected {want_states}")
+    out["caches"] = cache_stats()
+    return out, k1_inputs, k2_inputs
+
+
+def taxi_loop(device, workdir: Path, batch_rows: int = TAXI_BATCH_ROWS) -> dict:
+    """BASELINE config 4, benchmarks/bench_refresh.py's loop at one month
+    of trips a batch: `trips_zone` (32 buckets) created on batch 0, then
+    five times an append, an incremental refresh and two queries on the
+    indexed column against pyarrow (`zone == 42`, and sum(fare) and count
+    by zone over 12 zones); optimize after batch 3 and one full refresh at
+    the end. Returns each action's wall and
+    `taxi_incremental_ingest_throughput` as bench_refresh.py computes it
+    (every batch's bytes over the incremental refreshes' seconds)."""
+    import pandas as pd
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, PlanCache, col
+    from hyperspace_tpu_torch.datagen import gen_trips_batch
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    data = workdir / "trips"
+    session = HyperspaceSession(system_path=str(workdir / "taxi_indexes"), num_buckets=TAXI_BUCKETS, device=device)
+    hs = Hyperspace(session)
+    cache = PlanCache()
+    total_bytes = gen_trips_batch(data, batch_rows, 0)
+    batches = [pq.read_table(data / "batch-0000.parquet")]
+    df = session.parquet(data)
+    out: dict = {"batch_rows": batch_rows, "actions_s": {}, "queries": []}
+    t0 = time.perf_counter()
+    hs.create_index(df, IndexConfig("trips_zone", ["zone"], ["fare", "distance"]))
+    sync()
+    out["actions_s"]["create"] = time.perf_counter() - t0
+    session.enable_hyperspace()
+    point = df.filter(col("zone") == 42).select("zone", "fare")
+    by_zone = df.filter(col("zone").isin(TAXI_ZONES)).aggregate(["zone"], [("sum", "fare", "fare"), ("count", None, "n")])
+
+    def queries(label: str) -> None:
+        grown = pa.concat_tables(batches)
+        (got_point, got_agg), _, timing = cold_warm(f"taxi {label}", session, [point, by_zone], cache, sync,
+                                                    tolerant=("fare",))
+        _check_rows(f"taxi {label} zone 42", got_point, grown.filter(pc.equal(grown["zone"], 42)).select(["zone", "fare"]),
+                    ["zone", "fare"])
+        ref = grown.filter(pc.is_in(grown["zone"], value_set=pa.array(TAXI_ZONES, pa.int64()))).group_by("zone").aggregate(
+            [("fare", "sum"), ("fare", "count")]).to_pandas().sort_values("zone").reset_index(drop=True)
+        got = pd.DataFrame(got_agg.decode()).sort_values("zone").reset_index(drop=True)
+        if list(got["zone"]) != list(ref["zone"]) or list(got["n"]) != list(ref["fare_count"]):
+            raise AssertionError(f"taxi {label}: groups or counts differ from pyarrow")
+        tol = sum_tolerance(ref["fare_count"].to_numpy(), ref["fare_sum"].to_numpy())
+        if not np.all(np.abs(got["fare"].to_numpy() - ref["fare_sum"].to_numpy()) <= tol):
+            raise AssertionError(f"taxi {label}: fare sums beyond the float64 bound")
+        stats = timing.pop("warm_stats")
+        if stats["scan"] != "IndexPointLookup":
+            raise AssertionError(f"taxi {label}: the zone IN list read {stats['scan']}, not its buckets")
+        record = {"after": label, "rows": len(grown), "point_rows": got_point.num_rows, **timing,
+                  **{k: stats[k] for k in ("scan", "files_read", "files_pruned")}}
+        out["queries"].append(record)
+        log(json.dumps({"taxi_query": record}))
+
+    queries("create")
+    t_inc = 0.0
+    for b in range(1, TAXI_BATCHES):
+        total_bytes += gen_trips_batch(data, batch_rows, b)
+        batches.append(pq.read_table(data / f"batch-{b:04d}.parquet"))
+        t0 = time.perf_counter()
+        hs.refresh_index("trips_zone", mode="incremental")
+        sync()
+        out["actions_s"][f"refresh_incremental_{b}"] = time.perf_counter() - t0
+        t_inc += out["actions_s"][f"refresh_incremental_{b}"]
+        queries(f"batch {b}")
+        if b == TAXI_BATCHES // 2:
+            t0 = time.perf_counter()
+            hs.optimize_index("trips_zone")
+            sync()
+            out["actions_s"]["optimize"] = time.perf_counter() - t0
+            out["optimize_build_phases_s"] = session.last_build_stats["phases_s"]
+            queries(f"optimize after batch {b}")
+    t0 = time.perf_counter()
+    hs.refresh_index("trips_zone")
+    sync()
+    out["actions_s"]["refresh_full"] = time.perf_counter() - t0
+    out["refresh_full_build_phases_s"] = session.last_build_stats["phases_s"]
+    queries("full refresh")
+    out["total_rows"] = batch_rows * TAXI_BATCHES
+    out["total_bytes"] = total_bytes
+    out["taxi_incremental_ingest_throughput_gbps"] = total_bytes / 1e9 / t_inc
+    out["vs_full_rebuilds"] = out["actions_s"]["refresh_full"] * (TAXI_BATCHES - 1) / t_inc
+    return out
+
+
+VECTOR_APPENDED = 0.1  # the vector lifecycle appends 10% more rows
+
+
+def vector_lifecycle(device, vctx: dict) -> dict:
+    """The vector index's lifecycle at the end of the vector path, on its
+    index: 10% more rows drawn from the same clusters (gen_embeddings'
+    append), an incremental refresh (the appended rows assigned to the
+    existing centroids on the card), `ann_search` at nprobe 8 and full
+    probe (k = 10) against brute force and a float64 exact top-10 over
+    every row; then optimize (retrained centroids, one version) and the
+    same searches."""
+    import torch
+
+    from hyperspace_tpu_torch.datagen import gen_embeddings
+
+    session, hs, df, workdir = vctx["session"], vctx["hs"], vctx["df"], vctx["workdir"]
+    n, dim, partitions, queries = vctx["n"], vctx["dim"], vctx["partitions"], vctx["queries"]
+    index_dir = workdir / "vindexes" / "annidx"
+    out: dict = {"actions_s": {}, "checks": {}}
+    extra = gen_embeddings(workdir / "emb", n, dim, clusters=partitions, seed=7, appended=int(n * VECTOR_APPENDED))
+    emb_all = np.concatenate([vctx["emb"], extra])
+    out["rows"] = len(emb_all)
+    t0 = time.perf_counter()
+    exact_ids, exact_d2 = exact_l2_topk(emb_all, queries, 10)
+    out["exact_host_float64_s"] = time.perf_counter() - t0
+
+    def searches(stage: str) -> None:
+        def ids_of(res):
+            return res.rows.host_column("id").reshape(len(queries), 10)
+
+        session.disable_hyperspace()
+        brute = hs.ann_search(df, queries, k=10)
+        session.enable_hyperspace()
+        got = {}
+        for nprobe in (8, partitions):
+            hs.ann_search(df, queries, k=10, nprobe=nprobe)  # cold
+            t0 = time.perf_counter()
+            got[nprobe] = hs.ann_search(df, queries, k=10, nprobe=nprobe)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            out[f"{stage}_ann_nprobe{nprobe}_s"] = time.perf_counter() - t0
+        out["checks"][f"{stage}_brute"] = check_against_exact(
+            f"{stage} brute force", brute.scores, ids_of(brute), exact_ids, exact_d2, emb_all, queries, 10)
+        out["checks"][f"{stage}_full_probe"] = check_against_exact(
+            f"{stage} full probe", got[partitions].scores, ids_of(got[partitions]), exact_ids, exact_d2, emb_all,
+            queries, 10)
+        if not np.allclose(got[partitions].scores, brute.scores, rtol=1e-4,
+                           atol=2 * l2_rounding(emb_all, queries, exact_ids).max()):
+            raise AssertionError(f"{stage}: full probe scores differ from brute force")
+        got8 = ids_of(got[8])
+        recall = float(np.mean([len(set(got8[i]) & set(exact_ids[i, :10])) / 10 for i in range(len(queries))]))
+        out["checks"][f"{stage}_recall_at_10_nprobe8"] = recall
+        if recall < 0.8:
+            raise AssertionError(f"{stage}: recall@10 at nprobe 8 is {recall} < 0.8")
+
+    before = np.load(index_dir / "v__=0" / "_centroids.npy")
+    t0 = time.perf_counter()
+    hs.refresh_index("annidx", mode="incremental")
+    out["actions_s"]["refresh_incremental"] = time.perf_counter() - t0
+    out["refresh_incremental_phases_s"] = session.last_build_stats["phases_s"]
+    entry = session.manager.get_indexes()[0]
+    if entry.content.directories != ["v__=0", "v__=1"]:
+        raise AssertionError(f"incremental refresh: version dirs {entry.content.directories}")
+    if not np.array_equal(np.load(index_dir / "v__=1" / "_centroids.npy"), before):
+        raise AssertionError("incremental refresh moved the centroids")
+    searches("incremental")
+    t0 = time.perf_counter()
+    hs.optimize_index("annidx")
+    out["actions_s"]["optimize"] = time.perf_counter() - t0
+    out["optimize_phases_s"] = session.last_build_stats["phases_s"]
+    entry = session.manager.get_indexes()[0]
+    if entry.content.directories != ["v__=2"]:
+        raise AssertionError(f"optimize: version dirs {entry.content.directories}")
+    searches("optimized")
+    return out
 # -- vector path --------------------------------------------------------------
 
 
@@ -2247,11 +2788,12 @@ def capture_topk(fn) -> list:
     return calls
 
 
-def vector_path(device, workdir: Path, n: int, dim: int = 128, partitions: int = 64) -> tuple[dict, dict]:
+def vector_path(device, workdir: Path, n: int, dim: int = 128, partitions: int = 64) -> tuple[dict, dict, dict]:
     """The port's vector index through its user entry points, at the shape
     of SIFT1M (1M x 128 float32, l2, k = 10) with the settings of
     benchmarks/bench_ann.py. Returns (the phase wall times and checks,
-    the K3 inputs at the path's four shapes)."""
+    the K3 inputs at the path's four shapes, what the vector lifecycle
+    reuses)."""
     import pyarrow.parquet as pq
     import torch
 
@@ -2384,9 +2926,10 @@ def vector_path(device, workdir: Path, n: int, dim: int = 128, partitions: int =
         "brute force": (brute_scores, 10), "brute force k=100": (brute_scores, 100),
         f"candidates k={big_k}": (big_candidates, big_k), f"brute force k={big_k}": (brute_scores, big_k),
     }
-    del emb
+    vctx = {"session": session, "hs": hs, "df": df, "workdir": workdir, "emb": emb, "queries": queries,
+            "n": n, "dim": dim, "partitions": partitions}
     return {"rows": n, "dim": dim, "partitions": partitions, "queries": len(queries),
-            "phases": phases, "checks": checks}, k3_inputs
+            "phases": phases, "checks": checks}, k3_inputs, vctx
 
 
 def tie_heavy(scores):
@@ -2518,15 +3061,32 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
         launches["query_surface"] = read_counts("query surface", ("run_bounds", "segment_reduce"))
         log(json.dumps({"query_surface_path": surface, "launches": launches["query_surface"]}))
         log(json.dumps({"caches_after_path": "query surface", **cache_stats()}))
+        zero_counts()
+        t0 = time.perf_counter()
+        lifecycle, k1_life_inputs, k2_life_inputs = lifecycle_path(device, ctx, args.sf)
+        lifecycle["lifecycle_path_s"] = time.perf_counter() - t0
+        launches["lifecycle"] = read_counts("lifecycle", ("run_bounds", "segment_reduce"))
+        log(json.dumps({"lifecycle_path": lifecycle, "launches": launches["lifecycle"]}))
+        log(json.dumps({"caches_after_path": "lifecycle", **cache_stats()}))
+        k1_join_inputs.update(k1_life_inputs)
+        k2_inputs.update(k2_life_inputs)
         k1_agg_inputs = {**ctx["k1_inputs"], **ctx["k1_surface_inputs"]}
         del ctx
         zero_counts()
         t0 = time.perf_counter()
-        vector, k3_inputs = vector_path(device, work, n=1_000_000)
+        vector, k3_inputs, vctx = vector_path(device, work, n=1_000_000)
         vector["phases"]["vector_path_s"] = time.perf_counter() - t0
         launches["vector"] = read_counts("vector", ("topk",))
         log(json.dumps({"vector_path": vector, "launches": launches["vector"]}))
         log(json.dumps({"caches_after_path": "vector", **cache_stats()}))
+        zero_counts()
+        t0 = time.perf_counter()
+        vector_life = vector_lifecycle(device, vctx)
+        vector_life["vector_lifecycle_s"] = time.perf_counter() - t0
+        launches["vector_lifecycle"] = read_counts("vector lifecycle", ("topk",))
+        log(json.dumps({"vector_lifecycle": vector_life, "launches": launches["vector_lifecycle"]}))
+        log(json.dumps({"caches_after_path": "vector lifecycle", **cache_stats()}))
+        del vctx
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2593,9 +3153,9 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
             "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-            # K1 runs on four paths: its launches on each, summed.
+            # K1 runs on five paths: its launches on each, summed.
             "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types",
-                                                                     "query_surface")),
+                                                                     "query_surface", "lifecycle")),
             "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
@@ -2634,9 +3194,10 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
             "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
-            # K2 runs on the join paths and the query surface: its
-            # launches on each, summed.
-            "launches": sum(launches[p]["run_bounds"] for p in ("join", "join_types", "query_surface")),
+            # K2 runs on the join paths, the query surface and the
+            # lifecycle: its launches on each, summed.
+            "launches": sum(launches[p]["run_bounds"] for p in ("join", "join_types", "query_surface",
+                                                                 "lifecycle")),
             "launches_by_path": {p: c["run_bounds"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
@@ -2662,7 +3223,9 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/topk.cu",
             "replaces": "hyperspace_tpu/ops/topk.py:46",
-            "launches": launches["vector"]["topk"],
+            # K3 runs on the vector path and its lifecycle: summed.
+            "launches": launches["vector"]["topk"] + launches["vector_lifecycle"]["topk"],
+            "launches_by_path": {p: c["topk"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

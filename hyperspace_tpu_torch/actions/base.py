@@ -14,8 +14,9 @@ A copy of the JAX package's protocol, so the op log each package writes
 reads the same in the other. An `op()` that raises is rolled back
 in-process: a roll-back entry restoring the last stable state is
 CAS-written at `base_id + 2` and the action's partial data is
-quarantined. Crash recovery (`recover()`) and the tracing spans are not
-ported yet.
+quarantined. A hard crash leaves the transient entry behind, and
+`recover()` (index/collection_manager.py) repairs it from the next
+process. The tracing spans and the CAS retry are not ported yet.
 """
 
 from __future__ import annotations
@@ -103,10 +104,14 @@ class Action:
 
     def _rollback_failed_op(self) -> None:
         """CAS-write a roll-back entry at `base_id + 2` restoring the last
-        stable state (DOESNOTEXIST when there is none), repoint
+        stable state (DOESNOTEXIST when there is none, or for a dying
+        vacuum — the rules of cancel.py), repoint
         `latestStable`, quarantine partial data."""
         stable = self.log_manager.get_latest_stable_log()
-        state = stable.state if stable is not None else states.DOESNOTEXIST
+        if self.transient_state == states.VACUUMING:
+            state = states.DOESNOTEXIST
+        else:
+            state = stable.state if stable is not None else states.DOESNOTEXIST
         base = stable if stable is not None else self.log_entry
         rollback = dataclasses.replace(base).with_state(state)
         rollback_id = self.base_id + 2

@@ -3,9 +3,10 @@
 The same defaults, directory-layout constants and string keys as the JAX
 package's `config.py`, so an index directory written by either package
 is laid out identically and a session is configured with the same
-`session.conf.set(key, value)` calls. The port reads four keys:
+`session.conf.set(key, value)` calls. The port reads eight keys:
 `hyperspace.system.path`, `hyperspace.index.num.buckets`,
-`hyperspace.join.broadcast.maxRows` and `hyperspace.join.rebucketize`.
+`hyperspace.join.broadcast.maxRows`, `hyperspace.join.rebucketize`, the
+two hybrid-scan keys and the two lazy-recovery keys.
 A key the JAX package declares but the port does not read yet raises,
 naming it as not ported; an undeclared `hyperspace.*` key raises with a
 did-you-mean suggestion, as the JAX package's `check_known_key` does.
@@ -39,19 +40,33 @@ JOIN_BROADCAST_MAX_ROWS = "hyperspace.join.broadcast.maxRows"
 # merge stays bucket-parallel. "auto" engages it where the broadcast probe
 # does not apply; "force" always; "off" keeps the single-partition path.
 JOIN_REBUCKETIZE = "hyperspace.join.rebucketize"
+INDEX_HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
+# Hybrid scan only applies while appended bytes stay below this fraction of
+# the indexed source (past it, scanning deltas unindexed beats the index).
+INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO = "hyperspace.index.hybridscan.maxAppendedRatio"
+# Index listing lazily repairs crash damage (recover()) on access; a
+# transient entry is left alone until it is at least graceSeconds stale,
+# so a listing cannot cancel a live writer's in-flight action.
+RECOVER_ON_ACCESS = "hyperspace.recover.onAccess"
+RECOVER_GRACE_SECONDS = "hyperspace.recover.graceSeconds"
 
 DEFAULT_NUM_BUCKETS = 8
 DEFAULT_CACHE_EXPIRY_SECONDS = 300.0
 DEFAULT_JOIN_BROADCAST_MAX_ROWS = 4_000_000
 DEFAULT_JOIN_REBUCKETIZE = "auto"
+DEFAULT_HYBRID_SCAN_MAX_APPENDED_RATIO = 0.3
+DEFAULT_RECOVER_GRACE_SECONDS = 300.0
 
 # The keys the port reads.
-PORTED_KEYS = (INDEX_SYSTEM_PATH, INDEX_NUM_BUCKETS, JOIN_BROADCAST_MAX_ROWS, JOIN_REBUCKETIZE)
+PORTED_KEYS = (
+    INDEX_SYSTEM_PATH, INDEX_NUM_BUCKETS, JOIN_BROADCAST_MAX_ROWS, JOIN_REBUCKETIZE,
+    INDEX_HYBRID_SCAN_ENABLED, INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO, RECOVER_ON_ACCESS,
+    RECOVER_GRACE_SECONDS,
+)
 # The JAX package's other declared keys (its `config.KNOWN_KEYS`), whose
 # modules are not ported yet.
 UNPORTED_KEYS = frozenset((
-    'hyperspace.index.cache.expiryDurationInSeconds', 'hyperspace.index.hybridscan.enabled',
-    'hyperspace.index.hybridscan.maxAppendedRatio', 'hyperspace.index.build.memoryBudgetBytes',
+    'hyperspace.index.cache.expiryDurationInSeconds', 'hyperspace.index.build.memoryBudgetBytes',
     'hyperspace.index.build.chunkBytes', 'hyperspace.join.venue', 'hyperspace.join.venueMinMbps',
     'hyperspace.build.venue', 'hyperspace.build.pipeline.enabled',
     'hyperspace.build.pipeline.maxInflightBytes', 'hyperspace.build.workers',
@@ -68,8 +83,7 @@ UNPORTED_KEYS = frozenset((
     'hyperspace.obs.slo.availabilityTarget', 'hyperspace.obs.slo.latencyP99Seconds',
     'hyperspace.obs.journal.enabled', 'hyperspace.obs.journal.dir',
     'hyperspace.obs.journal.segmentBytes', 'hyperspace.obs.journal.maxBytes',
-    'hyperspace.obs.journal.snapshotSeconds', 'hyperspace.recover.onAccess',
-    'hyperspace.recover.graceSeconds', 'hyperspace.serve.workers',
+    'hyperspace.obs.journal.snapshotSeconds', 'hyperspace.serve.workers',
     'hyperspace.serve.maxQueueDepth', 'hyperspace.serve.queryTimeoutSeconds',
     'hyperspace.serve.planCache.enabled', 'hyperspace.serve.planCache.maxEntries',
     'hyperspace.serve.resultCache.enabled', 'hyperspace.serve.resultCache.maxBytes',
@@ -112,6 +126,10 @@ def check_known_key(key: str) -> None:
     raise UnknownConfigKeyError(key, close[0] if close else None)
 
 
+def _as_bool(value: Any) -> bool:
+    return bool(value) if not isinstance(value, str) else value.lower() == "true"
+
+
 @dataclasses.dataclass
 class HyperspaceConf:
     """Per-session configuration with string-key overrides."""
@@ -120,6 +138,10 @@ class HyperspaceConf:
     num_buckets: int = DEFAULT_NUM_BUCKETS
     join_broadcast_max_rows: int = DEFAULT_JOIN_BROADCAST_MAX_ROWS
     join_rebucketize: str = DEFAULT_JOIN_REBUCKETIZE
+    hybrid_scan_enabled: bool = False
+    hybrid_scan_max_appended_ratio: float = DEFAULT_HYBRID_SCAN_MAX_APPENDED_RATIO
+    recover_on_access: bool = True
+    recover_grace_seconds: float = DEFAULT_RECOVER_GRACE_SECONDS
     overrides: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -137,6 +159,14 @@ class HyperspaceConf:
             self.join_broadcast_max_rows = int(value)
         elif key == JOIN_REBUCKETIZE:
             self.join_rebucketize = str(value)
+        elif key == INDEX_HYBRID_SCAN_ENABLED:
+            self.hybrid_scan_enabled = _as_bool(value)
+        elif key == INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO:
+            self.hybrid_scan_max_appended_ratio = float(value)
+        elif key == RECOVER_ON_ACCESS:
+            self.recover_on_access = _as_bool(value)
+        elif key == RECOVER_GRACE_SECONDS:
+            self.recover_grace_seconds = float(value)
 
     def get(self, key: str, default: Any = None) -> Any:
         check_known_key(key)
@@ -150,4 +180,12 @@ class HyperspaceConf:
             return self.join_broadcast_max_rows
         if key == JOIN_REBUCKETIZE:
             return self.join_rebucketize
+        if key == INDEX_HYBRID_SCAN_ENABLED:
+            return self.hybrid_scan_enabled
+        if key == INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO:
+            return self.hybrid_scan_max_appended_ratio
+        if key == RECOVER_ON_ACCESS:
+            return self.recover_on_access
+        if key == RECOVER_GRACE_SECONDS:
+            return self.recover_grace_seconds
         return default

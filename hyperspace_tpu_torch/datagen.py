@@ -12,7 +12,11 @@ the 9-column orders table (1.5M rows at SF1, `o_orderkey` in
 chunk by chunk with a seed derived per file, so the same `sf` and `seed`
 give the same files as the JAX package's generators. `gen_embeddings` is
 the port's copy of the JAX package's generator of the same name: the same
-seed gives the same matrix and the same file. The TPC-DS store channel is
+seed gives the same matrix and the same file (its `appended` draw, which
+the JAX package's lacks, writes a second file and leaves the first as it
+was). `gen_trips_batch` is a copy of `benchmarks/datagen.py`'s NYC-Taxi
+batch (`trip_id`, `zone` in 0-264, `fare`, `distance`; a file a batch).
+The TPC-DS store channel is
 a copy of `benchmarks/tpcds.py`'s `gen_date_dim` (73,049 days from
 1900-01-02), `gen_item` (18,000 rows at SF1), `gen_store` (12 rows) and
 `gen_store_sales` (2,879,987 rows and 17 columns at SF1, in tickets of
@@ -187,23 +191,49 @@ def gen_tpch_customer(root: Path, sf: float = 1.0, seed: int = 45, files: int = 
     return t.nbytes
 
 
-def gen_embeddings(root: Path, n: int, dim: int, clusters: int, seed: int = 7) -> np.ndarray:
+def gen_embeddings(
+    root: Path, n: int, dim: int, clusters: int, seed: int = 7, appended: int = 0
+) -> np.ndarray:
     """Clustered embedding table (`id` int64, `emb` float32 FixedSizeList of
     `dim`) in one parquet file under `root`; returns the raw [n, dim]
-    matrix for querying."""
+    matrix for querying. With `appended` > 0, the `appended` rows drawn
+    after those n from the same clusters are written instead, to
+    `part-1.parquet` with ids n, n+1, ..., and returned [appended, dim]:
+    an append to the table the same call without it writes."""
     rng = np.random.default_rng(seed)
     centers = rng.standard_normal((clusters, dim)).astype(np.float32) * 4
     emb = centers[rng.integers(0, clusters, n)] + rng.standard_normal((n, dim)).astype(np.float32)
+    first, name = 0, "part-0.parquet"
+    if appended:
+        emb = centers[rng.integers(0, clusters, appended)] + rng.standard_normal((appended, dim)).astype(np.float32)
+        first, name = n, "part-1.parquet"
     t = pa.table(
         {
-            "id": pa.array(np.arange(n, dtype=np.int64)),
+            "id": pa.array(np.arange(first, first + len(emb), dtype=np.int64)),
             "emb": pa.FixedSizeListArray.from_arrays(pa.array(emb.reshape(-1), type=pa.float32()), dim),
         }
     )
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
-    pq.write_table(t, root / "part-0.parquet")
+    pq.write_table(t, root / name)
     return emb
+
+
+def gen_trips_batch(root: Path, n: int, batch: int, seed: int = 50) -> int:
+    """One append batch of taxi-trip-shaped rows (file per batch); returns
+    the batch's in-memory byte size."""
+    rng = np.random.default_rng(seed + batch)
+    t = pa.table(
+        {
+            "trip_id": (np.arange(n, dtype=np.int64) + batch * n),
+            "zone": rng.integers(0, 265, n).astype(np.int64),
+            "fare": (rng.random(n) * 80),
+            "distance": (rng.random(n) * 30),
+        }
+    )
+    root.mkdir(parents=True, exist_ok=True)
+    pq.write_table(t, root / f"batch-{batch:04d}.parquet")
+    return t.nbytes
 
 
 # -- TPC-DS store channel (a copy of the JAX package's benchmarks/tpcds.py) ----

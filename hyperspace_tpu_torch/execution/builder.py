@@ -13,10 +13,12 @@ index/DataFrameWriterExtensions.scala:49-78):
           per bucket + a manifest of per-bucket row counts and stats
 
 A port of the in-memory path of the JAX package's
-`DeviceIndexBuilder.write_table`, on one device. Its streaming
-(out-of-core) and pooled (multi-process) builds are not ported yet.
+`DeviceIndexBuilder.write_table` and `compact`, on one device. Its
+streaming (out-of-core) and pooled (multi-process) builds, and with them
+compaction of an index larger than memory, are not ported yet.
 `DeviceIndexBuilder` implements the `IndexWriter` seam consumed by
-CreateAction.
+CreateAction and the refresh actions, and the `IndexCompactor` seam
+consumed by OptimizeAction.
 """
 
 from __future__ import annotations
@@ -66,6 +68,25 @@ class DeviceIndexBuilder:
         phases = self.write_table(table, indexed_columns, num_buckets, dest_path)
         self.last_build_stats = {
             "path": "in-memory",
+            "rows": table.num_rows,
+            "phases_s": {"decode": t_decode, **phases},
+        }
+
+    def compact(self, entry, src_paths: list[Path], dest_path: Path) -> None:
+        """Merge all files of each bucket across every live version dir
+        (base + incremental-refresh deltas) into one sorted file per bucket
+        in the new version dir: every row is read, in the dirs' order and
+        the listing's order within a dir, and rebuilt through
+        `write_table`, whose stable sort keeps equal keys in that order."""
+        files = [fi.path for src in src_paths for fi in list_data_files(src)]
+        t0 = time.perf_counter()
+        table = hio.read_parquet(files, device="cpu")
+        t_decode = time.perf_counter() - t0
+        phases = self.write_table(
+            table, entry.derived_dataset.indexed_columns, entry.derived_dataset.num_buckets, dest_path
+        )
+        self.last_build_stats = {
+            "path": "compact",
             "rows": table.num_rows,
             "phases_s": {"decode": t_decode, **phases},
         }

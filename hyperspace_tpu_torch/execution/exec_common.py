@@ -4,10 +4,10 @@ broadcast probe, the outer join's null extension and the aggregate
 channel inputs.
 
 A port of the JAX package's `execution/exec_common.py` without what
-only its unported modules use (hybrid-scan deltas, the run-extremum host
-venue): `_TableLeaf` (a materialized table as a plan leaf, which the
-partial-aggregation pushdown and the grouping sets splice in),
-`_desugar_count_distinct`, `AlignedSide` (without its projection: the
+only its unported modules use (the run-extremum host venue): `_TableLeaf`
+(a materialized table as a plan leaf, which the partial-aggregation
+pushdown and the grouping sets splice in), `_desugar_count_distinct`,
+`AlignedSide` (with its hybrid-scan deltas, without its projection: the
 join gather emits the join's schema directly), `SideData` with its hash
 domain and `_hash_fields_compatible`, `_filter_side`,
 `_bucket_sorted_codes`, `_pad_bucket_major`, `_composite_keys`,
@@ -65,6 +65,10 @@ class _TableLeaf(LogicalPlan):
 @dataclasses.dataclass
 class AlignedSide:
     scan: Scan
+    # Hybrid scan: unbucketed delta scans (appended files) whose rows are
+    # bucketized on the fly and merged into the index buckets before the
+    # merge join; any number of them.
+    deltas: tuple[Scan, ...] = ()
     # Side-local filter (JoinIndexRule keeps linear sides with filters):
     # applied per bucket BEFORE the merge, preserving bucket grouping and
     # within-bucket sort order (a filtered subsequence stays sorted).

@@ -9,12 +9,16 @@ surviving file on the host with np.searchsorted, the port finds every
 file's slice with one batched torch.searchsorted over the bucket-major
 padded keys and gathers the kept rows once: a key range overlaps nearly
 every bucket of a hash-bucketed index, and a slice a file, each with a
-host sync, would cost more than the query. Hybrid scans are not ported
-yet.
+host sync, would cost more than the query. A Filter over a hybrid scan
+(a Union of an index scan and the appended files, from hybrid scan)
+bucket-prunes or range-prunes the index scan's files, reads the deltas
+whole and masks the union (`HybridScanFilter`, the JAX package's
+physical-plan name).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 import os
@@ -42,7 +46,7 @@ from hyperspace_tpu_torch.execution.table import ColumnTable
 from hyperspace_tpu_torch.ops.filter import apply_filter
 from hyperspace_tpu_torch.ops.hashing import bucket_ids, hash_scalar_key
 from hyperspace_tpu_torch.plan.expr import BinOp, Col, Expr, InList, Lit, split_conjuncts
-from hyperspace_tpu_torch.plan.nodes import Filter, Scan
+from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Scan, Union
 
 # Bucket pruning reads at most this many point combinations; above it
 # the (still-correct) mask takes over.
@@ -175,6 +179,21 @@ class ScanFilterMixin:
                     return table
                 self.stats["range_exact"] = False
                 return apply_filter(table, plan.predicate)
+        if isinstance(child, Union):
+            # Hybrid scan: prune the bucketed input(s), keep deltas whole.
+            new_inputs: list[LogicalPlan] = []
+            for inp in child.inputs:
+                if isinstance(inp, Scan) and inp.bucket_spec is not None:
+                    pruned = self._prune_bucket_files(inp, plan.predicate)
+                    if pruned is None:
+                        ranged = self._range_prune_list(inp, plan.predicate)
+                        pruned = ranged[0] if ranged is not None else None
+                    if pruned is not None:
+                        inp = dataclasses.replace(inp, files=pruned)
+                new_inputs.append(inp)
+            table = self._union(Union(new_inputs))
+            self.stats["scan"] = "HybridScanFilter"
+            return apply_filter(table, plan.predicate)
         return apply_filter(self._execute(child), plan.predicate)
 
     def _prune_bucket_files(self, scan: Scan, predicate: Expr) -> list[str] | None:

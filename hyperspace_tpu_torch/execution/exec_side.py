@@ -20,9 +20,12 @@ membership probe against the producer's sorted key set. The cut is
 memoized in HOST_DERIVED on the side's stable identity, so a repeated
 query sees the same tensors. The exchange hashes rows on the host (the
 row hash, as the build does) and groups them with one stable device sort
-of the bucket ids (the JAX package's `device-sort-exchange`). Hybrid-scan
-(Union) sides are not ported: such a side is no aligned side, and the
-join runs on the general paths.
+of the bucket ids (the JAX package's `device-sort-exchange`). A hybrid
+side (a Union of an index scan and the appended files' scans, from hybrid
+scan) is an aligned side with deltas: its delta rows are hashed on the
+host on the bucket columns in build order and, with the index rows'
+bucket ids, grouped by one stable device sort (`_merge_deltas`). As in
+the JAX package, DPP cuts only the index rows; the deltas join whole.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from hyperspace_tpu_torch.ops.hashing import (
     string_dict_hashes,
 )
 from hyperspace_tpu_torch.plan.expr import And
-from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Project, Scan, Union
 
 
 class JoinSidesMixin:
@@ -229,6 +232,25 @@ class JoinSidesMixin:
             if isinstance(node, Filter):
                 predicate = node.predicate if predicate is None else And(predicate, node.predicate)
             node = node.child
+        if isinstance(node, Union):
+            # Hybrid scan of any width: exactly one bucketed index scan
+            # plus unbucketed delta scans (appended files).
+            base = None
+            deltas: list[Scan] = []
+            for inp in node.inputs:
+                if isinstance(inp, Project) and inp.is_simple and isinstance(inp.child, Scan):
+                    inp = inp.child
+                if not isinstance(inp, Scan):
+                    return None
+                if inp.bucket_spec is not None:
+                    if base is not None:
+                        return None  # two index scans: not a hybrid side
+                    base = inp
+                else:
+                    deltas.append(inp)
+            if base is None:
+                return None
+            return AlignedSide(base, deltas=tuple(deltas), predicate=predicate)
         if isinstance(node, Scan):
             return AlignedSide(node, predicate=predicate)
         return None
@@ -353,10 +375,47 @@ class JoinSidesMixin:
             table, offsets = self._dpp_cut_cached(table, offsets, sliceable, schema.field(hf[0].name), dpp_bounds)
             if rows_before - table.num_rows:
                 self.stats["rows_pruned"] += rows_before - table.num_rows
+        if side.deltas:
+            table, offsets = self._merge_deltas(side, table, offsets, num_buckets)
+            sorted_within = False
         out = SideData(table, offsets, sorted_within, hash_fields=hf)
         if side.predicate is not None:
             out = _filter_side(out, side.predicate)
         return out
+
+    def _merge_deltas(self, side: AlignedSide, table: ColumnTable, offsets: np.ndarray, num_buckets: int):
+        """Hybrid scan: the appended files' rows bucketized on the fly and
+        merged into the index side's buckets. The delta rows are hashed on
+        the host on the bucket columns in BUILD order (not join-key order),
+        so they land in the buckets the index used; their bucket ids, after
+        the index rows' ids, get one stable device sort, so each bucket
+        holds its index rows first, then its delta rows in file order (the
+        JAX package's host argsort, row for row). Memoized in HOST_DERIVED
+        on the inputs' stable identity, so a repeated query sees the same
+        tensors and every derivation keyed on them hits. Returns (table,
+        offsets); the buckets are no longer sorted within."""
+        schema = side.scan.scan_schema
+        keys = list(side.scan.bucket_spec[1])
+        dts = [self._read(scan_files(d), schema.names, d.scan_schema, None) for d in side.deltas]
+        names = {n.lower() for n in schema.names}
+
+        def merge():
+            dbs = [to_tensor(bucket_ids(compute_row_hashes(dt, keys), num_buckets), table.device) for dt in dts]
+            all_bucket = torch.cat([_bucket_of(offsets, table.device).to(torch.int32), *dbs])
+            order = torch.sort(all_bucket, stable=True).indices
+            counts = torch.bincount(all_bucket, minlength=num_buckets).cpu().numpy()
+            new_offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+            out = ColumnTable.concat([table, *dts]).take(order)
+            return out.columns, out.validity, out.dictionaries, new_offsets
+
+        stable = [_stable_table_refs(t, names) for t in (table, *dts)]
+        if any(refs is None for refs, _ in stable):
+            cols, val, dicts, new_offsets = merge()
+        else:
+            refs = tuple(r for t_refs, _ in stable for r in t_refs)
+            key = ("hybrid", tuple(parts for _, parts in stable), offsets.tobytes(), tuple(k.lower() for k in keys))
+            cols, val, dicts, new_offsets = dc.derived(key, refs, merge)
+        return ColumnTable(table.schema, dict(cols), dict(dicts), dict(val), table.device), new_offsets
 
     def _dpp_bucket_set(self, side: AlignedSide, bounds, num_buckets: int):
         """The set of bucket ids the producer's surviving keys can hash

@@ -246,6 +246,8 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
         return table.take(device_order_perm(table, plan.by))
 
     def _union(self, plan: Union) -> ColumnTable:
+        """UNION ALL, and the hybrid scan's union of an index scan with
+        the appended files (its delta reads count in `files_read`)."""
         schema = plan.schema
         parts = []
         for child in plan.inputs:

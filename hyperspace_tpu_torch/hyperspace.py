@@ -8,21 +8,25 @@ owns the configuration, the device and the enable/disable switch;
 rules when enabled.
 
 A port of the JAX package's `hyperspace.py` (`HyperspaceSession.parquet /
-enable_hyperspace / disable_hyperspace / run / to_pandas` and
-`Hyperspace.create_index`, `create_vector_index` and `ann_search`), with
-`run_query(plan, plan_cache=)` and `QueryOutcome`. The session runs on
-the CUDA card unless the caller passes `device="cpu"`. `last_query_stats`
-reports what ran: the scan kind, files read or pruned, rows pruned by a
+enable_hyperspace / disable_hyperspace / run / to_pandas` and the
+`Hyperspace` facade: `create_index`, `create_vector_index`, `ann_search`
+and the lifecycle — `delete_index`, `restore_index`, `vacuum_index`,
+`refresh_index(name, mode)`, `optimize_index`, `cancel`, `recover` and
+`indexes`), with `run_query(plan, plan_cache=)` and `QueryOutcome`. The
+session runs on the CUDA card unless the caller passes `device="cpu"`.
+`last_query_stats` reports what ran: the scan kind (`HybridScanFilter`
+for a filter over a hybrid scan), files read or pruned, rows pruned by a
 range slice or a join's dynamic partition pruning and whether a range
-slice was exact, the aggregate path, for a
-join its path (`zero-exchange-aligned`, `single-partition`,
-`broadcast-hash`, `rebucketized-aligned` or `bucket-preserved-aligned`;
-`join_paths` lists every join's), kernel, exchange kernel and bucket
-count, and the host's seconds by step (`host_s`: plan, read,
-derive, execute). Decoded columns and derived arrays are cached per
-process (execution/device_cache.py). Corruption fallback, profiles, the
-server, the advisor and the lifecycle APIs other than create are not
-ported yet.
+slice was exact, the aggregate path, for a join its path
+(`zero-exchange-aligned`, `single-partition`, `broadcast-hash`,
+`rebucketized-aligned` or `bucket-preserved-aligned`; `join_paths` lists
+every join's), kernel, exchange kernel and bucket count, and the host's
+seconds by step (`host_s`: plan, read, derive, execute). Decoded columns
+and derived arrays are cached per process (execution/device_cache.py).
+With `hyperspace.index.hybridscan.enabled`, an index whose source has
+gained files still serves, through a hybrid scan of the index and the
+appended files. The corruption quarantine and fallback, profiles, the
+server and the advisor are not ported yet.
 """
 
 from __future__ import annotations
@@ -181,8 +185,8 @@ class HyperspaceSession:
 
 
 class Hyperspace:
-    """The user API (Hyperspace.scala:32-104); `create_index`,
-    `create_vector_index` and `ann_search` are ported."""
+    """The user API (Hyperspace.scala:32-104): index creation, the
+    lifecycle actions and `ann_search`."""
 
     def __init__(self, session: HyperspaceSession):
         self.session = session
@@ -201,3 +205,42 @@ class Hyperspace:
         from hyperspace_tpu_torch.vector.search import ann_search
 
         return ann_search(self.session, plan, queries, k, nprobe, embedding_column, metric)
+
+    def delete_index(self, name: str) -> None:
+        self.session.manager.delete(name)
+
+    def restore_index(self, name: str) -> None:
+        self.session.manager.restore(name)
+
+    def vacuum_index(self, name: str) -> None:
+        self.session.manager.vacuum(name)
+
+    def refresh_index(self, name: str, mode: str = "full") -> None:
+        """Rebuild an index. mode="full" re-executes the logged lineage;
+        mode="incremental" indexes only appended source files into per-
+        bucket delta files (pair with optimize_index to compact)."""
+        self.session.manager.refresh(name, mode)
+
+    def optimize_index(self, name: str) -> None:
+        """Compact every live version of an index into one file a bucket
+        (a vector index: retrain its centroids and re-partition)."""
+        self.session.manager.optimize(name)
+
+    def cancel(self, name: str) -> None:
+        self.session.manager.cancel(name)
+
+    def recover(self, name: str | None = None) -> dict:
+        """Crash recovery: quarantine torn log entries, roll a transient
+        latest entry to the last stable state (cancel semantics), refresh
+        the latestStable pointer, and GC version dirs no stable entry
+        references. With no name, every index under the system path is
+        recovered (a report per index name). Idempotent."""
+        mgr = self.session.manager
+        if name is not None:
+            return mgr.recover(name)
+        return {d.name: mgr.recover(d.name) for d in mgr.path_resolver.list_index_paths()}
+
+    def indexes(self):
+        """Every index under the system path, in any state, as a pandas
+        DataFrame (name, kind, columns, buckets, location, state)."""
+        return self.session.manager.indexes()

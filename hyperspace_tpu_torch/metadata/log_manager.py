@@ -92,3 +92,28 @@ class IndexLogManager:
         p = self.log_dir / LATEST_STABLE_LOG_NAME
         write_json(p, entry.to_json(), overwrite=True)
         return True
+
+    def delete_latest_stable_log(self) -> bool:
+        p = self.log_dir / LATEST_STABLE_LOG_NAME
+        try:
+            p.unlink(missing_ok=True)
+            return True
+        except OSError:
+            return False
+
+    def quarantine_log(self, id: int) -> bool:
+        """Move a torn/garbage log entry aside (recover()'s repair for a
+        truncated trailing entry). The renamed file no longer counts for
+        `get_latest_id` (non-digit name), so the id becomes writable
+        again; the bytes stay on disk for post-mortems."""
+        p = self.log_dir / str(id)
+        for attempt in range(10):
+            suffix = ".corrupt" if attempt == 0 else f".corrupt-{attempt}"
+            try:
+                os.rename(p, p.with_name(p.name + suffix))
+                return True
+            except FileExistsError:
+                continue
+            except OSError:
+                return False
+        return False

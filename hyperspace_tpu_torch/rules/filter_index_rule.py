@@ -13,7 +13,9 @@ the rewrite swaps only the relation for the bucketed index scan
 (FilterIndexRule.scala:114-128). The index Scan carries the bucket spec —
 the executor uses it for bucket pruning on point predicates.
 
-A copy of the JAX package's rule over the plan nodes the port has.
+A copy of the JAX package's rule over the plan nodes the port has; a
+hybrid match (rules/base.py) replaces the scan with the index scan
+unioned with the appended files.
 """
 
 from __future__ import annotations
@@ -22,14 +24,14 @@ import dataclasses
 
 from hyperspace_tpu_torch.metadata.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, Limit, LogicalPlan, Project, Scan, Sort, Union, Window
-from hyperspace_tpu_torch.rules.base import Rule, SignatureMatcher, index_scan_for
+from hyperspace_tpu_torch.rules.base import Rule, SignatureMatcher, hybrid_scan_for, index_scan_for
 
 
 class FilterIndexRule(Rule):
     name = "FilterIndexRule"
 
     def apply(self, plan: LogicalPlan, indexes: list[IndexLogEntry]) -> LogicalPlan:
-        return self._rewrite(plan, indexes, SignatureMatcher())
+        return self._rewrite(plan, indexes, SignatureMatcher(self.conf))
 
     def _rewrite(self, plan: LogicalPlan, indexes, matcher) -> LogicalPlan:
         if isinstance(plan, Project) and isinstance(plan.child, Filter) and isinstance(plan.child.child, Scan):
@@ -77,7 +79,7 @@ class FilterIndexRule(Rule):
             )
         return plan
 
-    def _replacement(self, scan: Scan, predicate, output_columns, indexes, matcher) -> Scan | None:
+    def _replacement(self, scan: Scan, predicate, output_columns, indexes, matcher) -> LogicalPlan | None:
         if scan.bucket_spec is not None:
             return None  # already an index scan — never rewrite twice
         filter_cols = {c.lower() for c in predicate.references()}
@@ -87,7 +89,12 @@ class FilterIndexRule(Rule):
                 continue  # vector indexes serve ann_search, not filters
             idx_cols = {c.lower() for c in entry.derived_dataset.all_columns}
             first_indexed = entry.indexed_columns[0].lower()
-            if required <= idx_cols and first_indexed in filter_cols and matcher.match(entry, scan):
+            if required <= idx_cols and first_indexed in filter_cols:
+                m = matcher.match(entry, scan)
+                if m is None:
+                    continue
                 # First matching candidate wins (FilterIndexRule.scala:222-228).
-                return index_scan_for(entry)
+                if m.is_exact:
+                    return index_scan_for(entry)
+                return hybrid_scan_for(m, scan)
         return None

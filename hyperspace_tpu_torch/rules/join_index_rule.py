@@ -20,12 +20,15 @@ guaranteed by the `Join` node shape. What remains:
   executor's per-bucket merge join needs no exchange
   (JoinIndexRule.scala:124-153).
 
-A copy of the JAX package's rule. Hybrid scan is not ported, so a side
-matches an index only when its signature equals the source's. When only
-one side has a usable index, that side alone is rewritten (as in the JAX
-package); the executor then re-bucketizes the other side into the
-index's bucket layout (the re-bucketing exchange) or, where that side is
-small, probes a broadcast table of it (execution/exec_side.py).
+A copy of the JAX package's rule. A side matches an index when its
+signature equals the source's or, with hybrid scan enabled, when the
+source has only gained files within the ratio (rules/base.py); a hybrid
+side becomes the index scan unioned with the appended files, which the
+executor bucketizes on the fly. When only one side has a usable index,
+that side alone is rewritten (as in the JAX package); the executor then
+re-bucketizes the other side into the index's bucket layout (the
+re-bucketing exchange) or, where that side is small, probes a broadcast
+table of it (execution/exec_side.py).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import dataclasses
 
 from hyperspace_tpu_torch.metadata.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, Limit, LogicalPlan, Project, Scan, Sort, Union, Window
-from hyperspace_tpu_torch.rules.base import Rule, SignatureMatcher, index_scan_for
+from hyperspace_tpu_torch.rules.base import IndexMatch, Rule, SignatureMatcher, hybrid_scan_for, index_scan_for
 from hyperspace_tpu_torch.rules.ranker import JoinIndexRanker
 
 
@@ -83,7 +86,7 @@ class JoinIndexRule(Rule):
     name = "JoinIndexRule"
 
     def apply(self, plan: LogicalPlan, indexes: list[IndexLogEntry]) -> LogicalPlan:
-        return self._rewrite(plan, indexes, SignatureMatcher())
+        return self._rewrite(plan, indexes, SignatureMatcher(self.conf))
 
     def _rewrite(self, plan: LogicalPlan, indexes, matcher) -> LogicalPlan:
         if isinstance(plan, Join):
@@ -137,25 +140,29 @@ class JoinIndexRule(Rule):
             # One-sided rewrite: a lone usable index still serves the join
             # (in the JAX package through its re-bucketing exchange). Prefer
             # more buckets, comparing across BOTH sides.
-            best_l = max(lcands, key=lambda e: e.num_buckets) if lcands else None
-            best_r = max(rcands, key=lambda e: e.num_buckets) if rcands else None
-            if best_l is not None and (best_r is None or best_l.num_buckets >= best_r.num_buckets):
-                new_left = _replace_scan(plan.left, index_scan_for(best_l))
+            best_l = max(lcands, key=lambda m: m.entry.num_buckets) if lcands else None
+            best_r = max(rcands, key=lambda m: m.entry.num_buckets) if rcands else None
+            if best_l is not None and (
+                best_r is None or best_l.entry.num_buckets >= best_r.entry.num_buckets
+            ):
+                new_left = _replace_scan(plan.left, _side_plan(best_l, lscan))
                 return dataclasses.replace(
                     plan, left=new_left, right=self._rewrite(plan.right, indexes, matcher)
                 )
-            new_right = _replace_scan(plan.right, index_scan_for(best_r))
+            new_right = _replace_scan(plan.right, _side_plan(best_r, rscan))
             return dataclasses.replace(
                 plan, left=self._rewrite(plan.left, indexes, matcher), right=new_right
             )
-        best_l, best_r = JoinIndexRanker.rank(pairs)[0]
+        best_l, best_r = JoinIndexRanker.rank([(lm.entry, rm.entry) for lm, rm in pairs])[0]
+        lmatch = next(lm for lm, _ in pairs if lm.entry is best_l)
+        rmatch = next(rm for _, rm in pairs if rm.entry is best_r)
         return dataclasses.replace(
             plan,
-            left=_replace_scan(plan.left, index_scan_for(best_l)),
-            right=_replace_scan(plan.right, index_scan_for(best_r)),
+            left=_replace_scan(plan.left, _side_plan(lmatch, lscan)),
+            right=_replace_scan(plan.right, _side_plan(rmatch, rscan)),
         )
 
-    def _usable(self, indexes, scan: Scan, join_cols, required: set[str], matcher) -> list[IndexLogEntry]:
+    def _usable(self, indexes, scan: Scan, join_cols, required: set[str], matcher) -> list[IndexMatch]:
         out = []
         jset = {c.lower() for c in join_cols}
         for entry in indexes:
@@ -163,8 +170,10 @@ class JoinIndexRule(Rule):
                 continue  # vector indexes serve ann_search, not joins
             iset = {c.lower() for c in entry.indexed_columns}
             cover = {c.lower() for c in entry.derived_dataset.all_columns}
-            if iset == jset and required <= cover and matcher.match(entry, scan):
-                out.append(entry)
+            if iset == jset and required <= cover:
+                m = matcher.match(entry, scan)
+                if m is not None:
+                    out.append(m)
         return out
 
     def _compatible_pairs(self, lcands, rcands, left_on, right_on):
@@ -172,9 +181,17 @@ class JoinIndexRule(Rule):
         (JoinIndexRule.scala:547-594)."""
         l2r = {l.lower(): r.lower() for l, r in zip(left_on, right_on)}
         pairs = []
-        for le in lcands:
-            expected_r = [l2r[c.lower()] for c in le.indexed_columns]
-            for re in rcands:
-                if [c.lower() for c in re.indexed_columns] == expected_r:
-                    pairs.append((le, re))
+        for lm in lcands:
+            expected_r = [l2r[c.lower()] for c in lm.entry.indexed_columns]
+            for rm in rcands:
+                if [c.lower() for c in rm.entry.indexed_columns] == expected_r:
+                    pairs.append((lm, rm))
         return pairs
+
+
+def _side_plan(match: IndexMatch, scan: Scan) -> LogicalPlan:
+    """Exact match ⇒ the bucketed index scan; hybrid ⇒ index ∪ appended
+    (the executor bucketizes the appended rows on the fly)."""
+    if match.is_exact:
+        return index_scan_for(match.entry)
+    return hybrid_scan_for(match, scan)

@@ -45,6 +45,23 @@ def fingerprint_files(files) -> str:
     return h.hexdigest()
 
 
+def diff_source_files(entry, plan, current=None):
+    """(appended, deleted_or_modified) file diff between the live listing of
+    `plan`'s leaves and the files logged in `entry.source.files`. Identity
+    is (path, size, mtime) — a rewritten-in-place file shows up as deleted.
+    Basis of incremental refresh and hybrid-scan applicability. Pass
+    `current` (a FileInfo list) to reuse one listing across many entries."""
+    if current is None:
+        current = []
+        for leaf in plan.leaves():
+            current.extend(collect_leaf_files(leaf))
+    logged = {(f.path, f.size, f.mtime_ns) for f in entry.source.files}
+    live = {(f.path, f.size, f.mtime_ns) for f in current}
+    appended = [f for f in current if (f.path, f.size, f.mtime_ns) not in logged]
+    deleted = [f for f in entry.source.files if (f.path, f.size, f.mtime_ns) not in live]
+    return appended, deleted
+
+
 def plan_signature(plan: LogicalPlan) -> str:
     """Structural fingerprint of a logical plan: an MD5 over its canonical
     JSON serialization (sorted keys, so dict ordering cannot perturb it).

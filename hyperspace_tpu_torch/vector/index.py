@@ -29,6 +29,7 @@ from hyperspace_tpu_torch.actions.create import CreateActionBase
 from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution import io as hio
+from hyperspace_tpu_torch.execution.table import ColumnTable
 from hyperspace_tpu_torch.index.index_config import IndexConfig
 from hyperspace_tpu_torch.metadata.data_manager import IndexDataManager
 from hyperspace_tpu_torch.metadata.log_entry import Content, Fingerprint, IndexLogEntry, Source, VectorIndex
@@ -89,15 +90,36 @@ class VectorIndexBuilder:
         num_partitions: int,
         dest_path: Path,
         metric: str,
+        centroids: np.ndarray | None = None,
     ) -> np.ndarray:
-        """Build partitions under dest_path; returns the centroids."""
+        """Build partitions of `plan`'s rows under dest_path; returns the
+        centroids. With `centroids` (incremental refresh), the rows are
+        assigned to them instead of training new ones."""
         from hyperspace_tpu_torch.execution.exec_scan import scan_files
 
         if not isinstance(plan, Scan):
             raise HyperspaceError("vector index builds materialize scan-only plans")
         t0 = time.perf_counter()
         table = hio.read_parquet(scan_files(plan), columns=columns, schema=plan.schema, device="cpu")
-        if table.num_rows == 0:
+        return self.write_table(table, embedding_column, num_partitions, dest_path, metric, centroids, t0=t0)
+
+    def write_table(
+        self,
+        table: ColumnTable,
+        embedding_column: str,
+        num_partitions: int,
+        dest_path: Path,
+        metric: str,
+        centroids: np.ndarray | None = None,
+        *,
+        t0: float | None = None,
+    ) -> np.ndarray:
+        """Partition a host table under dest_path (+ a centroids copy):
+        k-means on the device unless `centroids` are given, the
+        nearest-centroid assignment on the device, the carve on the host.
+        Returns the centroids."""
+        t0 = time.perf_counter() if t0 is None else t0
+        if table.num_rows == 0 and centroids is None:
             raise HyperspaceError("cannot build a vector index over an empty source")
         emb = table.host_column(embedding_column)
         if metric == "cos":
@@ -107,11 +129,14 @@ class VectorIndexBuilder:
         self._sync()
         t_read = time.perf_counter()
 
-        centroids = train_centroids(x, num_partitions)
+        if centroids is None:
+            trained = train_centroids(x, num_partitions)
+        else:
+            trained = torch.from_numpy(np.ascontiguousarray(centroids, dtype=np.float32)).to(self.device)
         self._sync()
         t_kmeans = time.perf_counter()
         # Partition ids come back to the host for the stable sort and carve.
-        part = assign_partitions(x, centroids).cpu().numpy()
+        part = assign_partitions(x, trained).cpu().numpy()
         t_assign = time.perf_counter()
         del x
 
@@ -120,8 +145,8 @@ class VectorIndexBuilder:
         hio.carve_and_write(
             dest, table, np.bincount(part, minlength=num_partitions), [embedding_column], order
         )
-        centroids = centroids.cpu().numpy()
-        np.save(dest / CENTROIDS_NAME, centroids)
+        out = trained.cpu().numpy() if centroids is None else centroids
+        np.save(dest / CENTROIDS_NAME, out)
         t_done = time.perf_counter()
         self.last_build_stats = {
             "path": "vector",
@@ -131,7 +156,7 @@ class VectorIndexBuilder:
                 "assign": t_assign - t_kmeans, "carve": t_done - t_assign,
             },
         }
-        return centroids
+        return out
 
 
 class VectorCreateAction(CreateActionBase):

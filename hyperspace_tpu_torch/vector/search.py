@@ -110,7 +110,8 @@ def find_vector_index(session, plan: Scan, embedding_column: str | None = None) 
             and entry.derived_dataset.embedding_column.lower() != embedding_column.lower()
         ):
             continue
-        if matcher.match(entry, plan):
+        m = matcher.match(entry, plan)
+        if m is not None and m.is_exact:
             return entry
     return None
 

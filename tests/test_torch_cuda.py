@@ -844,3 +844,123 @@ def test_sort_top_n_and_windows_on_the_card_match_the_cpu(cuda, tmp_path):
             assert all(same), (name, c)
     assert out["cuda", "top_n_select"][1]["kernel"] == "partition-select + sort"
     assert out["cuda", "top_n_full"][1]["kernel"] == "full-sort"
+
+
+@pytest.mark.gpu
+def test_lifecycle_on_the_card_is_byte_identical_to_the_cpu(cuda, tmp_path):
+    """Create, incremental refresh, optimize (compaction: one stable device
+    sort of every live version's rows) and full refresh, each by a card
+    session and a CPU session on one source: every bucket file and
+    manifest of every version is byte-identical."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem
+
+    src = tmp_path / "li"
+    gen_tpch_lineitem(src, sf=0.002, seed=42)
+    hs = {}
+    for dev in ("cuda", "cpu"):
+        s = HyperspaceSession(system_path=str(tmp_path / f"idx_{dev}"), num_buckets=8, device=dev)
+        hs[dev] = Hyperspace(s)
+        hs[dev].create_index(s.parquet(src), IndexConfig("li", ["l_orderkey"], ["l_quantity", "l_extendedprice"]))
+    steps = [("a1", lambda h: h.refresh_index("li", mode="incremental")), (None, lambda h: h.optimize_index("li")),
+             ("a2", lambda h: h.refresh_index("li"))]
+    for i, (append, action) in enumerate(steps):
+        if append:
+            stage = tmp_path / f"stage{i}"
+            gen_tpch_lineitem(stage, sf=0.001, seed=46 + i, files=1)
+            (stage / "part-0.parquet").rename(src / f"{append}.parquet")
+        for dev in ("cuda", "cpu"):
+            action(hs[dev])
+    for d in sorted((tmp_path / "idx_cpu" / "li").glob("v__=*")):
+        for f in sorted(d.iterdir()):
+            assert (tmp_path / "idx_cuda" / "li" / d.name / f.name).read_bytes() == f.read_bytes(), f"{d.name}/{f.name}"
+    assert len(list((tmp_path / "idx_cuda" / "li").glob("v__=*"))) == 4
+    assert pq.read_metadata(tmp_path / "idx_cuda" / "li" / "v__=3" / "bucket-00000.parquet").num_rows > 0
+
+
+@pytest.mark.gpu
+def test_hybrid_join_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """J2 over a hybrid lineitem side (its index plus an appended file,
+    bucketized on the fly) joined with the orders index: the card takes
+    the zero-exchange aligned path, launches K2 and K1, and gives the
+    CPU's answer (sums within the join bound of
+    test_join_queries_on_the_card_match_the_cpu)."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem, gen_tpch_orders
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    gen_tpch_lineitem(tmp_path / "li", sf=0.002, seed=42)
+    gen_tpch_orders(tmp_path / "o", sf=0.002)
+    s = HyperspaceSession(system_path=str(tmp_path / "idx"), num_buckets=8, device=cuda)
+    li, o = s.parquet(tmp_path / "li"), s.parquet(tmp_path / "o")
+    Hyperspace(s).create_index(li, IndexConfig("li", ["l_orderkey"], ["l_quantity", "l_extendedprice"]))
+    Hyperspace(s).create_index(o, IndexConfig("o", ["o_orderkey"], ["o_totalprice", "o_orderpriority"]))
+    gen_tpch_lineitem(tmp_path / "stage", sf=0.0004, seed=46, files=1)
+    (tmp_path / "stage" / "part-0.parquet").rename(tmp_path / "li" / "append.parquet")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = HyperspaceSession(system_path=str(tmp_path / "idx"), num_buckets=8, device=dev)
+        li, o = s.parquet(tmp_path / "li"), s.parquet(tmp_path / "o")
+        s.conf.set("hyperspace.index.hybridscan.enabled", True)
+        s.enable_hyperspace()
+        j = li.select("l_orderkey", "l_quantity", "l_extendedprice").join(
+            o.select("o_orderkey", "o_totalprice", "o_orderpriority"), ["l_orderkey"], ["o_orderkey"])
+        plan = j.aggregate(["o_orderpriority"], [("sum", "l_quantity", "q"), ("max", "l_extendedprice", "m"),
+                                                 ("sum", "l_extendedprice", "p"), ("count", None, "c")])
+        k2, k1 = run_bounds.launches, segment_reduce.launches
+        out[dev] = s.to_pandas(plan).sort_values("o_orderpriority").reset_index(drop=True)
+        assert s.last_query_stats["join_path"] == "zero-exchange-aligned"
+        if dev == "cuda":
+            assert run_bounds.launches > k2 and segment_reduce.launches > k1
+    v = np.abs(pq.read_table(sorted(str(p) for p in (tmp_path / "li").glob("*.parquet")))["l_extendedprice"].to_numpy())
+    got, want = out["cuda"], out["cpu"]
+    assert len(got) == len(want) == 5
+    for c in ("o_orderpriority", "q", "m", "c"):
+        np.testing.assert_array_equal(got[c].to_numpy(), want[c].to_numpy(), err_msg=c)
+    cnt = want["c"].to_numpy().astype(np.float64)
+    gamma = lambda m: 1.01 * m * 2.0**-53  # noqa: E731
+    tol = 2 * (gamma(cnt + 8) * cnt * v.max() + 2 * cnt * gamma(len(v)) * v.sum())
+    assert np.all(np.abs(got["p"].to_numpy() - want["p"].to_numpy()) <= tol)
+
+
+@pytest.mark.gpu
+def test_vector_incremental_refresh_on_the_card(cuda, tmp_path):
+    """A card session refreshes a vector index incrementally (the
+    appended rows assigned to the existing centroids on the card): every
+    appended row lands in its nearest centroid's partition, up to float32
+    near ties; the full probe equals brute force, and the searches launch
+    K3."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, VectorIndexConfig
+    from hyperspace_tpu_torch.datagen import gen_embeddings
+    from hyperspace_tpu_torch.ops.topk import topk
+
+    emb = gen_embeddings(tmp_path / "emb", 20_000, 32, clusters=16, seed=3)
+    s = HyperspaceSession(system_path=str(tmp_path / "idx"), device=cuda)
+    hs, df = Hyperspace(s), s.parquet(tmp_path / "emb")
+    hs.create_vector_index(df, VectorIndexConfig("v", "emb", ["id"], num_partitions=16))
+    extra = gen_embeddings(tmp_path / "emb", 20_000, 32, clusters=16, seed=3, appended=2_000)
+    hs.refresh_index("v", mode="incremental")
+    vdir = tmp_path / "idx" / "v" / "v__=1"
+    c = np.load(vdir / "_centroids.npy").astype(np.float64)
+    d2 = ((extra.astype(np.float64)[:, None, :] - c[None]) ** 2).sum(-1)
+    nearest = np.argmin(d2, axis=1)
+    two = np.sort(d2, axis=1)[:, :2]
+    tie = (two[:, 1] - two[:, 0]) / two[:, 1] <= 1e-4
+    for p in range(16):
+        ids = pq.read_table(vdir / f"bucket-{p:05d}.parquet")["id"].to_numpy() - 20_000
+        assert np.all((nearest[ids] == p) | tie[ids])
+    allemb = np.concatenate([emb, extra])
+    queries = allemb[np.random.default_rng(4).choice(len(allemb), 8, replace=False)] + 0.01
+    before = topk.launches
+    s.enable_hyperspace()
+    full = hs.ann_search(df, queries, k=10, nprobe=16)
+    s.disable_hyperspace()
+    brute = hs.ann_search(df, queries, k=10)
+    assert topk.launches - before == 3
+    np.testing.assert_allclose(np.sort(full.scores, axis=1), np.sort(brute.scores, axis=1), rtol=1e-4)

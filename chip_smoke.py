@@ -100,6 +100,31 @@ What it does, in order (any failure raises and exits non-zero):
    entry and a partial version dir) recovered, delete / vacuum, with
    `indexes()` listing each state; K1's and K2's inputs from one hybrid
    J2 run join the kernel phase; K1 and K2 launch, K3 does not;
+3e. serving path, on the lifecycle path's session and indexes
+   (`lineitem_orderkey`, `orders_orderkey`, the customer indexes,
+   `ss_by_date`, `dd_by_sk`, and `li_live` re-created): the mix of 12
+   point lookups with distinct keys (benchmarks/bench_serve.py's
+   workload) and the earlier phases' Q1, revenue, J2, J3, Q13 and q43
+   (`serve_mix`) runs serially through `run_query`, then through
+   `session.serve()` (4 workers, the result cache off) at 1, 4 and 16
+   clients, each with a cold plan cache and then a warm one, the
+   submissions split as bench_serve.py's `_run_phase` splits them: every
+   result equals its serial run (bit-equal but the non-integral sums and
+   means, within 2·N·u of it, `SERVE_SUMS`), K1's and K2's launches in
+   each pass equal the serial pass's, every handle's profile holds the
+   physical tree of `SERVE_EXPECT` (the JAX package's op names) with its
+   operator walls telescoping to the root; qps and p50 / p95 / p99 print
+   for each client count and cache state. Then the result cache: a repeat
+   J2 hits, launching no kernel and reading no column; a tensor written
+   in place misses; 16 clients loop 12 lookups on `li_live` while the
+   main thread appends a file (a fiftieth, seed 48) and refreshes
+   incrementally: every answer is pyarrow's before or after, and after
+   for every lookup submitted once the refresh returned. Then admission
+   (16 instant submits at max_queue_depth 4: typed refusals only; a queue
+   timeout discarded unexecuted; drain; shutdown leaves no worker), warm
+   Q1 and J2 with `hyperspace.obs.enabled` on and off (median of 5), and
+   explain (diff, physical, analyze) of Q1 and J2; K1 and K2 launch, K3
+   does not;
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
@@ -971,8 +996,8 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
     o_buckets = _index_buckets(Path(session.conf.system_path), "orders_orderkey", ["o_orderkey", "o_totalprice"])
     stats = {"l_extendedprice": _bucket_stats(li_buckets, "l_extendedprice"),
              "o_totalprice": _bucket_stats(o_buckets, "o_totalprice")}
-    # What the join-types path reuses.
-    ctx.update(orders=orders, o_source=o_source, bucket_stats=stats)
+    # What the join-types and serving paths reuse.
+    ctx.update(orders=orders, o_source=o_source, bucket_stats=stats, join_queries=queries)
 
     def check(name, result, aligned):
         buckets = num_buckets if aligned else 1
@@ -2027,6 +2052,7 @@ def query_surface_path(device, ctx: dict, sf: float) -> dict:
     finally:
         session.conf.set("hyperspace.index.num.buckets", buckets)
     tables = {"lineitem": ctx["lineitem"], "orders": ctx["orders"], "customer": ctx["customer"], **scans}
+    ctx["surface_tables"] = tables  # what the serving path reuses
     plans = query_surface_plans(htorch, tables)
 
     t0 = time.perf_counter()
@@ -2632,6 +2658,417 @@ def taxi_loop(device, workdir: Path, batch_rows: int = TAXI_BATCH_ROWS) -> dict:
 VECTOR_APPENDED = 0.1  # the vector lifecycle appends 10% more rows
 
 
+# The serving phase (3e): the QueryServer over the session the earlier
+# phases built. Its mix is benchmarks/bench_serve.py's point lookups (12
+# distinct keys) and six of the earlier phases' plans.
+SERVE_CLIENTS = (1, 4, 16)
+# The file appended (and refreshed into li_live) under 16 looping clients:
+# (its scale as a fraction of the run's, seed). Its order keys fall in
+# the first 2% of orders' domain, where the base data has them too.
+SERVE_APPEND = (0.02, 48)
+SERVE_LOOP_CLIENTS = 16
+SERVE_OBS_REPEATS = 5
+# Per query of the mix, the executed physical plan's operators in
+# pre-order, with the JAX package's op names and each join's path: what
+# every handle's profile must show. An aligned side is read inside its
+# join's frame, so it has no node of its own.
+ZA_OP, SP_OP = "/zero-exchange-aligned", "/single-partition"
+SERVE_EXPECT = {
+    "lookup": ["Project", "IndexPointLookup"],
+    "Q1": ["SegmentReduceAggregate", "TableScan"],
+    "revenue": ["SegmentReduceAggregate", "TableScan"],
+    "J2": ["FusedJoinAggregate" + ZA_OP],
+    "J3": ["FusedJoinAggregate" + ZA_OP],
+    "Q13": ["SegmentReduceAggregate", "SegmentReduceAggregate", "SortMergeJoin" + ZA_OP],
+    # The pushdown: the partial aggregate of the store_sales ⋈ date_dim
+    # side, joined with store on one partition, then the top 100.
+    "q43": ["TopN", "PartialAggPushdown", "SortMergeJoin" + ZA_OP, "FusedJoinAggregate" + SP_OP, "_TableLeaf",
+            "Project", "TableScan"],
+}
+# The mix's non-integral sums and means (alias -> the source column they
+# sum). Their last bits vary with K1's float64 atomics; every source
+# column is non-negative (checked), so two orders of a group's m <= N
+# terms differ by at most 2(m-1)·u·|S| of the sum S itself.
+SERVE_SUMS = {
+    "Q1": {"sum_price": "l_extendedprice", "avg_disc": "l_discount"},
+    "revenue": {"rev": "l_extendedprice"},
+    "J2": {"sum_price": "l_extendedprice", "avg_total": "o_totalprice"},
+    "J3": {"sum_total": "o_totalprice", "sum_price": "l_extendedprice"},
+    "q43": {f"{d}_sales": "ss_sales_price" for d in ("sun", "mon", "tue", "wed", "thu", "fri", "sat")},
+}
+
+
+def serve_mix(pkg, ctx: dict, sf: float, keys) -> dict:
+    """The serving phase's mix, name -> plan, from the earlier phases'
+    plans: the lookups on `lineitem_orderkey`, the main path's Q1 and
+    revenue, the join path's J2 and J3, the join-types path's Q13 and the
+    query-surface path's q43."""
+    col = pkg.col
+    li = ctx["lineitem"]
+    mix = {f"lookup {int(k)}": li.filter(col("l_orderkey") == int(k)).select("l_orderkey", "l_partkey",
+                                                                             "l_extendedprice") for k in keys}
+    mix["Q1"] = li.aggregate(Q1_GROUP, Q1_AGGS)
+    mix["revenue"] = li.aggregate(["l_orderkey"], [("sum", "l_extendedprice", "rev")])
+    mix["J2"], mix["J3"] = ctx["join_queries"]["J2"], ctx["join_queries"]["J3"]
+    mix["Q13"] = join_type_plans(pkg, li, ctx["orders"], ctx["customer"], sf)["Q13"][0]
+    mix["q43"] = query_surface_plans(pkg, ctx["surface_tables"])["q43"]
+    return mix
+
+
+def preorder_ops(node) -> list:
+    """A physical (or profile) tree's operators in pre-order, each join's
+    with its path."""
+    out = []
+    for n in node.walk():
+        path = n.detail.get("path") or n.detail.get("join_path")
+        out.append(n.op + (f"/{path}" if path else ""))
+    return out
+
+
+def check_served(name: str, got, want, rows: int) -> None:
+    """A served result against its query's serial run (one device):
+    bit-equal but in the sums and means of SERVE_SUMS, which are within
+    2·rows·u of their serial value (non-negative terms, `rows` the
+    widest input)."""
+    import torch
+
+    sums = SERVE_SUMS.get(name, {})
+    same_result(name, want, got, tuple(sums))
+    for alias in sums:
+        a, b = got.column(alias), want.column(alias)
+        va, vb = got.valid_mask(alias), want.valid_mask(alias)
+        if (va is None) != (vb is None) or (va is not None and not torch.equal(va, vb)):
+            raise AssertionError(f"{name}: the served {alias}'s nulls differ from the serial run's")
+        ok = torch.abs(a - b) <= 2 * rows * UNIT_ROUNDOFF * torch.abs(b)
+        if va is not None:
+            ok |= ~va
+        if not bool(ok.all()):
+            raise AssertionError(f"{name}: the served {alias} is beyond 2·N·u of the serial run's")
+
+
+def serve_pass(server, mix: dict, n_clients: int, serial: dict, rows: int) -> tuple[dict, list]:
+    """One pass of the mix through `server` by `n_clients` threads, the
+    submissions split as benchmarks/bench_serve.py::_run_phase splits
+    them; every result checked against its serial run. Returns (qps and
+    latency percentiles as bench_serve.py::_stats reports them, the
+    handles)."""
+    import threading
+
+    names = list(mix)
+    lat, handles, errors = [], [], []
+    lock = threading.Lock()
+
+    def client(cid: int):
+        mine = [q for i, q in enumerate(names) if i % n_clients == cid]
+        out = []
+        try:
+            for name in mine:
+                t0 = time.perf_counter()
+                h = server.submit(mix[name])
+                result = h.result(timeout=600)
+                out.append((time.perf_counter() - t0, name, h, result))
+        except BaseException as e:  # re-raised on the main thread below
+            errors.append(e)
+        with lock:
+            handles.extend(out)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads) or len(handles) != len(names):
+        raise AssertionError(f"{n_clients} clients: {len(handles)} of {len(names)} queries answered")
+    by_query: dict = {}
+    for t, name, h, result in handles:
+        check_served(name.split()[0], result, serial[name], rows)
+        by_query.setdefault(name.split()[0], []).append(t * 1e3)
+    lat = np.sort([h[0] for h in handles])
+    return {
+        "queries": len(lat),
+        "throughput_qps": len(lat) / wall,
+        "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "p95_ms": float(np.percentile(lat, 95)) * 1e3,
+        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "mean_ms": float(lat.mean()) * 1e3,
+        # Submit to result as its client saw it, by query (the lookups' median).
+        "by_query_ms": {q: float(np.median(v)) for q, v in by_query.items()},
+    }, [(name, h) for _, name, h, _ in handles]
+
+
+def serving_path(device, ctx: dict, sf: float) -> dict:
+    """3e: the serving plane on the earlier phases' session and indexes.
+    (1) The mix serially through `run_query`, then through
+    `session.serve()` (4 workers, the result cache off) at 1, 4 and 16
+    clients, each with a cold plan cache and then warm: every result the
+    serial run's, K1's and K2's launches in each pass the serial pass's,
+    every handle's profile the physical tree of SERVE_EXPECT with its
+    operator walls telescoping to the root. (2) The result cache: a repeat
+    hits, launching no kernel and reading no column; a tensor written in
+    place misses; 16 clients loop 12 lookups on li_live (re-created) while
+    the main thread appends a file and refreshes the index incrementally:
+    every answer is pyarrow's before or after the refresh, and after it for
+    every query submitted once the refresh returned. (3) Admission: 16
+    instant submits at max_queue_depth 4, a queue timeout, drain and
+    shutdown. (4) Warm Q1 and J2 with hyperspace.obs.enabled on and off
+    (median of 5), and explain (diff, physical, analyze) of Q1 and J2."""
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, PlanCache
+    from hyperspace_tpu_torch.datagen import TPCH_SF1_ORDERS_ROWS
+    from hyperspace_tpu_torch.exceptions import AdmissionRejected, QueryTimeout
+    from hyperspace_tpu_torch.execution import device_cache as dc
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def launches() -> tuple:
+        return segment_reduce.launches, run_bounds.launches
+
+    session, workdir = ctx["session"], ctx["workdir"]
+    hs = Hyperspace(session)
+    session.enable_hyperspace()
+    out: dict = {}
+    t_phase = time.perf_counter()
+    ss_price = pq.read_table(sorted(str(p) for p in (workdir / "store_sales").glob("*.parquet")),
+                             columns=["ss_sales_price"])["ss_sales_price"]
+    for name, column in (("l_extendedprice", ctx["source"]["l_extendedprice"]),
+                         ("l_discount", ctx["source"]["l_discount"]),
+                         ("o_totalprice", ctx["o_source"]["o_totalprice"]), ("ss_sales_price", ss_price)):
+        if (pc.min(column).as_py() or 0) < 0:
+            raise AssertionError(f"{name} holds negative values: SERVE_SUMS's bound does not hold")
+    rows = ctx["source"].num_rows
+    keys = np.random.default_rng(7).choice(int(TPCH_SF1_ORDERS_ROWS * sf), 12, replace=False) + 1
+    mix = serve_mix(htorch, ctx, sf, keys)
+
+    # (1) Serial, then concurrent.
+    serial, serial_s = {}, {}
+    k1, k2 = launches()
+    for name, plan in mix.items():
+        t0 = time.perf_counter()
+        outcome = session.run_query(plan, plan_cache=PlanCache())
+        sync()
+        serial_s[name] = time.perf_counter() - t0
+        serial[name] = outcome.result
+        ops = preorder_ops(outcome.physical_plan)
+        if ops != SERVE_EXPECT[name.split()[0]]:
+            raise AssertionError(f"serial {name}: physical plan {ops}, expected {SERVE_EXPECT[name.split()[0]]}")
+    serial_launches = (segment_reduce.launches - k1, run_bounds.launches - k2)
+    if device.type == "cuda" and not all(serial_launches):
+        raise AssertionError(f"the serial mix launched K1 / K2 {serial_launches} times")
+    out["serial"] = {"walls_s": serial_s, "launches": {"segment_reduce": serial_launches[0],
+                                                       "run_bounds": serial_launches[1]}}
+    out["concurrent"] = {}
+    for n_clients in SERVE_CLIENTS:
+        with session.serve(plan_cache=PlanCache(), result_cache=False) as server:
+            for state in ("cold", "warm"):
+                k1, k2 = launches()
+                derived = dc.HOST_DERIVED.stats()
+                stats, handles = serve_pass(server, mix, n_clients, serial, rows)
+                after = dc.HOST_DERIVED.stats()
+                stats["derived_misses"] = after["misses"] - derived["misses"]
+                stats["derived_evictions"] = after["evictions"] - derived["evictions"]
+                got = (segment_reduce.launches - k1, run_bounds.launches - k2)
+                if got != serial_launches:
+                    raise AssertionError(f"{n_clients} clients {state}: K1 / K2 launched {got} times, "
+                                         f"serially {serial_launches}")
+                for name, h in handles:
+                    ops = preorder_ops(h.profile.root)
+                    if ops != SERVE_EXPECT[name.split()[0]]:
+                        raise AssertionError(f"{name}: the handle's profile holds {ops}")
+                    if abs(h.profile.operator_total_s() - h.profile.root.wall_s) > 0.01 * h.profile.root.wall_s:
+                        raise AssertionError(f"{name}: operator self times do not telescope to the root's wall")
+                    if h.profile.venue["platform"] != ("gpu" if device.type == "cuda" else "cpu"):
+                        raise AssertionError(f"{name}: profile venue {h.profile.venue}")
+                hits = server.plan_cache.stats()["hits"]
+                stats["plan_cache_hits"] = hits
+                record = {"clients": n_clients, "plan_cache": state, **stats}
+                out["concurrent"][f"{n_clients}_{state}"] = record
+                log(json.dumps({"serve_pass": record}))
+        if any(t.is_alive() for t in server._threads):
+            raise AssertionError("a worker outlived shutdown()")
+
+    # (2) The result cache.
+    j2 = mix["J2"]
+    with session.serve(result_cache=True) as server:
+        first = server.submit(j2)
+        check_served("J2", first.result(timeout=600), serial["J2"], rows)
+        sync()
+        k1, k2 = launches()
+        reads = dc.DEVICE_CACHE.stats()["misses"]
+        hit = server.submit(j2)
+        again = hit.result(timeout=600)
+        if not hit.cache_hit or again is not first.result() or launches() != (k1, k2):
+            raise AssertionError(f"the repeat J2 missed the result cache or launched a kernel: {hit.stats}")
+        if dc.DEVICE_CACHE.stats()["misses"] != reads or hit.profile is not None:
+            raise AssertionError("the result-cache hit read a column")
+        again.columns["sum_price"].add_(1.0)  # a client writes the shared result in place
+        fresh = server.submit(j2)
+        check_served("J2", fresh.result(timeout=600), serial["J2"], rows)
+        if fresh.cache_hit or server.result_cache.stats()["written"] != 1:
+            raise AssertionError("a result written in place was served from the result cache")
+        out["result_cache"] = {**server.result_cache.stats(), "device_cache": cache_stats()["device_cache"]}
+        log(json.dumps({"serve_result_cache": out["result_cache"]}))
+        out["result_cache"]["refresh"] = serve_refresh_loop(device, session, server, workdir, sf)
+
+    # (3) Admission.
+    lookups = [p for n, p in mix.items() if n.startswith("lookup")]
+    server = session.serve(workers=1, max_queue_depth=4)
+    handles, refused, untyped = [], 0, []
+    for i in range(16):
+        try:
+            handles.append(server.submit(lookups[i % len(lookups)]))
+        except AdmissionRejected:
+            refused += 1
+        except Exception as e:  # any untyped refusal fails the phase below
+            untyped.append(repr(e))
+    for h in handles:
+        h.result(timeout=600)
+    expired = server.submit(lookups[0], timeout=1e-6)
+    try:
+        expired.result(timeout=600)
+        raise AssertionError("a query past its queue timeout ran")
+    except QueryTimeout:
+        pass
+    if not expired.timed_out or expired.profile is not None:
+        raise AssertionError("the expired query was not discarded unexecuted")
+    drained = server.drain(timeout=600)
+    server.shutdown()
+    if untyped or not refused or refused + len(handles) != 16 or not drained:
+        raise AssertionError(f"admission: {refused} refused, {len(handles)} admitted, untyped {untyped}, "
+                             f"drained {drained}")
+    if any(t.is_alive() for t in server._threads):
+        raise AssertionError("a worker outlived shutdown()")
+    out["admission"] = {"refused": refused, "admitted": len(handles), "saturation": server.saturation(),
+                        "metrics": server.metrics_snapshot()}
+
+    # (4) Evidence: the tracer's cost on warm Q1 and J2, then explain.
+    out["obs_walls_ms"] = {}
+    for enabled in (True, False):
+        session.conf.set("hyperspace.obs.enabled", enabled)
+        for name in ("Q1", "J2"):
+            walls = []
+            for _ in range(SERVE_OBS_REPEATS):
+                t0 = time.perf_counter()
+                session.run_query(mix[name])
+                sync()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            walls.sort()
+            out["obs_walls_ms"][f"{name} obs {'on' if enabled else 'off'}"] = {
+                "median": walls[len(walls) // 2], "min": walls[0], "max": walls[-1]}
+    session.conf.set("hyperspace.obs.enabled", True)
+    log(json.dumps({"serve_obs_walls_ms": out["obs_walls_ms"]}))
+    for name in ("Q1", "J2"):
+        for kind, text in (("diff", hs.explain(mix[name])), ("physical", hs.explain(mix[name], physical=True)),
+                           ("analyze", hs.explain(mix[name], mode="analyze"))):
+            log(f"explain {kind} {name}:\n{text}")
+    session.enable_hyperspace()
+    out["serving_path_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def serve_refresh_loop(device, session, server, workdir: Path, sf: float) -> dict:
+    """16 clients loop 12 lookups on li_live (re-created over the live
+    directory) through `server`, while this thread appends a file and
+    refreshes the index incrementally. Every answer must be pyarrow's
+    before the append or after it; a query submitted after the refresh
+    returned must be the latter."""
+    import threading
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig, col
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem
+
+    hs = Hyperspace(session)
+    live = workdir / "lineitem_live"
+    t0 = time.perf_counter()
+    hs.create_index(session.parquet(live), IndexConfig(LIVE_INDEX, INDEXED, INCLUDED))
+    create_s = time.perf_counter() - t0
+    frac, seed = SERVE_APPEND
+    stage = workdir / "stage_serve"
+    gen_tpch_lineitem(stage, sf=frac * sf, seed=seed, files=1)
+    appended = pq.read_table(stage / "part-0.parquet")
+    uniq = np.unique(appended["l_orderkey"].to_numpy())
+    keys = uniq[np.linspace(0, len(uniq) - 1, 12).astype(np.int64)]
+    cols = ["l_orderkey", "l_partkey", "l_extendedprice"]
+    li = session.parquet(live)
+    plans = {int(k): li.filter(col("l_orderkey") == int(k)).select(*cols) for k in keys}
+
+    def answers(table) -> dict:
+        sub = table.select(cols).filter(pc.is_in(table["l_orderkey"], value_set=pa.array(keys)))
+        rows = sorted(zip(*(sub[c].to_pylist() for c in cols)))
+        return {int(k): [r for r in rows if r[0] == k] for k in keys}
+
+    before = answers(pq.read_table(sorted(str(p) for p in live.glob("*.parquet")), columns=cols))
+    after = answers(pa.concat_tables([pq.read_table(sorted(str(p) for p in live.glob("*.parquet")), columns=cols),
+                                      appended.select(cols)]))
+    if all(before[k] == after[k] for k in before):
+        raise AssertionError("the appended file changes none of the lookups")
+    stop = threading.Event()
+    seen, errors = [], []
+    lock = threading.Lock()
+
+    def client(cid: int):
+        mine = []
+        try:
+            i = cid
+            while not stop.is_set():
+                k = int(keys[i % len(keys)])
+                i += 1
+                t_submit = time.perf_counter()
+                result = server.submit(plans[k]).result(timeout=600)
+                d = result.decode()
+                mine.append((t_submit, k, sorted(zip(*(np.asarray(d[c]).tolist() for c in cols)))))
+        except BaseException as e:  # re-raised on the main thread below
+            errors.append(e)
+        with lock:
+            seen.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_LOOP_CLIENTS)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    (stage / "part-0.parquet").rename(live / "append-serve.parquet")
+    t0 = time.perf_counter()
+    hs.refresh_index(LIVE_INDEX, mode="incremental")
+    committed = time.perf_counter()
+    time.sleep(0.5)
+    stop.set()
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a looping client did not stop")
+    late = 0
+    for t_submit, k, rows in seen:
+        if rows != after[k] and (rows != before[k] or t_submit >= committed):
+            raise AssertionError(f"lookup {k} submitted {t_submit - committed:+.3f} s from the refresh's "
+                                 f"commit gave {len(rows)} rows: neither before ({len(before[k])}) nor after "
+                                 f"({len(after[k])})")
+        late += t_submit >= committed
+    if not late:
+        raise AssertionError("no lookup was submitted after the refresh committed")
+    record = {"create_s": create_s, "refresh_incremental_s": committed - t0, "queries": len(seen),
+              "after_commit": late, "keys": len(keys), "rows_before": sum(map(len, before.values())),
+              "rows_after": sum(map(len, after.values()))}
+    log(json.dumps({"serve_refresh_loop": record}))
+    return record
+
+
 def vector_lifecycle(device, vctx: dict) -> dict:
     """The vector index's lifecycle at the end of the vector path, on its
     index: 10% more rows drawn from the same clusters (gen_embeddings'
@@ -3068,6 +3505,13 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
         launches["lifecycle"] = read_counts("lifecycle", ("run_bounds", "segment_reduce"))
         log(json.dumps({"lifecycle_path": lifecycle, "launches": launches["lifecycle"]}))
         log(json.dumps({"caches_after_path": "lifecycle", **cache_stats()}))
+        zero_counts()
+        t0 = time.perf_counter()
+        serving = serving_path(device, ctx, args.sf)
+        serving["serving_path_wall_s"] = time.perf_counter() - t0
+        launches["serve"] = read_counts("serve", ("run_bounds", "segment_reduce"))
+        log(json.dumps({"serving_path": serving, "launches": launches["serve"]}, default=str))
+        log(json.dumps({"caches_after_path": "serve", **cache_stats()}))
         k1_join_inputs.update(k1_life_inputs)
         k2_inputs.update(k2_life_inputs)
         k1_agg_inputs = {**ctx["k1_inputs"], **ctx["k1_surface_inputs"]}
@@ -3153,9 +3597,9 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
             "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-            # K1 runs on five paths: its launches on each, summed.
+            # K1 runs on six paths: its launches on each, summed.
             "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types",
-                                                                     "query_surface", "lifecycle")),
+                                                                     "query_surface", "lifecycle", "serve")),
             "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
@@ -3194,10 +3638,10 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
             "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
-            # K2 runs on the join paths, the query surface and the
-            # lifecycle: its launches on each, summed.
+            # K2 runs on the join paths, the query surface, the lifecycle
+            # and the serving path: its launches on each, summed.
             "launches": sum(launches[p]["run_bounds"] for p in ("join", "join_types", "query_surface",
-                                                                 "lifecycle")),
+                                                                 "lifecycle", "serve")),
             "launches_by_path": {p: c["run_bounds"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

@@ -16,7 +16,9 @@ in-process: a roll-back entry restoring the last stable state is
 CAS-written at `base_id + 2` and the action's partial data is
 quarantined. A hard crash leaves the transient entry behind, and
 `recover()` (index/collection_manager.py) repairs it from the next
-process. The tracing spans and the CAS retry are not ported yet.
+process. Each phase is a tracing span (`action.validate / begin / op /
+rollback / end`) under an `action.<Action>` trace. The CAS retry is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import dataclasses
 from hyperspace_tpu_torch import states
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.metadata.log_entry import IndexLogEntry
+from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.metadata.log_manager import IndexLogManager
 
 
@@ -86,21 +89,30 @@ class Action:
         self.log_manager.create_latest_stable_log(final_id)
 
     def run(self) -> None:
-        """Execute the two-phase protocol, with rollback on op() failure."""
-        self.validate()
-        self.begin()
-        try:
-            self.op()
-        except Exception:
-            self._rollback_failed_op()
-            raise
-        try:
-            self.end()
-        except HyperspaceError:
-            # Lost the final CAS: the winner's entry stands — only our
-            # partial data needs quarantining.
-            self.cleanup_failed_op()
-            raise
+        """Execute the two-phase protocol, with rollback on op() failure.
+        A root trace when called bare, a child span when a trace is
+        already open; each phase is a span, closed (and error-tagged) on
+        the way out of a failure."""
+        with obs_trace.trace(f"action.{type(self).__name__}"):
+            with obs_trace.span("action.validate"):
+                self.validate()
+            with obs_trace.span("action.begin", attempt=1):
+                self.begin()
+            try:
+                with obs_trace.span("action.op"):
+                    self.op()
+            except Exception:
+                with obs_trace.span("action.rollback"):
+                    self._rollback_failed_op()
+                raise
+            try:
+                with obs_trace.span("action.end"):
+                    self.end()
+            except HyperspaceError:
+                # Lost the final CAS: the winner's entry stands — only our
+                # partial data needs quarantining.
+                self.cleanup_failed_op()
+                raise
 
     def _rollback_failed_op(self) -> None:
         """CAS-write a roll-back entry at `base_id + 2` restoring the last

@@ -3,10 +3,15 @@
 The same defaults, directory-layout constants and string keys as the JAX
 package's `config.py`, so an index directory written by either package
 is laid out identically and a session is configured with the same
-`session.conf.set(key, value)` calls. The port reads eight keys:
+`session.conf.set(key, value)` calls. The port reads
 `hyperspace.system.path`, `hyperspace.index.num.buckets`,
 `hyperspace.join.broadcast.maxRows`, `hyperspace.join.rebucketize`, the
-two hybrid-scan keys and the two lazy-recovery keys.
+two hybrid-scan keys, the two lazy-recovery keys, the tracer's
+`hyperspace.obs.enabled` / `.sink` and the event ring's
+`hyperspace.obs.events.maxEvents` (process-global, as in the JAX
+package), the serving plane's `hyperspace.serve.*` defaults (workers,
+maxQueueDepth, queryTimeoutSeconds, the plan and result caches,
+shedDepthRatio) and the three explain display keys.
 A key the JAX package declares but the port does not read yet raises,
 naming it as not ported; an undeclared `hyperspace.*` key raises with a
 did-you-mean suggestion, as the JAX package's `check_known_key` does.
@@ -49,6 +54,32 @@ INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO = "hyperspace.index.hybridscan.maxAppendedR
 # so a listing cannot cancel a live writer's in-flight action.
 RECOVER_ON_ACCESS = "hyperspace.recover.onAccess"
 RECOVER_GRACE_SECONDS = "hyperspace.recover.graceSeconds"
+# Observability: obs.enabled gates the tracer (False makes span()/trace()
+# shared no-ops; per-query profiles remain available either way); obs.sink
+# is a JSON-lines path receiving one line per finished root trace; the
+# structured-event ring keeps at most maxEvents. All three are
+# process-global, like the registry and tracer they configure.
+OBS_ENABLED = "hyperspace.obs.enabled"
+OBS_SINK = "hyperspace.obs.sink"
+OBS_EVENTS_MAX = "hyperspace.obs.events.maxEvents"
+# The QueryServer (`session.serve()`) reads these as its defaults: the
+# worker pool, the admission-control limit (submits beyond it raise
+# AdmissionRejected), the per-query timeout (0 = none), the plan cache,
+# the opt-in byte-bounded result cache, and the fraction of maxQueueDepth
+# past which non-priority submits are shed (1.0 = only the hard limit).
+SERVE_WORKERS = "hyperspace.serve.workers"
+SERVE_MAX_QUEUE_DEPTH = "hyperspace.serve.maxQueueDepth"
+SERVE_QUERY_TIMEOUT_SECONDS = "hyperspace.serve.queryTimeoutSeconds"
+SERVE_PLAN_CACHE_ENABLED = "hyperspace.serve.planCache.enabled"
+SERVE_PLAN_CACHE_MAX_ENTRIES = "hyperspace.serve.planCache.maxEntries"
+SERVE_RESULT_CACHE_ENABLED = "hyperspace.serve.resultCache.enabled"
+SERVE_RESULT_CACHE_MAX_BYTES = "hyperspace.serve.resultCache.maxBytes"
+SERVE_SHED_DEPTH_RATIO = "hyperspace.serve.shedDepthRatio"
+# Explain rendering: `plaintext`, `console` (ANSI) or `html`, and the html
+# mode's highlight tags.
+EXPLAIN_DISPLAY_MODE = "hyperspace.explain.displayMode"
+EXPLAIN_HIGHLIGHT_BEGIN = "hyperspace.explain.displayMode.highlight.beginTag"
+EXPLAIN_HIGHLIGHT_END = "hyperspace.explain.displayMode.highlight.endTag"
 
 DEFAULT_NUM_BUCKETS = 8
 DEFAULT_CACHE_EXPIRY_SECONDS = 300.0
@@ -56,12 +87,20 @@ DEFAULT_JOIN_BROADCAST_MAX_ROWS = 4_000_000
 DEFAULT_JOIN_REBUCKETIZE = "auto"
 DEFAULT_HYBRID_SCAN_MAX_APPENDED_RATIO = 0.3
 DEFAULT_RECOVER_GRACE_SECONDS = 300.0
+DEFAULT_SERVE_WORKERS = 4
+DEFAULT_SERVE_MAX_QUEUE_DEPTH = 32
+DEFAULT_SERVE_PLAN_CACHE_MAX_ENTRIES = 128
+DEFAULT_SERVE_RESULT_CACHE_MAX_BYTES = 256 << 20
+DEFAULT_SERVE_SHED_DEPTH_RATIO = 1.0
 
 # The keys the port reads.
 PORTED_KEYS = (
     INDEX_SYSTEM_PATH, INDEX_NUM_BUCKETS, JOIN_BROADCAST_MAX_ROWS, JOIN_REBUCKETIZE,
     INDEX_HYBRID_SCAN_ENABLED, INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO, RECOVER_ON_ACCESS,
-    RECOVER_GRACE_SECONDS,
+    RECOVER_GRACE_SECONDS, OBS_ENABLED, OBS_SINK, OBS_EVENTS_MAX, SERVE_WORKERS, SERVE_MAX_QUEUE_DEPTH,
+    SERVE_QUERY_TIMEOUT_SECONDS, SERVE_PLAN_CACHE_ENABLED, SERVE_PLAN_CACHE_MAX_ENTRIES,
+    SERVE_RESULT_CACHE_ENABLED, SERVE_RESULT_CACHE_MAX_BYTES, SERVE_SHED_DEPTH_RATIO, EXPLAIN_DISPLAY_MODE,
+    EXPLAIN_HIGHLIGHT_BEGIN, EXPLAIN_HIGHLIGHT_END,
 )
 # The JAX package's other declared keys (its `config.KNOWN_KEYS`), whose
 # modules are not ported yet.
@@ -69,30 +108,20 @@ UNPORTED_KEYS = frozenset((
     'hyperspace.index.cache.expiryDurationInSeconds', 'hyperspace.index.build.memoryBudgetBytes',
     'hyperspace.index.build.chunkBytes', 'hyperspace.join.venue', 'hyperspace.join.venueMinMbps',
     'hyperspace.build.venue', 'hyperspace.build.pipeline.enabled',
-    'hyperspace.build.pipeline.maxInflightBytes', 'hyperspace.build.workers',
-    'hyperspace.build.exchange.dir', 'hyperspace.scan.prefetch.enabled', 'hyperspace.agg.venue',
-    'hyperspace.sort.venue', 'hyperspace.filter.venue', 'hyperspace.device.staging.enabled',
-    'hyperspace.device.fusedKernels', 'hyperspace.explain.displayMode',
-    'hyperspace.explain.displayMode.highlight.beginTag',
-    'hyperspace.explain.displayMode.highlight.endTag', 'hyperspace.analysis.validate',
-    'hyperspace.faults.enabled', 'hyperspace.faults.maxDelaySeconds',
-    'hyperspace.retry.maxAttempts', 'hyperspace.retry.backoffBaseSeconds',
-    'hyperspace.retry.casAttempts', 'hyperspace.fallback.enabled', 'hyperspace.obs.enabled',
-    'hyperspace.obs.sink', 'hyperspace.obs.http.enabled', 'hyperspace.obs.http.host',
-    'hyperspace.obs.http.port', 'hyperspace.obs.events.maxEvents',
-    'hyperspace.obs.slo.availabilityTarget', 'hyperspace.obs.slo.latencyP99Seconds',
-    'hyperspace.obs.journal.enabled', 'hyperspace.obs.journal.dir',
+    'hyperspace.build.pipeline.maxInflightBytes', 'hyperspace.build.workers', 'hyperspace.build.exchange.dir',
+    'hyperspace.scan.prefetch.enabled', 'hyperspace.agg.venue', 'hyperspace.sort.venue',
+    'hyperspace.filter.venue', 'hyperspace.device.staging.enabled', 'hyperspace.device.fusedKernels',
+    'hyperspace.analysis.validate', 'hyperspace.faults.enabled', 'hyperspace.faults.maxDelaySeconds',
+    'hyperspace.retry.maxAttempts', 'hyperspace.retry.backoffBaseSeconds', 'hyperspace.retry.casAttempts',
+    'hyperspace.fallback.enabled', 'hyperspace.obs.http.enabled', 'hyperspace.obs.http.host',
+    'hyperspace.obs.http.port', 'hyperspace.obs.slo.availabilityTarget',
+    'hyperspace.obs.slo.latencyP99Seconds', 'hyperspace.obs.journal.enabled', 'hyperspace.obs.journal.dir',
     'hyperspace.obs.journal.segmentBytes', 'hyperspace.obs.journal.maxBytes',
-    'hyperspace.obs.journal.snapshotSeconds', 'hyperspace.serve.workers',
-    'hyperspace.serve.maxQueueDepth', 'hyperspace.serve.queryTimeoutSeconds',
-    'hyperspace.serve.planCache.enabled', 'hyperspace.serve.planCache.maxEntries',
-    'hyperspace.serve.resultCache.enabled', 'hyperspace.serve.resultCache.maxBytes',
-    'hyperspace.serve.tenant.quota.enabled', 'hyperspace.serve.tenant.quota.ratePerSecond',
-    'hyperspace.serve.tenant.quota.burst', 'hyperspace.serve.shedDepthRatio',
-    'hyperspace.fleet.cache.dir', 'hyperspace.fleet.cache.maxBytes',
-    'hyperspace.fleet.lease.seconds', 'hyperspace.fleet.singleflight.waitSeconds',
-    'hyperspace.fleet.workers', 'hyperspace.fleet.minWorkers', 'hyperspace.fleet.maxRestarts',
-    'hyperspace.fleet.restartBackoffSeconds', 'hyperspace.controller.enabled',
+    'hyperspace.obs.journal.snapshotSeconds', 'hyperspace.serve.tenant.quota.enabled',
+    'hyperspace.serve.tenant.quota.ratePerSecond', 'hyperspace.serve.tenant.quota.burst',
+    'hyperspace.fleet.cache.dir', 'hyperspace.fleet.cache.maxBytes', 'hyperspace.fleet.lease.seconds',
+    'hyperspace.fleet.singleflight.waitSeconds', 'hyperspace.fleet.workers', 'hyperspace.fleet.minWorkers',
+    'hyperspace.fleet.maxRestarts', 'hyperspace.fleet.restartBackoffSeconds', 'hyperspace.controller.enabled',
     'hyperspace.controller.intervalSeconds', 'hyperspace.controller.cooldownSeconds',
     'hyperspace.controller.hysteresisTicks', 'hyperspace.controller.recoveryTicks',
     'hyperspace.controller.actuationBudget', 'hyperspace.controller.shedRatio',
@@ -107,10 +136,9 @@ UNPORTED_KEYS = frozenset((
     'hyperspace.advisor.routing.minSamples', 'hyperspace.advisor.workload.maxRecords',
     'hyperspace.advisor.lifecycle.autoCreate', 'hyperspace.advisor.lifecycle.autoVacuum',
     'hyperspace.advisor.lifecycle.autoOptimize', 'hyperspace.advisor.lifecycle.maxDeltas',
-    'hyperspace.advisor.minConfidence', 'hyperspace.advisor.minBenefitSeconds',
-    'hyperspace.ingest.enabled', 'hyperspace.ingest.pollSeconds', 'hyperspace.ingest.cdcBatchRows',
-    'hyperspace.ingest.autoCompact', 'hyperspace.ingest.processWorker',
-    'hyperspace.ingest.maxLagSeconds',
+    'hyperspace.advisor.minConfidence', 'hyperspace.advisor.minBenefitSeconds', 'hyperspace.ingest.enabled',
+    'hyperspace.ingest.pollSeconds', 'hyperspace.ingest.cdcBatchRows', 'hyperspace.ingest.autoCompact',
+    'hyperspace.ingest.processWorker', 'hyperspace.ingest.maxLagSeconds',
 ))
 
 
@@ -142,6 +170,14 @@ class HyperspaceConf:
     hybrid_scan_max_appended_ratio: float = DEFAULT_HYBRID_SCAN_MAX_APPENDED_RATIO
     recover_on_access: bool = True
     recover_grace_seconds: float = DEFAULT_RECOVER_GRACE_SECONDS
+    serve_workers: int = DEFAULT_SERVE_WORKERS
+    serve_max_queue_depth: int = DEFAULT_SERVE_MAX_QUEUE_DEPTH
+    serve_query_timeout_seconds: float = 0.0  # 0 = no per-query timeout
+    serve_plan_cache_enabled: bool = True
+    serve_plan_cache_max_entries: int = DEFAULT_SERVE_PLAN_CACHE_MAX_ENTRIES
+    serve_result_cache_enabled: bool = False  # opt-in: results pin device memory
+    serve_result_cache_max_bytes: int = DEFAULT_SERVE_RESULT_CACHE_MAX_BYTES
+    serve_shed_depth_ratio: float = DEFAULT_SERVE_SHED_DEPTH_RATIO
     overrides: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -167,6 +203,34 @@ class HyperspaceConf:
             self.recover_on_access = _as_bool(value)
         elif key == RECOVER_GRACE_SECONDS:
             self.recover_grace_seconds = float(value)
+        elif key == OBS_ENABLED:
+            from hyperspace_tpu_torch.obs import trace as _obs_trace
+
+            _obs_trace.set_enabled(_as_bool(value))
+        elif key == OBS_SINK:
+            from hyperspace_tpu_torch.obs import trace as _obs_trace
+
+            _obs_trace.configure(sink=str(value) if value else None)
+        elif key == OBS_EVENTS_MAX:
+            from hyperspace_tpu_torch.obs import events as _obs_events
+
+            _obs_events.configure(max_events=int(value))
+        elif key == SERVE_WORKERS:
+            self.serve_workers = int(value)
+        elif key == SERVE_MAX_QUEUE_DEPTH:
+            self.serve_max_queue_depth = int(value)
+        elif key == SERVE_QUERY_TIMEOUT_SECONDS:
+            self.serve_query_timeout_seconds = float(value)
+        elif key == SERVE_PLAN_CACHE_ENABLED:
+            self.serve_plan_cache_enabled = _as_bool(value)
+        elif key == SERVE_PLAN_CACHE_MAX_ENTRIES:
+            self.serve_plan_cache_max_entries = int(value)
+        elif key == SERVE_RESULT_CACHE_ENABLED:
+            self.serve_result_cache_enabled = _as_bool(value)
+        elif key == SERVE_RESULT_CACHE_MAX_BYTES:
+            self.serve_result_cache_max_bytes = int(value)
+        elif key == SERVE_SHED_DEPTH_RATIO:
+            self.serve_shed_depth_ratio = float(value)
 
     def get(self, key: str, default: Any = None) -> Any:
         check_known_key(key)
@@ -188,4 +252,32 @@ class HyperspaceConf:
             return self.recover_on_access
         if key == RECOVER_GRACE_SECONDS:
             return self.recover_grace_seconds
+        if key == OBS_ENABLED:
+            from hyperspace_tpu_torch.obs import trace as _obs_trace
+
+            return _obs_trace.enabled()
+        if key == OBS_SINK:
+            from hyperspace_tpu_torch.obs import trace as _obs_trace
+
+            return _obs_trace.sink_path()
+        if key == OBS_EVENTS_MAX:
+            from hyperspace_tpu_torch.obs import events as _obs_events
+
+            return _obs_events.max_events()
+        if key == SERVE_WORKERS:
+            return self.serve_workers
+        if key == SERVE_MAX_QUEUE_DEPTH:
+            return self.serve_max_queue_depth
+        if key == SERVE_QUERY_TIMEOUT_SECONDS:
+            return self.serve_query_timeout_seconds
+        if key == SERVE_PLAN_CACHE_ENABLED:
+            return self.serve_plan_cache_enabled
+        if key == SERVE_PLAN_CACHE_MAX_ENTRIES:
+            return self.serve_plan_cache_max_entries
+        if key == SERVE_RESULT_CACHE_ENABLED:
+            return self.serve_result_cache_enabled
+        if key == SERVE_RESULT_CACHE_MAX_BYTES:
+            return self.serve_result_cache_max_bytes
+        if key == SERVE_SHED_DEPTH_RATIO:
+            return self.serve_shed_depth_ratio
         return default

@@ -2,7 +2,8 @@
 
 Reference parity: com/microsoft/hyperspace/HyperspaceException.scala:17-19 —
 a single exception class carrying a message, plus the typed corruption
-error the scan path raises for unreadable index data.
+error the scan path raises for unreadable index data and the serving
+plane's two typed refusals (`AdmissionRejected`, `QueryTimeout`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,30 @@ class IndexCorruptionError(HyperspaceError):
         super().__init__(msg)
         self.index_root = index_root
         self.path = path
+
+
+class AdmissionRejected(HyperspaceError):
+    """The serving layer refused to enqueue a query: the admission queue
+    is at its configured max depth (or past the shed depth), or the
+    server is draining or shut down. Raised at submit time, so load is
+    shed before it costs queue slots and worker time. Carries the
+    observed depth for client-side backoff."""
+
+    def __init__(self, msg: str, depth: int | None = None, max_depth: int | None = None):
+        super().__init__(msg)
+        self.depth = depth
+        self.max_depth = max_depth
+
+
+class QueryTimeout(HyperspaceError):
+    """A served query exceeded its per-query timeout: it expired while
+    waiting in the admission queue (the worker discards it unexecuted),
+    or the caller's `result()` wait ran out while it was still executing.
+    `elapsed_s` is how long the query had been in the system."""
+
+    def __init__(self, msg: str, elapsed_s: float | None = None):
+        super().__init__(msg)
+        self.elapsed_s = elapsed_s
 
 
 class UnknownConfigKeyError(HyperspaceError):

@@ -22,6 +22,9 @@ ran with the JAX package's physical-plan names (`PartialAggPushdown`,
 `GroupingSetsReaggregate`, `GroupingSetsDistinct`), set when the branch
 finishes, over whatever its inner aggregates recorded; a plain
 aggregate records `segment-reduce-<device type>` or `fused-join-agg`.
+Each branch also names its physical node with the JAX package's op and
+detail keys (`SegmentReduceAggregate`, `FusedJoinAggregate`, ...); its
+`venue` is the session's device type.
 The distinct pair counts and a ROLLUP's prefix-chain factorization
 (one sort of the finest key for every level) run as torch ops on the
 session's device.
@@ -67,6 +70,7 @@ class AggregateMixin:
                 # Single distinct column, no mean: the plan-level two-phase
                 # desugar keeps the inner aggregate eligible for the fused
                 # Aggregate(Join) path.
+                self._phys("CountDistinctReaggregate")
                 plan2, count_aliases = _desugar_count_distinct(plan)
                 out = self._execute(plan2)
                 for alias in count_aliases:
@@ -83,9 +87,18 @@ class AggregateMixin:
             plan = pushed
         fused = self._try_fused_join_aggregate(plan)
         if fused is not None:
+            self._phys(
+                "FusedJoinAggregate",
+                join_path=self.stats["join_path"],
+                kernel=self.stats["join_kernel"],
+                buckets=self.stats["num_buckets"],
+            )
             return fused
         table = self._execute(plan.child)
         self.stats["agg_path"] = f"segment-reduce-{self.device.type}"
+        self._phys(
+            "SegmentReduceAggregate", venue=self.device.type, groups=len(plan.group_by), aggs=len(plan.aggs), devices=1
+        )
         return aggregate_table(
             table, plan.group_by, plan.aggs, plan.schema, groups=_group_ids_cached(table, plan.group_by)
         )
@@ -182,6 +195,7 @@ class AggregateMixin:
 
         pschema = Aggregate(_TableLeaf(lt), pkeys, partial_specs).schema
         partial = aggregate_table(lt, pkeys, partial_specs, pschema, groups=(gid, k, rep))
+        self._phys("PartialAggPushdown", partial_rows=partial.num_rows, input_rows=lt.num_rows, keys=pkeys)
         outer_plan: LogicalPlan = Aggregate(
             Join(_TableLeaf(partial), child.right, child.left_on, child.right_on, "inner"),
             list(plan.group_by),
@@ -221,6 +235,7 @@ class AggregateMixin:
         gid, k, rep = _group_ids_cached(ct, plan.group_by)
         out_schema = plan.schema
         self.stats["agg_path"] = "DistinctExpandAggregate"
+        self._phys("DistinctExpandAggregate", distinct_cols=dcols, groups=len(plan.group_by), venue=self.device.type)
         if k == 0 or (ct.num_rows == 0 and plan.group_by):
             return ColumnTable.empty(out_schema, device=self.device)
         regular = [a for a in plan.aggs if a.fn != "count_distinct"]
@@ -268,6 +283,7 @@ class AggregateMixin:
                 base_specs.append(AggSpec(a.fn, a.expr, a.alias))
         bt = self._execute(Aggregate(plan.child, plan.group_by, base_specs))
         out_schema = plan.schema
+        self._phys("GroupingSetsReaggregate", sets=[list(s) for s in plan.grouping_sets], venue=self.device.type)
 
         def refold(a: AggSpec) -> list[AggSpec]:
             """Phase-2 spec(s) re-aggregating a phase-1 partial column."""
@@ -403,6 +419,11 @@ class AggregateMixin:
         distinct counts cannot be composed from finer partials."""
         ct = self._execute(plan.child)
         leaf = _TableLeaf(ct)
+        self._phys(
+            "GroupingSetsDistinct",
+            sets=[list(s) for s in plan.grouping_sets],
+            distinct_cols=sorted(a.expr.name.lower() for a in plan.aggs if a.fn == "count_distinct"),
+        )
         parts: list[ColumnTable] = []
         for s in plan.grouping_sets:
             sub = self._execute(Aggregate(leaf, list(s), [a for a in plan.aggs if a.fn != "grouping"]))

@@ -68,8 +68,17 @@ class JoinMixin:
             # matched rows. (Outer / semi / anti residuals alter MATCHING
             # and apply inside _partition_join.) The filtered table is a
             # new table, so it inherits no preserved bucket grouping.
+            before = out.num_rows
             out = out.filter_mask(eval_predicate_mask(out, plan.condition))
+            self._phys(residual_condition=True, residual_rows_dropped=before - out.num_rows)
         self.stats["join_paths"].append(path)
+        self._phys(
+            "BroadcastHashJoin" if path == "broadcast-hash" else "SortMergeJoin",
+            path=path,
+            kernel=self.stats["join_kernel"],
+            buckets=self.stats["num_buckets"],
+            devices=1,
+        )
         return out
 
     def _partition_join(self, plan: Join, lside: SideData, rside: SideData) -> ColumnTable:
@@ -112,7 +121,9 @@ class JoinMixin:
             pairs = self._gather_pairs(plan, lt, rt, lidx, ridx, schema=sub_schema)
             pmask = eval_predicate_mask(pairs, plan.condition)
             matched = torch.zeros(lt.num_rows, dtype=torch.bool, device=lt.device)
-            matched[lidx[pmask]] = True
+            kept = lidx[pmask]
+            matched[kept] = True
+            self._phys(residual_condition=True, residual_pairs_dropped=len(lidx) - len(kept))
             return _as_schema(lt.filter_mask(matched if how == "semi" else ~matched), plan.schema)
 
         inner = self._gather_pairs(plan, lt, rt, lidx, ridx)
@@ -123,7 +134,9 @@ class JoinMixin:
             # SURVIVING pairs).
             pmask = eval_predicate_mask(inner, plan.condition)
             inner = inner.filter_mask(pmask)
+            pairs = len(lidx)
             lidx, ridx = lidx[pmask], ridx[pmask]
+            self._phys(residual_condition=True, residual_pairs_dropped=pairs - len(lidx))
         if how == "inner":
             # Bucket-preserving output: an inner join over B > 1 buckets
             # emits pairs bucket-major, so the result STAYS bucket-grouped

@@ -13,7 +13,10 @@ host sync, would cost more than the query. A Filter over a hybrid scan
 (a Union of an index scan and the appended files, from hybrid scan)
 bucket-prunes or range-prunes the index scan's files, reads the deltas
 whole and masks the union (`HybridScanFilter`, the JAX package's
-physical-plan name).
+physical-plan name). Each branch names its physical node as the JAX
+package does (`IndexPointLookup`, `IndexRangeScan`, `HybridScanFilter`,
+with `files_pruned`, `rows_pruned` and the kernel); a physical read adds
+its files' bytes on disk to `bytes_scanned`.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Scan, Union
 # Bucket pruning reads at most this many point combinations; above it
 # the (still-correct) mask takes over.
 MAX_POINT_COMBOS = 64
+# The predicate mask's kernel: torch ops on the session's device.
+MASK_KERNEL = "device-mask"
 
 
 def scan_files(scan: Scan) -> list[str]:
@@ -108,8 +113,8 @@ class ScanFilterMixin:
         files = list(files)
         t0 = time.perf_counter()
         try:
-            mtimes = tuple(os.stat(f).st_mtime_ns for f in files)
-            where = (tuple(files), mtimes)
+            file_stats = [os.stat(f) for f in files]
+            where = (tuple(files), tuple(st.st_mtime_ns for st in file_stats))
             dev = str(self.device)
             got = {c: DEVICE_CACHE.get(("col", *where, c, dev)) for c in columns}
             missing = [c for c in columns if got[c] is None]
@@ -118,6 +123,7 @@ class ScanFilterMixin:
                 table, rows = hio.read_parquet(files, columns=missing, schema=schema, device=self.device,
                                                file_rows=True)
                 self.stats["files_read"] += len(files)
+                self.stats["bytes_scanned"] += sum(st.st_size for st in file_stats)
                 for c in missing:
                     name = table.schema.field(c).name
                     entry = (table.columns[name], table.validity.get(name), table.dictionaries.get(name))
@@ -162,10 +168,18 @@ class ScanFilterMixin:
 
     def _filter(self, plan: Filter) -> ColumnTable:
         child = plan.child
+        # Per-OPERATOR pruning evidence: deltas of the query-cumulative
+        # counters from this frame's start.
+        fp0, rp0 = self.stats["files_pruned"], self.stats["rows_pruned"]
         if isinstance(child, Scan) and child.bucket_spec is not None:
             pruned = self._prune_bucket_files(child, plan.predicate)
             if pruned is not None:
                 self.stats["scan"] = "IndexPointLookup"
+                self._phys(
+                    "IndexPointLookup",
+                    files_pruned=self.stats["files_pruned"] - fp0,
+                    kernel=f"bucket-hash-prune + {MASK_KERNEL}",
+                )
                 table = self._read(pruned, child.scan_schema.names, child.scan_schema, child.root)
                 return apply_filter(table, plan.predicate)
             ranged = self._range_read(child, plan.predicate)
@@ -176,8 +190,20 @@ class ScanFilterMixin:
                     # The slice IS the predicate: every conjunct bounds the
                     # sorted key, so the residual mask would be all-true.
                     self.stats["range_exact"] = True
+                    self._phys(
+                        "IndexRangeScan",
+                        files_pruned=self.stats["files_pruned"] - fp0,
+                        rows_pruned=self.stats["rows_pruned"] - rp0,
+                        kernel="minmax-prune + searchsorted-slice (exact, mask skipped)",
+                    )
                     return table
                 self.stats["range_exact"] = False
+                self._phys(
+                    "IndexRangeScan",
+                    files_pruned=self.stats["files_pruned"] - fp0,
+                    rows_pruned=self.stats["rows_pruned"] - rp0,
+                    kernel=f"minmax-prune + searchsorted-slice + {MASK_KERNEL}",
+                )
                 return apply_filter(table, plan.predicate)
         if isinstance(child, Union):
             # Hybrid scan: prune the bucketed input(s), keep deltas whole.
@@ -191,9 +217,15 @@ class ScanFilterMixin:
                     if pruned is not None:
                         inp = dataclasses.replace(inp, files=pruned)
                 new_inputs.append(inp)
+            self._phys(
+                "HybridScanFilter",
+                files_pruned=self.stats["files_pruned"] - fp0,
+                kernel=f"bucket/minmax-prune + {MASK_KERNEL}",
+            )
             table = self._union(Union(new_inputs))
             self.stats["scan"] = "HybridScanFilter"
             return apply_filter(table, plan.predicate)
+        self._phys(kernel=MASK_KERNEL)
         return apply_filter(self._execute(child), plan.predicate)
 
     def _prune_bucket_files(self, scan: Scan, predicate: Expr) -> list[str] | None:

@@ -176,6 +176,7 @@ class JoinSidesMixin:
                         "bucket-preserved-aligned" if preserved is not None else "rebucketized-aligned"
                     )
                     self.stats["exchanges"].append("preserved" if preserved is not None else "rebucketize")
+                    self._phys(exchange=self.stats["exchanges"][-1], buckets=num_buckets)
                     if l_keyed:
                         return sd_idx, sd_other
                     return sd_other, sd_idx
@@ -200,6 +201,7 @@ class JoinSidesMixin:
             ):
                 self.stats["join_path"] = "bucket-preserved-aligned"
                 self.stats["exchanges"].append("preserved-both")
+                self._phys(exchange="preserved-both", buckets=len(pl.offsets) - 1)
                 return pl, pr
             keyed = pl or pr
             if keyed is not None and (mode == "force" or not self._should_broadcast(lt.num_rows, rt.num_rows)):
@@ -210,6 +212,7 @@ class JoinSidesMixin:
                 if pair[0] is not None and pair[1] is not None:
                     self.stats["join_path"] = "rebucketized-aligned"
                     self.stats["exchanges"].append("preserved+rebucketize")
+                    self._phys(exchange="preserved+rebucketize", buckets=len(keyed.offsets) - 1)
                     return pair
         # General path: one partition (bucket count 1).
         if lt is None:
@@ -357,6 +360,7 @@ class JoinSidesMixin:
                 if pruned:
                     groups = [g if b in keep else [] for b, g in enumerate(groups)]
                     self.stats["files_pruned"] += pruned
+                    self._phys(dpp_files_pruned=pruned)
         files = [f for g in groups for f in g]
         if files:
             table, file_rows = self._read(files, schema.names, schema, side.scan.root, file_rows=True)
@@ -375,6 +379,7 @@ class JoinSidesMixin:
             table, offsets = self._dpp_cut_cached(table, offsets, sliceable, schema.field(hf[0].name), dpp_bounds)
             if rows_before - table.num_rows:
                 self.stats["rows_pruned"] += rows_before - table.num_rows
+                self._phys(dpp_rows_pruned=rows_before - table.num_rows)
         if side.deltas:
             table, offsets = self._merge_deltas(side, table, offsets, num_buckets)
             sorted_within = False

@@ -36,12 +36,22 @@ the JAX package's `exchange` detail of its physical plan). `top_n` and
 `limit_early_out` carry the details of the JAX package's `TopN` and
 `LimitEarlyOut` physical nodes (the selection's kernel and candidates;
 the files scanned of the files listed).
+
+The executed physical plan (`physical_plan`, execution/physical.py) is
+recorded as the query runs, with the JAX package's operator names and
+detail keys: one node an `_execute` frame, annotated by `_phys`, with
+its files and bytes read, its rows out and its wall time. Each frame
+also opens an `execute.<op>` span (obs/trace.py). The wall is the
+host's: the operators launch their device work and do not wait for it.
+Detail values that name a kernel or a venue are the port's own (`venue`
+is the session's device type).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 import weakref
 
 import numpy as np
@@ -55,13 +65,16 @@ from hyperspace_tpu_torch.execution.exec_join import JoinMixin
 from hyperspace_tpu_torch.execution.exec_join_agg import FusedJoinAggMixin
 from hyperspace_tpu_torch.execution.exec_scan import ScanFilterMixin, scan_files
 from hyperspace_tpu_torch.execution.exec_side import JoinSidesMixin
+from hyperspace_tpu_torch.execution.physical import PhysicalNode
 from hyperspace_tpu_torch.execution.table import ColumnTable
 from hyperspace_tpu_torch.ops.project import project_table
 from hyperspace_tpu_torch.ops.sortkeys import column_lanes, device_order_perm, lane_tensor, lanes_as_unsigned
+from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.ops.window import window_table
 from hyperspace_tpu_torch.plan.expr import And
 from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, Limit, LogicalPlan, Project, Scan, Sort, Union, Window
 from hyperspace_tpu_torch.plan.prune import prune_columns
+from hyperspace_tpu_torch.plan.pushdown import push_down_filters
 
 
 class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, AggregateMixin):
@@ -74,6 +87,7 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
             "files_read": 0,
             "files_pruned": 0,
             "rows_pruned": 0,
+            "bytes_scanned": 0,
             "range_exact": None,
             "read_s": 0.0,
             "scan": None,
@@ -87,6 +101,9 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
             "top_n": None,
             "limit_early_out": None,
         }
+        # Executed physical plan, built as the query runs.
+        self.physical_plan: PhysicalNode | None = None
+        self._cur_phys: PhysicalNode | None = None
         # Bucket-preserving join outputs: id(table) -> (weakref, offsets,
         # lowered key names, hash-domain fields). Bounded; the weakrefs
         # keep a reused id from matching a dead table.
@@ -118,33 +135,99 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
         return dst
 
     def execute(self, plan: LogicalPlan) -> ColumnTable:
-        return self._execute(prune_columns(plan))
+        return self._execute(prune_columns(push_down_filters(plan)))
 
     def _execute(self, plan: LogicalPlan) -> ColumnTable:
+        """One operator frame: a physical node (a child of the frame that
+        called it) and an `execute.<op>` span around `_dispatch`, then
+        the files, bytes and rows this operator accounts for."""
+        node = PhysicalNode(op=type(plan).__name__)
+        parent, self._cur_phys = self._cur_phys, node
+        if parent is not None:
+            parent.children.append(node)
+        else:
+            self.physical_plan = node
+        files_before = self.stats["files_read"]
+        bytes_before = self.stats["bytes_scanned"]
+        sp = obs_trace.span(f"execute.{type(plan).__name__}")
+        t0 = time.perf_counter()
+        with sp:
+            try:
+                result = self._dispatch(plan)
+            finally:
+                self._cur_phys = parent
+                # Recorded even on failure, so partial profiles stay honest.
+                node.wall_s = time.perf_counter() - t0
+                sp.rename(f"execute.{node.op}")
+            # The file IO of THIS operator: its frame's delta less what the
+            # child frames already claimed.
+            subtree = self.stats["files_read"] - files_before
+            node._subtree_files = subtree
+            own = subtree - sum(getattr(c, "_subtree_files", 0) for c in node.children)
+            if own > 0:
+                node.detail.setdefault("files", own)
+            sub_bytes = self.stats["bytes_scanned"] - bytes_before
+            node._subtree_bytes = sub_bytes
+            own_bytes = sub_bytes - sum(getattr(c, "_subtree_bytes", 0) for c in node.children)
+            if own_bytes > 0:
+                node.detail.setdefault("bytes", own_bytes)
+            node.rows_out = result.num_rows
+            sp.set(rows_out=result.num_rows)
+            if own > 0:
+                sp.set(files=own, bytes=own_bytes)
+        return result
+
+    def _phys(self, op: str | None = None, **detail) -> None:
+        """Annotate the operator currently executing."""
+        if self._cur_phys is None:
+            return
+        if op is not None:
+            self._cur_phys.op = op
+        self._cur_phys.detail.update(detail)
+
+    def _dispatch(self, plan: LogicalPlan) -> ColumnTable:
         if isinstance(plan, Scan):
-            self.stats["scan"] = "IndexScan" if plan.bucket_spec is not None else "TableScan"
+            # Labeled here, not in _scan: a scan also runs as a
+            # subroutine of other operators (hybrid delta reads).
+            if plan.bucket_spec is not None:
+                self._phys("IndexScan", buckets=plan.bucket_spec[0])
+            else:
+                self._phys("TableScan")
+            self.stats["scan"] = self._cur_phys.op
             return self._scan(plan)
         if isinstance(plan, Filter):
             return self._filter(plan)
         if isinstance(plan, Project):
+            self._cur_phys.detail["columns"] = list(plan.output_names)
             child = self._execute(plan.child)
             if plan.is_simple:
                 return self._propagate_stash(child, child.select(plan.columns))
+            self._phys("ProjectCompute", computed=[c[0] for c in plan.columns if not isinstance(c, str)])
             return project_table(child, plan.columns, plan.schema)
         if isinstance(plan, Join):
             return self._join(plan)
         if isinstance(plan, Union):
+            self._cur_phys.op = "HybridScanUnion"
             return self._union(plan)
         if isinstance(plan, Aggregate):
             return self._aggregate(plan)
         if isinstance(plan, Window):
             t = self._execute(plan.child)
+            self._phys(
+                "WindowSortedSegments",
+                partitions=list(plan.partition_by),
+                frame=plan.frame,
+                funcs=[f.fn for f in plan.funcs],
+            )
             return window_table(t, plan.partition_by, plan.order_by, plan.funcs, plan.frame, plan.schema)
         if isinstance(plan, Sort):
-            return self._sorted_table(self._execute(plan.child), plan)
+            t = self._execute(plan.child)
+            self._phys("DeviceSort", keys=[c for c, _ in plan.by])
+            return self._sorted_table(t, plan)
         if isinstance(plan, _TableLeaf):
             return plan.table
         if isinstance(plan, Limit):
+            self._cur_phys.detail["n"] = plan.n
             if isinstance(plan.child, Sort):
                 return self._top_n(plan.child, plan.n)
             early = self._limit_early_out(plan.child, plan.n)
@@ -197,6 +280,7 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
             if total >= n:
                 break
         self.stats["limit_early_out"] = {"files_scanned": scanned, "files_total": len(files)}
+        self._phys("LimitEarlyOut", **self.stats["limit_early_out"])
         if not parts:
             return ColumnTable.empty(child.schema, device=self.device)
         out = ColumnTable.concat(parts) if len(parts) > 1 else parts[0]
@@ -217,6 +301,7 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
             return table.take(torch.arange(0, device=table.device))
         if rows <= max(2 * n, 1024):
             self.stats["top_n"] = {"kernel": "full-sort"}
+            self._phys("TopN", n=n, **self.stats["top_n"])
             full = self._sorted_table(table, sort_plan)
             return full.take(torch.arange(min(n, full.num_rows), device=full.device))
         # The FIRST sort column's lanes (DESC inverted, as the full sort
@@ -235,6 +320,7 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
         # the exact sort of the candidates settles the rest.
         cand = torch.nonzero(key <= thr).flatten()
         self.stats["top_n"] = {"kernel": "partition-select + sort", "candidates": len(cand)}
+        self._phys("TopN", n=n, **self.stats["top_n"])
         full = self._sorted_table(table.take(cand), sort_plan)
         return full.take(torch.arange(min(n, full.num_rows), device=full.device))
 

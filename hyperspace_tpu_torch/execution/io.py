@@ -29,6 +29,7 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError, IndexCorruptionError
 from hyperspace_tpu_torch.execution.table import ColumnTable
+from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.schema import Schema
 from hyperspace_tpu_torch.utils.file_utils import write_json
 
@@ -61,15 +62,21 @@ def read_parquet(
     `file_rows`, returns (table, int64 row count of each file)."""
     if not files:
         raise HyperspaceError("no files to read")
-    if len(files) == 1:
-        tables = [_read_one_file(files[0], columns)]
-    else:
-        with ThreadPoolExecutor(max_workers=min(8, len(files))) as ex:
-            tables = list(ex.map(lambda f: _read_one_file(f, columns), files))
+    try:
+        nbytes = sum(os.path.getsize(f) for f in files)
+    except OSError:
+        nbytes = 0
+    with obs_trace.span("io.read", files=len(files), fmt="parquet", bytes=nbytes):
+        if len(files) == 1:
+            tables = [_read_one_file(files[0], columns)]
+        else:
+            with ThreadPoolExecutor(max_workers=min(8, len(files))) as ex:
+                tables = list(ex.map(lambda f: _read_one_file(f, columns), files))
     table = pa.concat_tables(tables, promote_options="default") if len(tables) > 1 else tables[0]
     if schema is not None and columns is not None:
         schema = schema.select(columns)
-    out = ColumnTable.from_arrow(table, schema, device=device)
+    with obs_trace.span("device.stage", files=len(files)):
+        out = ColumnTable.from_arrow(table, schema, device=device)
     if file_rows:
         return out, np.array([t.num_rows for t in tables], dtype=np.int64)
     return out
@@ -272,8 +279,9 @@ def carve_and_write(
             col_stats[b] = {c: bucket_key_stats(sub, c) for c in other_cols}
         write_bucket(dest, b, sub)
 
-    with ThreadPoolExecutor(max_workers=min(16, max(1, num_buckets))) as ex:
-        list(ex.map(write_one, range(num_buckets)))
+    with obs_trace.span("io.carve", partitions=num_buckets):
+        with ThreadPoolExecutor(max_workers=min(16, max(1, num_buckets))) as ex:
+            list(ex.map(write_one, range(num_buckets)))
     write_manifest(
         dest, num_buckets, indexed_columns, rows,
         key_stats if any(s is not None for s in key_stats) else None,

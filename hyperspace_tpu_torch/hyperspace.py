@@ -11,9 +11,10 @@ A port of the JAX package's `hyperspace.py` (`HyperspaceSession.parquet /
 enable_hyperspace / disable_hyperspace / run / to_pandas` and the
 `Hyperspace` facade: `create_index`, `create_vector_index`, `ann_search`
 and the lifecycle — `delete_index`, `restore_index`, `vacuum_index`,
-`refresh_index(name, mode)`, `optimize_index`, `cancel`, `recover` and
-`indexes`), with `run_query(plan, plan_cache=)` and `QueryOutcome`. The
-session runs on the CUDA card unless the caller passes `device="cpu"`.
+`refresh_index(name, mode)`, `optimize_index`, `cancel`, `recover`,
+`indexes` and `explain`), with `run_query(plan, plan_cache=)`,
+`QueryOutcome`, `last_profile()` and `serve()`. The session runs on the
+CUDA card unless the caller passes `device="cpu"`.
 `last_query_stats` reports what ran: the scan kind (`HybridScanFilter`
 for a filter over a hybrid scan), files read or pruned, rows pruned by a
 range slice or a join's dynamic partition pruning and whether a range
@@ -25,13 +26,27 @@ seconds by step (`host_s`: plan, read, derive, execute). Decoded columns
 and derived arrays are cached per process (execution/device_cache.py).
 With `hyperspace.index.hybridscan.enabled`, an index whose source has
 gained files still serves, through a hybrid scan of the index and the
-appended files. The corruption quarantine and fallback, profiles, the
-server and the advisor are not ported yet.
+appended files.
+
+Every query yields its executed physical plan and a profile
+(obs/profile.py); `session.serve()` builds the concurrent QueryServer
+(serve/scheduler.py). `run_query` is safe to call from many threads: a
+query's state lives in its QueryOutcome, and the session's view of the
+most recent one (`last_query_stats`, `last_optimized_plan`,
+`last_physical_plan`, `last_profile()`) is installed under one lock
+(`_publish`). Profile and span times are host walls; with
+`run(plan, profile_dir=...)` the query runs under `torch.profiler`, whose
+Chrome trace holds the card's own times. The corruption quarantine and
+fallback and the advisor's routing are not ported yet: `replans` is
+always 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import os
+import threading
 import time
 from pathlib import Path
 
@@ -40,28 +55,44 @@ import torch
 from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.dataset import Dataset
 from hyperspace_tpu_torch.device import resolve_device
+from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.collection_manager import CachingIndexCollectionManager
 from hyperspace_tpu_torch.index.index_config import IndexConfig
+from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
 from hyperspace_tpu_torch.plan.prune import prune_columns
 from hyperspace_tpu_torch.plan.pushdown import push_down_filters
 from hyperspace_tpu_torch.rules.base import apply_rules
 
 
+_profile_seq = itertools.count(1)
+
+
 @dataclasses.dataclass
 class QueryOutcome:
     """Everything one query produced, owned by the caller rather than
-    the session: the result (a ColumnTable), the executor's stats and the
-    optimized plan that ran. `run` publishes one into the session's view
-    (`last_query_stats`, `last_optimized_plan`); `run_query` does not."""
+    the session: the result (a ColumnTable), the executor's stats, the
+    optimized plan that ran, the executed physical plan and the query's
+    profile. `run` publishes one into the session's view
+    (`_publish`); `run_query` does not. `replans` is 0 (the corruption
+    fallback is not ported) and `used_indexes` is the session's switch."""
 
     result: object
     stats: dict
     optimized_plan: LogicalPlan
+    physical_plan: object = None
+    profile: object = None
+    replans: int = 0
+    used_indexes: bool = True
 
 
 class HyperspaceSession:
-    """The engine session: configuration + device + rule toggle."""
+    """The engine session: configuration + device + rule toggle.
+
+    Thread-safety: `run_query()` may be called from N threads (the
+    serving plane does exactly that). Each query's state lives in its
+    QueryOutcome; the session view and the lazy manager are guarded by
+    one reentrant lock."""
 
     def __init__(
         self,
@@ -79,9 +110,13 @@ class HyperspaceSession:
         self._enabled = False
         self._manager: CachingIndexCollectionManager | None = None
         self._last_writer = None
+        # Guards the session view below and the lazy manager.
+        self._state_lock = threading.RLock()
         # Executed-plan evidence of the most recent run().
         self.last_query_stats: dict = {}
         self.last_optimized_plan: LogicalPlan | None = None
+        self.last_physical_plan = None
+        self._last_profile = None
 
     # -- rule toggle (package.scala:46-70) --------------------------------
     def enable_hyperspace(self) -> "HyperspaceSession":
@@ -99,20 +134,22 @@ class HyperspaceSession:
     @property
     def manager(self) -> CachingIndexCollectionManager:
         if self._manager is None:
+            with self._state_lock:
+                if self._manager is None:
 
-            def writer_factory():
-                from hyperspace_tpu_torch.execution.builder import DeviceIndexBuilder
+                    def writer_factory():
+                        from hyperspace_tpu_torch.execution.builder import DeviceIndexBuilder
 
-                self._last_writer = DeviceIndexBuilder(self.device)
-                return self._last_writer
+                        self._last_writer = DeviceIndexBuilder(self.device)
+                        return self._last_writer
 
-            def vector_builder_factory():
-                from hyperspace_tpu_torch.vector.index import VectorIndexBuilder
+                    def vector_builder_factory():
+                        from hyperspace_tpu_torch.vector.index import VectorIndexBuilder
 
-                self._last_writer = VectorIndexBuilder(self.device)
-                return self._last_writer
+                        self._last_writer = VectorIndexBuilder(self.device)
+                        return self._last_writer
 
-            self._manager = CachingIndexCollectionManager(self.conf, writer_factory, vector_builder_factory)
+                    self._manager = CachingIndexCollectionManager(self.conf, writer_factory, vector_builder_factory)
         return self._manager
 
     @property
@@ -139,36 +176,50 @@ class HyperspaceSession:
         # against.
         return apply_rules(prune_columns(push_down_filters(plan)), self.manager.get_indexes(), conf=self.conf)
 
-    def run(self, plan: LogicalPlan):
+    def run(self, plan: LogicalPlan, profile_dir: str | Path | None = None):
         """Execute a plan (rewriting through indexes when enabled);
-        returns a ColumnTable on the session's device."""
-        outcome = self.run_query(plan)
-        self.last_query_stats = outcome.stats
-        self.last_optimized_plan = outcome.optimized_plan
+        returns a ColumnTable on the session's device. With `profile_dir`,
+        the query runs under one `torch.profiler.profile` (the card's
+        activity too, on the card) and its Chrome trace (`*.json`) is
+        written there: the card's own times, which no span or profile
+        wall holds."""
+        outcome = self.run_query(plan, profile_dir=profile_dir)
+        self._publish(outcome)
         return outcome.result
 
-    def run_query(self, plan: LogicalPlan, plan_cache=None) -> QueryOutcome:
+    def run_query(self, plan: LogicalPlan, profile_dir: str | Path | None = None, plan_cache=None) -> QueryOutcome:
         """Execute a plan into a QueryOutcome without touching the
-        session's view. `plan_cache` (a serve.PlanCache) memoizes
+        session's view: the concurrency-safe entry point the serving
+        plane uses. `plan_cache` (a serve.PlanCache) memoizes
         `optimized_plan` per versioned plan key while hyperspace is
         enabled. The outcome's stats carry the host's seconds by step
         (`host_s`): plan (the rewrite or a cache hit), read (decoded
         columns: the device cache, or parquet), derive (derived arrays:
         their cache, or the derivation) and execute (everything after
         planning, read and derive included; the device's work is not
-        waited for)."""
+        waited for). The query is one `query` trace (`plan.optimize`,
+        `rule.*`, `execute.*`, `io.read`, `device.kernel` spans) when
+        `hyperspace.obs.enabled`."""
         from hyperspace_tpu_torch.execution import device_cache
         from hyperspace_tpu_torch.execution.executor import Executor
+        from hyperspace_tpu_torch.obs import profile as obs_profile
 
+        cache_before = self._cache_counts()
         t0 = time.perf_counter()
-        if plan_cache is not None and self._enabled:
-            optimized = plan_cache.get_or_optimize(self, plan)
-        else:
-            optimized = self.optimized_plan(plan)
-        t1 = time.perf_counter()
-        derive0 = device_cache.derive_seconds()
-        executor = Executor(self.device, self.conf)
-        result = executor.execute(optimized)
+        with obs_trace.trace("query") as root_span:
+            with obs_trace.span("plan.optimize", indexes_enabled=self._enabled):
+                if plan_cache is not None and self._enabled:
+                    optimized = plan_cache.get_or_optimize(self, plan)
+                else:
+                    optimized = self.optimized_plan(plan)
+            t1 = time.perf_counter()
+            derive0 = device_cache.derive_seconds()
+            executor = Executor(self.device, self.conf)
+            if profile_dir is not None:
+                result = self._profiled(executor, optimized, Path(profile_dir))
+            else:
+                result = executor.execute(optimized)
+        total_s = time.perf_counter() - t0
         stats = executor.stats
         stats["host_s"] = {
             "plan": t1 - t0,
@@ -176,7 +227,87 @@ class HyperspaceSession:
             "derive": device_cache.derive_seconds() - derive0,
             "execute": time.perf_counter() - t1,
         }
-        return QueryOutcome(result, stats, optimized)
+        cache_after = self._cache_counts()
+        profile = obs_profile.build_profile(
+            total_s=total_s,
+            physical_plan=executor.physical_plan,
+            stats=stats,
+            venue=self._venue_info(),
+            cache={k: cache_after[k] - cache_before[k] for k in cache_after},
+            fallback={"replans": 0, "degraded_indexes": [], "used_indexes": self._enabled},
+            trace_root=root_span if isinstance(root_span, obs_trace.Span) else None,
+        )
+        return QueryOutcome(result, stats, optimized, executor.physical_plan, profile, 0, self._enabled)
+
+    def _profiled(self, executor, optimized: LogicalPlan, profile_dir: Path):
+        """`executor.execute(optimized)` under torch.profiler; the Chrome
+        trace goes to `profile_dir`. On the card the run ends in a
+        synchronize, so the trace holds all of its kernels."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            result = executor.execute(optimized)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(profile_dir / f"query-{os.getpid()}-{next(_profile_seq)}.json"))
+        return result
+
+    def _publish(self, outcome: QueryOutcome) -> None:
+        """Install a finished query's outcome as the session view in one
+        locked step, so a reader never sees the stats of one query next
+        to the profile of another."""
+        with self._state_lock:
+            self.last_query_stats = outcome.stats
+            self.last_optimized_plan = outcome.optimized_plan
+            self.last_physical_plan = outcome.physical_plan
+            self._last_profile = outcome.profile
+
+    @staticmethod
+    def _cache_counts() -> dict:
+        """Hit and miss counts of the decoded-column entries (`table`),
+        the whole device cache and the derived cache."""
+        from hyperspace_tpu_torch.execution.device_cache import DEVICE_CACHE, HOST_DERIVED
+
+        d, h = DEVICE_CACHE.stats(), HOST_DERIVED.stats()
+        col = d["by_kind"].get("col", {"hits": 0, "misses": 0})
+        return {
+            "table_hits": col["hits"], "table_misses": col["misses"],
+            "device_hits": d["hits"], "device_misses": d["misses"],
+            "derived_hits": h["hits"], "derived_misses": h["misses"],
+        }
+
+    def _venue_info(self) -> dict:
+        """Where this session's queries physically run (profile evidence)."""
+        if self.device.type == "cuda":
+            index = self.device.index if self.device.index is not None else torch.cuda.current_device()
+            return {
+                "mesh": False,
+                "platform": "gpu",
+                "device_kind": torch.cuda.get_device_name(index),
+                "device_count": torch.cuda.device_count(),
+            }
+        return {"mesh": False, "platform": "cpu", "device_kind": None, "device_count": 1}
+
+    def last_profile(self):
+        """The QueryProfile of the most recent run() in this session (None
+        before the first query). Render it with
+        `Hyperspace.explain(plan, mode="analyze")` or inspect `.to_json()`.
+        Under concurrent serving, per-query profiles ride the QueryHandle
+        instead; this view is only "the most recent"."""
+        with self._state_lock:
+            return self._last_profile
+
+    def serve(self, **kwargs):
+        """A concurrent QueryServer over this session: a bounded worker
+        pool, admission control and the versioned plan / result caches.
+        Keyword arguments override the `hyperspace.serve.*` defaults."""
+        from hyperspace_tpu_torch.serve import QueryServer
+
+        return QueryServer(self, **kwargs)
 
     def to_pandas(self, plan: LogicalPlan):
         import pandas as pd
@@ -186,7 +317,7 @@ class HyperspaceSession:
 
 class Hyperspace:
     """The user API (Hyperspace.scala:32-104): index creation, the
-    lifecycle actions and `ann_search`."""
+    lifecycle actions, `ann_search` and `explain`."""
 
     def __init__(self, session: HyperspaceSession):
         self.session = session
@@ -244,3 +375,22 @@ class Hyperspace:
         """Every index under the system path, in any state, as a pandas
         DataFrame (name, kind, columns, buckets, location, state)."""
         return self.session.manager.indexes()
+
+    def explain(self, plan: LogicalPlan, verbose: bool = False, physical: bool = False,
+                mode: str | None = None) -> str:
+        """Rules-off/on plan diff. physical=True EXECUTES both variants and
+        diffs the physical plans that actually ran (files read, kernels,
+        bucket counts, rows per operator). mode="analyze" EXECUTES the
+        query once under the session's current enablement and renders its
+        QueryProfile: per-operator wall time, rows in/out, bytes, venue,
+        cache outcomes. Its times are host walls; the card's time is
+        `torch.profiler`'s (`session.run(plan, profile_dir=...)`)."""
+        from hyperspace_tpu_torch.explain.plan_analyzer import explain_analyze, explain_executed, explain_string
+
+        if mode == "analyze":
+            return explain_analyze(plan, self.session)
+        if mode not in (None, "diff"):
+            raise HyperspaceError(f"unknown explain mode {mode!r} (diff|analyze)")
+        if physical:
+            return explain_executed(plan, self.session)
+        return explain_string(plan, self.session, verbose=verbose)

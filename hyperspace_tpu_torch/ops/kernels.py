@@ -6,6 +6,11 @@ a plain C interface. At first use it is compiled by `nvcc` for Hopper
 checkout, named by a hash of the source, and loaded with `ctypes`. Nothing
 is built or loaded when a module is imported: the CPU path never needs
 `nvcc`.
+
+The wrappers share two helpers that keep them exact under threads (the
+query server runs queries on several threads at once): `count_launch`
+adds to a wrapper's `launches` under a lock, and `memo` builds a launch
+plan once under a lock.
 """
 
 from __future__ import annotations
@@ -34,6 +39,27 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+_memo_lock = threading.Lock()
+MEMO_ENTRIES = 256
+
+
+def count_launch(wrapper) -> None:
+    """One more launch of `wrapper`'s kernel (`wrapper.launches`)."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def memo(table: dict, key, build):
+    """`table[key]`, from `build()` the first time (a plan memo of at most
+    MEMO_ENTRIES entries, emptied when full)."""
+    with _memo_lock:
+        value = table.get(key)
+        if value is None:
+            if len(table) >= MEMO_ENTRIES:
+                table.clear()
+            value = table[key] = build()
+        return value
 
 
 def _nvcc() -> str:

@@ -32,6 +32,8 @@ import ctypes
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.obs import trace as obs_trace
+from hyperspace_tpu_torch.ops.kernels import count_launch, load, memo
 
 FNS = ("sum", "min", "max")
 _FNS = frozenset(FNS)
@@ -122,11 +124,12 @@ def segment_reduce(vals: torch.Tensor, gid: torch.Tensor, num_segments: int, fns
     # out in one allocation; channel blocks run in stream order and reuse
     # them.
     full = torch.empty((c_num + scratch_rows, k), dtype=torch.float64, device=vals.device)
-    if index == torch._C._cuda_getDevice():
-        _run(launches, vals, gid, full, n, k, c_num, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
+    with obs_trace.span("device.kernel", kernel="cuda-segment-reduce", channels=c_num, segments=k):
+        if index == torch._C._cuda_getDevice():
             _run(launches, vals, gid, full, n, k, c_num, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                _run(launches, vals, gid, full, n, k, c_num, torch._C._cuda_getCurrentRawStream(index))
     return full[:c_num] if scratch_rows else full
 
 
@@ -139,7 +142,7 @@ def _run(launches, vals, gid, full, n, k, c_num, stream) -> None:
                  partial, stream)
         if err != 0:
             raise HyperspaceError(f"segment_reduce kernel launch failed ({REGIMES[regime]} regime): CUDA error {err}")
-        segment_reduce.launches += 1
+        count_launch(segment_reduce)
 
 
 def kernels_per_launch(regime: str, fns: tuple) -> int:
@@ -158,9 +161,8 @@ def _launch_plan(fns: tuple, k: int, n: int, sms: int):
     """(one (first channel, channels, min mask, max mask, regime index,
     grid, threads) per block of at most 64 channels, the rows of [*, k]
     float64 the partials need) on a card with `sms` SMs, cached."""
-    key = (fns, k, n, sms)
-    plan = _plans.get(key)
-    if plan is None:
+
+    def build():
         launches, words = [], 0
         for c0 in range(0, len(fns), _CHANNEL_BLOCK):
             block = fns[c0 : c0 + _CHANNEL_BLOCK]
@@ -170,10 +172,9 @@ def _launch_plan(fns: tuple, k: int, n: int, sms: int):
             launches.append((c0, len(block), min_mask, max_mask, REGIMES.index(regime), grid, threads))
             if regime != "global":
                 words = max(words, grid * len(block) * k)
-        if len(_plans) > 256:
-            _plans.clear()
-        plan = _plans[key] = (tuple(launches), -(-words // k))
-    return plan
+        return tuple(launches), -(-words // k)
+
+    return memo(_plans, (fns, k, n, sms), build)
 
 
 segment_reduce.launches = 0
@@ -192,8 +193,6 @@ def _sm_count(index: int) -> int:
 def _launch():
     """hs_segment_reduce from the kernel's library, typed once."""
     if not _fn:
-        from hyperspace_tpu_torch.ops.kernels import load
-
         fn = load("segment_reduce").hs_segment_reduce
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,

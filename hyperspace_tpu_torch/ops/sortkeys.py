@@ -40,6 +40,8 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.obs import trace as obs_trace
+from hyperspace_tpu_torch.ops.kernels import count_launch, load, memo
 
 
 def _flip32(v: np.ndarray) -> np.ndarray:
@@ -262,23 +264,18 @@ def run_bounds(pk: torch.Tensor, sk: torch.Tensor) -> tuple[torch.Tensor, torch.
     if b * lp == 0:
         return st, en
     index = pk.get_device()
-    key = (b, lp, ls, index)
-    plan = _plans.get(key)
-    if plan is None:
-        if len(_plans) > 256:
-            _plans.clear()
-        plan = _plans[key] = bounds_plan(b, lp, ls, _sm_count(index))
-    threads, tiles, grid, window, _ = plan
+    threads, tiles, grid, window, _ = memo(_plans, (b, lp, ls, index), lambda: bounds_plan(b, lp, ls, _sm_count(index)))
     args = (pk.data_ptr(), sk.data_ptr(), st.data_ptr(), en.data_ptr(), b, lp, ls, threads, tiles, grid, window,
             index)
-    if index == torch._C._cuda_getDevice():
-        err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
+    with obs_trace.span("device.kernel", kernel="cuda-run-bounds", buckets=b, secondary=ls):
+        if index == torch._C._cuda_getDevice():
             err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise HyperspaceError(f"run_bounds kernel launch failed at [{b}, {lp}] x [{b}, {ls}]: CUDA error {err}")
-    run_bounds.launches += 1
+    count_launch(run_bounds)
     return st, en
 
 
@@ -299,8 +296,6 @@ def _sm_count(index: int) -> int:
 def _launch():
     """hs_run_bounds from the kernel's library, typed once."""
     if not _fn:
-        from hyperspace_tpu_torch.ops.kernels import load
-
         fn = load("run_bounds").hs_run_bounds
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,

@@ -29,6 +29,8 @@ import ctypes
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.obs import trace as obs_trace
+from hyperspace_tpu_torch.ops.kernels import count_launch, load, memo
 
 MAX_K = 2048  # candidates the last step sorts in shared memory (16 KB); a run of the merge sort above
 SMALL_N = 4096  # a row this short is sorted whole by one block, in one launch
@@ -124,25 +126,24 @@ def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         raise HyperspaceError(f"topk kernel holds rows of fewer than 2^32 - 1 columns; got {n}")
     index = scores.get_device()
     src = scores.contiguous()
-    key = (q, n, k, index)
-    plan = _plans.get(key)
-    if plan is None:
+
+    def build():
         blocks, chunk = select_plan(q, n, _sm_count(index))
-        if len(_plans) > 256:
-            _plans.clear()
-        plan = _plans[key] = (blocks, chunk, workspace_bytes(q, k, blocks) if blocks else 0)
-    blocks, chunk, work_bytes = plan
+        return blocks, chunk, workspace_bytes(q, k, blocks) if blocks else 0
+
+    blocks, chunk, work_bytes = memo(_plans, (q, n, k, index), build)
     work = torch.empty(work_bytes, dtype=torch.uint8, device=dev) if blocks else None
     args = (src.data_ptr(), q, n, k, blocks, chunk, work.data_ptr() if blocks else None,
             vals.data_ptr(), idx.data_ptr())
-    if index == torch._C._cuda_getDevice():
-        err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
+    with obs_trace.span("device.kernel", kernel="cuda-topk", rows=q, columns=n, k=k):
+        if index == torch._C._cuda_getDevice():
             err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise HyperspaceError(f"topk kernel failed at [{q}, {n}], k={k}, {blocks} blocks a row: error {err}")
-    topk.launches += 1
+    count_launch(topk)
     return vals, idx
 
 
@@ -163,8 +164,6 @@ def _sm_count(index: int) -> int:
 def _launch():
     """hs_topk from the kernel's library, typed once."""
     if not _fn:
-        from hyperspace_tpu_torch.ops.kernels import load
-
         fn = load("topk").hs_topk
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,

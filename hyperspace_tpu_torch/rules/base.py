@@ -23,6 +23,7 @@ from pathlib import Path
 from hyperspace_tpu_torch.dataset import list_data_files
 from hyperspace_tpu_torch.execution import io as hio
 from hyperspace_tpu_torch.metadata.log_entry import IndexLogEntry
+from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Project, Scan, Union
 from hyperspace_tpu_torch.schema import Schema
 from hyperspace_tpu_torch.signature import create_signature_provider
@@ -47,10 +48,13 @@ def apply_rules(plan: LogicalPlan, indexes: list[IndexLogEntry], rules=None, con
 
         rules = [JoinIndexRule(conf), FilterIndexRule(conf)]
     for rule in rules:
-        try:
-            plan = rule.apply(plan, indexes)
-        except Exception as e:  # noqa: BLE001 — rules must never break a query
-            logger.warning("rule %s failed, skipping: %s", rule.name, e)
+        with obs_trace.span(f"rule.{rule.name}", candidates=len(indexes)):
+            try:
+                plan = rule.apply(plan, indexes)
+            except Exception as e:  # noqa: BLE001 — rules must never break a query
+                # The span records the failure, the query proceeds.
+                obs_trace.annotate(error=f"{type(e).__name__}: {e}")
+                logger.warning("rule %s failed, skipping: %s", rule.name, e)
     return plan
 
 

@@ -1,7 +1,23 @@
-"""The serving plane's caches. Only the optimized-plan cache is ported
-(serve/plan_cache.py); the server, result cache and admission control of
-the JAX package's `serve/` are not ported yet."""
+"""The serving plane: a concurrent query server and its caches.
+
+`QueryServer` puts a bounded worker pool and an admission-control queue in
+front of one `HyperspaceSession` (`session.serve()`); `PlanCache` and
+`ResultCache` memoize optimized plans and whole results under versioned
+keys that index mutations and source appends invalidate structurally. A
+port of the JAX package's `serve/` without its operations controller and
+fleet.
+"""
 
 from hyperspace_tpu_torch.serve.plan_cache import PlanCache, collection_log_versions, versioned_plan_key
+from hyperspace_tpu_torch.serve.result_cache import ResultCache, table_nbytes
+from hyperspace_tpu_torch.serve.scheduler import QueryHandle, QueryServer
 
-__all__ = ["PlanCache", "collection_log_versions", "versioned_plan_key"]
+__all__ = [
+    "PlanCache",
+    "QueryHandle",
+    "QueryServer",
+    "ResultCache",
+    "collection_log_versions",
+    "table_nbytes",
+    "versioned_plan_key",
+]

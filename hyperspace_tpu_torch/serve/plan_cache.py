@@ -18,9 +18,10 @@ source files change the data fingerprint the same way. The LRU bound only
 caps memory.
 
 Left out until the port has what they key on: the quarantine set (the
-corruption fallback's `index_health`, ROADMAP queue 1 item 6) and the
-pinned snapshot stamp (ingestion, queue 1 item 8). The counters are plain
-ints (`stats()`); the JAX package's metrics registry is not ported.
+corruption fallback's `index_health`) and the pinned snapshot stamp
+(ingestion). Hits, misses and evictions land in the metrics registry
+(`serve.plan_cache.*`, the process's counts over every cache) and in
+this cache's own `stats()`.
 """
 
 from __future__ import annotations
@@ -28,7 +29,13 @@ from __future__ import annotations
 import threading
 
 from hyperspace_tpu_torch.metadata.log_manager import IndexLogManager
+from hyperspace_tpu_torch.obs import metrics as obs_metrics
 from hyperspace_tpu_torch.signature import FileBasedSignatureProvider, plan_signature
+
+
+_HITS = obs_metrics.counter("serve.plan_cache.hits", "optimized-plan cache hits")
+_MISSES = obs_metrics.counter("serve.plan_cache.misses", "optimized-plan cache misses")
+_EVICTIONS = obs_metrics.counter("serve.plan_cache.evictions", "LRU evictions")
 
 
 def collection_log_versions(session) -> tuple:
@@ -77,8 +84,10 @@ class PlanCache:
             if hit is not None:
                 self._entries[key] = self._entries.pop(key)  # LRU touch
                 self.hits += 1
+                _HITS.inc()
                 return hit
             self.misses += 1
+            _MISSES.inc()
         optimized = session.optimized_plan(plan)
         with self._lock:
             if key not in self._entries:
@@ -86,6 +95,7 @@ class PlanCache:
                 while len(self._entries) > self.max_entries:
                     self._entries.pop(next(iter(self._entries)))
                     self.evictions += 1
+                    _EVICTIONS.inc()
         return optimized
 
     def clear(self) -> None:

@@ -964,3 +964,135 @@ def test_vector_incremental_refresh_on_the_card(cuda, tmp_path):
     brute = hs.ann_search(df, queries, k=10)
     assert topk.launches - before == 3
     np.testing.assert_allclose(np.sort(full.scores, axis=1), np.sort(brute.scores, axis=1), rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_eight_clients_through_a_query_server_on_the_card_give_the_cpus_results(cuda, tmp_path):
+    """Point lookups, an aggregate (K1) and the indexed J2 (K2 and K1)
+    served by 4 workers to 8 client threads on the card: every result is
+    the CPU's serial result (exact columns only: integral sums, extrema,
+    counts, selected rows), and each query launched its kernels."""
+    import threading
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, col
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem, gen_tpch_orders
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    gen_tpch_lineitem(tmp_path / "li", sf=0.002)
+    gen_tpch_orders(tmp_path / "o", sf=0.002)
+
+    def queries(li, o):
+        j = li.select("l_orderkey", "l_quantity", "l_extendedprice").join(
+            o.select("o_orderkey", "o_totalprice", "o_orderpriority"), ["l_orderkey"], ["o_orderkey"]
+        )
+        out = {f"lookup{k}": li.filter(col("l_orderkey") == k).select("l_orderkey", "l_quantity", "l_extendedprice")
+               for k in (1, 7, 33, 100, 2017, 5000)}
+        out["agg"] = li.aggregate(["l_returnflag"], [("sum", "l_quantity", "q"), ("min", "l_extendedprice", "lo"),
+                                                     ("count", None, "c")])
+        out["J2"] = j.aggregate(["o_orderpriority"], [("sum", "l_quantity", "q"), ("max", "l_extendedprice", "m"),
+                                                     ("count", None, "c")])
+        return out
+
+    sessions, plans = {}, {}
+    for dev in ("cuda", "cpu"):
+        s = HyperspaceSession(system_path=str(tmp_path / f"idx_{dev}"), num_buckets=8, device=dev)
+        li, o = s.parquet(tmp_path / "li"), s.parquet(tmp_path / "o")
+        Hyperspace(s).create_index(li, IndexConfig("li", ["l_orderkey"], ["l_quantity", "l_extendedprice",
+                                                                         "l_returnflag"]))
+        Hyperspace(s).create_index(o, IndexConfig("o", ["o_orderkey"], ["o_totalprice", "o_orderpriority"]))
+        s.enable_hyperspace()
+        sessions[dev], plans[dev] = s, queries(li, o)
+    want = {name: sessions["cpu"].to_pandas(p) for name, p in plans["cpu"].items()}
+    names = list(want)
+    k1, k2 = segment_reduce.launches, run_bounds.launches
+    for p in plans["cuda"].values():  # serial, warming the caches
+        sessions["cuda"].run(p)
+    serial = (segment_reduce.launches - k1, run_bounds.launches - k2)
+    assert serial[0] > 0 and serial[1] > 0
+    errors = []
+    k1, k2 = segment_reduce.launches, run_bounds.launches
+    with sessions["cuda"].serve(workers=4) as server:
+
+        def client(cid):
+            try:
+                for j in range(len(names)):
+                    name = names[(cid + j) % len(names)]
+                    h = server.submit(plans["cuda"][name])
+                    got = pd.DataFrame(h.result(timeout=300).decode())
+                    w = want[name]
+                    keys = list(w.columns)
+                    got = got.sort_values(keys).reset_index(drop=True)
+                    pd.testing.assert_frame_equal(got, w.sort_values(keys).reset_index(drop=True))
+                    assert h.profile.venue["platform"] == "gpu"
+            except BaseException as e:  # surfaced after join
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    assert not errors, errors
+    assert not any(t.is_alive() for t in threads + server._threads)
+    # Every client ran every query once: 8 times the serial pass's launches.
+    assert (segment_reduce.launches - k1, run_bounds.launches - k2) == (8 * serial[0], 8 * serial[1])
+
+
+@pytest.mark.gpu
+def test_launch_counts_are_exact_under_eight_threads(cuda):
+    """K1 and K2 called 50 times from each of 8 threads: each counts 400
+    launches, and every result equals its plain version."""
+    import threading
+
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds, run_bounds_plain
+
+    rng = np.random.default_rng(8)
+    gid, vals = _inputs(rng, 20_000, 7, 4, integral=True)
+    vals_t, gid_t = torch.from_numpy(vals).to(cuda), torch.from_numpy(gid).to(cuda)
+    fns = ("sum", "min", "max", "sum")
+    want_k1 = segment_reduce_plain(torch.from_numpy(vals), torch.from_numpy(gid), 7, fns)
+    pk = torch.from_numpy(rng.integers(0, 500, (4, 3_000)).astype(np.int32))
+    sk = torch.sort(torch.from_numpy(rng.integers(0, 500, (4, 2_000)).astype(np.int32)), dim=1).values
+    want_k2 = run_bounds_plain(pk, sk)
+    pk_c, sk_c = pk.to(cuda), sk.to(cuda)
+    errors = []
+    k1, k2 = segment_reduce.launches, run_bounds.launches
+
+    def worker():
+        try:
+            for _ in range(50):
+                got = segment_reduce(vals_t, gid_t, 7, fns)
+                st, en = run_bounds(pk_c, sk_c)
+                torch.testing.assert_close(got.cpu(), want_k1, rtol=0, atol=0, equal_nan=True)
+                assert torch.equal(st.cpu(), want_k2[0]) and torch.equal(en.cpu(), want_k2[1])
+        except BaseException as e:  # surfaced after join
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert segment_reduce.launches - k1 == 400
+    assert run_bounds.launches - k2 == 400
+
+
+@pytest.mark.gpu
+def test_profile_dir_on_the_card_writes_the_kernels_trace(cuda, tmp_path):
+    """`run(plan, profile_dir=)` on the card: one Chrome trace holding the
+    aggregate's K1 kernels, and the query's result."""
+    import json
+
+    from hyperspace_tpu_torch import HyperspaceSession
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem
+
+    gen_tpch_lineitem(tmp_path / "li", sf=0.001)
+    s = HyperspaceSession(system_path=str(tmp_path / "idx"), device=cuda)
+    plan = s.parquet(tmp_path / "li").aggregate(["l_returnflag"], [("sum", "l_quantity", "q")])
+    result = s.run(plan, profile_dir=tmp_path / "trace")
+    traces = sorted((tmp_path / "trace").glob("*.json"))
+    assert len(traces) == 1 and result.num_rows == 3
+    names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    assert any("segment_reduce_" in n for n in names), sorted(names)[:50]
+    assert s.last_profile().venue["platform"] == "gpu"

@@ -55,6 +55,18 @@ def test_port_imports_without_jax_or_the_jax_package():
         "hyperspace_tpu_torch.signature",
         "hyperspace_tpu_torch.plan.pushdown",
         "hyperspace_tpu_torch.ops.project",
+        "hyperspace_tpu_torch.stats",
+        "hyperspace_tpu_torch.obs",
+        "hyperspace_tpu_torch.obs.metrics",
+        "hyperspace_tpu_torch.obs.trace",
+        "hyperspace_tpu_torch.obs.events",
+        "hyperspace_tpu_torch.obs.profile",
+        "hyperspace_tpu_torch.execution.physical",
+        "hyperspace_tpu_torch.explain",
+        "hyperspace_tpu_torch.explain.display_mode",
+        "hyperspace_tpu_torch.explain.plan_analyzer",
+        "hyperspace_tpu_torch.serve.result_cache",
+        "hyperspace_tpu_torch.serve.scheduler",
     ):
         assert name in report["modules"]
 

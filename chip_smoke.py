@@ -125,6 +125,34 @@ What it does, in order (any failure raises and exits non-zero):
    Q1 and J2 with `hyperspace.obs.enabled` on and off (median of 5), and
    explain (diff, physical, analyze) of Q1 and J2; K1 and K2 launch, K3
    does not;
+3f. validation and faults (`faults_path`), on the serving path's tables
+   and indexes: (a) `check_plan` + `validate_rewrite` alone on the
+   optimized plans of Q1, J2, q67 and Q13 (host ms, median of 5), warm Q1
+   and J2 with `hyperspace.analysis.validate` on and off (200 and 20
+   repeats, on and off alternating in order within each: medians,
+   quartiles and the median of the paired differences), and the malformed queries of `VALIDATE_EXPECT` on lineitem, orders and
+   customer, each refused with the JAX package's code and path and no
+   kernel launched; (b) the corruption fallback: li_live's newest
+   version's bucket files truncated to 7 bytes with both caches dropped,
+   the 12 lookups and the Q1-shaped aggregate over its source against
+   pyarrow (the first lookup re-plans once, li_live quarantined with one
+   `fallback.replan` and one `index.quarantined` event; the rest plan
+   around it), J2 in a fresh session re-planning once and keeping
+   orders_orderkey, a fresh session's server (result cache on) not
+   caching the re-planned lookup, `IndexCorruptionError` with
+   `hyperspace.fallback.enabled` off, a full refresh lifting the
+   quarantine (the lookups and J2 through the index again, K2), and a
+   transient `bucket.read` fault (twice) under a cold J2, retried twice;
+   (c) the crash sweep on orders at the run's scale (200 buckets, a
+   system path of its own): the fault points create, an incremental
+   refresh of one appended file (a twentieth, seed 49), optimize and
+   vacuum fire, each replayed from its set-up state (restored from a copy)
+   with a `CrashPoint` at its first call, and create's `bucket.written`
+   call 100, `log.write` call 2 and `file.write_json` call 2; after each,
+   the latest stable entry resolves, recover converges with no orphan
+   version dir and a second recover does nothing, and an `o_orderkey`
+   lookup and an aggregate by `o_orderpriority` equal pyarrow; one
+   `faults_sweep` line an action; K1 and K2 launch, K3 does not;
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
@@ -153,7 +181,11 @@ What it does, in order (any failure raises and exits non-zero):
    count, group counts and channels on seeded channels with uniformly
    random group ids, the very inputs the two aggregates gave it, and
    those of its four launches in the indexed J2 and J3 — the secondary
-   run extrema and the group fold — and of the hybrid J2's two; K2: the
+   run extrema and the group fold — and of the hybrid J2's two, of the
+   query surface's q67 re-fold, CD1 inner and q43 partial aggregates, and
+   of 3f's: the Q1-shaped aggregate over li_live's source answered through
+   the fallback, and the crash sweep's aggregate by `o_orderpriority`
+   after create's and the incremental refresh's first replay; K2: the
    join's real key codes at the aligned J2 and J3 shapes, the hybrid
    J2's and the un-indexed J2 shape, and the aligned J2 codes with each
    primary row shuffled, so that the kernel's windows
@@ -3069,6 +3101,529 @@ def serve_refresh_loop(device, session, server, workdir: Path, sf: float) -> dic
     return record
 
 
+# Phase 3f: plan validation on every query, then fault tolerance — the
+# corruption quarantine and fallback on li_live, and the crash sweep.
+# VALIDATE_REPEATS times the validator alone; VALIDATE_WARM_REPEATS the
+# warm queries with validation on and off, alternating: Q1 (about 5 ms)
+# enough times to resolve the validator's 0.1 ms, J2 (about 100 ms) fewer.
+VALIDATE_REPEATS = 5
+VALIDATE_WARM_REPEATS = {"Q1": 200, "J2": 20}
+# ROADMAP.md queue 3 item 1's malformed queries on SF1's lineitem, orders
+# and customer: name -> (the plan over (pkg, lineitem, orders, customer),
+# the JAX package's code, its node path). Each must raise
+# PlanValidationError with that code, launching no kernel.
+VALIDATE_EXPECT = {
+    "int-with-string join key": (lambda p, li, o, c: li.join(o, ["l_orderkey"], ["o_orderpriority"]),
+                                 "join-key-type-mismatch", "Join"),
+    "missing column in a filter": (lambda p, li, o, c: li.filter(p.col("l_nokey") > 1), "unresolved-column",
+                                   "Filter"),
+    "missing column in an aggregate": (lambda p, li, o, c: li.aggregate(["l_nokey"], [("sum", "l_quantity", "q")]),
+                                       "unresolved-column", "Aggregate"),
+    "missing column in a sort": (lambda p, li, o, c: o.sort(["o_nokey"]), "unresolved-column", "Sort"),
+    "missing join key": (lambda p, li, o, c: o.join(c, ["o_custkey"], ["c_nokey"]), "unresolved-column", "Join"),
+    "limit(-1)": (lambda p, li, o, c: c.limit(-1), "bad-limit", "Limit"),
+    "sum over a string": (lambda p, li, o, c: o.aggregate(["o_orderpriority"], [("sum", "o_comment", "s")]),
+                          "dtype-incompatible-aggregate", "Aggregate"),
+    "string compared with an int": (lambda p, li, o, c: c.filter(p.col("c_mktsegment") > 5),
+                                    "dtype-incompatible-predicate", "Filter"),
+    "int/string CASE": (lambda p, li, o, c: c.with_column("seg", p.when(p.col("c_nationkey") > 3, 1).otherwise("x")),
+                        "dtype-incompatible-predicate", "Project"),
+}
+# The crash sweep: orders (the run's scale; 1,500,000 rows at SF1), its
+# `o_orderkey` index with orders_orderkey's columns and 200 buckets on a
+# system path of its own. The incremental refresh indexes one appended
+# file (a twentieth of the scale, seed 49); optimize compacts the two
+# versions it leaves.
+SWEEP_INDEX = "o_sweep"
+SWEEP_ACTIONS = ("create", "refresh", "optimize", "vacuum")
+SWEEP_APPEND = (0.05, 49)
+# Later calls of the busy points, replayed on create.
+SWEEP_LATER = (("bucket.written", 100), ("log.write", 2), ("file.write_json", 2))
+
+
+def validation_phase(device, ctx: dict, sf: float) -> dict:
+    """3f (a): `check_plan` + `validate_rewrite` alone on the optimized
+    plans of Q1, J2, q67 and Q13 (host ms, median of 5), warm Q1 and J2
+    with `hyperspace.analysis.validate` on and off (VALIDATE_WARM_REPEATS
+    repeats, each running both settings, their order alternating from one
+    repeat to the next so that neither always runs first), then
+    VALIDATE_EXPECT's malformed queries: each refused with the JAX
+    package's code and path, no kernel launched."""
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch.analysis import check_plan, validate_rewrite
+    from hyperspace_tpu_torch.exceptions import PlanValidationError
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+    from hyperspace_tpu_torch.ops.topk import topk
+    from hyperspace_tpu_torch.plan.prune import prune_columns
+    from hyperspace_tpu_torch.plan.pushdown import push_down_filters
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    session = ctx["session"]
+    session.enable_hyperspace()
+    li, orders, customer = ctx["lineitem"], ctx["orders"], ctx["customer"]
+    plans = {
+        "Q1": li.aggregate(Q1_GROUP, Q1_AGGS),
+        "J2": ctx["join_queries"]["J2"],
+        "q67": query_surface_plans(htorch, ctx["surface_tables"])["q67"],
+        "Q13": join_type_plans(htorch, li, orders, customer, sf)["Q13"][0],
+    }
+    out: dict = {"validate_ms": {}, "warm_ms": {}, "refused": {}}
+    for name, plan in plans.items():
+        optimized = session.optimized_plan(plan)
+        rewritten = prune_columns(push_down_filters(optimized))
+        walls = []
+        for _ in range(VALIDATE_REPEATS):
+            t0 = time.perf_counter()
+            check_plan(optimized)
+            validate_rewrite(optimized, rewritten)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        walls.sort()
+        out["validate_ms"][name] = {"median": walls[len(walls) // 2], "min": walls[0], "max": walls[-1],
+                                    "plan_nodes": sum(1 for _ in _plan_nodes(optimized))}
+    warm = {(name, enabled): [] for name in ("Q1", "J2") for enabled in (True, False)}
+    for enabled in (True, False):
+        session.conf.set("hyperspace.analysis.validate", enabled)
+        for name in ("Q1", "J2"):
+            session.run_query(plans[name])
+            sync()
+    for repeat in range(max(VALIDATE_WARM_REPEATS.values())):
+        for enabled in ((True, False) if repeat % 2 == 0 else (False, True)):
+            session.conf.set("hyperspace.analysis.validate", enabled)
+            for name in [n for n, count in VALIDATE_WARM_REPEATS.items() if repeat < count]:
+                t0 = time.perf_counter()
+                session.run_query(plans[name])
+                sync()
+                warm[name, enabled].append((time.perf_counter() - t0) * 1e3)
+    session.conf.set("hyperspace.analysis.validate", True)
+
+    def spread(walls) -> dict:
+        q = [float(v) for v in np.percentile(walls, [0, 25, 50, 75, 100])]
+        return {"median": q[2], "p25": q[1], "p75": q[3], "min": q[0], "max": q[4]}
+
+    for (name, enabled), walls in warm.items():
+        out["warm_ms"][f"{name} validate {'on' if enabled else 'off'}"] = spread(walls)
+    for name in ("Q1", "J2"):
+        # Each repeat's on minus its off: what validation adds, paired.
+        out["warm_ms"][f"{name} on minus off"] = spread(np.subtract(warm[name, True], warm[name, False]))
+    for name, (build, code, path) in VALIDATE_EXPECT.items():
+        before = (segment_reduce.launches, run_bounds.launches, topk.launches)
+        try:
+            session.run(build(htorch, li, orders, customer))
+        except PlanValidationError as e:
+            got = (e.diagnostics[0].rule, e.diagnostics[0].path)
+        else:
+            raise AssertionError(f"validation: {name} was not refused")
+        if got != (code, path):
+            raise AssertionError(f"validation: {name} refused as {got}, the JAX package's is {(code, path)}")
+        if (segment_reduce.launches, run_bounds.launches, topk.launches) != before:
+            raise AssertionError(f"validation: the refused {name} launched a kernel")
+        out["refused"][name] = code
+    log(json.dumps({"faults_validation": out}))
+    return out
+
+
+def _plan_nodes(plan):
+    yield plan
+    for c in plan.children():
+        yield from _plan_nodes(c)
+
+
+def corruption_phase(device, ctx: dict, sf: float) -> dict:
+    """3f (b): li_live as 3e left it (two versions), its newest version's
+    bucket files truncated to 7 bytes with both caches dropped. The 12
+    lookups and the Q1-shaped aggregate over li_live's source equal
+    pyarrow: the first lookup re-plans once (li_live quarantined,
+    `fallback.queries` +1, one `fallback.replan` and one
+    `index.quarantined` event), the rest plan around it. In a fresh
+    session J2 re-plans once and keeps orders_orderkey; a fresh session's
+    server (result cache on) answers the lookup without caching the
+    re-planned result; with the fallback off a lookup raises
+    IndexCorruptionError. A full refresh lifts the quarantine: the
+    lookups and J2 (K2) go back through the index. Then a transient
+    `bucket.read` fault (twice) under a cold J2 is retried. Returns the
+    record and K1's inputs from one more run of the fallback's Q1."""
+    import pandas as pd
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, PlanCache, faults, stats
+    from hyperspace_tpu_torch.exceptions import IndexCorruptionError
+    from hyperspace_tpu_torch.execution import device_cache as dc
+    from hyperspace_tpu_torch.obs import events
+    from hyperspace_tpu_torch.ops import aggregate
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    workdir = ctx["workdir"]
+    system_path = Path(ctx["session"].conf.system_path)
+    buckets = ctx["session"].conf.num_buckets
+
+    def fresh():
+        s = HyperspaceSession(system_path=str(system_path), num_buckets=buckets, device=device)
+        return s.enable_hyperspace()
+
+    # A session of its own: the earlier phases' session may still list
+    # li_live as a concurrent reader cached it during 3e's refresh (the
+    # listing's TTL cache; a stale entry is skipped by its signature, so
+    # queries stay right but would not read the index here).
+    session = fresh()
+    hs = Hyperspace(session)
+    live = workdir / "lineitem_live"
+    grown = pq.read_table(sorted(str(p) for p in live.glob("*.parquet")))
+    li = session.parquet(live)
+    plans, bounds = lifecycle_plans(htorch, li, ctx["orders"], sf)
+    lookups, j2 = plans["lookups"], plans["J2"][0]
+    q1 = li.aggregate(Q1_GROUP, Q1_AGGS)
+    root = str(system_path / LIVE_INDEX)
+    o_root = str(system_path / "orders_orderkey")
+    out: dict = {}
+
+    def check(kind, name, results):
+        lifecycle_check(kind, name, results, grown, ctx["o_source"], bounds, buckets)
+
+    def ops(outcome) -> list:
+        return [n.op for n in outcome.physical_plan.walk()]
+
+    cache = PlanCache()
+    k2 = run_bounds.launches
+    before = session.run_query(j2, plan_cache=cache)
+    sync()
+    check("J2", "3f healthy J2", [before.result])
+    if before.stats["join_path"] != "zero-exchange-aligned" or (device.type == "cuda" and run_bounds.launches == k2):
+        raise AssertionError(f"3f healthy J2: {before.stats['join_path']}, K2 launched {run_bounds.launches - k2}")
+    versions = sorted((system_path / LIVE_INDEX).glob("v__=*"), key=lambda p: int(p.name.split("=")[1]))
+    newest = versions[-1]
+    dc.clear_all()
+    truncated = 0
+    for f in sorted(newest.glob("bucket-*.parquet")):
+        with open(f, "r+b") as fh:
+            fh.truncate(7)
+        truncated += 1
+    out["truncated"] = {"version": newest.name, "versions": len(versions), "files": truncated}
+
+    fallbacks = stats.get("fallback.queries")
+    seq0 = max((e["seq"] for e in events.recent()), default=0)
+    t0 = time.perf_counter()
+    first = session.run_query(lookups[0], plan_cache=cache)
+    sync()
+    out["first_fallback_s"] = time.perf_counter() - t0
+    names = [e["name"] for e in events.recent() if e["seq"] > seq0]
+    if (first.replans, first.stats.get("degraded_indexes"), stats.get("fallback.queries") - fallbacks,
+            names.count("fallback.replan"), names.count("index.quarantined")) != (1, [root], 1, 1, 1):
+        raise AssertionError(f"3f first lookup: replans {first.replans}, degraded "
+                             f"{first.stats.get('degraded_indexes')}, events {names}")
+    results, walls = [first.result], []
+    for plan in lookups[1:]:
+        t0 = time.perf_counter()
+        o = session.run_query(plan, plan_cache=cache)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if o.replans or o.stats.get("degraded_indexes") != [root] or "IndexPointLookup" in ops(o):
+            raise AssertionError(f"3f lookup after the quarantine: replans {o.replans}, ops {ops(o)}")
+        results.append(o.result)
+    check("lookups", "3f fallback lookups", results)
+    agg = session.run_query(q1, plan_cache=cache)
+    sync()
+    check_q1(pd.DataFrame(agg.result.decode()), grown)
+    # K1's input as the fallback's Q1 gives it: li_live's raw source.
+    calls = capture_k1(lambda: session.run_query(q1, plan_cache=cache), aggregate)
+    if len(calls) != 1:
+        raise AssertionError(f"3f fallback Q1: {len(calls)} K1 calls, expected one")
+    k1_inputs = {"fallback Q1-shaped": calls[0]}
+    out["quarantined"] = {"replans": first.replans, "degraded": first.stats["degraded_indexes"],
+                          "next_lookups_s": walls, "q1_replans": agg.replans,
+                          "fallback_queries": stats.get("fallback.queries") - fallbacks, "events": names}
+
+    s2 = fresh()
+    t0 = time.perf_counter()
+    jo = s2.run_query(j2)
+    sync()
+    out["j2_fallback_s"] = time.perf_counter() - t0
+    roots = {leaf.root for leaf in s2.optimized_plan(j2).leaves()}
+    if jo.replans != 1 or list(s2.index_health) != [root] or o_root not in roots:
+        raise AssertionError(f"3f J2: replans {jo.replans}, quarantined {list(s2.index_health)}, leaves {roots}")
+    check("J2", "3f fallback J2", [jo.result])
+    out["j2_fallback"] = {"replans": jo.replans, "join_path": jo.stats["join_path"], "kept": o_root}
+
+    s3 = fresh()
+    with s3.serve(result_cache=True, workers=1) as server:
+        first_served = server.submit(lookups[0])
+        check("lookups", "3f served lookup", [first_served.result(timeout=600)])
+        if first_served.profile.fallback["replans"] != 1 or server.result_cache.stats()["entries"] != 0:
+            raise AssertionError("3f: a re-planned result entered the result cache")
+        again = server.submit(lookups[0])
+        again.result(timeout=600)
+        hit = server.submit(lookups[0])
+        check("lookups", "3f served lookup, cached", [hit.result(timeout=600)])
+        if again.cache_hit or again.profile.fallback["replans"] != 0 or not hit.cache_hit:
+            raise AssertionError("3f: the served lookup's second run was not cached, or its third missed")
+        out["served"] = server.result_cache.stats()
+
+    s4 = fresh()
+    s4.conf.set("hyperspace.fallback.enabled", False)
+    try:
+        s4.run(lookups[0])
+        raise AssertionError("3f: with the fallback off a lookup over the truncated index answered")
+    except IndexCorruptionError as e:
+        out["fallback_off"] = {"error": type(e).__name__, "index_root": e.index_root}
+        if e.index_root != root:
+            raise AssertionError(f"3f: the corruption names {e.index_root}")
+
+    t0 = time.perf_counter()
+    hs.refresh_index(LIVE_INDEX)
+    sync()
+    out["lift_refresh_s"] = time.perf_counter() - t0
+    if session.index_health:
+        raise AssertionError(f"3f: the full refresh left {list(session.index_health)} quarantined")
+    results = []
+    for plan in lookups:
+        o = session.run_query(plan, plan_cache=cache)
+        if o.replans or "IndexPointLookup" not in ops(o):
+            raise AssertionError(f"3f lookup after the lift: replans {o.replans}, ops {ops(o)}")
+        results.append(o.result)
+    check("lookups", "3f lookups after the lift", results)
+    k2 = run_bounds.launches
+    jl = session.run_query(j2, plan_cache=cache)
+    sync()
+    check("J2", "3f J2 after the lift", [jl.result])
+    if jl.replans or jl.stats["join_path"] != "zero-exchange-aligned" or (
+            device.type == "cuda" and run_bounds.launches == k2):
+        raise AssertionError(f"3f J2 after the lift: replans {jl.replans}, {jl.stats['join_path']}")
+
+    dc.clear_all()
+    attempts = stats.get("retry.attempts")
+    faults.inject("bucket.read", times=2)
+    try:
+        t0 = time.perf_counter()
+        jt = session.run_query(j2)
+        sync()
+        out["transient_j2_s"] = time.perf_counter() - t0
+    finally:
+        faults.reset()
+    check("J2", "3f J2 under a transient read fault", [jt.result])
+    if stats.get("retry.attempts") - attempts != 2 or jt.replans:
+        raise AssertionError(f"3f transient fault: {stats.get('retry.attempts') - attempts} retries, "
+                             f"replans {jt.replans}")
+    out["transient"] = {"retries": stats.get("retry.attempts") - attempts, "replans": jt.replans}
+    log(json.dumps({"faults_corruption": out}))
+    return out, k1_inputs
+
+
+def crash_sweep(device, ctx: dict, sf: float) -> dict:
+    """3f (c): the crash sweep of tests/test_fault_injection.py:591-640 at
+    the run's scale: for each of create, incremental refresh, optimize and
+    vacuum, discover the fault points the action fires, then replay it
+    from its set-up state (restored from a copy, in place) with a
+    CrashPoint at each point's first call, and at SWEEP_LATER's later
+    calls of create. After each replay: the latest stable entry resolves;
+    recover converges with no orphan version dir; a second recover does
+    nothing; an `o_orderkey` lookup and an aggregate by `o_orderpriority`
+    (K1) equal pyarrow, through the index where it survived and through
+    the source otherwise. One line an action. Returns the record and K1's
+    inputs from the aggregate of create's and the incremental refresh's
+    first check."""
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, faults
+    from hyperspace_tpu_torch import states
+    from hyperspace_tpu_torch.config import DATA_VERSION_PREFIX
+    from hyperspace_tpu_torch.datagen import gen_tpch_orders
+    from hyperspace_tpu_torch.execution import device_cache as dc
+    from hyperspace_tpu_torch.metadata.data_manager import IndexDataManager
+    from hyperspace_tpu_torch.metadata.log_manager import IndexLogManager
+    from hyperspace_tpu_torch.ops import aggregate
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    workdir = ctx["workdir"] / "sweep"
+    buckets = ctx["session"].conf.num_buckets
+    col = htorch.col
+    t_phase = time.perf_counter()
+
+    def source(action: str) -> Path:
+        """The action's own source directory: hard links of the run's
+        orders files."""
+        d = workdir / f"orders_{action}"
+        d.mkdir(parents=True)
+        for p in sorted((ctx["workdir"] / "orders").glob("*.parquet")):
+            os.link(p, d / p.name)
+        return d
+
+    def append(src: Path) -> None:
+        """Links the appended file (made once) into `src`."""
+        stage = workdir / "append"
+        if not stage.exists():
+            gen_tpch_orders(stage, sf=SWEEP_APPEND[0] * sf, seed=SWEEP_APPEND[1], files=1)
+        os.link(stage / "part-0.parquet", src / "append.parquet")
+
+    def session_on(system_path: Path):
+        return HyperspaceSession(system_path=str(system_path), num_buckets=buckets, device=device)
+
+    def drive(action: str, system_path: Path, src: Path) -> None:
+        s = session_on(system_path)
+        hs = Hyperspace(s)
+        if action == "create":
+            hs.create_index(s.parquet(src), IndexConfig(SWEEP_INDEX, O_INDEXED, O_INCLUDED))
+        elif action == "refresh":
+            hs.refresh_index(SWEEP_INDEX, mode="incremental")
+        elif action == "optimize":
+            hs.optimize_index(SWEEP_INDEX)
+        else:
+            hs.vacuum_index(SWEEP_INDEX)
+        sync()
+
+    def restore(pristine: Path, system_path: Path) -> None:
+        shutil.rmtree(system_path, ignore_errors=True)
+        # Fresh copies (new inodes and mtimes): a truncation by one replay
+        # never reaches the set-up state, and no cache keys on old mtimes.
+        shutil.copytree(pristine, system_path, copy_function=shutil.copyfile)
+
+    k1_inputs = {}
+
+    def check(action: str, point: str, system_path: Path, src: Path, ref) -> dict:
+        name = f"sweep {action} {point}"
+        index_path = system_path / SWEEP_INDEX
+        lm, dm = IndexLogManager(index_path), IndexDataManager(index_path)
+        lm.get_latest_stable_log()
+        s = session_on(system_path)
+        hs = Hyperspace(s)
+        report = hs.recover(SWEEP_INDEX)
+        latest = lm.get_latest_log()
+        if latest is not None:
+            stable = lm.get_latest_stable_log()
+            if latest.state not in states.STABLE_STATES or stable is None or stable.id != latest.id:
+                raise AssertionError(f"{name}: recover left {latest.state} at {latest.id}")
+            referenced = (set(stable.content.directories)
+                          if stable.state != states.DOESNOTEXIST and stable.content is not None else set())
+            on_disk = {f"{DATA_VERSION_PREFIX}{v}" for v in dm.get_version_ids()}
+            if not on_disk <= referenced:
+                raise AssertionError(f"{name}: orphan version dirs {on_disk - referenced}")
+        again = hs.recover(SWEEP_INDEX)
+        if again["rolled"] or again["orphans_removed"] or again["quarantined_entries"]:
+            raise AssertionError(f"{name}: a second recover did {again}")
+        dc.clear_all()
+        s.enable_hyperspace()
+        o = s.parquet(src)
+        key, table = ref
+        lookup = s.run_query(o.filter(col("o_orderkey") == key).select("o_orderkey", "o_totalprice"))
+        _check_rows(f"{name} lookup", lookup.result, table.filter(pc.equal(table["o_orderkey"], key)).select(
+            ["o_orderkey", "o_totalprice"]), ["o_orderkey", "o_totalprice"])
+        agg_plan = o.aggregate(["o_orderpriority"], [("count", None, "n"), ("max", "o_totalprice", "top"),
+                                                     ("sum", "o_totalprice", "total")])
+        label = f"sweep {action} aggregate"
+        if action in ("create", "refresh") and label not in k1_inputs:
+            # K1's input as the sweep's aggregate gives it, from its first
+            # run after this action's first replay.
+            done = []
+            calls = capture_k1(lambda: done.append(s.run_query(agg_plan)), aggregate)
+            if len(calls) != 1:
+                raise AssertionError(f"{name}: {len(calls)} K1 calls in the aggregate, expected one")
+            k1_inputs[label] = calls[0]
+            agg = done[0]
+        else:
+            agg = s.run_query(agg_plan)
+        sync()
+        want = table.group_by("o_orderpriority").aggregate([
+            ("o_orderpriority", "count"), ("o_totalprice", "max"), ("o_totalprice", "sum")]).to_pandas()
+        got = {k: (n, t, tot) for k, n, t, tot in zip(*(agg.result.decode()[c] for c in ("o_orderpriority", "n",
+                                                                                            "top", "total")))}
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} priorities, pyarrow {len(want)}")
+        for k, n, t, tot in zip(want["o_orderpriority"], want["o_orderpriority_count"], want["o_totalprice_max"],
+                                want["o_totalprice_sum"]):
+            gn, gt, gtot = got[k]
+            if gn != n or gt != t or abs(gtot - tot) > sum_tolerance(np.array([n]), np.array([tot]))[0]:
+                raise AssertionError(f"{name}: priority {k} gives ({gn}, {gt}, {gtot}), pyarrow ({n}, {t}, {tot})")
+        return {"report": report, "via_index": "IndexPointLookup" in [n.op for n in lookup.physical_plan.walk()]}
+
+    out: dict = {}
+    for action in SWEEP_ACTIONS:
+        t0 = time.perf_counter()
+        grown = action in ("refresh", "optimize")
+        src = source(action)
+        system_path = workdir / action / "sys"
+        pristine = workdir / action / "pristine"
+        system_path.mkdir(parents=True)
+        if action != "create":
+            drive("create", system_path, src)
+        if grown:
+            append(src)
+            if action == "optimize":
+                drive("refresh", system_path, src)
+        if action == "vacuum":
+            Hyperspace(session_on(system_path)).delete_index(SWEEP_INDEX)
+        shutil.copytree(system_path, pristine, copy_function=shutil.copyfile)
+        table = pq.read_table(sorted(str(p) for p in src.glob("*.parquet")),
+                              columns=["o_orderkey", "o_totalprice", "o_orderpriority"])
+        # A key of the appended file where there is one, else of the base.
+        keys = pq.read_table(src / "append.parquet", columns=["o_orderkey"]) if grown else table
+        ref = (int(keys["o_orderkey"][len(keys) // 2].as_py()), table)
+        setup_s = time.perf_counter() - t0
+        with faults.recording() as seen:
+            drive(action, system_path, src)
+        restore(pristine, system_path)
+        replays = [(p, 1) for p in sorted(seen)]
+        if action == "create":
+            replays += list(SWEEP_LATER)
+        crashed, via_index, reports = [], 0, {}
+        for point, call in replays:
+            faults.inject(point, crash=True, at_call=call)
+            try:
+                drive(action, system_path, src)
+            except faults.CrashPoint:
+                crashed.append(f"{point}@{call}")
+            finally:
+                faults.reset()
+            r = check(action, f"{point}@{call}", system_path, src, ref)
+            via_index += r["via_index"]
+            reports[f"{point}@{call}"] = r["report"]
+            restore(pristine, system_path)
+        if len(crashed) != len(replays):
+            missed = {f"{p}@{c}" for p, c in replays} - set(crashed)
+            raise AssertionError(f"sweep {action}: no crash fired at {sorted(missed)}")
+        record = {"action": action, "scale": sf, "rows": table.num_rows, "points": sorted(seen),
+                  "crashes": crashed, "answered_via_index": via_index, "setup_s": setup_s,
+                  "sweep_s": time.perf_counter() - t0 - setup_s, "reports": reports}
+        out[action] = record
+        log(json.dumps({"faults_sweep": {k: v for k, v in record.items() if k != "reports"}}))
+        shutil.rmtree(pristine, ignore_errors=True)
+    out["sweep_wall_s"] = time.perf_counter() - t_phase
+    return out, k1_inputs
+
+
+def faults_path(device, ctx: dict, sf: float) -> dict:
+    """3f: validation on every query (a), the corruption quarantine and
+    fallback (b) and the crash sweep (c), on the earlier phases' session
+    and indexes. Returns the record and K1's inputs at the shapes (b) and
+    (c) give it."""
+    out = {}
+    t0 = time.perf_counter()
+    out["validation"] = validation_phase(device, ctx, sf)
+    out["validation_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["corruption"], k1_inputs = corruption_phase(device, ctx, sf)
+    out["corruption_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sweep"], k1_sweep = crash_sweep(device, ctx, sf)
+    out["sweep_s"] = time.perf_counter() - t0
+    return out, {**k1_inputs, **k1_sweep}
+
+
 def vector_lifecycle(device, vctx: dict) -> dict:
     """The vector index's lifecycle at the end of the vector path, on its
     index: 10% more rows drawn from the same clusters (gen_embeddings'
@@ -3512,7 +4067,16 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
         launches["serve"] = read_counts("serve", ("run_bounds", "segment_reduce"))
         log(json.dumps({"serving_path": serving, "launches": launches["serve"]}, default=str))
         log(json.dumps({"caches_after_path": "serve", **cache_stats()}))
+        zero_counts()
+        t0 = time.perf_counter()
+        faults_rec, k1_faults_inputs = faults_path(device, ctx, args.sf)
+        faults_rec["faults_path_wall_s"] = time.perf_counter() - t0
+        launches["faults"] = read_counts("faults", ("run_bounds", "segment_reduce"))
+        log(json.dumps({"faults_path": {k: v for k, v in faults_rec.items() if k != "sweep"},
+                        "launches": launches["faults"]}, default=str))
+        log(json.dumps({"caches_after_path": "faults", **cache_stats()}))
         k1_join_inputs.update(k1_life_inputs)
+        k1_join_inputs.update(k1_faults_inputs)
         k2_inputs.update(k2_life_inputs)
         k1_agg_inputs = {**ctx["k1_inputs"], **ctx["k1_surface_inputs"]}
         del ctx
@@ -3552,9 +4116,11 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
     }
     # And at the join path's four, on the inputs the indexed J2 and J3 gave
     # it: the secondary run extrema (min/max over about 1.5M runs, global
-    # atomics) and the group fold over the padded [B·Lp] rows; and at the
+    # atomics) and the group fold over the padded [B·Lp] rows; at the
     # query-surface path's three: q67's re-fold, CD1's inner aggregate and
-    # q43's partial aggregate.
+    # q43's partial aggregate; and at 3f's three: the fallback's Q1 over
+    # li_live's raw source and the crash sweep's aggregate by priority
+    # after create and after the incremental refresh.
     for name, (vals, gid, k, fns) in {**k1_agg_inputs, **k1_join_inputs}.items():
         shapes[name] = k1_phase(device, vals, gid, k, fns, _k1_exact_from_data(vals.cpu().numpy(), fns))
     del k1_agg_inputs, k1_join_inputs
@@ -3597,9 +4163,10 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
             "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-            # K1 runs on six paths: its launches on each, summed.
+            # K1 runs on seven paths: its launches on each, summed.
             "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types",
-                                                                     "query_surface", "lifecycle", "serve")),
+                                                                     "query_surface", "lifecycle", "serve",
+                                                                     "faults")),
             "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
@@ -3638,10 +4205,11 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
             "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
-            # K2 runs on the join paths, the query surface, the lifecycle
-            # and the serving path: its launches on each, summed.
+            # K2 runs on the join paths, the query surface, the lifecycle,
+            # the serving path and the faults path: its launches on each,
+            # summed.
             "launches": sum(launches[p]["run_bounds"] for p in ("join", "join_types", "query_surface",
-                                                                 "lifecycle", "serve")),
+                                                                 "lifecycle", "serve", "faults")),
             "launches_by_path": {p: c["run_bounds"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

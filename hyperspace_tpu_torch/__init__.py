@@ -59,9 +59,10 @@ def __getattr__(name):
         from hyperspace_tpu_torch.serve.plan_cache import PlanCache
 
         return PlanCache
-    if name in ("stats", "obs", "serve"):
-        # The counters (stats.snapshot()), the observability plane
-        # (tracer, metrics, events, profiles) and the query server.
+    if name in ("stats", "faults", "obs", "serve"):
+        # The counters (stats.snapshot()), the fault-injection harness,
+        # the observability plane (tracer, metrics, events, profiles) and
+        # the query server.
         import importlib
 
         return importlib.import_module(f"hyperspace_tpu_torch.{name}")

@@ -11,7 +11,13 @@ two hybrid-scan keys, the two lazy-recovery keys, the tracer's
 `hyperspace.obs.events.maxEvents` (process-global, as in the JAX
 package), the serving plane's `hyperspace.serve.*` defaults (workers,
 maxQueueDepth, queryTimeoutSeconds, the plan and result caches,
-shedDepthRatio) and the three explain display keys.
+shedDepthRatio), the three explain display keys, the plan validator's
+`hyperspace.analysis.validate`, the fault-injection harness's
+`hyperspace.faults.enabled` / `.maxDelaySeconds` and the retry layer's
+`hyperspace.retry.maxAttempts` / `.backoffBaseSeconds` / `.casAttempts`
+(process-global, as in the JAX package), the corruption fallback's
+`hyperspace.fallback.enabled` and the index-entry cache's
+`hyperspace.index.cache.expiryDurationInSeconds`.
 A key the JAX package declares but the port does not read yet raises,
 naming it as not ported; an undeclared `hyperspace.*` key raises with a
 did-you-mean suggestion, as the JAX package's `check_known_key` does.
@@ -34,6 +40,8 @@ LATEST_STABLE_LOG_NAME = "latestStable"
 
 INDEX_SYSTEM_PATH = "hyperspace.system.path"
 INDEX_NUM_BUCKETS = "hyperspace.index.num.buckets"
+# TTL of the caching collection manager's ACTIVE index-entry listing.
+INDEX_CACHE_EXPIRY_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
 # Broadcast hash join: a single-partition join whose smaller side has at
 # most this many rows (and is at least 4x smaller than the other) probes
 # the large side against a dense table of the small side's codes instead
@@ -80,6 +88,25 @@ SERVE_SHED_DEPTH_RATIO = "hyperspace.serve.shedDepthRatio"
 EXPLAIN_DISPLAY_MODE = "hyperspace.explain.displayMode"
 EXPLAIN_HIGHLIGHT_BEGIN = "hyperspace.explain.displayMode.highlight.beginTag"
 EXPLAIN_HIGHLIGHT_END = "hyperspace.explain.displayMode.highlight.endTag"
+# Pre-execution plan validation (analysis/validator.py): reject malformed
+# plans with structured diagnostics before any device work.
+ANALYSIS_VALIDATE = "hyperspace.analysis.validate"
+# The fault-injection harness (faults.py): a kill switch that makes every
+# fault point inert even with rules registered, and the clamp on any one
+# injected brownout delay. Process-global.
+FAULTS_ENABLED = "hyperspace.faults.enabled"
+FAULTS_MAX_DELAY_SECONDS = "hyperspace.faults.maxDelaySeconds"
+# The transient-IO retry (utils/retry.py): attempts per call site (1
+# disables retry), the first backoff (doubling per attempt, capped), and
+# the whole-protocol retries of Action.run when its begin() CAS loses (1 =
+# abort, the reference's single-writer behavior). Process-global.
+RETRY_MAX_ATTEMPTS = "hyperspace.retry.maxAttempts"
+RETRY_BACKOFF_BASE = "hyperspace.retry.backoffBaseSeconds"
+RETRY_CAS_ATTEMPTS = "hyperspace.retry.casAttempts"
+# Query-plane corruption fallback: an index scan over unreadable data
+# quarantines the index (session.index_health) and re-plans the query
+# against healthy indexes, then the source, instead of failing.
+FALLBACK_ENABLED = "hyperspace.fallback.enabled"
 
 DEFAULT_NUM_BUCKETS = 8
 DEFAULT_CACHE_EXPIRY_SECONDS = 300.0
@@ -100,20 +127,19 @@ PORTED_KEYS = (
     RECOVER_GRACE_SECONDS, OBS_ENABLED, OBS_SINK, OBS_EVENTS_MAX, SERVE_WORKERS, SERVE_MAX_QUEUE_DEPTH,
     SERVE_QUERY_TIMEOUT_SECONDS, SERVE_PLAN_CACHE_ENABLED, SERVE_PLAN_CACHE_MAX_ENTRIES,
     SERVE_RESULT_CACHE_ENABLED, SERVE_RESULT_CACHE_MAX_BYTES, SERVE_SHED_DEPTH_RATIO, EXPLAIN_DISPLAY_MODE,
-    EXPLAIN_HIGHLIGHT_BEGIN, EXPLAIN_HIGHLIGHT_END,
+    EXPLAIN_HIGHLIGHT_BEGIN, EXPLAIN_HIGHLIGHT_END, ANALYSIS_VALIDATE, FAULTS_ENABLED, FAULTS_MAX_DELAY_SECONDS,
+    RETRY_MAX_ATTEMPTS, RETRY_BACKOFF_BASE, RETRY_CAS_ATTEMPTS, FALLBACK_ENABLED, INDEX_CACHE_EXPIRY_SECONDS,
 )
 # The JAX package's other declared keys (its `config.KNOWN_KEYS`), whose
 # modules are not ported yet.
 UNPORTED_KEYS = frozenset((
-    'hyperspace.index.cache.expiryDurationInSeconds', 'hyperspace.index.build.memoryBudgetBytes',
+    'hyperspace.index.build.memoryBudgetBytes',
     'hyperspace.index.build.chunkBytes', 'hyperspace.join.venue', 'hyperspace.join.venueMinMbps',
     'hyperspace.build.venue', 'hyperspace.build.pipeline.enabled',
     'hyperspace.build.pipeline.maxInflightBytes', 'hyperspace.build.workers', 'hyperspace.build.exchange.dir',
     'hyperspace.scan.prefetch.enabled', 'hyperspace.agg.venue', 'hyperspace.sort.venue',
     'hyperspace.filter.venue', 'hyperspace.device.staging.enabled', 'hyperspace.device.fusedKernels',
-    'hyperspace.analysis.validate', 'hyperspace.faults.enabled', 'hyperspace.faults.maxDelaySeconds',
-    'hyperspace.retry.maxAttempts', 'hyperspace.retry.backoffBaseSeconds', 'hyperspace.retry.casAttempts',
-    'hyperspace.fallback.enabled', 'hyperspace.obs.http.enabled', 'hyperspace.obs.http.host',
+    'hyperspace.obs.http.enabled', 'hyperspace.obs.http.host',
     'hyperspace.obs.http.port', 'hyperspace.obs.slo.availabilityTarget',
     'hyperspace.obs.slo.latencyP99Seconds', 'hyperspace.obs.journal.enabled', 'hyperspace.obs.journal.dir',
     'hyperspace.obs.journal.segmentBytes', 'hyperspace.obs.journal.maxBytes',
@@ -178,6 +204,9 @@ class HyperspaceConf:
     serve_result_cache_enabled: bool = False  # opt-in: results pin device memory
     serve_result_cache_max_bytes: int = DEFAULT_SERVE_RESULT_CACHE_MAX_BYTES
     serve_shed_depth_ratio: float = DEFAULT_SERVE_SHED_DEPTH_RATIO
+    cache_expiry_seconds: float = DEFAULT_CACHE_EXPIRY_SECONDS
+    validate_plans: bool = True
+    fallback_enabled: bool = True
     overrides: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -231,6 +260,35 @@ class HyperspaceConf:
             self.serve_result_cache_max_bytes = int(value)
         elif key == SERVE_SHED_DEPTH_RATIO:
             self.serve_shed_depth_ratio = float(value)
+        elif key == INDEX_CACHE_EXPIRY_SECONDS:
+            self.cache_expiry_seconds = float(value)
+        elif key == ANALYSIS_VALIDATE:
+            self.validate_plans = _as_bool(value)
+        elif key == FALLBACK_ENABLED:
+            self.fallback_enabled = _as_bool(value)
+        elif key == FAULTS_ENABLED:
+            # Process-global kill switch for the injection harness, like the
+            # filesystem state it guards (imported here: faults imports no
+            # config, so there is no cycle).
+            from hyperspace_tpu_torch import faults
+
+            faults.set_enabled(_as_bool(value))
+        elif key == FAULTS_MAX_DELAY_SECONDS:
+            from hyperspace_tpu_torch import faults
+
+            faults.set_max_delay(float(value))
+        elif key == RETRY_MAX_ATTEMPTS:
+            from hyperspace_tpu_torch.utils import retry
+
+            retry.configure(max_attempts=int(value))
+        elif key == RETRY_BACKOFF_BASE:
+            from hyperspace_tpu_torch.utils import retry
+
+            retry.configure(backoff_base=float(value))
+        elif key == RETRY_CAS_ATTEMPTS:
+            from hyperspace_tpu_torch.utils import retry
+
+            retry.configure(cas_attempts=int(value))
 
     def get(self, key: str, default: Any = None) -> Any:
         check_known_key(key)
@@ -280,4 +338,10 @@ class HyperspaceConf:
             return self.serve_result_cache_max_bytes
         if key == SERVE_SHED_DEPTH_RATIO:
             return self.serve_shed_depth_ratio
+        if key == INDEX_CACHE_EXPIRY_SECONDS:
+            return self.cache_expiry_seconds
+        if key == ANALYSIS_VALIDATE:
+            return self.validate_plans
+        if key == FALLBACK_ENABLED:
+            return self.fallback_enabled
         return default

@@ -1,8 +1,8 @@
 """Dataset registration: the analog of a Spark relation over data-lake files.
 
-A Dataset is a parquet directory with a derived Schema; `scan()` yields the
-plan leaf. The port reads parquet sources only; the JAX package's ORC, CSV
-and JSON sources are not ported yet. File enumeration returns (path, size, mtime) triples — the
+A Dataset is a directory of parquet, ORC, CSV or line-delimited JSON files
+with a derived Schema; `scan()` yields the plan leaf. File enumeration
+returns (path, size, mtime) triples — the
 identity the signature provider fingerprints (reference collects
 `PartitioningAwareFileIndex.allFiles` at actions/CreateActionBase.scala:89-97).
 """
@@ -60,6 +60,47 @@ class Dataset:
             raise HyperspaceError(f"no parquet files found under {root}")
         arrow_schema = pq.read_schema(files[0].path)
         return Dataset(str(root), "parquet", Schema.from_arrow(arrow_schema))
+
+    @staticmethod
+    def of_format(root: str | Path, fmt: str) -> "Dataset":
+        """Register a dataset of any supported format (parquet/orc/csv/
+        json — the same four the reference gates sources to,
+        index/serde/LogicalPlanSerDeUtils.scala:225-245), deriving the
+        schema from the first file."""
+        if fmt == "parquet":
+            return Dataset.parquet(root)
+        files = list_data_files(root, suffix=format_suffix(fmt))
+        if not files:
+            raise HyperspaceError(f"no {fmt} files found under {root}")
+        first = files[0].path
+        if fmt == "orc":
+            from pyarrow import orc
+
+            arrow_schema = orc.ORCFile(first).schema
+        elif fmt == "csv":
+            from pyarrow import csv as pcsv
+
+            # Full-file read: block-sample inference can mis-type columns
+            # whose early values look numeric. Reads at registration are
+            # pinned to this schema afterwards (io._arrow_types_for).
+            arrow_schema = pcsv.read_csv(first).schema
+        else:  # json
+            from pyarrow import json as pjson
+
+            arrow_schema = pjson.read_json(first).schema
+        return Dataset(str(root), fmt, Schema.from_arrow(arrow_schema))
+
+    @staticmethod
+    def orc(root: str | Path) -> "Dataset":
+        return Dataset.of_format(root, "orc")
+
+    @staticmethod
+    def csv(root: str | Path) -> "Dataset":
+        return Dataset.of_format(root, "csv")
+
+    @staticmethod
+    def json(root: str | Path) -> "Dataset":
+        return Dataset.of_format(root, "json")
 
     def files(self) -> list[FileInfo]:
         return list_data_files(self.root, suffix=format_suffix(self.format))

@@ -56,14 +56,12 @@ class DeviceIndexBuilder:
     ) -> None:
         if not isinstance(plan, Scan):
             raise HyperspaceError("index builds materialize scan-only plans")
-        if plan.format != "parquet":
-            raise HyperspaceError(f"only parquet sources are supported, not {plan.format!r}")
         if plan.files is not None:
             files = list(plan.files)
         else:
             files = [fi.path for fi in list_data_files(plan.root, suffix=format_suffix(plan.format))]
         t0 = time.perf_counter()
-        table = hio.read_parquet(files, columns=columns, schema=plan.schema, device="cpu")
+        table = hio.read_table_files(files, plan.format, columns=columns, schema=plan.schema, device="cpu")
         t_decode = time.perf_counter() - t0
         phases = self.write_table(table, indexed_columns, num_buckets, dest_path)
         self.last_build_stats = {

@@ -33,6 +33,7 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 import torch
 
+from hyperspace_tpu_torch import stats
 from hyperspace_tpu_torch.dataset import format_suffix, list_data_files
 from hyperspace_tpu_torch.exceptions import IndexCorruptionError
 from hyperspace_tpu_torch.execution import io as hio
@@ -101,15 +102,17 @@ def point_prune_names(scan: Scan, predicate: Expr) -> set[str] | None:
 
 class ScanFilterMixin:
     def _read(
-        self, files: list[str], columns: list[str], schema, index_root: str | None, *, file_rows: bool = False
+        self, files: list[str], columns: list[str], schema, index_root: str | None, *, file_rows: bool = False,
+        fmt: str = "parquet",
     ):
         """Read through DEVICE_CACHE, one entry a column (device_cache.py):
-        only the columns it lacks are decoded, in one multi-file read;
-        files_read counts the files of such a physical read. The files'
-        mtimes are part of every key, so a rewritten file misses. An
-        unreadable index file surfaces as a typed IndexCorruptionError
-        naming the index. With `file_rows`, returns (table, per-file row
-        counts)."""
+        only the columns it lacks are decoded, in one multi-file read of
+        `fmt` files; files_read counts the files of such a physical read.
+        The files' mtimes are part of every key, so a rewritten file
+        misses. An unreadable index file surfaces as a typed
+        IndexCorruptionError naming the index (after the read's own
+        transient-IO retry). With `file_rows`, returns (table, per-file
+        row counts)."""
         files = list(files)
         t0 = time.perf_counter()
         try:
@@ -120,8 +123,8 @@ class ScanFilterMixin:
             missing = [c for c in columns if got[c] is None]
             rows = None
             if missing:
-                table, rows = hio.read_parquet(files, columns=missing, schema=schema, device=self.device,
-                                               file_rows=True)
+                table, rows = hio.read_table_files(files, fmt, columns=missing, schema=schema,
+                                                   device=self.device, file_rows=True)
                 self.stats["files_read"] += len(files)
                 self.stats["bytes_scanned"] += sum(st.st_size for st in file_stats)
                 for c in missing:
@@ -140,6 +143,7 @@ class ScanFilterMixin:
         except (OSError, pa.ArrowException) as e:
             if index_root is None:
                 raise
+            stats.increment("index.corruption")
             raise IndexCorruptionError(
                 f"unreadable index data under {index_root}: {e}",
                 index_root=index_root,
@@ -164,7 +168,7 @@ class ScanFilterMixin:
         if not files:
             return ColumnTable.empty(scan.scan_schema, device=self.device)
         root = scan.root if scan.bucket_spec is not None else None
-        return self._read(files, cols, scan.scan_schema, root)
+        return self._read(files, cols, scan.scan_schema, root, fmt=scan.format)
 
     def _filter(self, plan: Filter) -> ColumnTable:
         child = plan.child

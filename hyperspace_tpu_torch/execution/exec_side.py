@@ -401,7 +401,7 @@ class JoinSidesMixin:
         offsets); the buckets are no longer sorted within."""
         schema = side.scan.scan_schema
         keys = list(side.scan.bucket_spec[1])
-        dts = [self._read(scan_files(d), schema.names, d.scan_schema, None) for d in side.deltas]
+        dts = [self._read(scan_files(d), schema.names, d.scan_schema, None, fmt=d.format) for d in side.deltas]
         names = {n.lower() for n in schema.names}
 
         def merge():

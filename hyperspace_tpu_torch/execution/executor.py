@@ -45,6 +45,11 @@ also opens an `execute.<op>` span (obs/trace.py). The wall is the
 host's: the operators launch their device work and do not wait for it.
 Detail values that name a kernel or a venue are the port's own (`venue`
 is the session's device type).
+
+`execute` validates the plan first (`check_plan`, analysis/validator.py)
+and its own pushdown and pruning after (`validate_rewrite`), as the JAX
+package does, unless `hyperspace.analysis.validate` is false: a
+malformed plan raises `PlanValidationError` before any device work.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import weakref
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.analysis.validator import check_plan, validate_rewrite
 from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.exec_agg import AggregateMixin
@@ -135,7 +141,19 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
         return dst
 
     def execute(self, plan: LogicalPlan) -> ColumnTable:
-        return self._execute(prune_columns(push_down_filters(plan)))
+        validate = self.conf.validate_plans
+        if validate:
+            # Pre-execution analysis (analysis/validator.py): reject a
+            # malformed plan with node-provenance diagnostics before any
+            # device work, instead of a mid-execution KeyError.
+            check_plan(plan)
+        optimized = prune_columns(push_down_filters(plan))
+        if validate:
+            # Guard our own rewrites: pushdown and pruning must keep the
+            # output schema and never push a filter beneath the
+            # null-extended side of an outer join.
+            validate_rewrite(plan, optimized)
+        return self._execute(optimized)
 
     def _execute(self, plan: LogicalPlan) -> ColumnTable:
         """One operator frame: a physical node (a child of the frame that

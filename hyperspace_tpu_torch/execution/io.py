@@ -8,10 +8,15 @@ requested device; writes emit one sorted parquet file per bucket plus a
 A port of the JAX package's `execution/io.py`: the bucket-file names, the
 parquet encode and the manifest are the same, so an index written by either
 package is read by the other; `file_key_stats` and `file_column_stats`
-read the manifests' per-bucket min/max for range pruning. The
-decoded-table and footer caches, the chunked row-group read and the
-fault-injection hooks are not ported; the executor keeps decoded columns
-on the device instead (execution/device_cache.py).
+read the manifests' per-bucket min/max for range pruning. Sources are
+parquet, ORC, CSV or line-delimited JSON (`read_table_files`; CSV and JSON
+decode pinned to the registered schema's types). Every data file read
+runs under the transient-IO retry (utils/retry.py) with the `bucket.read`
+fault point inside the retried call; writes fire `bucket.write` /
+`bucket.written` and `manifest.write` / `manifest.written`, and a manifest
+read `manifest.read` (faults.py). The decoded-table and footer caches and
+the chunked row-group read are not ported; the executor keeps decoded
+columns on the device instead (execution/device_cache.py).
 """
 
 from __future__ import annotations
@@ -27,26 +32,128 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 import torch
 
+from hyperspace_tpu_torch import stats
 from hyperspace_tpu_torch.exceptions import HyperspaceError, IndexCorruptionError
 from hyperspace_tpu_torch.execution.table import ColumnTable
+from hyperspace_tpu_torch.faults import fault_point
 from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.schema import Schema
+from hyperspace_tpu_torch.utils import retry
 from hyperspace_tpu_torch.utils.file_utils import write_json
 
 MANIFEST_NAME = "_index_manifest.json"
 
 
-def _read_one_file(path: str, columns: list[str] | None):
-    """One parquet file → pyarrow Table. ParquetFile (never the dataset
-    API): index files live under hive-looking `v__=N` version dirs, and
-    inferring a `v__` partition column would bake it into the table."""
-    pf = pq.ParquetFile(path)
-    if columns is not None:
-        names = set(pf.schema_arrow.names)
-        missing = [c for c in columns if c not in names]
-        if missing:
-            raise pa.lib.ArrowInvalid(f"no match for column(s) {missing} in {path}")
-    return pf.read(columns=columns, use_threads=True)
+_ARROW_TYPES = {
+    "int32": pa.int32(),
+    "int64": pa.int64(),
+    "float32": pa.float32(),
+    "float64": pa.float64(),
+    "bool": pa.bool_(),
+    "string": pa.string(),
+    "date": pa.date32(),
+    "timestamp": pa.timestamp("us"),
+}
+
+
+def _arrow_types_for(schema: Schema | None) -> dict | None:
+    """name → arrow type for the registered schema's scalar fields: pins
+    CSV/JSON decode to the planned types instead of re-inferring per file
+    (per-file inference can diverge across files and from the
+    registration-time schema)."""
+    if schema is None:
+        return None
+    out = {}
+    for f in schema.fields:
+        t = _ARROW_TYPES.get(f.dtype)
+        if t is not None:
+            out[f.name] = t
+    return out or None
+
+
+def _read_one_file(path: str, fmt: str, columns: list[str] | None, schema: Schema | None):
+    """One file of any supported source format → pyarrow Table, with
+    transient-IO retry (pyarrow's IO errors subclass OSError; only
+    retryable errnos re-attempt — a missing or truncated file surfaces
+    immediately). The reference gates sources to the same four formats
+    (index/serde/LogicalPlanSerDeUtils.scala:225-245)."""
+    return retry.retry_call(_read_one_file_once, path, fmt, columns, schema)
+
+
+def _read_one_file_once(path: str, fmt: str, columns: list[str] | None, schema: Schema | None):
+    fault_point("bucket.read", path)
+    if fmt == "parquet":
+        # ParquetFile (never the dataset API): index files live under
+        # hive-looking `v__=N` version dirs, and inferring a `v__`
+        # partition column would bake it into the table.
+        pf = pq.ParquetFile(path)
+        if columns is not None:
+            names = set(pf.schema_arrow.names)
+            missing = [c for c in columns if c not in names]
+            if missing:
+                raise pa.lib.ArrowInvalid(f"no match for column(s) {missing} in {path}")
+        return pf.read(columns=columns, use_threads=True)
+    if fmt == "orc":
+        from pyarrow import orc
+
+        return orc.ORCFile(path).read(columns=columns)
+    if fmt == "csv":
+        from pyarrow import csv as pcsv
+
+        opts = pcsv.ConvertOptions(
+            include_columns=columns if columns is not None else None,
+            column_types=_arrow_types_for(schema),
+        )
+        return pcsv.read_csv(path, convert_options=opts)
+    if fmt == "json":
+        from pyarrow import json as pjson
+
+        types = _arrow_types_for(schema)
+        parse = None
+        if types is not None and schema is not None and len(types) == len(schema.fields):
+            parse = pjson.ParseOptions(
+                explicit_schema=pa.schema([(f.name, types[f.name]) for f in schema.fields])
+            )
+        t = pjson.read_json(path, parse_options=parse)
+        return t.select(columns) if columns is not None else t
+    raise HyperspaceError(f"unsupported source format {fmt!r} (parquet|orc|csv|json)")
+
+
+def read_table_files(
+    files: list[str],
+    fmt: str,
+    columns: list[str] | None = None,
+    schema: Schema | None = None,
+    *,
+    device: torch.device | str,
+    file_rows: bool = False,
+) -> ColumnTable | tuple[ColumnTable, np.ndarray]:
+    """Multi-file read of one source format into a ColumnTable on
+    `device` (decode overlapped across files; row order is the file
+    order). With `file_rows`, returns (table, int64 row count of each
+    file)."""
+    if not files:
+        raise HyperspaceError("no files to read")
+    try:
+        nbytes = sum(os.path.getsize(f) for f in files)
+    except OSError:
+        nbytes = 0
+    with obs_trace.span("io.read", files=len(files), fmt=fmt, bytes=nbytes):
+        if len(files) == 1:
+            tables = [_read_one_file(files[0], fmt, columns, schema)]
+        else:
+            # Each worker retries its own file: a transient fault is
+            # absorbed inside the pool, never turned into a failed read.
+            with ThreadPoolExecutor(max_workers=min(8, len(files))) as ex:
+                tables = list(ex.map(lambda f: _read_one_file(f, fmt, columns, schema), files))
+    table = pa.concat_tables(tables, promote_options="default") if len(tables) > 1 else tables[0]
+    if schema is not None and columns is not None:
+        schema = schema.select(columns)
+    with obs_trace.span("device.stage", files=len(files)):
+        out = ColumnTable.from_arrow(table, schema, device=device)
+    if file_rows:
+        return out, np.array([t.num_rows for t in tables], dtype=np.int64)
+    return out
 
 
 def read_parquet(
@@ -57,29 +164,8 @@ def read_parquet(
     device: torch.device | str,
     file_rows: bool = False,
 ) -> ColumnTable | tuple[ColumnTable, np.ndarray]:
-    """Multi-file parquet read into a ColumnTable on `device` (decode
-    overlapped across files; row order is the file order). With
-    `file_rows`, returns (table, int64 row count of each file)."""
-    if not files:
-        raise HyperspaceError("no files to read")
-    try:
-        nbytes = sum(os.path.getsize(f) for f in files)
-    except OSError:
-        nbytes = 0
-    with obs_trace.span("io.read", files=len(files), fmt="parquet", bytes=nbytes):
-        if len(files) == 1:
-            tables = [_read_one_file(files[0], columns)]
-        else:
-            with ThreadPoolExecutor(max_workers=min(8, len(files))) as ex:
-                tables = list(ex.map(lambda f: _read_one_file(f, columns), files))
-    table = pa.concat_tables(tables, promote_options="default") if len(tables) > 1 else tables[0]
-    if schema is not None and columns is not None:
-        schema = schema.select(columns)
-    with obs_trace.span("device.stage", files=len(files)):
-        out = ColumnTable.from_arrow(table, schema, device=device)
-    if file_rows:
-        return out, np.array([t.num_rows for t in tables], dtype=np.int64)
-    return out
+    """`read_table_files` of parquet files."""
+    return read_table_files(files, "parquet", columns, schema, device=device, file_rows=file_rows)
 
 
 def bucket_file_name(bucket: int) -> str:
@@ -130,16 +216,19 @@ INDEX_WRITE_COMPRESSION = "lz4"
 
 def write_bucket(dest_dir: Path, bucket: int, table: ColumnTable) -> None:
     dest_dir.mkdir(parents=True, exist_ok=True)
+    dest = dest_dir / bucket_file_name(bucket)
+    fault_point("bucket.write", dest)
     # Dictionary-encode ONLY string columns; pruning reads the manifest,
     # never parquet footer statistics.
     dict_cols = [f.name for f in table.schema.fields if f.is_string]
     pq.write_table(
         table.to_arrow(),
-        dest_dir / bucket_file_name(bucket),
+        dest,
         use_dictionary=dict_cols,
         compression=INDEX_WRITE_COMPRESSION,
         write_statistics=False,
     )
+    fault_point("bucket.written", dest)
 
 
 def write_manifest(
@@ -160,8 +249,12 @@ def write_manifest(
         manifest["keyStats"] = key_stats
     if column_stats is not None:
         manifest["columnStats"] = column_stats
-    # Atomic temp-file + os.replace (+ fsync) via write_json.
-    write_json(dest_dir / MANIFEST_NAME, manifest)
+    mp = dest_dir / MANIFEST_NAME
+    fault_point("manifest.write", mp)
+    # Atomic temp-file + os.replace (+ fsync) via write_json: a crash
+    # mid-write leaves either the previous manifest or none.
+    write_json(mp, manifest)
+    fault_point("manifest.written", mp)
 
 
 def read_manifest(version_dir: Path) -> dict | None:
@@ -170,9 +263,11 @@ def read_manifest(version_dir: Path) -> dict | None:
     p = Path(version_dir) / MANIFEST_NAME
     if not p.exists():
         return None
+    fault_point("manifest.read", p)
     try:
         return json.loads(p.read_text())
     except (OSError, ValueError) as e:
+        stats.increment("index.corruption")
         raise IndexCorruptionError(
             f"corrupt index manifest {p}: {e}",
             index_root=str(Path(version_dir).parent),

@@ -36,15 +36,26 @@ most recent one (`last_query_stats`, `last_optimized_plan`,
 `last_physical_plan`, `last_profile()`) is installed under one lock
 (`_publish`). Profile and span times are host walls; with
 `run(plan, profile_dir=...)` the query runs under `torch.profiler`, whose
-Chrome trace holds the card's own times. The corruption quarantine and
-fallback and the advisor's routing are not ported yet: `replans` is
-always 0.
+Chrome trace holds the card's own times.
+
+Corruption fallback (`hyperspace.fallback.enabled`, default on): when an
+index scan hits unreadable index data mid-query (a typed
+`IndexCorruptionError` naming the index), the failing index is
+quarantined in `session.index_health` and the query re-plans, first
+through the remaining healthy indexes, then, if corruption persists or
+has no provenance, straight against the source. The query answers either
+way; `QueryOutcome.replans` counts the re-plans, the stats'
+`degraded_indexes` name the quarantined roots, the `fallback.queries`
+counter and the `fallback.replan` / `index.quarantined` events record
+it. The quarantine is sticky for the session until a refresh, optimize
+or `recover()` lifts it. The advisor's routing is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
 import os
 import threading
 import time
@@ -52,12 +63,14 @@ from pathlib import Path
 
 import torch
 
+from hyperspace_tpu_torch import stats as _stats
 from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.dataset import Dataset
 from hyperspace_tpu_torch.device import resolve_device
-from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.exceptions import HyperspaceError, IndexCorruptionError
 from hyperspace_tpu_torch.index.collection_manager import CachingIndexCollectionManager
 from hyperspace_tpu_torch.index.index_config import IndexConfig
+from hyperspace_tpu_torch.obs import events as obs_events
 from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
 from hyperspace_tpu_torch.plan.prune import prune_columns
@@ -67,6 +80,11 @@ from hyperspace_tpu_torch.rules.base import apply_rules
 
 _profile_seq = itertools.count(1)
 
+# The query plane's degradations as structured events (obs/events.py),
+# each carrying the active trace id.
+_EVT_FALLBACK = obs_events.declare("fallback.replan")
+_EVT_QUARANTINED = obs_events.declare("index.quarantined")
+
 
 @dataclasses.dataclass
 class QueryOutcome:
@@ -74,8 +92,9 @@ class QueryOutcome:
     the session: the result (a ColumnTable), the executor's stats, the
     optimized plan that ran, the executed physical plan and the query's
     profile. `run` publishes one into the session's view
-    (`_publish`); `run_query` does not. `replans` is 0 (the corruption
-    fallback is not ported) and `used_indexes` is the session's switch."""
+    (`_publish`); `run_query` does not. `replans` counts the corruption
+    fallback's re-plans; `used_indexes` is false when the session's
+    switch is off or the fallback turned indexes off for the query."""
 
     result: object
     stats: dict
@@ -117,6 +136,12 @@ class HyperspaceSession:
         self.last_optimized_plan: LogicalPlan | None = None
         self.last_physical_plan = None
         self._last_profile = None
+        # Per-index health map (index root -> failure record). An index
+        # that served corrupt data is quarantined from the rewrite rules
+        # for the rest of the session; queries fall back to the healthy
+        # indexes or the source. A refresh, optimize or recover() lifts it.
+        # Mutations go through _state_lock.
+        self.index_health: dict[str, dict] = {}
 
     # -- rule toggle (package.scala:46-70) --------------------------------
     def enable_hyperspace(self) -> "HyperspaceSession":
@@ -165,6 +190,16 @@ class HyperspaceSession:
         """Register a parquet dataset and return its scan plan."""
         return Dataset.parquet(root).scan()
 
+    def orc(self, root: str | Path) -> Scan:
+        return Dataset.orc(root).scan()
+
+    def csv(self, root: str | Path) -> Scan:
+        return Dataset.csv(root).scan()
+
+    def json(self, root: str | Path) -> Scan:
+        """Register a line-delimited JSON dataset."""
+        return Dataset.json(root).scan()
+
     def optimized_plan(self, plan: LogicalPlan) -> LogicalPlan:
         if not self._enabled:
             return plan
@@ -174,7 +209,15 @@ class HyperspaceSession:
         # sides, where the index rules cover them, and scans narrow to
         # what the query needs, which is what index coverage is checked
         # against.
-        return apply_rules(prune_columns(push_down_filters(plan)), self.manager.get_indexes(), conf=self.conf)
+        indexes = self.manager.get_indexes()
+        with self._state_lock:
+            unhealthy = set(self.index_health)
+        if unhealthy:
+            # Indexes that served corrupt data are out of the candidate
+            # set until lifted: degradation is sticky per session, not
+            # re-discovered (and re-failed) on every query.
+            indexes = [e for e in indexes if str(Path(e.content.root)) not in unhealthy]
+        return apply_rules(prune_columns(push_down_filters(plan)), indexes, conf=self.conf)
 
     def run(self, plan: LogicalPlan, profile_dir: str | Path | None = None):
         """Execute a plan (rewriting through indexes when enabled);
@@ -206,27 +249,53 @@ class HyperspaceSession:
 
         cache_before = self._cache_counts()
         t0 = time.perf_counter()
+        replans = 0
+        use_indexes = True
+        plan_s = 0.0
         with obs_trace.trace("query") as root_span:
-            with obs_trace.span("plan.optimize", indexes_enabled=self._enabled):
-                if plan_cache is not None and self._enabled:
-                    optimized = plan_cache.get_or_optimize(self, plan)
-                else:
-                    optimized = self.optimized_plan(plan)
-            t1 = time.perf_counter()
-            derive0 = device_cache.derive_seconds()
-            executor = Executor(self.device, self.conf)
-            if profile_dir is not None:
-                result = self._profiled(executor, optimized, Path(profile_dir))
-            else:
-                result = executor.execute(optimized)
+            while True:
+                tp = time.perf_counter()
+                with obs_trace.span("plan.optimize", indexes_enabled=self._enabled):
+                    if not use_indexes:
+                        optimized = plan
+                    elif plan_cache is not None and self._enabled:
+                        optimized = plan_cache.get_or_optimize(self, plan)
+                    else:
+                        optimized = self.optimized_plan(plan)
+                t1 = time.perf_counter()
+                plan_s += t1 - tp
+                derive0 = device_cache.derive_seconds()
+                executor = Executor(self.device, self.conf)
+                try:
+                    if profile_dir is not None:
+                        result = self._profiled(executor, optimized, Path(profile_dir))
+                    else:
+                        result = executor.execute(optimized)
+                    break
+                except IndexCorruptionError as e:
+                    if not (self._enabled and use_indexes and self.conf.fallback_enabled):
+                        raise
+                    if not self._quarantine(e):
+                        # No provenance to quarantine by, or quarantining
+                        # it did not help: indexes go off for this query,
+                        # so the loop ends.
+                        use_indexes = False
+                    replans += 1
         total_s = time.perf_counter() - t0
+        with self._state_lock:
+            degraded = sorted(self.index_health)
         stats = executor.stats
+        # The host's seconds by step: plan over every attempt, the rest
+        # for the attempt that answered.
         stats["host_s"] = {
-            "plan": t1 - t0,
+            "plan": plan_s,
             "read": stats.pop("read_s"),
             "derive": device_cache.derive_seconds() - derive0,
             "execute": time.perf_counter() - t1,
         }
+        if degraded:
+            stats["degraded_indexes"] = degraded
+        used = self._enabled and use_indexes
         cache_after = self._cache_counts()
         profile = obs_profile.build_profile(
             total_s=total_s,
@@ -234,10 +303,31 @@ class HyperspaceSession:
             stats=stats,
             venue=self._venue_info(),
             cache={k: cache_after[k] - cache_before[k] for k in cache_after},
-            fallback={"replans": 0, "degraded_indexes": [], "used_indexes": self._enabled},
+            fallback={"replans": replans, "degraded_indexes": degraded, "used_indexes": used},
             trace_root=root_span if isinstance(root_span, obs_trace.Span) else None,
         )
-        return QueryOutcome(result, stats, optimized, executor.physical_plan, profile, 0, self._enabled)
+        return QueryOutcome(result, stats, optimized, executor.physical_plan, profile, replans, used)
+
+    def _quarantine(self, e: IndexCorruptionError) -> bool:
+        """Record the index an `IndexCorruptionError` names as unhealthy,
+        count the re-plan (`fallback.queries`, `fallback.replan`; the
+        first failure of a root also emits `index.quarantined`). True when
+        the root was newly quarantined, so a re-plan through the other
+        indexes can help."""
+        root = str(Path(e.index_root)) if e.index_root is not None else None
+        with self._state_lock:
+            newly = root is not None and root not in self.index_health
+            if root is not None:
+                self.index_health[root] = {"reason": e.msg, "path": e.path}
+        _stats.increment("fallback.queries")
+        obs_trace.event("fallback.replan", index=root, reason=e.msg)
+        _EVT_FALLBACK.emit(index=root, reason=e.msg)
+        if newly:
+            _EVT_QUARANTINED.emit(index=root, reason=e.msg)
+        logging.getLogger("hyperspace_tpu_torch").warning(
+            "index data unreadable (%s); re-planning query against source", e.msg
+        )
+        return newly
 
     def _profiled(self, executor, optimized: LogicalPlan, profile_dir: Path):
         """`executor.execute(optimized)` under torch.profiler; the Chrome
@@ -349,13 +439,24 @@ class Hyperspace:
     def refresh_index(self, name: str, mode: str = "full") -> None:
         """Rebuild an index. mode="full" re-executes the logged lineage;
         mode="incremental" indexes only appended source files into per-
-        bucket delta files (pair with optimize_index to compact)."""
+        bucket delta files (pair with optimize_index to compact). Lifts the
+        session's corruption quarantine of the index."""
         self.session.manager.refresh(name, mode)
+        self._lift_quarantine(name)
 
     def optimize_index(self, name: str) -> None:
         """Compact every live version of an index into one file a bucket
-        (a vector index: retrain its centroids and re-partition)."""
+        (a vector index: retrain its centroids and re-partition). Lifts
+        the session's corruption quarantine of the index."""
         self.session.manager.optimize(name)
+        self._lift_quarantine(name)
+
+    def _lift_quarantine(self, name: str) -> None:
+        """A successful rebuild supersedes whatever corruption got the
+        index quarantined in this session: let it serve queries again."""
+        root = str(self.session.manager.path_resolver.get_index_path(name))
+        with self.session._state_lock:
+            self.session.index_health.pop(root, None)
 
     def cancel(self, name: str) -> None:
         self.session.manager.cancel(name)
@@ -365,11 +466,20 @@ class Hyperspace:
         latest entry to the last stable state (cancel semantics), refresh
         the latestStable pointer, and GC version dirs no stable entry
         references. With no name, every index under the system path is
-        recovered (a report per index name). Idempotent."""
+        recovered (a report per index name). Also lifts the session's
+        corruption quarantine (`session.index_health`) of what it
+        recovered, so repaired indexes serve queries again. Idempotent."""
         mgr = self.session.manager
         if name is not None:
-            return mgr.recover(name)
-        return {d.name: mgr.recover(d.name) for d in mgr.path_resolver.list_index_paths()}
+            report = mgr.recover(name)
+            root = str(mgr.path_resolver.get_index_path(name))
+            with self.session._state_lock:
+                self.session.index_health.pop(root, None)
+            return report
+        reports = {d.name: mgr.recover(d.name) for d in mgr.path_resolver.list_index_paths()}
+        with self.session._state_lock:
+            self.session.index_health.clear()
+        return reports
 
     def indexes(self):
         """Every index under the system path, in any state, as a pandas

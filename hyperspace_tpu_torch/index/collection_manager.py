@@ -29,7 +29,7 @@ from hyperspace_tpu_torch.actions import (
     RestoreAction,
     VacuumAction,
 )
-from hyperspace_tpu_torch.config import DATA_VERSION_PREFIX, DEFAULT_CACHE_EXPIRY_SECONDS, HyperspaceConf
+from hyperspace_tpu_torch.config import DATA_VERSION_PREFIX, HyperspaceConf
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.index_config import IndexConfig
 from hyperspace_tpu_torch.metadata.cache import CreationTimeBasedCache
@@ -260,7 +260,7 @@ class CachingIndexCollectionManager(IndexCollectionManager):
 
     def __init__(self, conf: HyperspaceConf, writer_factory, vector_builder_factory):
         super().__init__(conf, writer_factory, vector_builder_factory)
-        self._cache = CreationTimeBasedCache(DEFAULT_CACHE_EXPIRY_SECONDS)
+        self._cache = CreationTimeBasedCache(conf.cache_expiry_seconds)
 
     def clear_cache(self) -> None:
         self._cache.clear()

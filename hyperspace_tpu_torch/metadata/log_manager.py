@@ -13,6 +13,9 @@ created the same id, the call returns False and the caller must abort
 `get_latest_stable_log` prefers the `latestStable` pointer file and falls
 back to a backward scan for an entry in a stable state
 (IndexLogManager.scala:92-122).
+
+Fault points (faults.py): `log.write` before an entry's CAS, `log.written`
+after it commits, `log.stable.write` before the pointer's rewrite.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import os
 from pathlib import Path
 
 from hyperspace_tpu_torch.config import HYPERSPACE_LOG_DIR, LATEST_STABLE_LOG_NAME
+from hyperspace_tpu_torch.faults import fault_point
 from hyperspace_tpu_torch.metadata.log_entry import IndexLogEntry, entry_from_json
 from hyperspace_tpu_torch.utils.file_utils import read_json, write_json
 from hyperspace_tpu_torch.states import STABLE_STATES
@@ -81,7 +85,11 @@ class IndexLogManager:
         """CAS-create log entry `id`. False ⇒ a concurrent writer won."""
         entry.id = id
         p = self.log_dir / str(id)
-        return write_json(p, entry.to_json(), overwrite=False)
+        fault_point("log.write", p)
+        ok = write_json(p, entry.to_json(), overwrite=False)
+        if ok:
+            fault_point("log.written", p)
+        return ok
 
     def create_latest_stable_log(self, id: int) -> bool:
         """Copy entry `id` to the latestStable pointer
@@ -90,6 +98,7 @@ class IndexLogManager:
         if entry is None or entry.state not in STABLE_STATES:
             return False
         p = self.log_dir / LATEST_STABLE_LOG_NAME
+        fault_point("log.stable.write", p)
         write_json(p, entry.to_json(), overwrite=True)
         return True
 

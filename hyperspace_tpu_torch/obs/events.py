@@ -38,6 +38,10 @@ KNOWN_EVENTS: dict[str, str] = {
     "serve.admission_rejected": "warn",
     "serve.shed": "warn",
     "serve.result_cache.eviction_storm": "warn",
+    # Query plane: a query re-planned around unreadable index data, and
+    # the index that served it quarantined for the session (hyperspace.py).
+    "fallback.replan": "warn",
+    "index.quarantined": "warn",
 }
 
 DEFAULT_MAX_EVENTS = 256

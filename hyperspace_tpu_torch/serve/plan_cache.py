@@ -10,16 +10,17 @@ invalidation is structural rather than event-driven:
     (plan signature,            # canonical-JSON MD5 of the logical plan
      data fingerprint,          # (size, mtime, path) fold of source files
      index log versions,        # (index dir, latest log id) per index
-     hyperspace enabled?)
+     hyperspace enabled?,
+     quarantined indexes)       # sorted roots of session.index_health
 
 Every mutating index API commits by writing a new log entry, so the
 latest log id bumps and old keys never hit again; appended or rewritten
 source files change the data fingerprint the same way. The LRU bound only
 caps memory.
 
-Left out until the port has what they key on: the quarantine set (the
-corruption fallback's `index_health`) and the pinned snapshot stamp
-(ingestion). Hits, misses and evictions land in the metrics registry
+The quarantine set makes a corruption re-plan re-optimize under a new
+key instead of hitting the poisoned entry. Left out until the port has
+what it keys on: the pinned snapshot stamp (ingestion). Hits, misses and evictions land in the metrics registry
 (`serve.plan_cache.*`, the process's counts over every cache) and in
 this cache's own `stats()`.
 """
@@ -52,11 +53,14 @@ def versioned_plan_key(session, plan) -> tuple:
     less than re-optimizing, and makes a hit after an append or a refresh
     impossible."""
     fp = FileBasedSignatureProvider().signature(plan)
+    with session._state_lock:
+        quarantined = tuple(sorted(session.index_health))
     return (
         plan_signature(plan),
         fp.value if fp is not None else None,
         collection_log_versions(session),
         session.is_hyperspace_enabled(),
+        quarantined,
     )
 
 

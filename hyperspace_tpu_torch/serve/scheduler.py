@@ -415,7 +415,9 @@ class QueryServer:
         # Keep the session view current so last_profile()/explain keep
         # working for interactive pokes at a serving session.
         session._publish(outcome)
-        if rc is not None:
+        if rc is not None and outcome.replans == 0:
+            # A re-planned (corruption-fallback) result is correct, but its
+            # key predates the quarantine it triggered: do not cache it.
             rc.put(key, outcome.result)
         return outcome.result
 

@@ -11,6 +11,22 @@ The port declares only the counters its modules increment:
 
 - ``metadata.cache.hits``    TTL index-entry cache hits (metadata/cache.py)
 - ``metadata.cache.misses``  TTL index-entry cache misses (empty or expired)
+- ``retry.attempts``       extra attempts made after a transient failure
+  (utils/retry.py)
+- ``retry.exhausted``      retry loops that gave up and re-raised
+- ``faults.injected``      faults the injection harness actually fired
+  (faults.py)
+- ``faults.delays_injected``  brownout delays the harness applied (a
+  subset of ``faults.injected``)
+- ``index.corruption``     typed corruption detections (bucket/manifest)
+- ``fallback.queries``     queries re-planned against healthy indexes or
+  the source data (hyperspace.py)
+- ``action.rolled_back``   op() failures rolled back to the last stable
+  state (actions/base.py)
+- ``action.rollback_failed``  in-process rollback attempts that themselves
+  failed (recover() finishes the repair from the next process)
+- ``action.cleanup_failed``   partial-data quarantines that failed (the
+  orphan GC in recover() sweeps what they left)
 """
 
 from __future__ import annotations
@@ -20,6 +36,15 @@ from hyperspace_tpu_torch.obs import metrics as _metrics
 KNOWN_COUNTERS = (
     "metadata.cache.hits",
     "metadata.cache.misses",
+    "retry.attempts",
+    "retry.exhausted",
+    "faults.injected",
+    "faults.delays_injected",
+    "index.corruption",
+    "fallback.queries",
+    "action.rolled_back",
+    "action.rollback_failed",
+    "action.cleanup_failed",
 )
 
 _counters = {name: _metrics.counter(name) for name in KNOWN_COUNTERS}

@@ -1096,3 +1096,84 @@ def test_profile_dir_on_the_card_writes_the_kernels_trace(cuda, tmp_path):
     names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
     assert any("segment_reduce_" in n for n in names), sorted(names)[:50]
     assert s.last_profile().venue["platform"] == "gpu"
+
+
+def _truncate_buckets(version_dir) -> None:
+    for f in sorted(version_dir.glob("bucket-*.parquet")):
+        with open(f, "r+b") as fh:
+            fh.truncate(7)
+
+
+@pytest.mark.gpu
+def test_corruption_fallback_lookup_on_the_card(cuda, tmp_path):
+    """A truncated index on a card session: the lookup re-plans once
+    against the source, is quarantined, then plans around it; a full
+    refresh lifts the quarantine. Every answer equals the CPU session's
+    on the healthy index."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, col
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem
+    from hyperspace_tpu_torch.execution import device_cache
+
+    src = tmp_path / "li"
+    gen_tpch_lineitem(src, sf=0.002, seed=42)
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        s = HyperspaceSession(system_path=str(tmp_path / f"idx_{dev}"), num_buckets=8, device=dev)
+        Hyperspace(s).create_index(s.parquet(src), IndexConfig("li", ["l_orderkey"], ["l_extendedprice"]))
+        s.enable_hyperspace()
+        q = s.parquet(src).filter(col("l_orderkey") == 7).select("l_orderkey", "l_extendedprice")
+        d = s.run(q).decode()
+        rows[dev] = sorted(zip(d["l_orderkey"].tolist(), d["l_extendedprice"].tolist()))
+    assert rows["cuda"] == rows["cpu"] and rows["cpu"]
+    s = HyperspaceSession(system_path=str(tmp_path / "idx_cuda"), num_buckets=8, device=cuda)
+    s.enable_hyperspace()
+    _truncate_buckets(tmp_path / "idx_cuda" / "li" / "v__=0")
+    device_cache.clear_all()
+    q = s.parquet(src).filter(col("l_orderkey") == 7).select("l_orderkey", "l_extendedprice")
+    first = s.run_query(q)
+    root = str(tmp_path / "idx_cuda" / "li")
+    assert first.replans == 1 and first.stats["degraded_indexes"] == [root]
+    assert first.result.columns["l_orderkey"].device.type == "cuda"
+    second = s.run_query(q)
+    assert second.replans == 0 and list(s.index_health) == [root]
+    for out in (first, second):
+        d = out.result.decode()
+        assert sorted(zip(d["l_orderkey"].tolist(), d["l_extendedprice"].tolist())) == rows["cpu"]
+    Hyperspace(s).refresh_index("li")
+    third = s.run_query(q)
+    assert third.replans == 0 and not s.index_health and third.stats["scan"] == "IndexPointLookup"
+
+
+@pytest.mark.gpu
+def test_crash_and_recover_of_a_create_on_the_card(cuda, tmp_path):
+    """A create on the card dies at its second bucket file; recover rolls
+    it back and removes the partial version; a second create on the card
+    writes the CPU's bytes and serves the CPU's answer."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, col, faults
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem
+
+    src = tmp_path / "li"
+    gen_tpch_lineitem(src, sf=0.002, seed=42)
+    cfg = IndexConfig("li", ["l_orderkey"], ["l_extendedprice"])
+    s = HyperspaceSession(system_path=str(tmp_path / "idx_cuda"), num_buckets=8, device=cuda)
+    hs = Hyperspace(s)
+    faults.inject("bucket.written", crash=True, at_call=2)
+    try:
+        with pytest.raises(faults.CrashPoint):
+            hs.create_index(s.parquet(src), cfg)
+    finally:
+        faults.reset()
+    s2 = HyperspaceSession(system_path=str(tmp_path / "idx_cuda"), num_buckets=8, device=cuda)
+    report = Hyperspace(s2).recover("li")
+    assert report == {"rolled": True, "quarantined_entries": 0, "orphans_removed": 1}
+    assert Hyperspace(s2).recover("li") == {"rolled": False, "quarantined_entries": 0, "orphans_removed": 0}
+    Hyperspace(s2).create_index(s2.parquet(src), cfg)
+    cpu = HyperspaceSession(system_path=str(tmp_path / "idx_cpu"), num_buckets=8, device="cpu")
+    Hyperspace(cpu).create_index(cpu.parquet(src), cfg)
+    got = sorted(p.name for p in (tmp_path / "idx_cuda" / "li").glob("v__=*"))
+    assert got == ["v__=0"], got  # the partial version was removed, its id reused
+    for f in sorted((tmp_path / "idx_cpu" / "li" / "v__=0").iterdir()):
+        assert (tmp_path / "idx_cuda" / "li" / "v__=0" / f.name).read_bytes() == f.read_bytes(), f.name
+    s2.enable_hyperspace()
+    q = s2.parquet(src).filter(col("l_orderkey") == 7).select("l_orderkey", "l_extendedprice")
+    assert s2.run(q).decode()["l_extendedprice"].tolist() == cpu.run(q).decode()["l_extendedprice"].tolist()

@@ -67,6 +67,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "hyperspace_tpu_torch.explain.plan_analyzer",
         "hyperspace_tpu_torch.serve.result_cache",
         "hyperspace_tpu_torch.serve.scheduler",
+        "hyperspace_tpu_torch.analysis",
+        "hyperspace_tpu_torch.analysis.validator",
+        "hyperspace_tpu_torch.faults",
+        "hyperspace_tpu_torch.utils.retry",
     ):
         assert name in report["modules"]
 

@@ -152,7 +152,36 @@ What it does, in order (any failure raises and exits non-zero):
    the latest stable entry resolves, recover converges with no orphan
    version dir and a second recover does nothing, and an `o_orderkey`
    lookup and an aggregate by `o_orderpriority` equal pyarrow; one
-   `faults_sweep` line an action; K1 and K2 launch, K3 does not;
+   `faults_sweep` line an action; also a streaming create (a
+   budget of a fifth of the input) and a pooled create (2 workers), each
+   replayed at its points of `BUILD_POINTS` as a crash (a CrashPoint, or a
+   WorkerCrashed where a worker died) and as a transient fault, no spill
+   or exchange dir left after any, and `prefetch.issue` /
+   `device.stage` around a cold lookup (a crash, then advisory transient
+   faults with the answer unchanged); K1 and K2 launch, K3 does not;
+3g. the build at scale (`build_scale_path`): TPC-H lineitem at SF5
+   (`--build-sf`; about 30M rows, generated by one process a core), the
+   start-up of 4 spawned pool workers (the worker module's import),
+   BASELINE config 1's index (`l_orderkey` with `l_partkey, l_quantity,
+   l_extendedprice, l_discount`, 200 buckets) built five ways through
+   `create_index`, each timed by phase: (a) in memory at the default 4 GiB
+   budget, (b) streaming at a fifth of the input (256 MiB at SF5) with the
+   pipeline off, (c) with it on, (d) pooled with 2 and (e) 4 workers;
+   (b)-(e) byte-identical (every bucket file and the manifest), (a) with
+   (b)'s row counts, rows and keys sorted in every bucket; no spill or
+   exchange dir left, no worker with a CUDA context. On (b) the 12
+   lookups (1 of 200 files), the 1% range and the revenue over it by
+   `l_orderkey` (K1), cold and warm, index on and off, against pyarrow;
+   then a twentieth appended (seed 50), an incremental refresh and an
+   optimize at the budget (the streaming compactor, one file a bucket),
+   the queries again. Then on the aggregate path's index the 12 cold
+   lookups with zero-copy staging and with the query-tail prefetch on and
+   off (`STAGE_REPEATS` pairs, the first setting alternating), the
+   staging counters of a cold pass, and a cold pass under a transient
+   `device.stage` fault; K1 launches, K2 and K3 do not. Then phase 3d's
+   incremental refresh and taxi loop with the hash path they ran on
+   (`native_hash_refresh_and_taxi`, against the numpy hash's records in
+   PERF.md);
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
@@ -185,7 +214,8 @@ What it does, in order (any failure raises and exits non-zero):
    query surface's q67 re-fold, CD1 inner and q43 partial aggregates, and
    of 3f's: the Q1-shaped aggregate over li_live's source answered through
    the fallback, and the crash sweep's aggregate by `o_orderpriority`
-   after create's and the incremental refresh's first replay; K2: the
+   after create's and the incremental refresh's first replay, and of 3g's
+   revenue over the streamed index's 1% range; K2: the
    join's real key codes at the aligned J2 and J3 shapes, the hybrid
    J2's and the un-indexed J2 shape, and the aligned J2 codes with each
    primary row shuffled, so that the kernel's windows
@@ -3135,7 +3165,20 @@ VALIDATE_EXPECT = {
 # file (a twentieth of the scale, seed 49); optimize compacts the two
 # versions it leaves.
 SWEEP_INDEX = "o_sweep"
-SWEEP_ACTIONS = ("create", "refresh", "optimize", "vacuum")
+SWEEP_ACTIONS = ("create", "refresh", "optimize", "vacuum", "create_streaming", "create_pooled")
+# The build at scale's points (ten of faults.KNOWN_POINTS): the
+# streaming and pooled creates replay theirs as a crash and as a transient
+# fault; the query's two (`prefetch.issue`, `device.stage`) are replayed
+# around a cold lookup.
+BUILD_POINTS = {
+    "create_streaming": ("footer.read", "spill.read", "pipeline.put", "pipeline.get"),
+    # The pooled create's own four; its workers' footer.read is the
+    # streaming create's code, replayed there (each pooled replay pays
+    # the workers' start-up, about 6.5 s on the card's host).
+    "create_pooled": ("build.worker.spawn", "build.exchange.write", "build.exchange.read",
+                      "build.manifest.merge"),
+}
+QUERY_POINTS = ("prefetch.issue", "device.stage")
 SWEEP_APPEND = (0.05, 49)
 # Later calls of the busy points, replayed on create.
 SWEEP_LATER = (("bucket.written", 100), ("log.write", 2), ("file.write_json", 2))
@@ -3429,9 +3472,16 @@ def crash_sweep(device, ctx: dict, sf: float) -> dict:
     recover converges with no orphan version dir; a second recover does
     nothing; an `o_orderkey` lookup and an aggregate by `o_orderpriority`
     (K1) equal pyarrow, through the index where it survived and through
-    the source otherwise. One line an action. Returns the record and K1's
-    inputs from the aggregate of create's and the incremental refresh's
-    first check."""
+    the source otherwise. One line an action. Also a streaming
+    create (a budget of a fifth of the input) and a pooled create (2
+    workers), each replayed at its points of BUILD_POINTS, once as a
+    crash (a CrashPoint, or a WorkerCrashed where the worker died)
+    and once as a transient fault (absorbed by the retry, or a typed
+    failure rolled back), with no spill or exchange dir left after any;
+    and the QUERY_POINTS around a cold lookup, each as a crash and as a
+    transient fault (advisory: the answer stays pyarrow's). Returns the
+    record and K1's inputs from the aggregate of create's and the
+    incremental refresh's first check."""
     import pyarrow.compute as pc
     import pyarrow.parquet as pq
     import torch
@@ -3442,6 +3492,7 @@ def crash_sweep(device, ctx: dict, sf: float) -> dict:
     from hyperspace_tpu_torch.config import DATA_VERSION_PREFIX
     from hyperspace_tpu_torch.datagen import gen_tpch_orders
     from hyperspace_tpu_torch.execution import device_cache as dc
+    from hyperspace_tpu_torch.execution import io as hio
     from hyperspace_tpu_torch.metadata.data_manager import IndexDataManager
     from hyperspace_tpu_torch.metadata.log_manager import IndexLogManager
     from hyperspace_tpu_torch.ops import aggregate
@@ -3474,10 +3525,21 @@ def crash_sweep(device, ctx: dict, sf: float) -> dict:
     def session_on(system_path: Path):
         return HyperspaceSession(system_path=str(system_path), num_buckets=buckets, device=device)
 
+    from hyperspace_tpu_torch.exceptions import WorkerCrashed
+
+    orders_files = sorted(str(p) for p in (ctx["workdir"] / "orders").glob("*.parquet"))
+    scale_conf = {
+        "create_streaming": {"hyperspace.index.build.memoryBudgetBytes": max(
+            1, hio.estimate_uncompressed_bytes(orders_files, O_INDEXED + O_INCLUDED) // 5)},
+        "create_pooled": {"hyperspace.build.workers": 2},
+    }
+
     def drive(action: str, system_path: Path, src: Path) -> None:
         s = session_on(system_path)
+        for key, value in scale_conf.get(action, {}).items():
+            s.conf.set(key, value)
         hs = Hyperspace(s)
-        if action == "create":
+        if action.startswith("create"):
             hs.create_index(s.parquet(src), IndexConfig(SWEEP_INDEX, O_INDEXED, O_INCLUDED))
         elif action == "refresh":
             hs.refresh_index(SWEEP_INDEX, mode="incremental")
@@ -3488,6 +3550,8 @@ def crash_sweep(device, ctx: dict, sf: float) -> dict:
         sync()
 
     def restore(pristine: Path, system_path: Path) -> None:
+        # A replay plays a new process: its footer cache starts empty.
+        hio.clear_footer_cache()
         shutil.rmtree(system_path, ignore_errors=True)
         # Fresh copies (new inodes and mtimes): a truncation by one replay
         # never reaches the set-up state, and no cache keys on old mtimes.
@@ -3559,7 +3623,7 @@ def crash_sweep(device, ctx: dict, sf: float) -> dict:
         system_path = workdir / action / "sys"
         pristine = workdir / action / "pristine"
         system_path.mkdir(parents=True)
-        if action != "create":
+        if not action.startswith("create"):
             drive("create", system_path, src)
         if grown:
             append(src)
@@ -3574,36 +3638,103 @@ def crash_sweep(device, ctx: dict, sf: float) -> dict:
         keys = pq.read_table(src / "append.parquet", columns=["o_orderkey"]) if grown else table
         ref = (int(keys["o_orderkey"][len(keys) // 2].as_py()), table)
         setup_s = time.perf_counter() - t0
+        hio.clear_footer_cache()
         with faults.recording() as seen:
             drive(action, system_path, src)
         restore(pristine, system_path)
-        replays = [(p, 1) for p in sorted(seen)]
+        if action in scale_conf:
+            new = sorted(set(seen) & set(BUILD_POINTS[action]))
+            if len(new) != len(BUILD_POINTS[action]):
+                raise AssertionError(f"sweep {action}: fired {sorted(seen)}, not all of {BUILD_POINTS[action]}")
+            replays = [(p, 1) for p in new]
+            transients = list(new)
+        else:
+            replays = [(p, 1) for p in sorted(seen)]
+            transients = []
         if action == "create":
             replays += list(SWEEP_LATER)
-        crashed, via_index, reports = [], 0, {}
+        crashed, via_index, reports, transient_outcomes = [], 0, {}, {}
         for point, call in replays:
             faults.inject(point, crash=True, at_call=call)
             try:
                 drive(action, system_path, src)
-            except faults.CrashPoint:
+            except (faults.CrashPoint, WorkerCrashed):
                 crashed.append(f"{point}@{call}")
             finally:
                 faults.reset()
             r = check(action, f"{point}@{call}", system_path, src, ref)
+            left = [str(p) for pat in ("*.spill", "*.exchange") for p in system_path.rglob(pat)]
+            if left:
+                raise AssertionError(f"sweep {action} {point}: scratch left behind: {left}")
             via_index += r["via_index"]
             reports[f"{point}@{call}"] = r["report"]
+            restore(pristine, system_path)
+        for point in transients:
+            faults.inject(point, times=1)
+            try:
+                drive(action, system_path, src)
+                transient_outcomes[point] = "absorbed"
+            except Exception as e:  # a typed failure, rolled back by Action.run
+                transient_outcomes[point] = type(e).__name__
+            finally:
+                faults.reset()
+            check(action, f"{point} transient", system_path, src, ref)
+            left = [str(p) for pat in ("*.spill", "*.exchange") for p in system_path.rglob(pat)]
+            if left:
+                raise AssertionError(f"sweep {action} {point} transient: scratch left behind: {left}")
             restore(pristine, system_path)
         if len(crashed) != len(replays):
             missed = {f"{p}@{c}" for p, c in replays} - set(crashed)
             raise AssertionError(f"sweep {action}: no crash fired at {sorted(missed)}")
         record = {"action": action, "scale": sf, "rows": table.num_rows, "points": sorted(seen),
-                  "crashes": crashed, "answered_via_index": via_index, "setup_s": setup_s,
-                  "sweep_s": time.perf_counter() - t0 - setup_s, "reports": reports}
+                  "crashes": crashed, "transients": transient_outcomes, "answered_via_index": via_index,
+                  "setup_s": setup_s, "sweep_s": time.perf_counter() - t0 - setup_s, "reports": reports}
         out[action] = record
         log(json.dumps({"faults_sweep": {k: v for k, v in record.items() if k != "reports"}}))
         shutil.rmtree(pristine, ignore_errors=True)
+    out["query_points"] = query_point_replays(device, ctx, sf)
     out["sweep_wall_s"] = time.perf_counter() - t_phase
     return out, k1_inputs
+
+
+def query_point_replays(device, ctx: dict, sf: float) -> dict:
+    """The query's fault points around a cold lookup on the aggregate
+    path's index: a crash at each is a CrashPoint out of the query (the
+    next query answers), a transient fault is advisory (the same answer:
+    the prefetch skips the file, staging copies the column)."""
+    from hyperspace_tpu_torch import col, faults, stats
+    from hyperspace_tpu_torch.execution import device_cache as dc
+    from hyperspace_tpu_torch.execution import prefetch
+
+    session, li = ctx["session"], ctx["lineitem"]
+    session.enable_hyperspace()
+    plan = li.filter(col("l_orderkey") == 7).select("l_orderkey", "l_partkey", "l_extendedprice")
+
+    def cold():
+        dc.clear_all()
+        prefetch.reset()
+        return session.run_query(plan).result
+
+    want = cold()
+    out = {}
+    for point in QUERY_POINTS:
+        f0 = stats.get("faults.injected")
+        with faults.injected(point, crash=True):
+            try:
+                cold()
+            except faults.CrashPoint:
+                crashed = True
+            else:
+                crashed = False
+        if not crashed and (point != "device.stage" or device.type == "cuda"):
+            raise AssertionError(f"query point {point}: no crash fired")
+        same_result(f"query point {point} after the crash", want, cold())
+        with faults.injected(point):
+            got = cold()
+            prefetch.drain()
+        same_result(f"query point {point} transient", want, got)
+        out[point] = {"crashed": crashed, "faults_fired": stats.get("faults.injected") - f0}
+    return out
 
 
 def faults_path(device, ctx: dict, sf: float) -> dict:
@@ -3622,6 +3753,327 @@ def faults_path(device, ctx: dict, sf: float) -> dict:
     out["sweep"], k1_sweep = crash_sweep(device, ctx, sf)
     out["sweep_s"] = time.perf_counter() - t0
     return out, {**k1_inputs, **k1_sweep}
+
+
+# -- 3g: the build at scale -------------------------------------------------------
+
+# BASELINE config 1's index built five ways over TPC-H lineitem: in memory
+# at the default 4 GiB budget, then out of core at a budget of a fifth of
+# the input: streaming with the pipeline off and on, and pooled with 2 and
+# 4 worker processes. At SF5 (about 30M rows, 256 MiB): at SF10 (60M rows,
+# 512 MiB) the phase took 198-331 s on the card's host, past the five
+# minutes it may take, and the whole run 620-930 s of its 1,200.
+BUILD_SF = 5.0
+BUILD_BUDGET_AT_SF10 = 512 << 20
+BUILD_INDEX = "li_scale"
+BUILD_BUCKETS = 200
+BUILD_APPEND = (0.05, 50)  # the appended file: a twentieth of the rows, seed
+STAGE_REPEATS = 10  # cold-lookup pairs, each setting first in turn
+
+
+def _worker_startup() -> dict:
+    """Runs in a spawned worker of the pooled build's pool: what importing
+    the worker module (torch with it) costs, and whether it touched CUDA."""
+    t0 = time.perf_counter()
+    import torch
+
+    from hyperspace_tpu_torch.execution import build_exchange  # noqa: F401
+
+    return {"import_s": time.perf_counter() - t0, "cuda_initialized": torch.cuda.is_initialized()}
+
+
+def _spread(walls) -> dict:
+    q = [float(v) for v in np.percentile(walls, [0, 25, 50, 75, 100])]
+    return {"median": q[2], "p25": q[1], "p75": q[3], "min": q[0], "max": q[4]}
+
+
+def _same_index_files(ref: Path, got: Path, name: str) -> int:
+    """Every file of version dir `got` byte-identical to `ref`'s; returns
+    the bytes compared."""
+    names = sorted(p.name for p in ref.iterdir())
+    if names != sorted(p.name for p in got.iterdir()):
+        raise AssertionError(f"{name}: other files than the reference's")
+    total = 0
+    for n in names:
+        a, b = (ref / n).read_bytes(), (got / n).read_bytes()
+        if a != b:
+            raise AssertionError(f"{name}: {n} differs from the serial streaming build's")
+        total += len(a)
+    return total
+
+
+def _same_row_multiset(ref: Path, got: Path, buckets: int, key: str) -> None:
+    """The in-memory build against the streaming one (the JAX package's
+    promise, tests/test_streaming_build.py): equal manifest row counts,
+    keys sorted in every bucket, the same rows in every bucket."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.execution import io as hio
+
+    if hio.read_manifest(ref)["bucketRows"] != hio.read_manifest(got)["bucketRows"]:
+        raise AssertionError("in-memory build: manifest row counts differ from the streaming build's")
+
+    def one(b: int) -> None:
+        # ParquetFile, not read_table: the dataset reader would add the
+        # version dir's `v__` as a partition column.
+        tables = [pq.ParquetFile(d / hio.bucket_file_name(b)).read() for d in (ref, got)]
+        for t in tables:
+            k = t[key].to_numpy()
+            if len(k) > 1 and not np.all(k[1:] >= k[:-1]):
+                raise AssertionError(f"in-memory build: bucket {b} not sorted by {key}")
+        order = [(c, "ascending") for c in tables[0].column_names]
+        if not tables[0].sort_by(order).equals(tables[1].select(tables[0].column_names).sort_by(order)):
+            raise AssertionError(f"in-memory build: bucket {b} holds other rows than the streaming build's")
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex:
+        list(ex.map(one, range(buckets)))
+
+
+def build_scale_path(device, ctx: dict, sf: float, build_sf: float = BUILD_SF) -> tuple[dict, dict]:
+    """3g: the build at scale. TPC-H lineitem at `build_sf` (seed 42,
+    generated by as many processes as the host has cores); BASELINE config
+    1's index built five ways, each in a system path of its own through
+    `create_index`: (a) in memory at the default budget, (b) streaming at
+    a fifth of the input with the pipeline off, (c) the same with it on,
+    (d) pooled with 2 workers, (e) with 4. (b)-(e) byte-identical, (a)
+    against (b) the same rows by bucket and keys sorted; no spill or
+    exchange dir left; no worker initialized CUDA. Then on (b): the 12
+    lookups, the 1% range and the revenue over it by `l_orderkey` (K1),
+    cold and warm, index on and off, against pyarrow; an appended
+    twentieth, an incremental refresh and an optimize at the budget (the
+    streaming compactor), the queries again. Then, on the aggregate
+    path's SF1 index, staging and the prefetch on and off over cold
+    lookups, and a transient `device.stage` fault. Returns the record and
+    K1's input from the revenue aggregate."""
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, PlanCache, native
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem
+    from hyperspace_tpu_torch.execution import device_cache as dc
+    from hyperspace_tpu_torch.execution import io as hio
+    from hyperspace_tpu_torch.ops import aggregate
+    from hyperspace_tpu_torch.parallel.procpool import TaskPool
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    workdir = ctx["workdir"] / "scale"
+    dc.clear_all()
+    out: dict = {"build_sf": build_sf, "cpu_count": os.cpu_count(), "native": native.available()}
+    t_phase = time.perf_counter()
+
+    # 1. The data.
+    data = workdir / "lineitem"
+    t0 = time.perf_counter()
+    out["memory_bytes"] = gen_tpch_lineitem(data, sf=build_sf, seed=42, workers=os.cpu_count() or 1)
+    out["datagen_s"] = time.perf_counter() - t0
+    files = sorted(str(p) for p in data.glob("*.parquet"))
+    out["rows"] = sum(pq.read_metadata(f).num_rows for f in files)
+    out["disk_bytes"] = sum(os.path.getsize(f) for f in files)
+    out["files"] = len(files)
+    est = hio.estimate_uncompressed_bytes(files, INDEXED + INCLUDED)
+    budget = int(BUILD_BUDGET_AT_SF10 * build_sf / 10)
+    out["index_columns_estimate_bytes"], out["budget_bytes"] = est, budget
+    log(json.dumps({"build_scale_data": out}))
+
+    # What a pooled build's worker pays before its task: 4 spawned at once,
+    # as the 4-worker build spawns them.
+    t0 = time.perf_counter()
+    with TaskPool("hs-startup") as pool:
+        for w in range(4):
+            pool.submit(w, _worker_startup)
+        started = pool.join()
+    if any(r["cuda_initialized"] for r in started.values()):
+        raise AssertionError("a spawned worker initialized CUDA")
+    out["worker_startup"] = {"workers": 4, "wall_s": time.perf_counter() - t0,
+                             "import_s": sorted(r["import_s"] for r in started.values())}
+
+    # 2-3. The five builds.
+    def build(name: str, **conf):
+        system_path = workdir / name
+        s = HyperspaceSession(system_path=str(system_path), num_buckets=BUILD_BUCKETS, device=device)
+        for key, value in conf.items():
+            s.conf.set(key, value)
+        t0 = time.perf_counter()
+        Hyperspace(s).create_index(s.parquet(data), IndexConfig(BUILD_INDEX, INDEXED, INCLUDED))
+        sync()
+        wall = time.perf_counter() - t0
+        st = s.last_build_stats
+        left = [str(p) for pat in ("*.spill", "*.exchange") for p in system_path.rglob(pat)]
+        if left:
+            raise AssertionError(f"build {name}: scratch left behind: {left}")
+        if st["rows"] != out["rows"]:
+            raise AssertionError(f"build {name}: {st['rows']} rows of {out['rows']}")
+        rec = {"wall_s": wall, **{k: v for k, v in st.items() if k != "pipeline"}}
+        if "pipeline" in st:
+            rec["pipeline"] = st["pipeline"]
+        log(json.dumps({"build_scale_build": name, **rec}))
+        return s, system_path / BUILD_INDEX / "v__=0", rec
+
+    budget_conf = {"hyperspace.index.build.memoryBudgetBytes": budget}
+    builds: dict = {}
+    s_b, d_b, builds["b_streaming"] = build("b_streaming", **budget_conf,
+                                            **{"hyperspace.build.pipeline.enabled": False})
+    for name, conf, path in (
+        ("c_pipelined", {**budget_conf, "hyperspace.build.pipeline.enabled": True}, "streaming"),
+        ("d_pooled_2", {**budget_conf, "hyperspace.build.workers": 2}, "pooled"),
+        ("e_pooled_4", {**budget_conf, "hyperspace.build.workers": 4}, "pooled"),
+        ("a_in_memory", {}, "in-memory"),
+    ):
+        _, d, builds[name] = build(name, **conf)
+        if builds[name]["path"] != path:
+            raise AssertionError(f"build {name} took the {builds[name]['path']} path, not {path}")
+        if path == "pooled" and builds[name]["worker_cuda_initialized"]:
+            raise AssertionError(f"build {name}: a worker initialized CUDA")
+        if name == "a_in_memory":
+            _same_row_multiset(d_b, d, BUILD_BUCKETS, INDEXED[0])
+        else:
+            builds[name]["identical_bytes"] = _same_index_files(d_b, d, name)
+        shutil.rmtree(workdir / name)
+    if builds["b_streaming"]["path"] != "streaming":
+        raise AssertionError("build b took the in-memory path under the budget")
+    out["builds"] = builds
+    for w in (2, 4):
+        name = f"{'d' if w == 2 else 'e'}_pooled_{w}"
+        out[f"pooled_{w}_speedup_over_serial_streaming"] = builds["b_streaming"]["wall_s"] / builds[name]["wall_s"]
+
+    # 4. The queries on the streamed index.
+    grown = pq.read_table(files, columns=["l_orderkey", "l_partkey", "l_extendedprice", "l_discount"])
+    df = s_b.parquet(data)
+    plans, bounds = lifecycle_plans(htorch, df, ctx["orders"], build_sf)
+    del plans["J2"]  # no join in 3g
+    cache = PlanCache()
+    k1_inputs: dict = {}
+
+    def queries(stage: str, warm: bool = True) -> dict:
+        rec = {}
+        for mode in ("index", "no_index"):
+            s_b.enable_hyperspace() if mode == "index" else s_b.disable_hyperspace()
+            for name, qs in plans.items():
+                label = f"3g {stage} {name} {mode}"
+                dc.clear_all()
+                if warm:
+                    results, _, timing = cold_warm(label, s_b, qs, cache, sync, tolerant=("rev",))
+                else:
+                    t0 = time.perf_counter()
+                    outcomes = [s_b.run_query(q, plan_cache=cache) for q in qs]
+                    sync()
+                    results = [o.result for o in outcomes]
+                    timing = {"cold_s": time.perf_counter() - t0,
+                              "warm_stats": {k: outcomes[-1].stats[k] for k in ("scan", "files_read",
+                                                                                "files_pruned", "rows_pruned")}}
+                lifecycle_check(name, label, results, grown, None, bounds, BUILD_BUCKETS)
+                st = timing["warm_stats"]
+                if mode == "index" and name == "lookups" and (st["scan"] != "IndexPointLookup"
+                                                               or st["files_pruned"] != BUILD_BUCKETS - 1):
+                    raise AssertionError(f"{label}: the lookup did not read 1 of {BUILD_BUCKETS} files: {st}")
+                rec[f"{name}_{mode}"] = timing
+        s_b.enable_hyperspace()
+        return rec
+
+    out["queries"] = queries("streamed")
+    calls = capture_k1(lambda: s_b.run(plans["range_agg"][0]), aggregate)
+    if len(calls) != 1:
+        raise AssertionError(f"3g revenue: {len(calls)} K1 calls, expected one")
+    k1_inputs[f"3g revenue over the 1% range (SF{build_sf:g} streamed index)"] = calls[0]
+
+    # 5. Refresh and compact past memory.
+    stage = workdir / "append"
+    gen_tpch_lineitem(stage, sf=BUILD_APPEND[0] * build_sf, seed=BUILD_APPEND[1], files=1)
+    (stage / "part-0.parquet").rename(data / "append.parquet")
+    files = sorted(str(p) for p in data.glob("*.parquet"))
+    grown = pq.read_table(files, columns=["l_orderkey", "l_partkey", "l_extendedprice", "l_discount"])
+    hs_b = Hyperspace(s_b)
+    for action, call in (("refresh_incremental", lambda: hs_b.refresh_index(BUILD_INDEX, mode="incremental")),
+                         ("optimize", lambda: hs_b.optimize_index(BUILD_INDEX))):
+        t0 = time.perf_counter()
+        call()
+        sync()
+        st = s_b.last_build_stats
+        out[action] = {"wall_s": time.perf_counter() - t0, "path": st["path"], "rows": st["rows"],
+                       "phases_s": st["phases_s"], "bytes_estimate": st.get("bytes_estimate")}
+        log(json.dumps({"build_scale_action": action, **out[action]}))
+    if out["optimize"]["path"] != "streaming" or out["optimize"]["rows"] != grown.num_rows:
+        raise AssertionError(f"optimize past memory: {out['optimize']}, {grown.num_rows} rows")
+    entry = next(e for e in s_b.manager.get_indexes() if e.name == BUILD_INDEX)
+    (live,) = entry.content.directories
+    left = sorted((workdir / "b_streaming" / BUILD_INDEX / live).glob("bucket-*.parquet"))
+    if len(left) != BUILD_BUCKETS:
+        raise AssertionError(f"optimize left {len(left)} files for {BUILD_BUCKETS} buckets")
+    out["queries_after_optimize"] = queries("optimized", warm=False)
+    del grown
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    # 6. Staging and the prefetch on the aggregate path's SF1 index.
+    out["staging"] = staging_and_prefetch(device, ctx, sf, sync)
+    out["build_scale_path_s"] = time.perf_counter() - t_phase
+    return out, k1_inputs
+
+
+def staging_and_prefetch(device, ctx: dict, sf: float, sync) -> dict:
+    """3g (6): the aggregate path's 12 cold indexed lookups (both caches
+    emptied first) with zero-copy staging on and off, then with the
+    query-tail prefetch on and off, STAGE_REPEATS pairs each, the setting
+    that runs first alternating; the staging counters of one cold pass;
+    and a cold pass under a transient `device.stage` fault (every column
+    takes the copied path, the answers stay the same)."""
+    from hyperspace_tpu_torch import col, faults, stats
+    from hyperspace_tpu_torch.datagen import TPCH_SF1_ORDERS_ROWS
+    from hyperspace_tpu_torch.execution import device_cache as dc
+    from hyperspace_tpu_torch.execution import prefetch
+
+    session, li = ctx["session"], ctx["lineitem"]
+    session.enable_hyperspace()
+    keys = np.random.default_rng(7).integers(0, int(TPCH_SF1_ORDERS_ROWS * sf), 12).astype(np.int64)
+    plans = [li.filter(col("l_orderkey") == int(k)).select("l_orderkey", "l_partkey", "l_extendedprice")
+             for k in keys]
+
+    def cold() -> tuple[float, list]:
+        dc.clear_all()
+        prefetch.reset()
+        t0 = time.perf_counter()
+        results = [session.run_query(p).result for p in plans]
+        sync()
+        return (time.perf_counter() - t0) * 1e3, results
+
+    def counters():
+        return stats.get("device.stage.bytes_zero_copy"), stats.get("device.stage.bytes_copied")
+
+    out: dict = {}
+    z0, c0 = counters()
+    _, want = cold()
+    z1, c1 = counters()
+    out["one_cold_pass"] = {"bytes_zero_copy": z1 - z0, "bytes_copied": c1 - c0}
+    for key, setting in (("hyperspace.device.staging.enabled", "staging"),
+                         ("hyperspace.scan.prefetch.enabled", "prefetch")):
+        walls = {True: [], False: []}
+        for repeat in range(STAGE_REPEATS):
+            for on in ((True, False) if repeat % 2 == 0 else (False, True)):
+                session.conf.set(key, on)
+                ms, got = cold()
+                walls[on].append(ms)
+                for a, b in zip(want, got):
+                    same_result(f"cold lookups, {setting} {on}", a, b)
+        session.conf.set(key, True)
+        out[f"cold_lookups_ms_{setting}_on"] = _spread(walls[True])
+        out[f"cold_lookups_ms_{setting}_off"] = _spread(walls[False])
+        out[f"cold_lookups_ms_{setting}_on_minus_off"] = _spread(np.subtract(walls[True], walls[False]))
+    z0, c0 = counters()
+    with faults.injected("device.stage"):
+        _, got = cold()
+    z1, c1 = counters()
+    if device.type == "cuda" and (z1 != z0 or c1 == c0):
+        raise AssertionError(f"device.stage fault: {z1 - z0} bytes zero-copy, {c1 - c0} copied")
+    for a, b in zip(want, got):
+        same_result("cold lookups under a device.stage fault", a, b)
+    out["under_stage_fault"] = {"bytes_zero_copy": z1 - z0, "bytes_copied": c1 - c0}
+    log(json.dumps({"build_scale_staging": out}))
+    return out
 
 
 def vector_lifecycle(device, vctx: dict) -> dict:
@@ -3986,6 +4438,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor (1.0 = 1.5M orders, about 6.0M rows)")
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--build-sf", type=float, default=BUILD_SF, help="phase 3g's lineitem scale factor")
     args = ap.parse_args(argv)
     card_query = start_card_query()
     try:
@@ -4023,12 +4476,18 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
                 raise AssertionError(f"kernel {name} launched {count} times on the {path} path")
         return counts
 
+    from hyperspace_tpu_torch import stats
+
     work = Path(tempfile.mkdtemp(prefix="hs_chip_smoke_"))
     try:
         zero_counts()
         t0 = time.perf_counter()
+        staged0 = {k: stats.get(k) for k in ("device.stage.bytes_zero_copy", "device.stage.bytes_copied")}
         result, ctx = main_path(device, args.sf, args.seed, work)
         result["phases"]["main_path_s"] = time.perf_counter() - t0
+        # Zero-copy staging over the aggregate path's reads (most of them
+        # cold: each query's first run).
+        result["phases"]["staging_bytes"] = {k: stats.get(k) - v for k, v in staged0.items()}
         launches = {"aggregates": read_counts("aggregate", ("segment_reduce",))}
         log(json.dumps({"main_path": result, "launches": launches["aggregates"]}))
         log(json.dumps({"caches_after_path": "aggregate", **cache_stats()}))
@@ -4075,8 +4534,24 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
         log(json.dumps({"faults_path": {k: v for k, v in faults_rec.items() if k != "sweep"},
                         "launches": launches["faults"]}, default=str))
         log(json.dumps({"caches_after_path": "faults", **cache_stats()}))
+        zero_counts()
+        t0 = time.perf_counter()
+        scale, k1_scale_inputs = build_scale_path(device, ctx, args.sf, args.build_sf)
+        scale["build_scale_path_wall_s"] = time.perf_counter() - t0
+        launches["build_scale"] = read_counts("build at scale", ("segment_reduce",))
+        log(json.dumps({"build_scale_path": scale, "launches": launches["build_scale"]}, default=str))
+        log(json.dumps({"caches_after_path": "build at scale", **cache_stats()}))
+        # Phase 3d's incremental refresh and taxi loop, with the host hash
+        # path they ran on (PERF.md §5 holds the numpy hash's).
+        log(json.dumps({"native_hash_refresh_and_taxi": {
+            "hash_path": scale["builds"]["b_streaming"]["hash_path"],
+            "li_live_refresh_incremental_s": lifecycle["actions_s"]["refresh_incremental"],
+            "li_live_refresh_incremental_phases_s": lifecycle["refresh_incremental_build_phases_s"],
+            "taxi_incremental_ingest_throughput_gbps": lifecycle["taxi"]["taxi_incremental_ingest_throughput_gbps"],
+        }}))
         k1_join_inputs.update(k1_life_inputs)
         k1_join_inputs.update(k1_faults_inputs)
+        k1_join_inputs.update(k1_scale_inputs)
         k2_inputs.update(k2_life_inputs)
         k1_agg_inputs = {**ctx["k1_inputs"], **ctx["k1_surface_inputs"]}
         del ctx
@@ -4163,10 +4638,10 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
             "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-            # K1 runs on seven paths: its launches on each, summed.
+            # K1 runs on eight paths: its launches on each, summed.
             "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types",
                                                                      "query_surface", "lifecycle", "serve",
-                                                                     "faults")),
+                                                                     "faults", "build_scale")),
             "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

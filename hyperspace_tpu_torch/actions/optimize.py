@@ -9,8 +9,9 @@ incremental refreshes into one sorted file per bucket, written to the next
 
 The compaction itself is injected via the same writer seam as create
 (actions/create.py) — an `IndexCompactor` with a `compact` method; the
-port's is `DeviceIndexBuilder.compact`, one stable device sort of every
-live version's rows. A copy of the JAX package's module.
+port's is `DeviceIndexBuilder.compact`: one stable device sort of every
+live version's rows, or, for an index above the build's memory budget,
+the streaming pipeline. A copy of the JAX package's module.
 """
 
 from __future__ import annotations

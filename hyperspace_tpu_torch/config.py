@@ -16,8 +16,13 @@ shedDepthRatio), the three explain display keys, the plan validator's
 `hyperspace.faults.enabled` / `.maxDelaySeconds` and the retry layer's
 `hyperspace.retry.maxAttempts` / `.backoffBaseSeconds` / `.casAttempts`
 (process-global, as in the JAX package), the corruption fallback's
-`hyperspace.fallback.enabled` and the index-entry cache's
-`hyperspace.index.cache.expiryDurationInSeconds`.
+`hyperspace.fallback.enabled`, the index-entry cache's
+`hyperspace.index.cache.expiryDurationInSeconds`, and the build at scale:
+`hyperspace.index.build.memoryBudgetBytes` / `.chunkBytes`,
+`hyperspace.build.pipeline.enabled` / `.maxInflightBytes`,
+`hyperspace.build.workers` / `.exchange.dir`,
+`hyperspace.scan.prefetch.enabled` and the process-global
+`hyperspace.device.staging.enabled`.
 A key the JAX package declares but the port does not read yet raises,
 naming it as not ported; an undeclared `hyperspace.*` key raises with a
 did-you-mean suggestion, as the JAX package's `check_known_key` does.
@@ -107,6 +112,29 @@ RETRY_CAS_ATTEMPTS = "hyperspace.retry.casAttempts"
 # quarantines the index (session.index_health) and re-plans the query
 # against healthy indexes, then the source, instead of failing.
 FALLBACK_ENABLED = "hyperspace.fallback.enabled"
+# Out-of-core build: a source whose uncompressed estimate exceeds the
+# memory budget streams through chunks of at most chunkBytes (0 = derive
+# from the budget).
+INDEX_BUILD_MEMORY_BUDGET = "hyperspace.index.build.memoryBudgetBytes"
+INDEX_BUILD_CHUNK_BYTES = "hyperspace.index.build.chunkBytes"
+# The streaming build's pipeline: phase 1 overlaps decode and hash with the
+# spill encode, and phase 2 runs spill read, key sort (on the card) and
+# final write as three stages behind a byte-bounded window of
+# maxInflightBytes (0 = 4x chunkBytes). Off, the serial two-phase build.
+BUILD_PIPELINE_ENABLED = "hyperspace.build.pipeline.enabled"
+BUILD_PIPELINE_MAX_INFLIGHT_BYTES = "hyperspace.build.pipeline.maxInflightBytes"
+# The pooled build: N spawned worker PROCESSES split the build by bucket
+# owner, exchanging rows through spill files under exchange.dir ("" =
+# next to the version dir). 0 keeps the build in this process.
+BUILD_WORKERS = "hyperspace.build.workers"
+BUILD_EXCHANGE_DIR = "hyperspace.build.exchange.dir"
+# The query-tail prefetch (execution/prefetch.py): footers and the first
+# chunk of the index files the pruner keeps are read on a background pool
+# while the query plans. Advisory.
+SCAN_PREFETCH_ENABLED = "hyperspace.scan.prefetch.enabled"
+# Zero-copy staging of card-bound columns (execution/staging.py).
+# Process-global: the decode path has no session handle.
+DEVICE_STAGING_ENABLED = "hyperspace.device.staging.enabled"
 
 DEFAULT_NUM_BUCKETS = 8
 DEFAULT_CACHE_EXPIRY_SECONDS = 300.0
@@ -119,6 +147,7 @@ DEFAULT_SERVE_MAX_QUEUE_DEPTH = 32
 DEFAULT_SERVE_PLAN_CACHE_MAX_ENTRIES = 128
 DEFAULT_SERVE_RESULT_CACHE_MAX_BYTES = 256 << 20
 DEFAULT_SERVE_SHED_DEPTH_RATIO = 1.0
+DEFAULT_BUILD_MEMORY_BUDGET = 4 << 30
 
 # The keys the port reads.
 PORTED_KEYS = (
@@ -129,16 +158,14 @@ PORTED_KEYS = (
     SERVE_RESULT_CACHE_ENABLED, SERVE_RESULT_CACHE_MAX_BYTES, SERVE_SHED_DEPTH_RATIO, EXPLAIN_DISPLAY_MODE,
     EXPLAIN_HIGHLIGHT_BEGIN, EXPLAIN_HIGHLIGHT_END, ANALYSIS_VALIDATE, FAULTS_ENABLED, FAULTS_MAX_DELAY_SECONDS,
     RETRY_MAX_ATTEMPTS, RETRY_BACKOFF_BASE, RETRY_CAS_ATTEMPTS, FALLBACK_ENABLED, INDEX_CACHE_EXPIRY_SECONDS,
+    INDEX_BUILD_MEMORY_BUDGET, INDEX_BUILD_CHUNK_BYTES, BUILD_PIPELINE_ENABLED, BUILD_PIPELINE_MAX_INFLIGHT_BYTES,
+    BUILD_WORKERS, BUILD_EXCHANGE_DIR, SCAN_PREFETCH_ENABLED, DEVICE_STAGING_ENABLED,
 )
 # The JAX package's other declared keys (its `config.KNOWN_KEYS`), whose
 # modules are not ported yet.
 UNPORTED_KEYS = frozenset((
-    'hyperspace.index.build.memoryBudgetBytes',
-    'hyperspace.index.build.chunkBytes', 'hyperspace.join.venue', 'hyperspace.join.venueMinMbps',
-    'hyperspace.build.venue', 'hyperspace.build.pipeline.enabled',
-    'hyperspace.build.pipeline.maxInflightBytes', 'hyperspace.build.workers', 'hyperspace.build.exchange.dir',
-    'hyperspace.scan.prefetch.enabled', 'hyperspace.agg.venue', 'hyperspace.sort.venue',
-    'hyperspace.filter.venue', 'hyperspace.device.staging.enabled', 'hyperspace.device.fusedKernels',
+    'hyperspace.join.venue', 'hyperspace.join.venueMinMbps', 'hyperspace.build.venue', 'hyperspace.agg.venue',
+    'hyperspace.sort.venue', 'hyperspace.filter.venue', 'hyperspace.device.fusedKernels',
     'hyperspace.obs.http.enabled', 'hyperspace.obs.http.host',
     'hyperspace.obs.http.port', 'hyperspace.obs.slo.availabilityTarget',
     'hyperspace.obs.slo.latencyP99Seconds', 'hyperspace.obs.journal.enabled', 'hyperspace.obs.journal.dir',
@@ -207,6 +234,13 @@ class HyperspaceConf:
     cache_expiry_seconds: float = DEFAULT_CACHE_EXPIRY_SECONDS
     validate_plans: bool = True
     fallback_enabled: bool = True
+    build_memory_budget_bytes: int = DEFAULT_BUILD_MEMORY_BUDGET
+    build_chunk_bytes: int = 0  # 0 = derived from the budget
+    build_pipeline_enabled: bool = True
+    build_pipeline_max_inflight_bytes: int = 0  # 0 = derived from chunkBytes
+    build_workers: int = 0  # 0 = the build runs in this process
+    build_exchange_dir: str = ""  # "" = <dest>.exchange next to the version dir
+    scan_prefetch_enabled: bool = True
     overrides: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -266,6 +300,24 @@ class HyperspaceConf:
             self.validate_plans = _as_bool(value)
         elif key == FALLBACK_ENABLED:
             self.fallback_enabled = _as_bool(value)
+        elif key == INDEX_BUILD_MEMORY_BUDGET:
+            self.build_memory_budget_bytes = int(value)
+        elif key == INDEX_BUILD_CHUNK_BYTES:
+            self.build_chunk_bytes = int(value)
+        elif key == BUILD_PIPELINE_ENABLED:
+            self.build_pipeline_enabled = _as_bool(value)
+        elif key == BUILD_PIPELINE_MAX_INFLIGHT_BYTES:
+            self.build_pipeline_max_inflight_bytes = int(value)
+        elif key == BUILD_WORKERS:
+            self.build_workers = int(value)
+        elif key == BUILD_EXCHANGE_DIR:
+            self.build_exchange_dir = str(value)
+        elif key == SCAN_PREFETCH_ENABLED:
+            self.scan_prefetch_enabled = _as_bool(value)
+        elif key == DEVICE_STAGING_ENABLED:
+            from hyperspace_tpu_torch.execution import staging
+
+            staging.set_enabled(_as_bool(value))
         elif key == FAULTS_ENABLED:
             # Process-global kill switch for the injection harness, like the
             # filesystem state it guards (imported here: faults imports no
@@ -344,4 +396,22 @@ class HyperspaceConf:
             return self.validate_plans
         if key == FALLBACK_ENABLED:
             return self.fallback_enabled
+        if key == INDEX_BUILD_MEMORY_BUDGET:
+            return self.build_memory_budget_bytes
+        if key == INDEX_BUILD_CHUNK_BYTES:
+            return self.build_chunk_bytes
+        if key == BUILD_PIPELINE_ENABLED:
+            return self.build_pipeline_enabled
+        if key == BUILD_PIPELINE_MAX_INFLIGHT_BYTES:
+            return self.build_pipeline_max_inflight_bytes
+        if key == BUILD_WORKERS:
+            return self.build_workers
+        if key == BUILD_EXCHANGE_DIR:
+            return self.build_exchange_dir
+        if key == SCAN_PREFETCH_ENABLED:
+            return self.scan_prefetch_enabled
+        if key == DEVICE_STAGING_ENABLED:
+            from hyperspace_tpu_torch.execution import staging
+
+            return staging.enabled()
         return default

@@ -74,6 +74,30 @@ class UnknownConfigKeyError(HyperspaceError):
         self.suggestion = suggestion
 
 
+class WorkerCrashed(HyperspaceError):
+    """A pooled-build worker process died without posting its result (a
+    real ``kill -9``, an OOM kill, or an injected CrashPoint unwinding out
+    of the worker). Raised by the coordinator's bounded join
+    (`parallel/procpool.py`) instead of a hang; `Action.run` rolls the
+    build back like any other op() failure."""
+
+    def __init__(self, msg: str, task_id=None, exitcode: int | None = None):
+        super().__init__(msg)
+        self.task_id = task_id
+        self.exitcode = exitcode
+
+
+class WorkerFailed(HyperspaceError):
+    """A pooled-build worker's task body raised: the worker posted the
+    error (type, message, traceback text) and the coordinator re-raises it
+    as this typed abort, the worker's traceback in the message."""
+
+    def __init__(self, msg: str, task_id=None, error_type: str | None = None):
+        super().__init__(msg)
+        self.task_id = task_id
+        self.error_type = error_type
+
+
 class TransientIOError(OSError):
     """Marker for IO failures worth retrying (lease contention, flaky
     remote filesystems). Carries errno EIO so `is_retryable` classifies

@@ -37,6 +37,7 @@ from hyperspace_tpu_torch import stats
 from hyperspace_tpu_torch.dataset import format_suffix, list_data_files
 from hyperspace_tpu_torch.exceptions import IndexCorruptionError
 from hyperspace_tpu_torch.execution import io as hio
+from hyperspace_tpu_torch.execution.build_exchange import hash_scalar_key
 from hyperspace_tpu_torch.execution.device_cache import DEVICE_CACHE, freeze, nbytes_of
 from hyperspace_tpu_torch.execution.exec_common import (
     KeyBounds,
@@ -48,7 +49,7 @@ from hyperspace_tpu_torch.execution.exec_common import (
 )
 from hyperspace_tpu_torch.execution.table import ColumnTable
 from hyperspace_tpu_torch.ops.filter import apply_filter
-from hyperspace_tpu_torch.ops.hashing import bucket_ids, hash_scalar_key
+from hyperspace_tpu_torch.ops.hashing import bucket_ids
 from hyperspace_tpu_torch.plan.expr import BinOp, Col, Expr, InList, Lit, split_conjuncts
 from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Scan, Union
 

@@ -49,14 +49,8 @@ from hyperspace_tpu_torch.execution.exec_common import (
 )
 from hyperspace_tpu_torch.execution.exec_scan import scan_files
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_tensor
-from hyperspace_tpu_torch.ops.hashing import (
-    NULL_HASH,
-    bucket_ids,
-    combine_hashes,
-    compute_row_hashes,
-    hash_int_column,
-    string_dict_hashes,
-)
+from hyperspace_tpu_torch.execution.build_exchange import NULL_HASH, compute_row_hashes
+from hyperspace_tpu_torch.ops.hashing import bucket_ids, combine_hashes, hash_int_column, string_dict_hashes
 from hyperspace_tpu_torch.plan.expr import And
 from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Project, Scan, Union
 

@@ -119,6 +119,35 @@ def _read_one_file_once(path: str, fmt: str, columns: list[str] | None, schema: 
     raise HyperspaceError(f"unsupported source format {fmt!r} (parquet|orc|csv|json)")
 
 
+# Cold reads at or above this many on-disk bytes decode as parallel
+# row-group chunks instead of one serial decode a file (only where the
+# file count alone cannot fill the pool).
+_CHUNKED_READ_MIN_BYTES = 32 << 20
+
+
+def _read_parquet_chunked(files: list[str], columns: list[str] | None):
+    """Row-group-parallel decode of a small file set: (table, rows of each
+    file), or None when the footers give no parallelism (one row group, a
+    tiny estimate, unreadable footers: the per-file read then runs)."""
+    try:
+        footers = read_footers(files)
+    except (OSError, pa.ArrowException):
+        return None
+    est = estimate_uncompressed_bytes(files, columns, footers=footers)
+    if est <= 0:
+        return None
+    units = plan_row_group_chunks(files, max(4 << 20, est // 16), columns, footers=footers)
+    if len(units) < 2:
+        return None
+    read = obs_trace.wrap(lambda c: read_chunk(c, columns))
+    with ThreadPoolExecutor(max_workers=min(8, len(units))) as ex:
+        parts = list(ex.map(read, units))
+    # Units are planned in file order with row groups in order, so the
+    # ordered concat reproduces the serial read's row order exactly.
+    rows = np.array([footers[f].num_rows for f in files], dtype=np.int64)
+    return pa.concat_tables(parts, promote_options="default"), rows
+
+
 def read_table_files(
     files: list[str],
     fmt: str,
@@ -129,9 +158,9 @@ def read_table_files(
     file_rows: bool = False,
 ) -> ColumnTable | tuple[ColumnTable, np.ndarray]:
     """Multi-file read of one source format into a ColumnTable on
-    `device` (decode overlapped across files; row order is the file
-    order). With `file_rows`, returns (table, int64 row count of each
-    file)."""
+    `device` (decode overlapped across files, or across the row groups of
+    a few large parquet files; row order is the file order). With
+    `file_rows`, returns (table, int64 row count of each file)."""
     if not files:
         raise HyperspaceError("no files to read")
     try:
@@ -139,21 +168,160 @@ def read_table_files(
     except OSError:
         nbytes = 0
     with obs_trace.span("io.read", files=len(files), fmt=fmt, bytes=nbytes):
-        if len(files) == 1:
-            tables = [_read_one_file(files[0], fmt, columns, schema)]
+        chunked = None
+        if fmt == "parquet" and len(files) <= 4 and nbytes >= _CHUNKED_READ_MIN_BYTES:
+            chunked = _read_parquet_chunked(files, columns)
+        if chunked is not None:
+            table, rows = chunked
         else:
-            # Each worker retries its own file: a transient fault is
-            # absorbed inside the pool, never turned into a failed read.
-            with ThreadPoolExecutor(max_workers=min(8, len(files))) as ex:
-                tables = list(ex.map(lambda f: _read_one_file(f, fmt, columns, schema), files))
-    table = pa.concat_tables(tables, promote_options="default") if len(tables) > 1 else tables[0]
+            if len(files) == 1:
+                tables = [_read_one_file(files[0], fmt, columns, schema)]
+            else:
+                # Each worker retries its own file: a transient fault is
+                # absorbed inside the pool, never turned into a failed read.
+                read = obs_trace.wrap(lambda f: _read_one_file(f, fmt, columns, schema))
+                with ThreadPoolExecutor(max_workers=min(8, len(files))) as ex:
+                    tables = list(ex.map(read, files))
+            table = pa.concat_tables(tables, promote_options="default") if len(tables) > 1 else tables[0]
+            rows = np.array([t.num_rows for t in tables], dtype=np.int64)
     if schema is not None and columns is not None:
         schema = schema.select(columns)
     with obs_trace.span("device.stage", files=len(files)):
         out = ColumnTable.from_arrow(table, schema, device=device)
     if file_rows:
-        return out, np.array([t.num_rows for t in tables], dtype=np.int64)
+        return out, rows
     return out
+
+
+def _read_footer(path: str) -> "pq.FileMetaData":
+    fault_point("footer.read", path)
+    return pq.ParquetFile(path).metadata
+
+
+# -- footer cache -------------------------------------------------------------
+# The size estimate, the chunk plan and the query-tail prefetch read the
+# same footers; one mtime-validated map parses each once.
+_FOOTER_CACHE_MAX = 4096
+_footer_cache: "dict[str, tuple[int, pq.FileMetaData]]" = {}
+_footer_lock = threading.Lock()
+
+
+def clear_footer_cache() -> None:
+    with _footer_lock:
+        _footer_cache.clear()
+
+
+def read_footers(files: list[str]) -> dict[str, "pq.FileMetaData"]:
+    """One footer parse per file (transient-IO retried, `footer.read`
+    inside the retried call), reused until the file's mtime changes;
+    `io.footer_cache.hits` / `.misses` count the reuse."""
+    if not files:
+        return {}
+    out: dict[str, "pq.FileMetaData"] = {}
+    todo: list[tuple[str, int | None]] = []
+    for f in files:
+        try:
+            mt = os.stat(f).st_mtime_ns
+        except OSError:
+            mt = None
+        hit = None
+        if mt is not None:
+            with _footer_lock:
+                cached = _footer_cache.get(f)
+            if cached is not None and cached[0] == mt:
+                hit = cached[1]
+        if hit is not None:
+            out[f] = hit
+        else:
+            todo.append((f, mt))
+    if out:
+        stats.increment("io.footer_cache.hits", len(out))
+    if not todo:
+        return {f: out[f] for f in files}
+    stats.increment("io.footer_cache.misses", len(todo))
+    if len(todo) == 1:
+        mds = [retry.retry_call(_read_footer, todo[0][0])]
+    else:
+        with obs_trace.span("io.footers", files=len(todo)):
+            read = obs_trace.wrap(lambda f: retry.retry_call(_read_footer, f))
+            with ThreadPoolExecutor(max_workers=min(8, len(todo))) as ex:
+                mds = list(ex.map(read, (f for f, _ in todo)))
+    with _footer_lock:
+        for (f, mt), md in zip(todo, mds):
+            out[f] = md
+            if mt is not None:
+                _footer_cache[f] = (mt, md)
+        while len(_footer_cache) > _FOOTER_CACHE_MAX:
+            _footer_cache.pop(next(iter(_footer_cache)))
+    return {f: out[f] for f in files}
+
+
+def _row_group_bytes(md, rg: int, want: set | None) -> int:
+    g = md.row_group(rg)
+    total = 0
+    for ci in range(g.num_columns):
+        col = g.column(ci)
+        name = col.path_in_schema.split(".")[0]
+        if want is None or name.lower() in want:
+            total += col.total_uncompressed_size
+    return total
+
+
+def estimate_uncompressed_bytes(files: list[str], columns: list[str] | None = None, footers=None) -> int:
+    """Uncompressed size estimate from the parquet footers (no data read):
+    the in-memory or streaming build decision."""
+    footers = footers if footers is not None else read_footers(files)
+    want = {c.lower() for c in columns} if columns is not None else None
+    return sum(
+        _row_group_bytes(md, rg, want) for md in footers.values() for rg in range(md.num_row_groups)
+    )
+
+
+def plan_row_group_chunks(
+    files: list[str], chunk_bytes: int, columns: list[str] | None = None, footers=None
+) -> list[list[tuple[str, int]]]:
+    """Split the (file, row group) units into chunks of at most
+    `chunk_bytes` uncompressed (each chunk holds at least one row group):
+    the streaming build's unit of host memory."""
+    footers = footers if footers is not None else read_footers(files)
+    want = {c.lower() for c in columns} if columns is not None else None
+    chunks: list[list[tuple[str, int]]] = []
+    cur: list[tuple[str, int]] = []
+    cur_bytes = 0
+    for f in files:
+        md = footers[f]
+        for rg in range(md.num_row_groups):
+            sz = _row_group_bytes(md, rg, want)
+            if cur and cur_bytes + sz > chunk_bytes:
+                chunks.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append((f, rg))
+            cur_bytes += sz
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+def _read_chunk_file(f: str, rgs: list[int], columns: list[str] | None):
+    fault_point("bucket.read", f)
+    pf = pq.ParquetFile(f)
+    if columns is not None:
+        # A column absent from THIS file is skipped here and null-filled
+        # by the caller's promoting concat (the prefetch may probe any
+        # file).
+        names = set(pf.schema_arrow.names)
+        columns = [c for c in columns if c in names]
+    return pf.read_row_groups(rgs, columns=columns)
+
+
+def read_chunk(chunk: list[tuple[str, int]], columns: list[str] | None = None):
+    """Decode one planned chunk to a pyarrow Table (transient-IO retried
+    a file; a column missing from a file is null-filled)."""
+    by_file: dict[str, list[int]] = {}
+    for f, rg in chunk:
+        by_file.setdefault(f, []).append(rg)
+    parts = [retry.retry_call(_read_chunk_file, f, rgs, columns) for f, rgs in by_file.items()]
+    return pa.concat_tables(parts, promote_options="default") if len(parts) > 1 else parts[0]
 
 
 def read_parquet(
@@ -208,6 +376,12 @@ def bucket_key_stats(table: ColumnTable, key: str):
         used = np.asarray(table.dictionaries[f.name])[np.unique(vals)].tolist()
         return [min(used), max(used)]
     return [_json_scalar(vals.min()), _json_scalar(vals.max())]
+
+
+def bucket_column_stats(table: ColumnTable, columns: list[str]) -> dict:
+    """Per-column [min, max] of every named scalar column (the manifest's
+    `columnStats`, so predicates on included columns prune files too)."""
+    return {c: bucket_key_stats(table, c) for c in columns}
 
 
 # Parquet codec for INDEX bucket files (the JAX package's choice: lz4).
@@ -371,7 +545,7 @@ def carve_and_write(
         if lead is not None:
             key_stats[b] = bucket_key_stats(sub, lead)
         if other_cols:
-            col_stats[b] = {c: bucket_key_stats(sub, c) for c in other_cols}
+            col_stats[b] = bucket_column_stats(sub, other_cols)
         write_bucket(dest, b, sub)
 
     with obs_trace.span("io.carve", partitions=num_buckets):

@@ -18,8 +18,11 @@ asks for it), with the JAX package's physical types:
 A port of the JAX package's `execution/table.py` (same decode from Arrow,
 same dictionaries, same Arrow encode), holding `torch.Tensor` columns
 instead of numpy arrays. Numpy buffers coming from Arrow can be read-only
-views; they enter a tensor only as a copy, so no write through a tensor
-can reach a buffer Arrow still owns.
+views; they enter a CPU tensor only as a copy, so no write through a
+tensor can reach a buffer Arrow still owns. A scalar column bound for the
+card crosses `execution/staging.py`: where it is fixed-width, null-free
+and one chunk, it goes from Arrow's buffer straight into the
+host-to-device copy, and the tensor on the card owns its memory.
 """
 
 from __future__ import annotations
@@ -100,9 +103,12 @@ class ColumnTable:
         import pyarrow as pa
         import pyarrow.compute as pc
 
+        from hyperspace_tpu_torch.execution import staging
+
         device = torch.device(device)
         if schema is None:
             schema = Schema.from_arrow(table.schema)
+        staged: dict[str, torch.Tensor] = {}
         columns: dict[str, np.ndarray] = {}
         dictionaries: dict[str, np.ndarray] = {}
         validity: dict[str, np.ndarray] = {}
@@ -162,6 +168,11 @@ class ColumnTable:
                 flat = child.to_numpy(zero_copy_only=False)
                 columns[f.name] = np.ascontiguousarray(flat).astype(np.float32, copy=False).reshape(-1, f.dim)
             else:
+                if valid is None:
+                    on_device = staging.stage_column(arr, f, device)
+                    if on_device is not None:
+                        staged[f.name] = on_device
+                        continue
                 if f.dtype == "date":
                     arr = arr.cast(pa.int32())
                 elif f.dtype == "timestamp":
@@ -171,7 +182,12 @@ class ColumnTable:
                     arr = pc.fill_null(arr, pa.scalar(False if f.dtype == "bool" else 0, arr.type))
                 np_arr = arr.to_numpy(zero_copy_only=False)
                 columns[f.name] = np.ascontiguousarray(np_arr).astype(f.device_dtype, copy=False)
-        return ColumnTable.from_numpy(schema, columns, dictionaries, validity, device=device)
+                staging.count_copied(columns[f.name].nbytes)
+        out = ColumnTable.from_numpy(schema, columns, dictionaries, validity, device=device)
+        if staged:
+            # Back in the schema's column order.
+            out.columns = {f.name: staged.get(f.name, out.columns.get(f.name)) for f in schema.fields}
+        return out
 
     @staticmethod
     def from_numpy(

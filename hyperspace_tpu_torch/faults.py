@@ -60,13 +60,33 @@ not listed raises.
 ``manifest.read``     io.read_manifest, before the JSON parse
 ``bucket.write``      io.write_bucket, before the parquet encode
 ``bucket.written``    after a bucket file lands (truncate ⇒ corrupt bucket)
-``bucket.read``       io._read_one_file, before a data decode, inside the
-                      retried call (a transient fault is retried)
+``bucket.read``       io._read_one_file / io._read_chunk_file, before a
+                      data decode, inside the retried call (a transient
+                      fault is retried)
+``footer.read``       io._read_footer, a footer-cache miss, inside the
+                      retried call
+``spill.read``        builder._p2_pipelined's reader, before a spill
+                      bucket's decode
+``pipeline.put``      the reader, before it queues a decoded bucket
+``pipeline.get``      the sort stage, before it takes the next bucket
+``prefetch.issue``    prefetch.prefetch_plan, before a file's job is
+                      submitted (a transient fault skips that file)
+``build.worker.spawn``  builder._write_pooled, before each worker starts
+``build.exchange.write``  build_exchange.p1_shard, in the worker, before
+                      each spill file closes
+``build.exchange.read``  build_exchange.p2_owner, in the worker, before a
+                      bucket's spill files are read
+``build.manifest.merge``  builder._write_pooled, before the per-owner stats
+                      merge into the manifest
+``device.stage``      staging.stage_column, before a column goes
+                      zero-copy to the card (a transient fault takes that
+                      column down the copied path)
 ====================  =====================================================
 
-`export_state` / `install_state` carry the harness into a spawned worker
-process, as the JAX package's pooled build does; the port has no pooled
-build yet, so only its tests call them.
+`export_state` / `install_state` carry the harness into the pooled
+build's spawned workers (parallel/procpool.py): a rule at a worker-side
+point fires inside the worker, and the worker's observed points merge
+back on join.
 """
 
 from __future__ import annotations
@@ -92,6 +112,16 @@ KNOWN_POINTS = (
     "bucket.write",
     "bucket.written",
     "bucket.read",
+    "footer.read",
+    "spill.read",
+    "pipeline.put",
+    "pipeline.get",
+    "prefetch.issue",
+    "build.worker.spawn",
+    "build.exchange.write",
+    "build.exchange.read",
+    "build.manifest.merge",
+    "device.stage",
 )
 
 
@@ -264,6 +294,21 @@ def recording() -> Iterator[set]:
         with _lock:
             out |= _observed
         reset()
+
+
+def observed_points() -> set[str]:
+    """Fault points hit while the harness was armed (recording or rules)."""
+    with _lock:
+        return set(_observed)
+
+
+def merge_observed(points) -> None:
+    """Fold a worker's observed points back into this process's set (the
+    return leg of the cross-process recording)."""
+    if not points:
+        return
+    with _lock:
+        _observed.update(points)
 
 
 def export_state() -> dict:

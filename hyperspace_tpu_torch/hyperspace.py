@@ -165,7 +165,15 @@ class HyperspaceSession:
                     def writer_factory():
                         from hyperspace_tpu_torch.execution.builder import DeviceIndexBuilder
 
-                        self._last_writer = DeviceIndexBuilder(self.device)
+                        self._last_writer = DeviceIndexBuilder(
+                            self.device,
+                            memory_budget_bytes=self.conf.build_memory_budget_bytes,
+                            chunk_bytes=self.conf.build_chunk_bytes or None,
+                            pipeline_enabled=self.conf.build_pipeline_enabled,
+                            pipeline_max_inflight_bytes=self.conf.build_pipeline_max_inflight_bytes,
+                            workers=self.conf.build_workers,
+                            exchange_dir=self.conf.build_exchange_dir or None,
+                        )
                         return self._last_writer
 
                     def vector_builder_factory():
@@ -180,9 +188,11 @@ class HyperspaceSession:
     @property
     def last_build_stats(self) -> dict:
         """Stats of the most recent index build in this session, including
-        the per-phase wall times (a covering index: decode / hash_lanes /
-        partition_sort / carve_encode_write; a vector index: read / kmeans
-        / assign / carve)."""
+        the path and the per-phase wall times (a covering index in memory:
+        decode / hash_lanes / partition_sort / carve_encode_write;
+        streaming: p1_decode_hash_spill / p1_decode_wait /
+        p2_sort_encode_write; pooled: the two phases; a vector index: read
+        / kmeans / assign / carve)."""
         return dict(getattr(self._last_writer, "last_build_stats", {}) or {})
 
     # -- data access ------------------------------------------------------
@@ -262,6 +272,13 @@ class HyperspaceSession:
                         optimized = plan_cache.get_or_optimize(self, plan)
                     else:
                         optimized = self.optimized_plan(plan)
+                    if use_indexes and self._enabled and self.conf.scan_prefetch_enabled:
+                        # The query-tail prefetch: footers and the first
+                        # chunk of the index files the pruner keeps start
+                        # loading on a background pool now (advisory).
+                        from hyperspace_tpu_torch.execution import prefetch
+
+                        prefetch.prefetch_plan(optimized)
                 t1 = time.perf_counter()
                 plan_s += t1 - tp
                 derive0 = device_cache.derive_seconds()

@@ -26,8 +26,10 @@ re-plants the caller's active span for the task's duration).
 
 Finished root traces go to the JSON-lines sink when one is configured
 (``hyperspace.obs.sink``), and the last root is kept in-process
-(:func:`last_trace`, :func:`recent_roots`). The JAX package's durable
-journal tap is not ported.
+(:func:`last_trace`, :func:`recent_roots`); :func:`adopt_root` adds a
+worker process's finished root (shipped back as its ``to_json()`` dict by
+`parallel/procpool.py`) to both. The JAX package's durable journal tap is
+not ported.
 """
 
 from __future__ import annotations
@@ -296,6 +298,36 @@ def wrap(fn: Callable) -> Callable:
             _current.reset(token)
 
     return run
+
+
+def span_from_json(d: dict) -> Span:
+    """Rebuild a Span tree from its :meth:`Span.to_json` dict (spans cross
+    a process boundary only as dicts)."""
+    s = Span(str(d.get("name", "?")), dict(d.get("attrs") or {}))
+    s.wall_s = d.get("wall_s")
+    s.start_s = d.get("t0_s")
+    s.tid = d.get("tid")
+    s.trace_id = d.get("trace_id")
+    s.error = d.get("error")
+    s.events = list(d.get("events") or [])
+    s.children = [span_from_json(c) for c in d.get("children") or ()]
+    return s
+
+
+def adopt_root(root: "dict | None") -> None:
+    """Adopt a worker process's finished root span, shipped back as its
+    ``to_json()`` dict, into this process's recent-root ring and sink. The
+    root keeps its own pid-qualified trace_id. Never raises on a malformed
+    dict (adoption is telemetry, not control flow)."""
+    if not _enabled or not root:
+        return
+    try:
+        span = span_from_json(root)
+    except (TypeError, ValueError, AttributeError):
+        return
+    with _recent_lock:
+        _recent_roots.append(span)
+    _emit(span)
 
 
 def last_trace() -> "Span | None":

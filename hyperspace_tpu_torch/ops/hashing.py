@@ -11,9 +11,14 @@ assigned `bucket = hash(key columns) % num_buckets`. The hash must be
 - 32-bit: int64 inputs are split into hi/lo words and mixed (murmur3
   finalizer).
 
-A copy of the numpy path of the JAX package's `ops/hashing.py` (without
-its C++ dispatch, which the JAX package proves bit-identical to this
-path). The build hashes on the host, as the JAX package's builder does.
+A copy of the JAX package's `ops/hashing.py` on the host: each function
+dispatches to the native library (`hyperspace_tpu_torch/native`,
+bit-identical to the numpy path by test) and runs its numpy path only
+where the caller turned the library off. The build hashes on the host, as
+the JAX package's builder does. The row hash of a table,
+`compute_row_hashes`, and of one key tuple, `hash_scalar_key`, live in
+`execution/build_exchange.py` (as in the JAX package) and are re-exported
+here.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from __future__ import annotations
 import hashlib
 
 import numpy as np
+
+from hyperspace_tpu_torch import native
 
 
 def _mix32(x):
@@ -46,15 +53,25 @@ def hash_int_column(arr: np.ndarray) -> np.ndarray:
     if arr.dtype == np.bool_:
         arr = arr.astype(np.int32)
     if arr.dtype in (np.dtype(np.int64), np.dtype(np.uint64)):
+        out = native.hash_i64(arr.view(np.int64))
+        if out is not None:
+            return out
         lo = (arr & 0xFFFFFFFF).astype(np.uint32)
         hi = ((arr >> 32) & 0xFFFFFFFF).astype(np.uint32)
         return _mix32(lo ^ (_mix32(hi) * np.uint32(0x9E3779B1)))
+    # A 32-bit lane: narrower integers widen as `astype(np.uint32)` does.
+    out = native.hash_i32(arr.view(np.int32) if arr.dtype.itemsize == 4 else arr.astype(np.int32))
+    if out is not None:
+        return out
     return _mix32(arr.astype(np.uint32))
 
 
 def string_dict_hashes(dictionary: np.ndarray) -> np.ndarray:
     """uint32 hash per dictionary entry, a pure function of the bytes
     (md5 prefix) — stable across processes and dictionaries."""
+    out = native.md5_prefix(dictionary)
+    if out is not None:
+        return out
     out = np.empty(len(dictionary), dtype=np.uint32)
     for i, s in enumerate(dictionary):
         h = hashlib.md5(str(s).encode("utf-8")).digest()
@@ -66,7 +83,8 @@ def combine_hashes(hashes: list) -> np.ndarray:
     """Order-dependent combine of per-column uint32 hashes."""
     acc = hashes[0]
     for h in hashes[1:]:
-        acc = _mix32(acc * np.uint32(31) + h)
+        nat = native.combine(acc, h)
+        acc = _mix32(acc * np.uint32(31) + h) if nat is None else nat
     return acc
 
 
@@ -75,36 +93,14 @@ def bucket_ids(hashes: np.ndarray, num_buckets: int) -> np.ndarray:
     return (hashes % np.uint32(num_buckets)).astype(np.int32)
 
 
-# The fixed hash contribution of a NULL key slot: nulls bucket
-# deterministically (they can never match an equality literal, so bucket
-# pruning by literal hash stays correct regardless).
-NULL_HASH = np.uint32(0x9E3779B9)
+_REEXPORTS = ("NULL_HASH", "compute_row_hashes", "hash_scalar_key")
 
 
-def compute_row_hashes(table, key_columns: list[str]) -> np.ndarray:
-    """Host uint32 row hash over the key columns of a ColumnTable (the JAX
-    package's `execution/build_exchange.py::compute_row_hashes`)."""
-    hashes = []
-    for name in key_columns:
-        f = table.schema.field(name)
-        arr = table.host_column(name)
-        if f.is_string:
-            h = string_dict_hashes(table.dictionaries[f.name])[arr]
-        else:
-            h = hash_int_column(arr)
-        valid = table.host_valid_mask(name)
-        if valid is not None:
-            h = np.where(valid, h, NULL_HASH)
-        hashes.append(h)
-    return combine_hashes(hashes)
+def __getattr__(name: str):
+    """The row-hash names re-exported from execution/build_exchange.py,
+    resolved at first use (build_exchange imports this module)."""
+    if name in _REEXPORTS:
+        from hyperspace_tpu_torch.execution import build_exchange
 
-
-def hash_scalar_key(values: list, fields) -> np.ndarray:
-    """Hash one key tuple (for bucket pruning at query time)."""
-    hs = []
-    for v, f in zip(values, fields):
-        if f.is_string:
-            hs.append(string_dict_hashes(np.array([v], dtype=object)))
-        else:
-            hs.append(hash_int_column(np.array([v], dtype=f.device_dtype)))
-    return combine_hashes(hs)
+        return getattr(build_exchange, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -15,11 +15,16 @@ lexicographic order equals the logical order of the column:
   so nulls sort first.
 
 The decomposition is a copy of the JAX package's `ops/sortkeys.py`
-(numpy, on the host). The sort is the port of its `device_lanes_perm` /
-`device_sort_perms`: one stable `torch.sort` per lane on the device, least
-significant lane first (LSD), which reproduces the JAX package's
+(numpy, on the host), with its host order `lexsort_lanes`. The sort is the
+port of its `device_lanes_perm`: one stable `torch.sort` per lane on the
+device, least significant lane first (LSD), which reproduces
 `lexsort_lanes` exactly; `order_lanes` and `device_order_perm` order a
 table by an ORDER BY list (a DESC key's lanes inverted).
+`device_sort_perms` is the streaming build's batched key sort (the JAX
+package's function of that name): every table of a batch padded to one
+length, a leading is_pad lane sinking the pads, the lanes packed two to an
+int64 key, one stable sort a key over the whole [B, L] batch and one
+readback of the permutations.
 Torch can neither sort nor shift `uint32`, so every lane travels as int64:
 unsigned lanes zero-extend and signed lanes sign-extend, which keeps each
 lane's own (signed or unsigned) order.
@@ -124,6 +129,58 @@ def lanes_as_unsigned(lanes: list[np.ndarray]) -> np.ndarray:
         else:
             out[i] = l.astype(np.int32).view(np.uint32) ^ np.uint32(0x80000000)
     return out
+
+
+def lexsort_lanes(lanes: list[np.ndarray]) -> np.ndarray:
+    """Host (numpy) stable argsort by the lanes: the order every sort of
+    the port reproduces. np.lexsort keys are LAST-significant first, so
+    reverse."""
+    if not lanes:
+        return np.arange(0)
+    return np.lexsort(tuple(reversed(lanes)))
+
+
+def _packed_keys(lanes_u32: np.ndarray) -> list[np.ndarray]:
+    """[L, n] unsigned lanes → ceil(L / 2) int64 keys, most significant
+    first, whose signed order is the lanes' lexicographic order: two lanes
+    to a key (hi << 32 | lo), the sign bit flipped."""
+    keys = []
+    flip = np.uint64(1 << 63)
+    for i in range(0, lanes_u32.shape[0], 2):
+        hi = lanes_u32[i].astype(np.uint64) << np.uint64(32)
+        lo = lanes_u32[i + 1].astype(np.uint64) if i + 1 < lanes_u32.shape[0] else np.uint64(0)
+        keys.append(((hi | lo) ^ flip).view(np.int64))
+    return keys
+
+
+def device_sort_perms(tables, key_columns: list[str], device: torch.device) -> list[np.ndarray]:
+    """Stable key-sort permutation of each table of a batch, computed on
+    `device` in one batched pass: each table's rows padded to the batch's
+    longest, a leading is_pad lane (pads sink below every real row), the
+    lanes packed two to an int64 key; one stable sort a key over the
+    [B, L] batch, least significant first, carrying the row ids, and one
+    readback. Each permutation equals `lexsort_lanes` of its table's
+    lanes (and the pooled build's `host_sort_perm`): equal keys keep
+    their order in the table."""
+    if not tables:
+        return []
+    lens = [t.num_rows for t in tables]
+    b, width = len(tables), max(max(lens), 1)
+    per_table = [lanes_as_unsigned(key_lanes(t, key_columns, force_validity=True)) for t in tables]
+    num_lanes = 1 + per_table[0].shape[0]
+    stacked = np.zeros((num_lanes, b, width), np.uint32)
+    for i, (n, lanes) in enumerate(zip(lens, per_table)):
+        stacked[0, i, n:] = 1  # is_pad
+        stacked[1:, i, :n] = lanes
+    keys = _packed_keys(stacked.reshape(num_lanes, b * width))
+    perm = torch.arange(width, device=device).expand(b, width).contiguous()
+    with obs_trace.span("device.sort_perms", tables=b, rows=sum(lens), width=width, keys=len(keys)):
+        for key in reversed(keys):
+            k = torch.from_numpy(key.reshape(b, width)).to(device)
+            _, p = torch.sort(torch.gather(k, 1, perm), dim=1, stable=True)
+            perm = torch.gather(perm, 1, p)
+        perm = perm.cpu().numpy()
+    return [perm[i, :n] for i, n in enumerate(lens)]
 
 
 def lane_tensor(lane: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -27,6 +27,19 @@ The port declares only the counters its modules increment:
   failed (recover() finishes the repair from the next process)
 - ``action.cleanup_failed``   partial-data quarantines that failed (the
   orphan GC in recover() sweeps what they left)
+- ``io.footer_cache.hits``    parquet footer parses skipped by the
+  mtime-validated footer cache (execution/io.py)
+- ``io.footer_cache.misses``  footer parses that opened the file
+- ``build.exchange.bytes``  decoded bytes the pooled build's p1 shards
+  spilled for its p2 owners (execution/builder.py)
+- ``build.worker.crashes``  pooled-build workers found dead without a
+  posted result, each a typed WorkerCrashed (parallel/procpool.py)
+- ``device.stage.bytes_zero_copy``  scalar column bytes that went from
+  Arrow's buffer straight into the host-to-device copy
+  (execution/staging.py)
+- ``device.stage.bytes_copied``  scalar column bytes copied on the host
+  first (nulls, casts, several chunks, a column bound for the CPU,
+  staging off or a staging fault)
 """
 
 from __future__ import annotations
@@ -45,6 +58,12 @@ KNOWN_COUNTERS = (
     "action.rolled_back",
     "action.rollback_failed",
     "action.cleanup_failed",
+    "io.footer_cache.hits",
+    "io.footer_cache.misses",
+    "build.exchange.bytes",
+    "build.worker.crashes",
+    "device.stage.bytes_zero_copy",
+    "device.stage.bytes_copied",
 )
 
 _counters = {name: _metrics.counter(name) for name in KNOWN_COUNTERS}

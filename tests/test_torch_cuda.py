@@ -1177,3 +1177,116 @@ def test_crash_and_recover_of_a_create_on_the_card(cuda, tmp_path):
     s2.enable_hyperspace()
     q = s2.parquet(src).filter(col("l_orderkey") == 7).select("l_orderkey", "l_extendedprice")
     assert s2.run(q).decode()["l_extendedprice"].tolist() == cpu.run(q).decode()["l_extendedprice"].tolist()
+
+
+# -- the build at scale on the card ---------------------------------------------
+
+
+@pytest.mark.gpu
+def test_device_sort_perms_on_the_card_equal_the_host_sort(cuda):
+    """The streaming build's batched key sort on the card: each table's
+    permutation equals the pooled build's host sort (pads sink, equal keys
+    keep their order), at a batch of buckets with one and two lanes'
+    keys, nulls and strings."""
+    import pyarrow as pa
+
+    from hyperspace_tpu_torch.execution.build_exchange import host_sort_perm
+    from hyperspace_tpu_torch.execution.table import ColumnTable
+    from hyperspace_tpu_torch.ops.sortkeys import device_sort_perms
+
+    rng = np.random.default_rng(31)
+    tables = []
+    for n in (0, 1, 17, 30_000, 299_999, 65_536):
+        t = pa.table({
+            "k": pa.array(rng.integers(-(10**12), 10**12, n) // 1_000_000, mask=rng.random(n) < 0.05),
+            "s": pa.array([f"x{i % 13}" for i in range(n)], type=pa.string()),
+            "v": pa.array(rng.integers(-5, 5, n).astype(np.float64)),
+        })
+        tables.append(ColumnTable.from_arrow(t, device="cpu"))
+    for cols in (["k"], ["v", "s"], ["s", "k", "v"]):
+        perms = device_sort_perms(tables, cols, cuda)
+        for t, p in zip(tables, perms):
+            np.testing.assert_array_equal(p, host_sort_perm(t, cols))
+
+
+def _li_source(tmp_path, sf=0.004):
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem
+
+    src = tmp_path / "li"
+    gen_tpch_lineitem(src, sf=sf, seed=42)
+    return src
+
+
+def _same_files(a, b):
+    names = sorted(p.name for p in a.iterdir())
+    assert names == sorted(p.name for p in b.iterdir())
+    for name in names:
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+
+
+@pytest.mark.gpu
+def test_streaming_and_pooled_builds_on_the_card(cuda, tmp_path):
+    """A streaming build on the card (pipeline on and off) is
+    byte-identical to the CPU's, and a pooled build from a card session
+    (its coordinator holds a CUDA context) to both: no worker initializes
+    CUDA."""
+    from hyperspace_tpu_torch.dataset import Dataset
+    from hyperspace_tpu_torch.execution.builder import DeviceIndexBuilder
+
+    src = _li_source(tmp_path)
+    cols, key = ["l_orderkey", "l_partkey", "l_extendedprice"], ["l_orderkey"]
+    kw = dict(memory_budget_bytes=200_000, chunk_bytes=150_000)
+    torch.zeros(1, device=cuda)  # the coordinator's CUDA context
+    outs = {}
+    for name, dev, extra in (("cpu", "cpu", {}), ("card", cuda, {}), ("card_serial", cuda, {"pipeline_enabled": False}),
+                             ("pooled", cuda, {"workers": 2})):
+        b = DeviceIndexBuilder(dev, **kw, **extra)
+        d = tmp_path / name / "v__=0"
+        b.write(Dataset.parquet(src).scan(), cols, key, 16, d)
+        assert b.last_build_stats["path"] == ("pooled" if name == "pooled" else "streaming")
+        outs[name] = d
+        if name == "pooled":
+            assert b.last_build_stats["worker_cuda_initialized"] is False
+    for name in ("card", "card_serial", "pooled"):
+        _same_files(outs["cpu"], outs[name])
+
+
+@pytest.mark.gpu
+def test_a_staged_column_lands_on_the_card_without_a_host_copy(cuda, tmp_path):
+    """A fixed-width null-free column read for the card goes from Arrow's
+    buffer straight to the card (counted zero-copy), a nullable one is
+    copied; a transient `device.stage` fault takes every column down the
+    copied path and the values stay right; staging off copies all."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import faults, stats
+    from hyperspace_tpu_torch.execution import io as hio
+    from hyperspace_tpu_torch.execution import staging
+
+    n = 100_000
+    t = pa.table({
+        "a": np.arange(n, dtype=np.int64), "b": np.arange(n, dtype=np.float32),
+        "c": pa.array([None if i % 9 == 0 else i for i in range(n)], type=pa.int32()),
+    })
+    pq.write_table(t, tmp_path / "p.parquet")
+    path = [str(tmp_path / "p.parquet")]
+
+    def read():
+        zc, cp = stats.get("device.stage.bytes_zero_copy"), stats.get("device.stage.bytes_copied")
+        ct = hio.read_parquet(path, device=cuda)
+        assert ct.columns["a"].device.type == "cuda"
+        np.testing.assert_array_equal(ct.columns["a"].cpu().numpy(), np.arange(n))
+        np.testing.assert_array_equal(ct.columns["b"].cpu().numpy(), np.arange(n, dtype=np.float32))
+        return stats.get("device.stage.bytes_zero_copy") - zc, stats.get("device.stage.bytes_copied") - cp
+
+    assert read() == (n * (8 + 4), n * 4)
+    faults.reset()
+    with faults.injected("device.stage"):
+        assert read() == (0, n * (8 + 4 + 4))
+    faults.reset()
+    staging.set_enabled(False)
+    try:
+        assert read() == (0, n * (8 + 4 + 4))
+    finally:
+        staging.set_enabled(True)

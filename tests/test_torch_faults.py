@@ -14,8 +14,8 @@ Then the port's own cases:
 - the crash sweep over `create`, `refresh`, `optimize` and `vacuum`
   (each point an action fires, a CrashPoint at its first call, then the
   JAX package's invariants), at later calls of the busy points, with the
-  points discovered equal to the JAX package's (less `footer.read`, a
-  point of a footer cache the port does not have);
+  points discovered equal to the JAX package's (`footer.read` included
+  since the port has the footer cache);
 - interchange: a crash at `log.written` or `bucket.written` in one
   package is recovered by the other, with recover reports equal to the
   crashing package's own recover on a copy, and equal query answers;
@@ -982,7 +982,6 @@ def test_cache_expiry_key_sets_the_listing_ttl(P, tmp_path):
 # ---------------------------------------------------------------------------
 
 ACTIONS = ("create", "refresh", "optimize", "vacuum")
-PORT_LACKS = {"footer.read"}
 
 
 def _setup(tmp_path, action, P):
@@ -1066,7 +1065,7 @@ def test_crash_sweep_every_fault_point(tmp_path_factory, action, jax_answer, jax
     with P.faults.recording() as seen:
         _drive(hs, session, source, action, P)
     points = sorted(seen)
-    assert set(points) == jax_points[action] - PORT_LACKS
+    assert set(points) == jax_points[action]
     crashed_at = []
     for point in points:
         tmp = tmp_path_factory.mktemp(f"sweep-{action}")

@@ -140,9 +140,10 @@ def test_unsupported_format_raises(tmp_path):
 
 def test_csv_source_builds_in_memory_where_the_budget_is_not_ported(tmp_path):
     """tests/test_formats.py's over-budget CSV build streams out of core
-    in the JAX package; the port has no streaming build yet, so it refuses
-    the memory-budget key by name and builds the same CSV source in
-    memory, serving the JAX package's rows."""
+    in both packages (the port reads the memory-budget key now, so the
+    name's "in memory" is history): the port's
+    build takes the streaming path by record batches and serves the JAX
+    package's rows."""
     df = _frame(2000)
     root = tmp_path / "src"
     _write(df, root, "csv")
@@ -150,13 +151,10 @@ def test_csv_source_builds_in_memory_where_the_budget_is_not_ported(tmp_path):
     got = {}
     for name, pkg, kw in PKGS:
         session = pkg.HyperspaceSession(system_path=str(tmp_path / f"idx_{name}"), num_buckets=2, **kw)
-        if name == "jax":
-            session.conf.set("hyperspace.index.build.memoryBudgetBytes", 1024)
-        else:
-            with pytest.raises(THyperspaceError, match="not ported yet"):
-                session.conf.set("hyperspace.index.build.memoryBudgetBytes", 1024)
+        session.conf.set("hyperspace.index.build.memoryBudgetBytes", 1024)
         scan = session.csv(root)
         pkg.Hyperspace(session).create_index(scan, pkg.IndexConfig("c_k", ["k"], ["v", "tag"]))
+        assert session.last_build_stats["path"] == "streaming"
         session.enable_hyperspace()
         got[name] = _canon_rows(session.to_pandas(scan.filter(pkg.col("k") == some_k)), ["k", "v", "tag"])
         assert len(got[name]) == int((df.k == some_k).sum())

@@ -1,7 +1,9 @@
 """The port stands alone: importing it loads neither JAX nor the JAX package.
 
 A fresh interpreter imports `hyperspace_tpu_torch` and every one of its
-modules and reports which forbidden modules ended up in `sys.modules`.
+modules and reports which forbidden modules ended up in `sys.modules`;
+and a worker spawned by the pooled build's pool, after running a real p1
+shard of `execution/build_exchange.py`, reports the same.
 """
 
 import json
@@ -71,8 +73,48 @@ def test_port_imports_without_jax_or_the_jax_package():
         "hyperspace_tpu_torch.analysis.validator",
         "hyperspace_tpu_torch.faults",
         "hyperspace_tpu_torch.utils.retry",
+        "hyperspace_tpu_torch.native",
+        "hyperspace_tpu_torch.execution.build_exchange",
+        "hyperspace_tpu_torch.execution.staging",
+        "hyperspace_tpu_torch.execution.prefetch",
+        "hyperspace_tpu_torch.parallel",
+        "hyperspace_tpu_torch.parallel.procpool",
     ):
         assert name in report["modules"]
+
+
+def _worker_census(task):
+    """Runs in a spawned worker: a real p1 shard, then which forbidden
+    modules the worker holds."""
+    from hyperspace_tpu_torch.execution import build_exchange
+
+    result = build_exchange.p1_shard(task)
+    bad = sorted(k for k in sys.modules
+                 if k == "jax" or k.startswith(("jax.", "jaxlib")) or k == "hyperspace_tpu"
+                 or k.startswith("hyperspace_tpu."))
+    return {"rows": result["rows"], "forbidden": bad}
+
+
+def test_a_pooled_build_worker_imports_neither(tmp_path):
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.dataset import Dataset
+    from hyperspace_tpu_torch.execution import build_exchange as bx
+    from hyperspace_tpu_torch.parallel.procpool import TaskPool
+
+    (tmp_path / "src").mkdir()
+    pq.write_table(pa.table({"k": np.arange(500), "v": np.arange(500) * 0.5}), tmp_path / "src" / "p.parquet")
+    task = bx.P1Task(
+        worker=0, files=[str(tmp_path / "src" / "p.parquet")], fmt="parquet", columns=["k", "v"],
+        schema=Dataset.parquet(tmp_path / "src").scan().scan_schema, indexed_columns=["k"], num_buckets=4,
+        num_owners=2, chunk_bytes=1 << 20, memory_budget_bytes=1 << 20, exchange_dir=str(tmp_path / "ex"),
+    )
+    with TaskPool("hs-imports") as pool:
+        pool.submit(0, _worker_census, task)
+        census = pool.join()[0]
+    assert census == {"rows": 500, "forbidden": []}
 
 
 def test_port_sources_never_name_jax():

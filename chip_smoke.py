@@ -182,6 +182,35 @@ What it does, in order (any failure raises and exits non-zero):
    incremental refresh and taxi loop with the hash path they ran on
    (`native_hash_refresh_and_taxi`, against the numpy hash's records in
    PERF.md);
+3h. the fleet (`fleet_path`), on the earlier phases' store and 3e's mix:
+   the mix serially (each result also written as Arrow IPC), then 16
+   client threads pulling 4 passes of it from one shared work queue,
+   served by this process (`session.serve()`, 4 workers), by a fleet of 2
+   and a fleet of 4 spawned members (`FleetSupervisor`; each member opens
+   its own CUDA context, loads the kernels phase 1 built, and serves
+   through `shared_caches(session)`'s plan cache with 4 workers): qps,
+   p50 / p99, every served result equal to its serial run's (strings as
+   strings, the sums of `SERVE_SUMS` within 2·N·u), the members' summed
+   K1 / K2 launches 4x the serial pass's, each member's start-up (spawn
+   to entry, context, kernel load, the mix's cold pass), memory and
+   HOST_DERIVED hits and misses; (b) the shared result cache: J2 computed
+   by one member served by the other with no launch and no column read;
+   (c) li_live re-created and looped by both members across an append (a
+   fiftieth, seed 51) and an incremental refresh: no stale answer; (d) on
+   the fleet of 4 an instant burst against tenant quotas and a shed ratio
+   (typed refusals only, p99 bounded), `fleet_health` with every member's
+   saturation, one member SIGKILLed and respawned, a single-flight lease
+   holder SIGKILLed and taken over; (e) the fleet of 2 with the
+   controller, the journal and the HTTP plane on: a `bucket.read` error
+   burst pages, each controller sheds and throttles, clean traffic
+   releases both; orders_orderkey's newest bucket files truncated, both
+   members quarantine it, exactly one heals it (recover and a full
+   refresh) and the other observes the marker; J2 aligned again with K2;
+   an incident bundle holds both members' journal segments. One line a
+   regime (`fleet_pass`, `fleet_startup`, `fleet_overload`,
+   `fleet_shared_result_cache`, `fleet_refresh_churn`,
+   `fleet_controller`); the members' launches are read in their own
+   processes and join the kernels line as `fleet_members`;
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
@@ -4076,6 +4105,985 @@ def staging_and_prefetch(device, ctx: dict, sf: float, sync) -> dict:
     return out
 
 
+# Phase 3h: the fleet on the card. N server processes over the one store,
+# each a spawned member with its own CUDA context, device cache and
+# derived cache, serving 3e's mix (benchmarks/bench_serve.py's fleet mode,
+# its four regimes, and the controller).
+FLEET_PASSES = 16  # passes of the mix in each throughput window (288 queries)
+FLEET_WINDOWS = 2  # throughput windows at each fleet size
+FLEET_CLIENTS = 16  # client threads in all, split evenly over the members
+FLEET_SIZES = (2, 4)
+FLEET_WORKERS = 4  # each server's worker threads, as in 3e
+# The index-entry listing's TTL in the members' sessions: another
+# process's refresh reaches a member's listing within it (ROADMAP queue 3's
+# stale listing: with the default 300 s a member plans around an index for
+# five minutes after another process refreshed it).
+FLEET_EXPIRY_S = 2.0
+FLEET_APPEND = (0.02, 51)  # (c)'s appended file: a fiftieth, seed 51
+FLEET_LOOP_CLIENTS = 8  # (c)'s looping clients in each member
+# (d): an instant burst of 64 submits across 4 tenants, each tenant's
+# bucket 8 tokens at 5 a second, a queue of 16 shedding ordinary submits
+# at 8.
+FLEET_BURST = (64, 4, 5.0, 8, 16, 0.5)
+# The admitted burst's p99 must stay under it: the prediction, with
+# margin over the H100's readings of 72-141 ms a member.
+FLEET_BURST_P99_MS = 1_000.0
+FLEET_LEASE_TTL_S = 2.0  # (d)'s takeover: the killed holder's lease TTL
+# (e): a 99% availability objective, so that 20 failed lookups page in
+# both windows (burn 100, page at 14.4) and 240 clean ones end the page
+# (20 / 260 = 7.7% bad, burn 7.7); the controller ticks every 0.2 s.
+FLEET_FAIL_BURST = 20
+FLEET_CLEAN = 240
+FLEET_CONTROLLER_CONF = {
+    "hyperspace.controller.enabled": True,
+    "hyperspace.controller.intervalSeconds": 0.2,
+    "hyperspace.controller.cooldownSeconds": 1.0,
+    "hyperspace.obs.slo.availabilityTarget": 0.99,
+    "hyperspace.obs.journal.enabled": True,
+    "hyperspace.obs.journal.segmentBytes": 4096,
+    "hyperspace.obs.http.enabled": True,
+}
+FLEET_WAIT_S = 60.0  # the longest a phase waits for a member's answer (start-up: 180)
+
+
+def _arrow_served(name: str, got, want, rows: int) -> None:
+    """A result served by another process (a ColumnTable) against its
+    serial run's Arrow table: equal values but in the sums and means of
+    SERVE_SUMS, within 2·rows·u of the serial value (check_served's rule;
+    string columns compare as strings, since each process encodes its own
+    dictionaries)."""
+    import pyarrow.compute as pc
+
+    got = got.to_arrow()
+    if got.schema.names != want.schema.names or got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got.num_rows} rows of {got.schema.names}, serially {want.num_rows} of "
+                             f"{want.schema.names}")
+    sums = SERVE_SUMS.get(name.split()[0], {})
+    for c in want.schema.names:
+        a, b = got.column(c), want.column(c)
+        if c not in sums:
+            if not a.equals(b):
+                raise AssertionError(f"{name}: the served {c} differs from the serial run's")
+            continue
+        if not pc.is_valid(a).equals(pc.is_valid(b)):
+            raise AssertionError(f"{name}: the served {c}'s nulls differ from the serial run's")
+        x = pc.fill_null(a, 0.0).to_numpy()
+        y = pc.fill_null(b, 0.0).to_numpy()
+        if not np.all(np.abs(x - y) <= 2 * rows * UNIT_ROUNDOFF * np.abs(y)):
+            raise AssertionError(f"{name}: the served {c} is beyond 2·N·u of the serial run's")
+
+
+def _drain(server, plans: dict, work_q, n_clients: int, started) -> list:
+    """`n_clients` threads pull plan names from `work_q` until a None,
+    submit each to `server` and keep (name, ms submit to result,
+    completion time, result); `started()` runs once every thread is
+    pulling. Raises a client's first error."""
+    import threading
+
+    done, errors, lock = [], [], threading.Lock()
+
+    def client():
+        mine = []
+        try:
+            while (name := work_q.get(timeout=FLEET_WAIT_S)) is not None:
+                t0 = time.perf_counter()
+                result = server.submit(plans[name]).result(timeout=600)
+                mine.append((name, (time.perf_counter() - t0) * 1e3, time.time(), result))
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+        with lock:
+            done.extend(mine)
+
+    threads = [threading.Thread(target=client) for _ in range(n_clients)]
+    for t in threads:
+        t.start()
+    started()
+    for t in threads:
+        t.join(timeout=900)
+    if errors:
+        raise errors[0]
+    return done
+
+
+def _member_counts() -> dict:
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+    from hyperspace_tpu_torch.ops.topk import topk
+
+    return {"segment_reduce": segment_reduce.launches, "run_bounds": run_bounds.launches, "topk": topk.launches}
+
+
+def _member_delta(before: dict) -> dict:
+    now = _member_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def fleet_member(wctx, spec: dict, cmd_qs, result_q, work_q, loop_stop) -> None:
+    """One fleet member (a spawned process): opens its CUDA context (or
+    raises: a member never serves from the CPU unless `spec` asks for it),
+    loads the kernels built in phase 1, opens a session over the store and
+    a server over the fleet's shared plan cache, runs the mix once (its
+    start-up), then answers the coordinator's commands until told to stop.
+    Every answer goes to `result_q` as (worker id, pid, command, record)."""
+    import queue as queue_mod
+    import traceback
+
+    wid, pid = wctx.worker_id, os.getpid()
+    try:
+        state = _member_start(wctx, spec, time.time())
+    except BaseException as e:  # posted, then the process exits non-zero
+        result_q.put((wid, pid, "error", f"start-up: {type(e).__name__}: {e}\n{traceback.format_exc()}"))
+        raise SystemExit(1)
+    state.update(result_q=result_q, work_q=work_q, loop_stop=loop_stop, wid=wid, pid=pid)
+    result_q.put((wid, pid, "ready", state["startup"]))
+    while not wctx.stop_event.is_set():
+        try:
+            cmd = cmd_qs[wid].get(timeout=0.2)
+        except queue_mod.Empty:
+            continue
+        if cmd[0] == "stop":
+            break
+        try:
+            out = _MEMBER_OPS[cmd[0]](state, *cmd[1:])
+            out["launches_total"] = _member_counts()
+            result_q.put((wid, pid, cmd[0], out))
+        except BaseException as e:  # posted; the coordinator fails the phase
+            result_q.put((wid, pid, "error", f"{cmd[0]}: {type(e).__name__}: {e}\n{traceback.format_exc()}"))
+    for key in ("controller",):
+        if state.get(key) is not None:
+            state[key].stop()
+    for key in ("server", "rc_server", "burst_server", "ctl_server"):
+        if state.get(key) is not None:
+            state[key].shutdown()
+
+
+def _member_start(wctx, spec: dict, t_enter: float) -> dict:
+    import pyarrow as pa
+    import torch
+
+    from hyperspace_tpu_torch import HyperspaceSession
+    from hyperspace_tpu_torch.execution import device_cache as dc
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.plan.nodes import plan_from_json
+    from hyperspace_tpu_torch.serve import fleet
+
+    startup = {"spawn_to_entry_s": t_enter - spec["spawned_at"][wctx.worker_id]}
+    t0 = time.perf_counter()
+    if spec["device"] == "cuda":
+        torch.cuda.init()
+        torch.zeros(1, device="cuda")  # the context; raises where the card refuses one
+        startup["cuda_init_s"] = time.perf_counter() - t0
+        startup["libraries_prebuilt"] = all(kernels.library_path(n).exists() for n in kernels.SOURCES)
+        t0 = time.perf_counter()
+        kernels.build()
+        startup["kernel_build_s"] = time.perf_counter() - t0
+    session = HyperspaceSession(system_path=spec["system_path"], device=None if spec["device"] == "cuda" else "cpu")
+    for key, value in spec["conf"].items():
+        session.conf.set(key, value)
+    session.conf.set("hyperspace.index.cache.expiryDurationInSeconds", FLEET_EXPIRY_S)
+    if spec["http"]:
+        session.conf.set("hyperspace.obs.http.enabled", True)
+    session.enable_hyperspace()
+    plans = {name: plan_from_json(doc) for name, doc in spec["mix"].items()}
+    serial = {}
+    for name in plans:
+        with pa.memory_map(str(Path(spec["serial_dir"]) / f"{list(plans).index(name)}.arrow"), "r") as src:
+            serial[name] = pa.ipc.open_file(src).read_all()
+    shared_plans, shared_results = fleet.shared_caches(session)
+    server = session.serve(workers=FLEET_WORKERS, plan_cache=shared_plans, result_cache=False)
+    if spec["http"]:
+        fleet.register_worker(wctx.fleet_dir, wctx.worker_id, server.health_endpoint.port)
+    state = {"session": session, "plans": plans, "serial": serial, "rows": spec["rows"], "server": server,
+             "shared_plans": shared_plans, "shared_results": shared_results, "spec": spec, "fleet_dir": wctx.fleet_dir,
+             "device": session.device}
+    # Start-up's last step: the mix once, serially, each result checked
+    # (the member's cold reads and derivations).
+    c0, t0 = _member_counts(), time.perf_counter()
+    for name, plan in plans.items():
+        _arrow_served(name, session.run_query(plan, plan_cache=shared_plans).result, serial[name], spec["rows"])
+    if spec["device"] == "cuda":
+        torch.cuda.synchronize()
+    startup["warm_pass_s"] = time.perf_counter() - t0
+    startup["warm_pass_launches"] = _member_delta(c0)
+    startup["ready_at"] = time.time()
+    startup["spawn_to_ready_s"] = startup["ready_at"] - spec["spawned_at"][wctx.worker_id]
+    startup["cuda_initialized"] = torch.cuda.is_initialized()
+    startup["device_name"] = torch.cuda.get_device_name(0) if spec["device"] == "cuda" else "cpu"
+    startup["derived"] = {k: dc.HOST_DERIVED.stats()[k] for k in ("hits", "misses")}
+    state["startup"] = startup
+    return state
+
+
+def _op_pass(state, n_clients: int) -> dict:
+    """One throughput window's share: `_drain` over the fleet's work
+    queue, every result then checked."""
+    from hyperspace_tpu_torch.execution import device_cache as dc
+
+    d0, c0 = dc.HOST_DERIVED.stats(), _member_counts()
+    done = _drain(state["server"], state["plans"], state["work_q"], n_clients,
+                  lambda: state["result_q"].put((state["wid"], state["pid"], "armed", {})))
+    launches = _member_delta(c0)
+    d1 = dc.HOST_DERIVED.stats()
+    for name, _, _, result in done:
+        _arrow_served(name, result, state["serial"][name], state["rows"])
+    return {"served": [(name, ms, t) for name, ms, t, _ in done], "launches": launches,
+            "derived_hits": d1["hits"] - d0["hits"], "derived_misses": d1["misses"] - d0["misses"]}
+
+
+def _op_result_cache(state, name: str) -> dict:
+    """`name` through a server with the fleet's shared result cache: the
+    result, whether it was a hit, the kernels launched and the columns
+    read (device-cache misses) for it."""
+    from hyperspace_tpu_torch.execution import device_cache as dc
+
+    if state.get("rc_server") is None:
+        state["rc_server"] = state["session"].serve(workers=1, plan_cache=state["shared_plans"],
+                                                    result_cache=state["shared_results"])
+    c0, m0 = _member_counts(), dc.DEVICE_CACHE.stats()["misses"]
+    h = state["rc_server"].submit(state["plans"][name])
+    result = h.result(timeout=600)
+    launched = _member_delta(c0)
+    _arrow_served(name, result, state["serial"][name], state["rows"])
+    return {"cache_hit": bool(h.cache_hit), "launches": launched,
+            "columns_read": dc.DEVICE_CACHE.stats()["misses"] - m0, "device": str(result.device)}
+
+
+def _op_loop(state, plans_json: dict, cols: list) -> dict:
+    """FLEET_LOOP_CLIENTS threads loop the li_live lookups until the
+    fleet's loop_stop is set, keeping (submit time, key, rows)."""
+    import threading
+
+    from hyperspace_tpu_torch.plan.nodes import plan_from_json
+
+    plans = {int(k): plan_from_json(doc) for k, doc in plans_json.items()}
+    keys = sorted(plans)
+    seen, errors, lock = [], [], threading.Lock()
+
+    def client(cid: int):
+        mine, i = [], cid
+        try:
+            while not state["loop_stop"].is_set():
+                k = keys[i % len(keys)]
+                i += 1
+                t_submit = time.time()
+                d = state["server"].submit(plans[k]).result(timeout=600).decode()
+                mine.append((t_submit, k, sorted(zip(*(np.asarray(d[c]).tolist() for c in cols)))))
+        except BaseException as e:  # reported below
+            errors.append(repr(e))
+        with lock:
+            seen.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(FLEET_LOOP_CLIENTS)]
+    for t in threads:
+        t.start()
+    state["result_q"].put((state["wid"], state["pid"], "armed", {}))
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise AssertionError(f"member {state['wid']}: {errors[0]}")
+    return {"seen": seen}
+
+
+def _op_burst(state) -> dict:
+    """(d): an instant burst through a server with tenant quotas and a
+    shed ratio: every refusal typed, the admitted answers right, their
+    submit-to-result latencies kept."""
+    from hyperspace_tpu_torch.exceptions import AdmissionRejected, QuotaExceeded
+    from hyperspace_tpu_torch.serve.fleet.quota import TenantQuotas
+
+    n, tenants, rate, burst, depth, ratio = FLEET_BURST
+    if state.get("burst_server") is None:
+        state["burst_server"] = state["session"].serve(
+            workers=FLEET_WORKERS, max_queue_depth=depth, shed_depth_ratio=ratio,
+            plan_cache=state["shared_plans"], result_cache=False, quotas=TenantQuotas(rate=rate, burst=burst))
+    server = state["burst_server"]
+    lookups = [name for name in state["plans"] if name.startswith("lookup")]
+    admitted, refused, untyped = [], {"quota": 0, "shed_or_full": 0}, []
+    for i in range(n):
+        name = lookups[i % len(lookups)]
+        t0 = time.perf_counter()
+        try:
+            admitted.append((name, t0, server.submit(state["plans"][name], tenant=f"t{i % tenants}")))
+        except QuotaExceeded:
+            refused["quota"] += 1
+        except AdmissionRejected:
+            refused["shed_or_full"] += 1
+        except Exception as e:  # fails the phase on the coordinator
+            untyped.append(repr(e))
+    done_at: dict = {}
+    deadline = time.perf_counter() + 600
+    while len(done_at) < len(admitted) and time.perf_counter() < deadline:
+        for i, (_, _, h) in enumerate(admitted):
+            if i not in done_at and h.done():
+                done_at[i] = time.perf_counter()
+        time.sleep(0.001)
+    for name, _, h in admitted:
+        _arrow_served(name, h.result(timeout=600), state["serial"][name], state["rows"])
+    lat = np.sort([(done_at[i] - t0) * 1e3 for i, (_, t0, _) in enumerate(admitted)])
+    return {"submitted": n, "admitted": len(admitted), "refused": refused, "untyped": untyped,
+            "p50_ms": float(np.percentile(lat, 50)) if len(lat) else None,
+            "p99_ms": float(np.percentile(lat, 99)) if len(lat) else None,
+            "saturation": server.saturation()}
+
+
+def _op_hold_lease(state, key: str) -> dict:
+    """(d): take the single-flight lease for `key` under the fleet's
+    directory and hold it, building forever (the coordinator kills this
+    member)."""
+    from hyperspace_tpu_torch.serve.fleet.singleflight import SingleFlight
+
+    def build():
+        state["result_q"].put((state["wid"], state["pid"], "held", {}))
+        time.sleep(600)
+
+    SingleFlight(Path(state["fleet_dir"]) / "sf", lease_ttl_s=FLEET_LEASE_TTL_S, wait_s=1.0).run(key, build)
+    return {}
+
+
+def _op_takeover(state, key: str) -> dict:
+    from hyperspace_tpu_torch import stats
+    from hyperspace_tpu_torch.obs import events
+    from hyperspace_tpu_torch.serve.fleet.singleflight import SingleFlight
+
+    t0 = time.perf_counter()
+    value = SingleFlight(Path(state["fleet_dir"]) / "sf", lease_ttl_s=FLEET_LEASE_TTL_S, wait_s=30.0).run(
+        key, build=lambda: "taken over")
+    return {"value": value, "wait_s": time.perf_counter() - t0, "takeovers": stats.get("fleet.singleflight.takeovers"),
+            "events": [e["fields"] for e in events.recent() if e["name"] == "fleet.singleflight.takeover"]}
+
+
+def _op_controller(state) -> dict:
+    """(e): the controller, the journal and the HTTP plane on, over a
+    server of its own with tenant quotas (the throttle's actuator)."""
+    from hyperspace_tpu_torch import Hyperspace
+    from hyperspace_tpu_torch.serve.fleet.quota import TenantQuotas
+
+    session = state["session"]
+    for key, value in FLEET_CONTROLLER_CONF.items():
+        session.conf.set(key, value)
+    session.conf.set("hyperspace.obs.journal.dir", state["spec"]["journal_dir"])
+    state["ctl_server"] = session.serve(workers=FLEET_WORKERS, max_queue_depth=32, plan_cache=state["shared_plans"],
+                                        result_cache=False, quotas=TenantQuotas())
+    state["controller"] = Hyperspace(session).controller(server=state["ctl_server"],
+                                                         member_id=f"member-{state['wid']}").start()
+    return {"port": state["ctl_server"].health_endpoint.port, "snapshot": state["controller"].snapshot()}
+
+
+def _wait_for(cond, timeout: float) -> float | None:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(0.02)
+    return None
+
+
+def _clients(server, plans: list, n_threads: int) -> list:
+    """Submit `plans` from `n_threads` threads, each in turn; returns the
+    (plan index, result or exception) of every one."""
+    import threading
+
+    out, lock = [], threading.Lock()
+
+    def client(cid: int):
+        mine = []
+        for i in range(cid, len(plans), n_threads):
+            try:
+                mine.append((i, server.submit(plans[i]).result(timeout=600)))
+            except Exception as e:  # counted by the caller
+                mine.append((i, e))
+        with lock:
+            out.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out
+
+
+def _op_fail_burst(state) -> dict:
+    """(e) 1: a `bucket.read` error rule with retry and the fallback off
+    and both caches emptied, under FLEET_FAIL_BURST lookups: they fail,
+    the availability SLO pages, the controller engages shed and throttle;
+    the rule cleared, FLEET_CLEAN lookups succeed and it releases both."""
+    from hyperspace_tpu_torch import faults
+    from hyperspace_tpu_torch.execution import device_cache as dc
+    from hyperspace_tpu_torch.utils import retry
+
+    session, server, ctrl = state["session"], state["ctl_server"], state["controller"]
+    lookups = [name for name in state["plans"] if name.startswith("lookup")]
+    max_depth = server.max_queue_depth
+    out = {"shed_depth_before": server.get_shed_depth(), "throttle_before": server.quotas.throttle()}
+    # The retry key sets the process's policy (the key itself reads None
+    # until set), so the attempts are saved from the policy.
+    attempts, fallback = retry.io_policy().max_attempts, session.conf.get("hyperspace.fallback.enabled")
+    session.conf.set("hyperspace.retry.maxAttempts", 1)
+    session.conf.set("hyperspace.fallback.enabled", False)
+    dc.clear_all()
+    faults.inject("bucket.read")
+    try:
+        got = _clients(server, [state["plans"][lookups[i % len(lookups)]] for i in range(FLEET_FAIL_BURST)], 4)
+    finally:
+        faults.reset()
+        session.conf.set("hyperspace.retry.maxAttempts", attempts)
+        session.conf.set("hyperspace.fallback.enabled", fallback)
+    out["failed"] = sum(isinstance(r, Exception) for _, r in got)
+    out["engage_s"] = _wait_for(lambda: ctrl.snapshot()["engaged"], 10.0)
+    out["shed_depth_engaged"], out["throttle_engaged"] = server.get_shed_depth(), server.quotas.throttle()
+    out["verdicts_engaged"] = ctrl.snapshot()["verdicts"]
+    names = [lookups[i % len(lookups)] for i in range(FLEET_CLEAN)]
+    got = _clients(server, [state["plans"][n] for n in names], 4)
+    bad = [r for _, r in got if isinstance(r, Exception)]
+    if bad:
+        raise AssertionError(f"a clean lookup failed: {bad[0]!r}")
+    for i, result in got:
+        _arrow_served(names[i], result, state["serial"][names[i]], state["rows"])
+    out["release_s"] = _wait_for(lambda: not ctrl.snapshot()["engaged"], 10.0)
+    out["shed_depth_released"], out["throttle_released"] = server.get_shed_depth(), server.quotas.throttle()
+    out["max_queue_depth"] = max_depth
+    out["snapshot"] = ctrl.snapshot()
+    return out
+
+
+def _op_conf(state, key: str, value) -> dict:
+    state["session"].conf.set(key, value)
+    return {}
+
+
+def _op_query(state, names: list) -> dict:
+    """Run `names` through `run_query` and the shared plan cache: each
+    result checked, with its join path, replans and the kernels launched."""
+    from hyperspace_tpu_torch import stats
+
+    out = {}
+    for name in names:
+        c0 = _member_counts()
+        outcome = state["session"].run_query(state["plans"][name], plan_cache=state["shared_plans"])
+        _arrow_served(name, outcome.result, state["serial"][name], state["rows"])
+        out[name] = {"replans": outcome.replans, "join_path": outcome.stats.get("join_path"),
+                     "launches": _member_delta(c0)}
+    # The quarantine as the last query left it.
+    out["quarantined"] = sorted(Path(r).name for r in outcome.stats.get("degraded_indexes", []))
+    out["fallback_queries"] = stats.get("fallback.queries")
+    return out
+
+
+def _op_heal(state) -> dict:
+    """(e) 2: arm the controller and wait (60 s at most) for the
+    quarantine to lift; the heal's audit records and counters."""
+    from hyperspace_tpu_torch import stats
+    from hyperspace_tpu_torch.obs import events
+
+    session = state["session"]
+    session.conf.set("hyperspace.controller.enabled", True)
+
+    def audit() -> list:
+        return [e["fields"] for e in events.recent() if e["name"] == "controller.actuation"
+                and str(e["fields"].get("action", "")).startswith("heal.")]
+
+    # The audit record lands once the whole actuation returned (the
+    # quarantine lifts earlier, at its first step, recover); the next
+    # queries show the quarantine gone.
+    waited = _wait_for(lambda: bool(audit()), 60.0)
+    return {"heal_s": waited, "heals": stats.get("controller.heals"), "actuations": stats.get("controller.actuations"),
+            "budget_remaining": state["controller"].snapshot()["budget_remaining"], "audit": audit()}
+
+
+def _op_report(state) -> dict:
+    import torch
+
+    from hyperspace_tpu_torch import stats
+    from hyperspace_tpu_torch.execution import device_cache as dc
+
+    out = {"derived": {k: dc.HOST_DERIVED.stats()[k] for k in ("hits", "misses", "evictions", "bytes")},
+           "device_cache": {k: dc.DEVICE_CACHE.stats()[k] for k in ("hits", "misses", "evictions", "bytes")},
+           "shared_cache": {k: stats.get(f"fleet.shared_cache.{k}") for k in ("hits", "misses", "errors")},
+           "cuda_initialized": torch.cuda.is_initialized()}
+    if state["spec"]["device"] == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["memory_reserved"] = torch.cuda.memory_reserved()
+    if state.get("controller") is not None:
+        out["controller"] = state["controller"].snapshot()
+    return out
+
+
+_MEMBER_OPS = {"pass": _op_pass, "result_cache": _op_result_cache, "loop": _op_loop, "burst": _op_burst,
+               "hold_lease": _op_hold_lease, "takeover": _op_takeover, "controller": _op_controller,
+               "fail_burst": _op_fail_burst, "conf": _op_conf, "query": _op_query, "heal": _op_heal,
+               "report": _op_report}
+
+
+class _Fleet:
+    """The coordinator's handle on one fleet: its supervisor, the
+    members' command queues, the shared result and work queues, and the
+    answers it has read."""
+
+    def __init__(self, name: str, n: int, spec: dict, workdir: Path):
+        from hyperspace_tpu_torch.parallel.procpool import spawn_context
+        from hyperspace_tpu_torch.serve.fleet import FleetSupervisor
+
+        mp = spawn_context()
+        self.name, self.n = name, n
+        self.cmd_qs = [mp.Queue() for _ in range(n)]
+        self.result_q, self.work_q, self.loop_stop = mp.Queue(), mp.Queue(), mp.Event()
+        self.spec = dict(spec, spawned_at=[0.0] * n)
+        self.fleet_dir = workdir / f"fleet_{name}"
+        self.sup = FleetSupervisor(fleet_member, fleet_dir=str(self.fleet_dir), n=n,
+                                   args=(self.spec, self.cmd_qs, self.result_q, self.work_q, self.loop_stop),
+                                   max_restarts=2, restart_backoff=0.5)
+        self.ready: dict = {}
+        self.respawned: list = []
+        self.last_launches: dict = {}
+        self._pending: list = []
+
+    def start(self) -> None:
+        self.spec["spawned_at"][:] = [time.time()] * self.n
+        self.sup.start()
+
+    def _read(self, timeout: float):
+        import queue as queue_mod
+
+        try:
+            wid, pid, op, rec = self.result_q.get(timeout=timeout)
+        except queue_mod.Empty:
+            raise AssertionError(f"fleet {self.name}: no member answered within {timeout:.0f} s "
+                                 f"(alive {self.sup.alive_count()} of {self.n})") from None
+        if op == "error":
+            raise AssertionError(f"fleet {self.name} member {wid} (pid {pid}): {rec}")
+        if op == "ready":
+            if wid in self.ready:
+                self.respawned.append({"worker": wid, "pid": pid, **rec})
+            else:
+                self.ready[wid] = {"pid": pid, **rec}
+        if isinstance(rec, dict) and "launches_total" in rec:
+            self.last_launches[pid] = rec["launches_total"]
+        return wid, pid, op, rec
+
+    def await_ready(self, timeout: float) -> None:
+        deadline = time.perf_counter() + timeout
+        while len(self.ready) < self.n:
+            self._read(max(1.0, deadline - time.perf_counter()))
+
+    def send(self, wids, *cmd) -> None:
+        for wid in wids:
+            self.cmd_qs[wid].put(cmd)
+
+    def collect(self, wids, op: str, timeout: float = FLEET_WAIT_S) -> dict:
+        """Each of `wids`' answer to `op` (worker id -> record)."""
+        out = {}
+        deadline = time.perf_counter() + timeout
+        keep = []
+        for item in self._pending:
+            if item[2] == op and item[0] in wids and item[0] not in out:
+                out[item[0]] = item[3]
+            else:
+                keep.append(item)
+        self._pending = keep
+        while set(out) != set(wids):
+            item = self._read(max(1.0, deadline - time.perf_counter()))
+            if item[2] == op and item[0] in wids and item[0] not in out:
+                out[item[0]] = item[3]
+            elif item[2] != "ready":
+                self._pending.append(item)
+        return out
+
+    def ask(self, wids, *cmd, timeout: float = FLEET_WAIT_S) -> dict:
+        self.send(wids, *cmd)
+        return self.collect(wids, cmd[0], timeout)
+
+    def stop(self, timeout: float = 30.0) -> None:
+        """Tell every member to stop, read what they still post (a member
+        exits only once its queue is flushed), then stop the supervisor."""
+        import queue as queue_mod
+
+        self.send(range(self.n), "stop")
+        deadline = time.perf_counter() + timeout
+        while self.sup.alive_count() and time.perf_counter() < deadline:
+            try:
+                self.result_q.get(timeout=0.1)
+            except queue_mod.Empty:
+                pass
+        self.sup.stop(timeout=1.0)
+
+
+def _window(served: list, t_fill: float) -> dict:
+    """qps and latency percentiles of one throughput window: every served
+    (name, ms, completion time) against the time the queue was filled."""
+    lat = np.sort([ms for _, ms, _ in served])
+    wall = max(t for _, _, t in served) - t_fill
+    by_query: dict = {}
+    for name, ms, _ in served:
+        by_query.setdefault(name.split()[0], []).append(ms)
+    return {"queries": len(served), "wall_s": wall, "throughput_qps": len(served) / wall,
+            "p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
+            "p99_ms": float(np.percentile(lat, 99)), "by_query_ms": {q: float(np.median(v)) for q, v in by_query.items()}}
+
+
+def _filler(work_q, names: list, n_clients: int):
+    """A callable that puts FLEET_PASSES passes of `names` and one None
+    a client on `work_q`, keeping the time it began as `.t_fill`."""
+
+    def fill():
+        fill.t_fill = time.time()
+        for _ in range(FLEET_PASSES):
+            for name in names:
+                work_q.put(name)
+        for _ in range(n_clients):
+            work_q.put(None)
+
+    return fill
+
+
+def smi_card_state() -> dict | None:
+    """The card's used and total memory and its compute mode as
+    `nvidia-smi --query-gpu=memory.used,memory.total,compute_mode` gives
+    them, or None if it gave no answer within 60 s."""
+    try:
+        proc = subprocess.Popen(["nvidia-smi", "--query-gpu=memory.used,memory.total,compute_mode",
+                                 "--format=csv,noheader"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    except FileNotFoundError:
+        return None
+    line = _smi_line(proc, 60)
+    if line is None:
+        return None
+    used, total, mode = (field.strip() for field in line.split(","))
+    return {"memory_used": used, "memory_total": total, "compute_mode": mode}
+
+
+def fleet_path(device, ctx: dict, sf: float) -> dict:
+    """3h: the fleet on the card, on the earlier phases' store (the SF1
+    lineitem and orders indexes, the customer and TPC-DS indexes, li_live)
+    and 3e's mix. Members are spawned processes, each with its own CUDA
+    context, device cache and derived cache, over the shared plan cache
+    (`shared_caches`); their sessions list indexes with a TTL of
+    FLEET_EXPIRY_S (ROADMAP queue 3's stale listing: another process's
+    refresh reaches a member within it). Contexts of several processes on
+    one card are time-sliced, not concurrent: a fleet can only win by
+    taking host work off one interpreter lock.
+
+    (a) Throughput: 16 client threads pull FLEET_PASSES passes of the mix
+    from one shared work queue, served by one process (`session.serve()`,
+    4 workers), then by a fleet of 2 and of 4 members (4 workers each),
+    FLEET_WINDOWS windows at each size: qps, p50, p99; every served result equal to its serial run's
+    (`_arrow_served`); the members' summed K1 / K2 launches the serial
+    pass's times the passes served; each member's start-up timed apart
+    (spawn to entry, CUDA context, kernel load, the mix's cold pass).
+    (b) A fleet of 2 with the shared result cache: J2 computed by one
+    member is served by the other with no kernel launch and no column
+    read. (c) li_live re-created; both members loop its lookups while
+    this process appends a file and refreshes incrementally: every answer
+    pyarrow's before or after, after for every lookup submitted once the
+    refresh returned. (d) On the fleet of 4: an instant burst against
+    tenant quotas and a shed ratio draws typed refusals only, p99
+    bounded; `fleet_health` reports every member's saturation; one member
+    SIGKILLed is respawned and counted; a member SIGKILLed holding a
+    single-flight lease is taken over by another. (e) The fleet of 2 with
+    the controller, the journal and the HTTP plane on: a `bucket.read`
+    error burst pages the availability SLO, each controller engages shed
+    and throttle, and releases both once clean traffic ends the page;
+    orders_orderkey's newest bucket files truncated, both members
+    quarantine it, exactly one member's controller heals it (recover and
+    a full refresh) and the other observes the marker, spending no
+    budget; J2 then runs aligned again with K2; an incident bundle holds
+    journal segments of both members."""
+    import queue as queue_mod
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig, PlanCache, col, faults, stats
+    from hyperspace_tpu_torch.datagen import TPCH_SF1_ORDERS_ROWS, gen_tpch_lineitem
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t_phase = time.perf_counter()
+    session, workdir = ctx["session"], ctx["workdir"]
+    session.enable_hyperspace()
+    faults.reset()
+    out: dict = {}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        card = smi_card_state()
+        out["compute_mode"] = card and card["compute_mode"]
+        if out["compute_mode"] in ("Exclusive_Process", "Exclusive_Thread", "Prohibited"):
+            raise AssertionError(f"the card's compute mode is {out['compute_mode']}: fleet members cannot open "
+                                 "CUDA contexts beside this process's")
+    rows = ctx["source"].num_rows
+    keys = np.random.default_rng(7).choice(int(TPCH_SF1_ORDERS_ROWS * sf), 12, replace=False) + 1
+    mix = serve_mix(htorch, ctx, sf, keys)
+    names = list(mix)
+
+    # Serial, through run_query and the plan cache the one-process server
+    # then uses; each result also written as Arrow IPC for the members.
+    serial_dir = workdir / "fleet_serial"
+    serial_dir.mkdir(exist_ok=True)
+    pc_one, serial = PlanCache(), {}
+    k1, k2 = segment_reduce.launches, run_bounds.launches
+    for i, (name, plan) in enumerate(mix.items()):
+        serial[name] = session.run_query(plan, plan_cache=pc_one).result
+        table = serial[name].to_arrow()
+        with pa.OSFile(str(serial_dir / f"{i}.arrow"), "wb") as sink, pa.ipc.new_file(sink, table.schema) as w:
+            w.write_table(table)
+    sync()
+    serial_launches = {"segment_reduce": segment_reduce.launches - k1, "run_bounds": run_bounds.launches - k2}
+    if device.type == "cuda" and not all(serial_launches.values()):
+        raise AssertionError(f"3h's serial mix launched {serial_launches}")
+    out["serial_launches"] = serial_launches
+    total = FLEET_PASSES * len(names)
+
+    # (a) One process: 16 clients over one queue, FLEET_WINDOWS windows.
+    throughput: dict = {}
+    with session.serve(workers=FLEET_WORKERS, plan_cache=pc_one, result_cache=False) as server:
+        for w in range(FLEET_WINDOWS):
+            work_q: queue_mod.Queue = queue_mod.Queue()
+            fill = _filler(work_q, names, FLEET_CLIENTS)
+            k1, k2 = segment_reduce.launches, run_bounds.launches
+            served = _drain(server, mix, work_q, FLEET_CLIENTS, fill)
+            launched = {"segment_reduce": segment_reduce.launches - k1, "run_bounds": run_bounds.launches - k2}
+            for name, _, _, result in served:
+                check_served(name.split()[0], result, serial[name], rows)
+            if launched != {k: v * FLEET_PASSES for k, v in serial_launches.items()}:
+                raise AssertionError(f"one process: {launched} launches for {FLEET_PASSES} passes of {serial_launches}")
+            window = {**_window([s[:3] for s in served], fill.t_fill), "launches": launched}
+            throughput.setdefault("1 process", []).append(window)
+            log(json.dumps({"fleet_pass": {"fleet": "1 process", "window": w, **window}}))
+
+    spec = {"system_path": str(session.conf.system_path), "device": device.type, "rows": rows,
+            "mix": {name: plan.to_json() for name, plan in mix.items()}, "serial_dir": str(serial_dir),
+            "journal_dir": str(workdir / "fleet_obs"),
+            "conf": {k: v for k, v in session.conf.overrides.items()
+                     if k.startswith(("hyperspace.index.hybridscan.", "hyperspace.join.", "hyperspace.recover."))}}
+    fleets = {2: _Fleet("2", 2, dict(spec, http=False), workdir), 4: _Fleet("4", 4, dict(spec, http=True), workdir)}
+    try:
+        t0 = time.perf_counter()
+        for f in fleets.values():
+            f.start()
+        for f in fleets.values():
+            f.await_ready(300)
+        out["fleets_ready_s"] = time.perf_counter() - t0
+        startup = {f"{n} members": f.ready for n, f in fleets.items()}
+        for n, f in fleets.items():
+            for wid, rec in f.ready.items():
+                if device.type == "cuda" and not (rec["cuda_initialized"] and rec["libraries_prebuilt"]):
+                    raise AssertionError(f"fleet {n} member {wid}: context {rec['cuda_initialized']}, "
+                                         f"kernels prebuilt {rec['libraries_prebuilt']}")
+                if device.type == "cuda" and {k: rec["warm_pass_launches"][k] for k in serial_launches} != serial_launches:
+                    raise AssertionError(f"fleet {n} member {wid}: the start-up pass launched "
+                                         f"{rec['warm_pass_launches']}, serially {serial_launches}")
+        log(json.dumps({"fleet_startup": startup}))
+
+        for n in FLEET_SIZES:
+            f = fleets[n]
+            if n == 4 and device.type == "cuda":
+                out["nvidia_smi_while_4_up"] = smi_card_state()
+            for w in range(FLEET_WINDOWS):
+                f.send(range(n), "pass", FLEET_CLIENTS // n)
+                f.collect(range(n), "armed")
+                fill = _filler(f.work_q, names, FLEET_CLIENTS)
+                fill()
+                got = f.collect(range(n), "pass", timeout=600)
+                served = [s for rec in got.values() for s in rec["served"]]
+                if len(served) != total:
+                    raise AssertionError(f"fleet of {n}: {len(served)} of {total} queries answered")
+                summed = {k: sum(rec["launches"][k] for rec in got.values())
+                          for k in ("segment_reduce", "run_bounds", "topk")}
+                want = {**{k: v * FLEET_PASSES for k, v in serial_launches.items()}, "topk": 0}
+                if device.type == "cuda" and summed != want:
+                    raise AssertionError(f"fleet of {n}: the members launched {summed}, {FLEET_PASSES} serial passes "
+                                         f"{want}")
+                reports = f.ask(range(n), "report")
+                window = {
+                    **_window(served, fill.t_fill), "launches": summed,
+                    "by_member": {wid: {"served": len(rec["served"]), "launches": rec["launches"],
+                                        "derived_hits": rec["derived_hits"], "derived_misses": rec["derived_misses"],
+                                        **{k: reports[wid].get(k) for k in ("max_memory_allocated", "memory_reserved",
+                                                                            "cuda_initialized")}}
+                                  for wid, rec in got.items()}}
+                throughput.setdefault(f"{n} members", []).append(window)
+                log(json.dumps({"fleet_pass": {"fleet": f"{n} members", "window": w, **window}}))
+        out["throughput"] = throughput
+
+        # (d) Overload, restart and takeover on the fleet of 4.
+        f = fleets[4]
+        bursts = f.ask(range(4), "burst")
+        health = f.sup.fleet_health()
+        for wid, rec in bursts.items():
+            if rec["untyped"] or not rec["admitted"] or not sum(rec["refused"].values()):
+                raise AssertionError(f"burst on member {wid}: {rec}")
+            if rec["p99_ms"] > FLEET_BURST_P99_MS:
+                raise AssertionError(f"burst on member {wid}: p99 {rec['p99_ms']:.0f} ms")
+        members = health["members"]
+        if sorted(members) != [0, 1, 2, 3] or any(not (m["healthz"] or {}).get("scheduler") for m in members.values()):
+            raise AssertionError(f"fleet_health: {json.dumps(health, default=str)[:2000]}")
+        r0 = stats.get("fleet.supervisor.restarts")
+        victim = f.sup.pids()[3]
+        os.kill(victim, 9)
+        respawn_s = _wait_for(lambda: f.sup.restarts().get(3) == 1 and f.sup.pids()[3] != victim
+                              and f.sup._host.get(3).is_alive(), 30.0)
+        if respawn_s is None or stats.get("fleet.supervisor.restarts") != r0 + 1:
+            raise AssertionError(f"member 3 was not respawned: restarts {f.sup.restarts()}")
+        f.send([1], "hold_lease", "3h.takeover")
+        f.collect([1], "held")
+        holder = f.sup.pids()[1]
+        os.kill(holder, 9)
+        taken = f.ask([2], "takeover", "3h.takeover")[2]
+        if taken["value"] != "taken over" or taken["takeovers"] != 1:
+            raise AssertionError(f"takeover: {taken}")
+        out["overload"] = {
+            "bursts": bursts,
+            "fleet_health": {"status": health["status"], "saturation": health["saturation"],
+                             "members": {w: {"status": m["status"], "port": m["port"],
+                                             "scheduler": (m["healthz"] or {}).get("scheduler")}
+                                         for w, m in members.items()}},
+            "respawn_s": respawn_s, "restarts": f.sup.restarts(),
+            "fleet.supervisor.restarts": stats.get("fleet.supervisor.restarts") - r0,
+            "takeover": {k: taken[k] for k in ("value", "wait_s", "takeovers", "events")}}
+        log(json.dumps({"fleet_overload": out["overload"]}, default=str))
+        f.stop(timeout=2.0)
+        out["fleet_4_launches"] = dict(f.last_launches)
+
+        # (b) The shared result cache on the fleet of 2.
+        f = fleets[2]
+        first = f.ask([0], "result_cache", "J2")[0]
+        second = f.ask([1], "result_cache", "J2")[1]
+        if first["cache_hit"] or not second["cache_hit"] or any(second["launches"].values()) \
+                or second["columns_read"]:
+            raise AssertionError(f"shared result cache: first {first}, second {second}")
+        out["shared_result_cache"] = {"first": first, "second": second}
+        log(json.dumps({"fleet_shared_result_cache": out["shared_result_cache"]}))
+
+        # (c) Refresh churn: li_live re-created, looped by both members
+        # across an append and an incremental refresh.
+        hs = Hyperspace(session)
+        live = workdir / "lineitem_live"
+        t0 = time.perf_counter()
+        listed = hs.indexes()
+        if LIVE_INDEX in set(listed[listed["state"] == "ACTIVE"]["name"]):
+            hs.delete_index(LIVE_INDEX)
+            hs.vacuum_index(LIVE_INDEX)
+        hs.create_index(session.parquet(live), IndexConfig(LIVE_INDEX, INDEXED, INCLUDED))
+        create_s = time.perf_counter() - t0
+        frac, seed = FLEET_APPEND
+        stage = workdir / "stage_fleet"
+        gen_tpch_lineitem(stage, sf=frac * sf, seed=seed, files=1)
+        appended = pq.read_table(stage / "part-0.parquet")
+        uniq = np.unique(appended["l_orderkey"].to_numpy())
+        lkeys = uniq[np.linspace(0, len(uniq) - 1, 12).astype(np.int64)]
+        cols = ["l_orderkey", "l_partkey", "l_extendedprice"]
+        li = session.parquet(live)
+        plans = {int(k): li.filter(col("l_orderkey") == int(k)).select(*cols).to_json() for k in lkeys}
+
+        def answers(table) -> dict:
+            sub = table.select(cols).filter(pc.is_in(table["l_orderkey"], value_set=pa.array(lkeys)))
+            found = sorted(zip(*(sub[c].to_pylist() for c in cols)))
+            return {int(k): [r for r in found if r[0] == k] for k in lkeys}
+
+        base = pq.read_table(sorted(str(p) for p in live.glob("*.parquet")), columns=cols)
+        before, after = answers(base), answers(pa.concat_tables([base, appended.select(cols)]))
+        time.sleep(FLEET_EXPIRY_S)  # the members' listings now hold the new li_live
+        f.loop_stop.clear()
+        f.send([0, 1], "loop", plans, cols)
+        f.collect([0, 1], "armed")
+        time.sleep(0.5)
+        (stage / "part-0.parquet").rename(live / "append-fleet.parquet")
+        t0 = time.perf_counter()
+        hs.refresh_index(LIVE_INDEX, mode="incremental")
+        committed_wall, refresh_s = time.time(), time.perf_counter() - t0
+        time.sleep(1.0)
+        f.loop_stop.set()
+        loops = f.collect([0, 1], "loop", timeout=120)
+        seen = [s for rec in loops.values() for s in rec["seen"]]
+        late = 0
+        for t_submit, k, got_rows in seen:
+            got_rows = [tuple(r) for r in got_rows]
+            if got_rows != after[k] and (got_rows != before[k] or t_submit >= committed_wall):
+                raise AssertionError(f"li_live lookup {k} submitted {t_submit - committed_wall:+.3f} s from the "
+                                     f"refresh's commit gave {len(got_rows)} rows: neither before "
+                                     f"({len(before[k])}) nor after ({len(after[k])})")
+            late += t_submit >= committed_wall
+        if not late:
+            raise AssertionError("no li_live lookup was submitted after the refresh committed")
+        out["refresh_churn"] = {"create_s": create_s, "refresh_incremental_s": refresh_s, "queries": len(seen),
+                                "after_commit": late, "by_member": {w: len(r["seen"]) for w, r in loops.items()},
+                                "stale_after_commit": 0}
+        log(json.dumps({"fleet_refresh_churn": out["refresh_churn"]}))
+
+        # (e) The controller on the fleet of 2.
+        setup = f.ask([0, 1], "controller")
+        fails = f.ask([0, 1], "fail_burst", timeout=120)
+        for wid, rec in fails.items():
+            if rec["failed"] != FLEET_FAIL_BURST or rec["engage_s"] is None or rec["release_s"] is None \
+                    or rec["shed_depth_engaged"] != rec["max_queue_depth"] // 2 or rec["throttle_engaged"] != 0.5 \
+                    or rec["shed_depth_released"] != rec["shed_depth_before"] \
+                    or rec["throttle_released"] != rec["throttle_before"]:
+                raise AssertionError(f"controller on member {wid}: {rec}")
+        f.ask([0, 1], "conf", "hyperspace.controller.enabled", False)
+        o_index = Path(session.conf.system_path) / "orders_orderkey"
+        versions = sorted(o_index.glob("v__=*"), key=lambda p: int(p.name.split("=")[1]))
+        truncated = 0
+        for path in sorted(versions[-1].glob("bucket-*.parquet")):
+            with open(path, "r+b") as fh:
+                fh.truncate(7)
+            truncated += 1
+        broken = f.ask([0, 1], "query", ["J2"], timeout=120)
+        for wid, rec in broken.items():
+            if rec["quarantined"] != ["orders_orderkey"] or rec["J2"]["replans"] != 1:
+                raise AssertionError(f"member {wid} over the truncated orders_orderkey: {rec}")
+        healed = f.ask([0, 1], "heal", timeout=120)
+        leaders = [w for w, r in healed.items() if r["heals"] == 1]
+        observers = [w for w, r in healed.items() if r["heals"] == 0]
+        if len(leaders) != 1 or len(observers) != 1 or any(r["heal_s"] is None for r in healed.values()):
+            raise AssertionError(f"the heal: {healed}")
+        lead, obs = healed[leaders[0]], healed[observers[0]]
+        if [a["outcome"] for a in obs["audit"]] != ["observed"] or obs["budget_remaining"] != lead["budget_remaining"] + 1:
+            raise AssertionError(f"the observer: {obs}; the leader: {lead}")
+        new_versions = sorted(o_index.glob("v__=*"), key=lambda p: int(p.name.split("=")[1]))
+        if int(new_versions[-1].name.split("=")[1]) != int(versions[-1].name.split("=")[1]) + 1:
+            raise AssertionError(f"orders_orderkey versions after the heal: {[p.name for p in new_versions]}")
+        again = f.ask([0, 1], "query", ["J2"] + [n for n in names if n.startswith("lookup")][:3], timeout=120)
+        for wid, rec in again.items():
+            j2 = rec["J2"]
+            if rec["quarantined"] or j2["replans"] or j2["join_path"] != "zero-exchange-aligned" \
+                    or (device.type == "cuda" and not j2["launches"]["run_bounds"]):
+                raise AssertionError(f"member {wid} after the heal: {rec}")
+        incidents = Path(session.conf.system_path) / "_fleet" / "incidents"
+        bundles = {}
+        for b in sorted(incidents.iterdir()) if incidents.is_dir() else []:
+            pids = sorted(p.name for p in (b / "journal").iterdir()) if (b / "journal").is_dir() else []
+            bundles[b.name] = {"manifest": (b / "manifest.json").exists(), "journal_pids": pids}
+        member_pids = {str(f.ready[w]["pid"]) for w in (0, 1)}
+        if not any(member_pids <= set(b["journal_pids"]) for b in bundles.values()):
+            raise AssertionError(f"no incident bundle holds both members' journal segments: {bundles}")
+        reports = f.ask([0, 1], "report")
+        out["controller"] = {"setup": setup, "fail_burst": fails, "truncated": truncated, "quarantined": broken,
+                             "healed": healed, "leader": leaders[0], "after_heal": again, "bundles": bundles,
+                             "fleet_health": f.sup.fleet_summary(), "reports": reports}
+        log(json.dumps({"fleet_controller": out["controller"]}, default=str))
+        f.stop()
+        out["fleet_2_launches"] = dict(f.last_launches)
+    finally:
+        for f in fleets.values():
+            f.sup.stop(timeout=5.0)
+    session.manager.clear_cache()
+    members_total = {k: sum(c[k] for fl in ("fleet_2_launches", "fleet_4_launches")
+                            for c in out.get(fl, {}).values()) for k in ("segment_reduce", "run_bounds", "topk")}
+    out["member_launches"] = members_total
+    if device.type == "cuda" and (not members_total["segment_reduce"] or not members_total["run_bounds"]
+                                  or members_total["topk"]):
+        raise AssertionError(f"the members launched {members_total}")
+    out["fleet_path_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def vector_lifecycle(device, vctx: dict) -> dict:
     """The vector index's lifecycle at the end of the vector path, on its
     index: 10% more rows drawn from the same clusters (gen_embeddings'
@@ -4549,6 +5557,18 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "li_live_refresh_incremental_phases_s": lifecycle["refresh_incremental_build_phases_s"],
             "taxi_incremental_ingest_throughput_gbps": lifecycle["taxi"]["taxi_incremental_ingest_throughput_gbps"],
         }}))
+        zero_counts()
+        t0 = time.perf_counter()
+        fleet = fleet_path(device, ctx, args.sf)
+        fleet["fleet_path_wall_s"] = time.perf_counter() - t0
+        launches["fleet"] = read_counts("fleet", ("run_bounds", "segment_reduce"))
+        # The members' launches, each read in its own process.
+        launches["fleet_members"] = fleet["member_launches"]
+        log(json.dumps({"fleet_path": {k: fleet.get(k) for k in (
+                            "fleet_path_s", "fleet_path_wall_s", "fleets_ready_s", "serial_launches", "member_launches",
+                            "compute_mode", "nvidia_smi_while_4_up")},
+                        "launches": launches["fleet"], "member_launches": launches["fleet_members"]}))
+        log(json.dumps({"caches_after_path": "fleet", **cache_stats()}))
         k1_join_inputs.update(k1_life_inputs)
         k1_join_inputs.update(k1_faults_inputs)
         k1_join_inputs.update(k1_scale_inputs)
@@ -4638,10 +5658,12 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "route": "cuda",
             "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
             "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-            # K1 runs on eight paths: its launches on each, summed.
+            # K1 runs on nine paths: its launches on each, summed (the
+            # fleet's in this process and in its members).
             "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types",
                                                                      "query_surface", "lifecycle", "serve",
-                                                                     "faults", "build_scale")),
+                                                                     "faults", "build_scale", "fleet",
+                                                                     "fleet_members")),
             "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
@@ -4681,10 +5703,11 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
             "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
             # K2 runs on the join paths, the query surface, the lifecycle,
-            # the serving path and the faults path: its launches on each,
-            # summed.
+            # the serving path, the faults path and the fleet (in this
+            # process and in its members): its launches on each, summed.
             "launches": sum(launches[p]["run_bounds"] for p in ("join", "join_types", "query_surface",
-                                                                 "lifecycle", "serve", "faults")),
+                                                                 "lifecycle", "serve", "faults", "fleet",
+                                                                 "fleet_members")),
             "launches_by_path": {p: c["run_bounds"] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

@@ -22,7 +22,12 @@ shedDepthRatio), the three explain display keys, the plan validator's
 `hyperspace.build.pipeline.enabled` / `.maxInflightBytes`,
 `hyperspace.build.workers` / `.exchange.dir`,
 `hyperspace.scan.prefetch.enabled` and the process-global
-`hyperspace.device.staging.enabled`.
+`hyperspace.device.staging.enabled`; and the rest of the serving plane:
+`hyperspace.obs.http.*`, `hyperspace.obs.slo.*` and
+`hyperspace.obs.journal.*` (the last two process-global),
+`hyperspace.serve.tenant.quota.*`, `hyperspace.fleet.*` and
+`hyperspace.controller.*` but for the three keys of the controller's
+storm response and advisor sweep.
 A key the JAX package declares but the port does not read yet raises,
 naming it as not ported; an undeclared `hyperspace.*` key raises with a
 did-you-mean suggestion, as the JAX package's `check_known_key` does.
@@ -135,6 +140,65 @@ SCAN_PREFETCH_ENABLED = "hyperspace.scan.prefetch.enabled"
 # Zero-copy staging of card-bound columns (execution/staging.py).
 # Process-global: the decode path has no session handle.
 DEVICE_STAGING_ENABLED = "hyperspace.device.staging.enabled"
+# The runtime health plane (obs/http.py): /metrics, /healthz and /debug/*
+# on a stdlib server riding the QueryServer's lifecycle (port 0 =
+# ephemeral). Off: no thread, no socket.
+OBS_HTTP_ENABLED = "hyperspace.obs.http.enabled"
+OBS_HTTP_HOST = "hyperspace.obs.http.host"
+OBS_HTTP_PORT = "hyperspace.obs.http.port"
+# SLO objectives (obs/slo.py), process-global: the availability target and
+# the latency threshold the p99 objective holds served queries under.
+OBS_SLO_AVAILABILITY_TARGET = "hyperspace.obs.slo.availabilityTarget"
+OBS_SLO_LATENCY_P99_SECONDS = "hyperspace.obs.slo.latencyP99Seconds"
+# The durable telemetry journal (obs/journal.py), process-global: segments
+# under <dir>/<pid>/ ("" = <system path>/_obs), sealed at segmentBytes,
+# at most maxBytes a process, a metrics snapshot at most every
+# snapshotSeconds.
+OBS_JOURNAL_ENABLED = "hyperspace.obs.journal.enabled"
+OBS_JOURNAL_DIR = "hyperspace.obs.journal.dir"
+OBS_JOURNAL_SEGMENT_BYTES = "hyperspace.obs.journal.segmentBytes"
+OBS_JOURNAL_MAX_BYTES = "hyperspace.obs.journal.maxBytes"
+OBS_JOURNAL_SNAPSHOT_SECONDS = "hyperspace.obs.journal.snapshotSeconds"
+# Per-tenant token-bucket admission in front of the QueryServer
+# (serve/fleet/quota.py): opt-in, then every tenant-keyed submit takes a
+# token (ratePerSecond refill up to burst).
+SERVE_TENANT_QUOTA_ENABLED = "hyperspace.serve.tenant.quota.enabled"
+SERVE_TENANT_QUOTA_RATE = "hyperspace.serve.tenant.quota.ratePerSecond"
+SERVE_TENANT_QUOTA_BURST = "hyperspace.serve.tenant.quota.burst"
+# The multi-process fleet (serve/fleet/): the shared on-disk root ("" =
+# <system path>/_fleet) and its cache budget, the lease TTL and the
+# single-flight wait, and the supervisor's member count, floor, restart
+# budget and crash-loop back-off base.
+FLEET_CACHE_DIR = "hyperspace.fleet.cache.dir"
+FLEET_CACHE_MAX_BYTES = "hyperspace.fleet.cache.maxBytes"
+FLEET_LEASE_SECONDS = "hyperspace.fleet.lease.seconds"
+FLEET_SINGLEFLIGHT_WAIT_SECONDS = "hyperspace.fleet.singleflight.waitSeconds"
+FLEET_WORKERS = "hyperspace.fleet.workers"
+FLEET_MIN_WORKERS = "hyperspace.fleet.minWorkers"
+FLEET_MAX_RESTARTS = "hyperspace.fleet.maxRestarts"
+FLEET_RESTART_BACKOFF_SECONDS = "hyperspace.fleet.restartBackoffSeconds"
+# The operations controller (serve/controller.py): off by default; its
+# loop interval, per-actuation cooldown, engage / release hysteresis,
+# lifetime actuation budget, the shed ratio and quota factor of the
+# overload response, the heal's rebuild and fleet coordination, the fleet
+# scaling's saturation, ceiling and step, and the incident recorder.
+CONTROLLER_ENABLED = "hyperspace.controller.enabled"
+CONTROLLER_INTERVAL_SECONDS = "hyperspace.controller.intervalSeconds"
+CONTROLLER_COOLDOWN_SECONDS = "hyperspace.controller.cooldownSeconds"
+CONTROLLER_HYSTERESIS_TICKS = "hyperspace.controller.hysteresisTicks"
+CONTROLLER_RECOVERY_TICKS = "hyperspace.controller.recoveryTicks"
+CONTROLLER_ACTUATION_BUDGET = "hyperspace.controller.actuationBudget"
+CONTROLLER_SHED_RATIO = "hyperspace.controller.shedRatio"
+CONTROLLER_QUOTA_FACTOR = "hyperspace.controller.quotaFactor"
+CONTROLLER_HEAL_REBUILD = "hyperspace.controller.heal.rebuild"
+CONTROLLER_HEAL_COORDINATE = "hyperspace.controller.heal.coordinate"
+CONTROLLER_SCALE_SATURATION = "hyperspace.controller.scale.saturation"
+CONTROLLER_SCALE_MAX_WORKERS = "hyperspace.controller.scale.maxWorkers"
+CONTROLLER_SCALE_STEP = "hyperspace.controller.scale.step"
+CONTROLLER_INCIDENT_ENABLED = "hyperspace.controller.incident.enabled"
+CONTROLLER_INCIDENT_DIR = "hyperspace.controller.incident.dir"
+CONTROLLER_INCIDENT_MAX_BUNDLES = "hyperspace.controller.incident.maxBundles"
+CONTROLLER_INCIDENT_SEGMENTS = "hyperspace.controller.incident.segments"
 
 DEFAULT_NUM_BUCKETS = 8
 DEFAULT_CACHE_EXPIRY_SECONDS = 300.0
@@ -148,6 +212,27 @@ DEFAULT_SERVE_PLAN_CACHE_MAX_ENTRIES = 128
 DEFAULT_SERVE_RESULT_CACHE_MAX_BYTES = 256 << 20
 DEFAULT_SERVE_SHED_DEPTH_RATIO = 1.0
 DEFAULT_BUILD_MEMORY_BUDGET = 4 << 30
+DEFAULT_SERVE_TENANT_QUOTA_RATE = 100.0
+DEFAULT_SERVE_TENANT_QUOTA_BURST = 200
+DEFAULT_FLEET_CACHE_MAX_BYTES = 1 << 30
+DEFAULT_FLEET_LEASE_SECONDS = 10.0
+DEFAULT_FLEET_SINGLEFLIGHT_WAIT_SECONDS = 15.0
+DEFAULT_FLEET_WORKERS = 2
+DEFAULT_FLEET_MIN_WORKERS = 1
+DEFAULT_FLEET_MAX_RESTARTS = 3
+DEFAULT_FLEET_RESTART_BACKOFF_SECONDS = 0.5
+DEFAULT_CONTROLLER_INTERVAL_SECONDS = 1.0
+DEFAULT_CONTROLLER_COOLDOWN_SECONDS = 30.0
+DEFAULT_CONTROLLER_HYSTERESIS_TICKS = 2
+DEFAULT_CONTROLLER_RECOVERY_TICKS = 2
+DEFAULT_CONTROLLER_ACTUATION_BUDGET = 32
+DEFAULT_CONTROLLER_SHED_RATIO = 0.5
+DEFAULT_CONTROLLER_QUOTA_FACTOR = 0.5
+DEFAULT_CONTROLLER_SCALE_SATURATION = 0.75
+DEFAULT_CONTROLLER_SCALE_MAX_WORKERS = 8
+DEFAULT_CONTROLLER_SCALE_STEP = 1
+DEFAULT_CONTROLLER_INCIDENT_MAX_BUNDLES = 16
+DEFAULT_CONTROLLER_INCIDENT_SEGMENTS = 4
 
 # The keys the port reads.
 PORTED_KEYS = (
@@ -160,31 +245,24 @@ PORTED_KEYS = (
     RETRY_MAX_ATTEMPTS, RETRY_BACKOFF_BASE, RETRY_CAS_ATTEMPTS, FALLBACK_ENABLED, INDEX_CACHE_EXPIRY_SECONDS,
     INDEX_BUILD_MEMORY_BUDGET, INDEX_BUILD_CHUNK_BYTES, BUILD_PIPELINE_ENABLED, BUILD_PIPELINE_MAX_INFLIGHT_BYTES,
     BUILD_WORKERS, BUILD_EXCHANGE_DIR, SCAN_PREFETCH_ENABLED, DEVICE_STAGING_ENABLED,
+    OBS_HTTP_ENABLED, OBS_HTTP_HOST, OBS_HTTP_PORT, OBS_SLO_AVAILABILITY_TARGET, OBS_SLO_LATENCY_P99_SECONDS,
+    OBS_JOURNAL_ENABLED, OBS_JOURNAL_DIR, OBS_JOURNAL_SEGMENT_BYTES, OBS_JOURNAL_MAX_BYTES,
+    OBS_JOURNAL_SNAPSHOT_SECONDS, SERVE_TENANT_QUOTA_ENABLED, SERVE_TENANT_QUOTA_RATE, SERVE_TENANT_QUOTA_BURST,
+    FLEET_CACHE_DIR, FLEET_CACHE_MAX_BYTES, FLEET_LEASE_SECONDS, FLEET_SINGLEFLIGHT_WAIT_SECONDS, FLEET_WORKERS,
+    FLEET_MIN_WORKERS, FLEET_MAX_RESTARTS, FLEET_RESTART_BACKOFF_SECONDS, CONTROLLER_ENABLED,
+    CONTROLLER_INTERVAL_SECONDS, CONTROLLER_COOLDOWN_SECONDS, CONTROLLER_HYSTERESIS_TICKS, CONTROLLER_RECOVERY_TICKS,
+    CONTROLLER_ACTUATION_BUDGET, CONTROLLER_SHED_RATIO, CONTROLLER_QUOTA_FACTOR, CONTROLLER_HEAL_REBUILD,
+    CONTROLLER_HEAL_COORDINATE, CONTROLLER_SCALE_SATURATION, CONTROLLER_SCALE_MAX_WORKERS, CONTROLLER_SCALE_STEP,
+    CONTROLLER_INCIDENT_ENABLED, CONTROLLER_INCIDENT_DIR, CONTROLLER_INCIDENT_MAX_BUNDLES, CONTROLLER_INCIDENT_SEGMENTS,
 )
 # The JAX package's other declared keys (its `config.KNOWN_KEYS`), whose
-# modules are not ported yet.
+# modules are not ported yet (the controller's three: its storm response
+# and the advisor sweep its demotion cluster triggers).
 UNPORTED_KEYS = frozenset((
     'hyperspace.join.venue', 'hyperspace.join.venueMinMbps', 'hyperspace.build.venue', 'hyperspace.agg.venue',
     'hyperspace.sort.venue', 'hyperspace.filter.venue', 'hyperspace.device.fusedKernels',
-    'hyperspace.obs.http.enabled', 'hyperspace.obs.http.host',
-    'hyperspace.obs.http.port', 'hyperspace.obs.slo.availabilityTarget',
-    'hyperspace.obs.slo.latencyP99Seconds', 'hyperspace.obs.journal.enabled', 'hyperspace.obs.journal.dir',
-    'hyperspace.obs.journal.segmentBytes', 'hyperspace.obs.journal.maxBytes',
-    'hyperspace.obs.journal.snapshotSeconds', 'hyperspace.serve.tenant.quota.enabled',
-    'hyperspace.serve.tenant.quota.ratePerSecond', 'hyperspace.serve.tenant.quota.burst',
-    'hyperspace.fleet.cache.dir', 'hyperspace.fleet.cache.maxBytes', 'hyperspace.fleet.lease.seconds',
-    'hyperspace.fleet.singleflight.waitSeconds', 'hyperspace.fleet.workers', 'hyperspace.fleet.minWorkers',
-    'hyperspace.fleet.maxRestarts', 'hyperspace.fleet.restartBackoffSeconds', 'hyperspace.controller.enabled',
-    'hyperspace.controller.intervalSeconds', 'hyperspace.controller.cooldownSeconds',
-    'hyperspace.controller.hysteresisTicks', 'hyperspace.controller.recoveryTicks',
-    'hyperspace.controller.actuationBudget', 'hyperspace.controller.shedRatio',
-    'hyperspace.controller.quotaFactor', 'hyperspace.controller.heal.rebuild',
     'hyperspace.controller.demotionClusterSize', 'hyperspace.controller.demotionWindowSeconds',
-    'hyperspace.controller.heal.coordinate', 'hyperspace.controller.scale.saturation',
-    'hyperspace.controller.scale.maxWorkers', 'hyperspace.controller.scale.step',
-    'hyperspace.controller.stormResponse', 'hyperspace.controller.incident.enabled',
-    'hyperspace.controller.incident.dir', 'hyperspace.controller.incident.maxBundles',
-    'hyperspace.controller.incident.segments', 'hyperspace.advisor.routing.enabled',
+    'hyperspace.controller.stormResponse', 'hyperspace.advisor.routing.enabled',
     'hyperspace.advisor.routing.demoteRatio', 'hyperspace.advisor.routing.alpha',
     'hyperspace.advisor.routing.minSamples', 'hyperspace.advisor.workload.maxRecords',
     'hyperspace.advisor.lifecycle.autoCreate', 'hyperspace.advisor.lifecycle.autoVacuum',
@@ -241,6 +319,37 @@ class HyperspaceConf:
     build_workers: int = 0  # 0 = the build runs in this process
     build_exchange_dir: str = ""  # "" = <dest>.exchange next to the version dir
     scan_prefetch_enabled: bool = True
+    obs_http_enabled: bool = False  # opt-in: binds a socket
+    obs_http_host: str = "127.0.0.1"
+    obs_http_port: int = 0  # 0 = ephemeral
+    serve_tenant_quota_enabled: bool = False  # opt-in: meters tenant-keyed submits
+    serve_tenant_quota_rate: float = DEFAULT_SERVE_TENANT_QUOTA_RATE
+    serve_tenant_quota_burst: int = DEFAULT_SERVE_TENANT_QUOTA_BURST
+    fleet_cache_dir: str = ""  # "" = <system_path>/_fleet
+    fleet_cache_max_bytes: int = DEFAULT_FLEET_CACHE_MAX_BYTES
+    fleet_lease_seconds: float = DEFAULT_FLEET_LEASE_SECONDS
+    fleet_singleflight_wait_seconds: float = DEFAULT_FLEET_SINGLEFLIGHT_WAIT_SECONDS
+    fleet_workers: int = DEFAULT_FLEET_WORKERS
+    fleet_min_workers: int = DEFAULT_FLEET_MIN_WORKERS
+    fleet_max_restarts: int = DEFAULT_FLEET_MAX_RESTARTS
+    fleet_restart_backoff_seconds: float = DEFAULT_FLEET_RESTART_BACKOFF_SECONDS
+    controller_enabled: bool = False  # opt-in: the controller mutates serving state
+    controller_interval_seconds: float = DEFAULT_CONTROLLER_INTERVAL_SECONDS
+    controller_cooldown_seconds: float = DEFAULT_CONTROLLER_COOLDOWN_SECONDS
+    controller_hysteresis_ticks: int = DEFAULT_CONTROLLER_HYSTERESIS_TICKS
+    controller_recovery_ticks: int = DEFAULT_CONTROLLER_RECOVERY_TICKS
+    controller_actuation_budget: int = DEFAULT_CONTROLLER_ACTUATION_BUDGET
+    controller_shed_ratio: float = DEFAULT_CONTROLLER_SHED_RATIO
+    controller_quota_factor: float = DEFAULT_CONTROLLER_QUOTA_FACTOR
+    controller_heal_rebuild: bool = True
+    controller_heal_coordinate: bool = True
+    controller_scale_saturation: float = DEFAULT_CONTROLLER_SCALE_SATURATION
+    controller_scale_max_workers: int = DEFAULT_CONTROLLER_SCALE_MAX_WORKERS
+    controller_scale_step: int = DEFAULT_CONTROLLER_SCALE_STEP
+    controller_incident_enabled: bool = True
+    controller_incident_dir: str = ""  # "" = <fleet root>/incidents
+    controller_incident_max_bundles: int = DEFAULT_CONTROLLER_INCIDENT_MAX_BUNDLES
+    controller_incident_segments: int = DEFAULT_CONTROLLER_INCIDENT_SEGMENTS
     overrides: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -318,6 +427,101 @@ class HyperspaceConf:
             from hyperspace_tpu_torch.execution import staging
 
             staging.set_enabled(_as_bool(value))
+        elif key == OBS_HTTP_ENABLED:
+            self.obs_http_enabled = _as_bool(value)
+        elif key == OBS_HTTP_HOST:
+            self.obs_http_host = str(value)
+        elif key == OBS_HTTP_PORT:
+            self.obs_http_port = int(value)
+        elif key == SERVE_TENANT_QUOTA_ENABLED:
+            self.serve_tenant_quota_enabled = _as_bool(value)
+        elif key == SERVE_TENANT_QUOTA_RATE:
+            self.serve_tenant_quota_rate = float(value)
+        elif key == SERVE_TENANT_QUOTA_BURST:
+            self.serve_tenant_quota_burst = int(value)
+        elif key == FLEET_CACHE_DIR:
+            self.fleet_cache_dir = str(value)
+        elif key == FLEET_CACHE_MAX_BYTES:
+            self.fleet_cache_max_bytes = int(value)
+        elif key == FLEET_LEASE_SECONDS:
+            self.fleet_lease_seconds = float(value)
+        elif key == FLEET_SINGLEFLIGHT_WAIT_SECONDS:
+            self.fleet_singleflight_wait_seconds = float(value)
+        elif key == FLEET_WORKERS:
+            self.fleet_workers = int(value)
+        elif key == FLEET_MIN_WORKERS:
+            self.fleet_min_workers = int(value)
+        elif key == FLEET_MAX_RESTARTS:
+            self.fleet_max_restarts = int(value)
+        elif key == FLEET_RESTART_BACKOFF_SECONDS:
+            self.fleet_restart_backoff_seconds = float(value)
+        elif key == CONTROLLER_ENABLED:
+            self.controller_enabled = _as_bool(value)
+        elif key == CONTROLLER_INTERVAL_SECONDS:
+            self.controller_interval_seconds = float(value)
+        elif key == CONTROLLER_COOLDOWN_SECONDS:
+            self.controller_cooldown_seconds = float(value)
+        elif key == CONTROLLER_HYSTERESIS_TICKS:
+            self.controller_hysteresis_ticks = int(value)
+        elif key == CONTROLLER_RECOVERY_TICKS:
+            self.controller_recovery_ticks = int(value)
+        elif key == CONTROLLER_ACTUATION_BUDGET:
+            self.controller_actuation_budget = int(value)
+        elif key == CONTROLLER_SHED_RATIO:
+            self.controller_shed_ratio = float(value)
+        elif key == CONTROLLER_QUOTA_FACTOR:
+            self.controller_quota_factor = float(value)
+        elif key == CONTROLLER_HEAL_REBUILD:
+            self.controller_heal_rebuild = _as_bool(value)
+        elif key == CONTROLLER_HEAL_COORDINATE:
+            self.controller_heal_coordinate = _as_bool(value)
+        elif key == CONTROLLER_SCALE_SATURATION:
+            self.controller_scale_saturation = float(value)
+        elif key == CONTROLLER_SCALE_MAX_WORKERS:
+            self.controller_scale_max_workers = int(value)
+        elif key == CONTROLLER_SCALE_STEP:
+            self.controller_scale_step = int(value)
+        elif key == CONTROLLER_INCIDENT_ENABLED:
+            self.controller_incident_enabled = _as_bool(value)
+        elif key == CONTROLLER_INCIDENT_DIR:
+            self.controller_incident_dir = str(value)
+        elif key == CONTROLLER_INCIDENT_MAX_BUNDLES:
+            self.controller_incident_max_bundles = int(value)
+        elif key == CONTROLLER_INCIDENT_SEGMENTS:
+            self.controller_incident_segments = int(value)
+        elif key == OBS_SLO_AVAILABILITY_TARGET:
+            from hyperspace_tpu_torch.obs import slo as _obs_slo
+
+            _obs_slo.configure(availability_target=float(value))
+        elif key == OBS_SLO_LATENCY_P99_SECONDS:
+            from hyperspace_tpu_torch.obs import slo as _obs_slo
+
+            _obs_slo.configure(latency_threshold_s=float(value))
+        elif key == OBS_JOURNAL_ENABLED:
+            # Process-global like the rings it taps (obs/journal.py);
+            # enabling without an explicit dir derives the default root
+            # from this conf's system path.
+            from hyperspace_tpu_torch.obs import journal as _obs_journal
+
+            _obs_journal.configure(enabled=_as_bool(value))
+            if _as_bool(value):
+                _obs_journal.ensure_root(os.path.join(self.system_path, "_obs"))
+        elif key == OBS_JOURNAL_DIR:
+            from hyperspace_tpu_torch.obs import journal as _obs_journal
+
+            _obs_journal.configure(root=str(value) if value else "")
+        elif key == OBS_JOURNAL_SEGMENT_BYTES:
+            from hyperspace_tpu_torch.obs import journal as _obs_journal
+
+            _obs_journal.configure(segment_bytes=int(value))
+        elif key == OBS_JOURNAL_MAX_BYTES:
+            from hyperspace_tpu_torch.obs import journal as _obs_journal
+
+            _obs_journal.configure(max_bytes=int(value))
+        elif key == OBS_JOURNAL_SNAPSHOT_SECONDS:
+            from hyperspace_tpu_torch.obs import journal as _obs_journal
+
+            _obs_journal.configure(snapshot_s=float(value))
         elif key == FAULTS_ENABLED:
             # Process-global kill switch for the injection harness, like the
             # filesystem state it guards (imported here: faults imports no
@@ -414,4 +618,94 @@ class HyperspaceConf:
             from hyperspace_tpu_torch.execution import staging
 
             return staging.enabled()
+        if key == OBS_HTTP_ENABLED:
+            return self.obs_http_enabled
+        if key == OBS_HTTP_HOST:
+            return self.obs_http_host
+        if key == OBS_HTTP_PORT:
+            return self.obs_http_port
+        if key == SERVE_TENANT_QUOTA_ENABLED:
+            return self.serve_tenant_quota_enabled
+        if key == SERVE_TENANT_QUOTA_RATE:
+            return self.serve_tenant_quota_rate
+        if key == SERVE_TENANT_QUOTA_BURST:
+            return self.serve_tenant_quota_burst
+        if key == FLEET_CACHE_DIR:
+            return self.fleet_cache_dir
+        if key == FLEET_CACHE_MAX_BYTES:
+            return self.fleet_cache_max_bytes
+        if key == FLEET_LEASE_SECONDS:
+            return self.fleet_lease_seconds
+        if key == FLEET_SINGLEFLIGHT_WAIT_SECONDS:
+            return self.fleet_singleflight_wait_seconds
+        if key == FLEET_WORKERS:
+            return self.fleet_workers
+        if key == FLEET_MIN_WORKERS:
+            return self.fleet_min_workers
+        if key == FLEET_MAX_RESTARTS:
+            return self.fleet_max_restarts
+        if key == FLEET_RESTART_BACKOFF_SECONDS:
+            return self.fleet_restart_backoff_seconds
+        if key == CONTROLLER_ENABLED:
+            return self.controller_enabled
+        if key == CONTROLLER_INTERVAL_SECONDS:
+            return self.controller_interval_seconds
+        if key == CONTROLLER_COOLDOWN_SECONDS:
+            return self.controller_cooldown_seconds
+        if key == CONTROLLER_HYSTERESIS_TICKS:
+            return self.controller_hysteresis_ticks
+        if key == CONTROLLER_RECOVERY_TICKS:
+            return self.controller_recovery_ticks
+        if key == CONTROLLER_ACTUATION_BUDGET:
+            return self.controller_actuation_budget
+        if key == CONTROLLER_SHED_RATIO:
+            return self.controller_shed_ratio
+        if key == CONTROLLER_QUOTA_FACTOR:
+            return self.controller_quota_factor
+        if key == CONTROLLER_HEAL_REBUILD:
+            return self.controller_heal_rebuild
+        if key == CONTROLLER_HEAL_COORDINATE:
+            return self.controller_heal_coordinate
+        if key == CONTROLLER_SCALE_SATURATION:
+            return self.controller_scale_saturation
+        if key == CONTROLLER_SCALE_MAX_WORKERS:
+            return self.controller_scale_max_workers
+        if key == CONTROLLER_SCALE_STEP:
+            return self.controller_scale_step
+        if key == CONTROLLER_INCIDENT_ENABLED:
+            return self.controller_incident_enabled
+        if key == CONTROLLER_INCIDENT_DIR:
+            return self.controller_incident_dir
+        if key == CONTROLLER_INCIDENT_MAX_BUNDLES:
+            return self.controller_incident_max_bundles
+        if key == CONTROLLER_INCIDENT_SEGMENTS:
+            return self.controller_incident_segments
+        if key == OBS_SLO_AVAILABILITY_TARGET:
+            from hyperspace_tpu_torch.obs import slo as _obs_slo
+
+            return _obs_slo.TRACKER.availability_target
+        if key == OBS_SLO_LATENCY_P99_SECONDS:
+            from hyperspace_tpu_torch.obs import slo as _obs_slo
+
+            return _obs_slo.TRACKER.latency_threshold_s
+        if key == OBS_JOURNAL_ENABLED:
+            from hyperspace_tpu_torch.obs import journal as _obs_journal
+
+            return _obs_journal.configured_enabled()
+        if key == OBS_JOURNAL_DIR:
+            from hyperspace_tpu_torch.obs import journal as _obs_journal
+
+            return _obs_journal.root()
+        if key == OBS_JOURNAL_SEGMENT_BYTES:
+            from hyperspace_tpu_torch.obs import journal as _obs_journal
+
+            return _obs_journal.segment_bytes()
+        if key == OBS_JOURNAL_MAX_BYTES:
+            from hyperspace_tpu_torch.obs import journal as _obs_journal
+
+            return _obs_journal.max_bytes()
+        if key == OBS_JOURNAL_SNAPSHOT_SECONDS:
+            from hyperspace_tpu_torch.obs import journal as _obs_journal
+
+            return _obs_journal.snapshot_seconds()
         return default

@@ -3,7 +3,8 @@
 Reference parity: com/microsoft/hyperspace/HyperspaceException.scala:17-19 —
 a single exception class carrying a message, plus the typed corruption
 error the scan path raises for unreadable index data, the serving
-plane's two typed refusals (`AdmissionRejected`, `QueryTimeout`), the
+plane's typed refusals (`AdmissionRejected`, its tenant-scoped
+`QuotaExceeded`, `QueryTimeout`), the
 transient-IO classification the retry layer reads (`TransientIOError`,
 `TRANSIENT_ERRNOS`, `is_retryable`) and the plan validator's structured
 diagnostics (`PlanDiagnostic`, `PlanValidationError`, `PlanRewriteError`):
@@ -47,6 +48,20 @@ class AdmissionRejected(HyperspaceError):
         super().__init__(msg)
         self.depth = depth
         self.max_depth = max_depth
+
+
+class QuotaExceeded(AdmissionRejected):
+    """A tenant's token-bucket admission quota is exhausted
+    (serve/fleet/quota.py): the submit was refused before it cost a queue
+    slot, like a depth rejection, but scoped to one tenant id. Carries
+    `retry_after_s`, the earliest time a token will be available again.
+    Subclasses :class:`AdmissionRejected`, so `QueryServer.submit`'s
+    declared error contract covers it."""
+
+    def __init__(self, msg: str, tenant: str | None = None, retry_after_s: float | None = None):
+        super().__init__(msg)
+        self.tenant = tenant
+        self.retry_after_s = retry_after_s
 
 
 class QueryTimeout(HyperspaceError):

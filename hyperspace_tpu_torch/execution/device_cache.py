@@ -83,12 +83,18 @@ class RefCache:
         with self._lock:
             self._insert_locked(key, (), value, nbytes)
 
-    def get_or_build(self, key: tuple, base_refs: tuple, build):
+    def get_or_build(self, key: tuple, base_refs: tuple, build, wait_timeout: float | None = None):
         """`build() -> (value, nbytes)`; value cached under `key` while
         `base_refs` are pinned. Concurrent misses on one key are
         single-flighted: one caller builds, the rest wait and then hit (or
         build in turn, if the value was too large to keep or the build
-        failed)."""
+        failed).
+
+        `wait_timeout` bounds each single-flight wait: a waiter whose wait
+        expires builds locally without claiming the building slot (it
+        still belongs to the stuck builder), so an abandoned build cannot
+        block its waiters forever; the local value is still admitted.
+        None waits without bound."""
         while True:
             with self._lock:
                 hit = self._entries.get(key)
@@ -101,7 +107,13 @@ class RefCache:
                     self._building[key] = threading.Event()
                     self._count(key, False)
                     break  # this caller builds
-            ev.wait()
+            if not ev.wait(wait_timeout):
+                with self._lock:
+                    self._count(key, False)
+                value, nbytes = build()
+                with self._lock:
+                    self._insert_locked(key, base_refs, value, nbytes)
+                return value
         try:
             value, nbytes = build()
         except BaseException:

@@ -81,6 +81,18 @@ not listed raises.
 ``device.stage``      staging.stage_column, before a column goes
                       zero-copy to the card (a transient fault takes that
                       column down the copied path)
+``fleet.lease.acquire``  fleet/lease.py, before a cross-process lease claim
+``fleet.cache.read``  fleet/shared_cache.py, before a shared-entry read
+``fleet.cache.write`` fleet/shared_cache.py, before a shared-entry publish
+``fleet.cache.evict`` fleet/shared_cache.py, before each lease-held eviction
+``controller.actuate``  serve/controller.py, immediately before each
+                      controller mutation (shed engage / release, heal,
+                      scale): a crash there leaves no partial actuation
+``journal.seal``      obs/journal.py, after a sealed segment publishes but
+                      before the eviction runs
+``controller.heal.marker``  serve/controller.py, after the leader heals
+                      the shared bytes but before the generation marker
+                      publishes
 ====================  =====================================================
 
 `export_state` / `install_state` carry the harness into the pooled
@@ -122,6 +134,13 @@ KNOWN_POINTS = (
     "build.exchange.read",
     "build.manifest.merge",
     "device.stage",
+    "fleet.lease.acquire",
+    "fleet.cache.read",
+    "fleet.cache.write",
+    "fleet.cache.evict",
+    "controller.actuate",
+    "journal.seal",
+    "controller.heal.marker",
 )
 
 

@@ -424,7 +424,8 @@ class HyperspaceSession:
 
 class Hyperspace:
     """The user API (Hyperspace.scala:32-104): index creation, the
-    lifecycle actions, `ann_search` and `explain`."""
+    lifecycle actions, `ann_search`, `explain` and the operations
+    controller."""
 
     def __init__(self, session: HyperspaceSession):
         self.session = session
@@ -502,6 +503,17 @@ class Hyperspace:
         """Every index under the system path, in any state, as a pandas
         DataFrame (name, kind, columns, buckets, location, state)."""
         return self.session.manager.indexes()
+
+    def controller(self, server=None, **kwargs):
+        """The self-driving operations controller over this API
+        (serve/controller.py): a reconciliation loop consuming SLO burn
+        verdicts and the quarantine map, actuating only through the
+        crash-safe protocols this facade exposes. Gated by
+        `hyperspace.controller.enabled` (default off) — construct it, opt
+        in, and call `.start()` (or drive `.step()` yourself)."""
+        from hyperspace_tpu_torch.serve.controller import OpsController
+
+        return OpsController(self, server=server, **kwargs)
 
     def explain(self, plan: LogicalPlan, verbose: bool = False, physical: bool = False,
                 mode: str | None = None) -> str:

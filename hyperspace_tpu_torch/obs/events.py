@@ -13,8 +13,9 @@ The port declares only the events its modules emit.
 
 The ring is process-global and bounded (``hyperspace.obs.events
 .maxEvents``): old events age out, ``obs.events.dropped`` counts how many
-did, and memory stays O(max). The JAX package's durable journal tap is
-not ported.
+did, ``obs.events.ring_utilization`` shows saturation coming, and memory
+stays O(max). Every emitted record also goes to the durable telemetry
+journal (obs/journal.py) when it is on.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import itertools
 import threading
 import time
 
+from hyperspace_tpu_torch.obs import journal as _journal
 from hyperspace_tpu_torch.obs import metrics as _metrics
 from hyperspace_tpu_torch.obs import trace as _trace
 
@@ -42,12 +44,37 @@ KNOWN_EVENTS: dict[str, str] = {
     # the index that served it quarantined for the session (hyperspace.py).
     "fallback.replan": "warn",
     "index.quarantined": "warn",
+    # Fleet plane (serve/fleet/): a tenant bounced off its token-bucket
+    # quota; a crashed single-flight holder's lease was reaped by another
+    # process; the supervisor respawned a dead member, backed off a
+    # crash-looping one, or moved its member count.
+    "serve.quota_rejected": "warn",
+    "fleet.singleflight.takeover": "warn",
+    "fleet.worker.restarted": "warn",
+    "fleet.worker.crash_loop": "warn",
+    "fleet.worker.scaled": "info",
+    # The operations controller (serve/controller.py): every decision
+    # (`controller.actuation`: action, trigger, outcome), a mutation that
+    # raised, background work held while serve SLOs burn, the budget
+    # running out (once), and an incident bundle opened or closed.
+    "controller.actuation": "info",
+    "controller.actuation_failed": "error",
+    "controller.backoff": "info",
+    "controller.observe_only": "error",
+    "controller.incident": "warn",
+    # SLO plane (obs/slo.py): an objective's multi-window burn rate
+    # crossed its page threshold.
+    "slo.burn": "error",
 }
 
 DEFAULT_MAX_EVENTS = 256
 
 _EMITTED = _metrics.counter("obs.events.emitted", "structured events recorded")
 _DROPPED = _metrics.counter("obs.events.dropped", "events aged out of the bounded ring")
+_UTILIZATION = _metrics.gauge(
+    "obs.events.ring_utilization",
+    "resident events / ring capacity — saturation visible before drops start",
+)
 
 _seq = itertools.count(1)  # itertools.count is GIL-atomic
 
@@ -80,9 +107,21 @@ class _Ring:
             out = out[-int(limit):]
         return out
 
+    def counts_by_severity(self) -> dict[str, int]:
+        with self._lock:
+            out = dict.fromkeys(SEVERITIES, 0)
+            for e in self._events:
+                out[e["severity"]] += 1
+        return out
+
     def max_events(self) -> int:
         with self._lock:
             return int(self._events.maxlen or 0)
+
+    def utilization(self) -> float:
+        with self._lock:
+            cap = self._events.maxlen or 0
+            return len(self._events) / cap if cap else 0.0
 
     def clear(self) -> None:
         with self._lock:
@@ -113,6 +152,7 @@ class Event:
             "fields": fields,
         }
         RING.append(record)
+        _journal.record_event(record)  # durable tap; advisory, never raises
         return record
 
 
@@ -134,9 +174,22 @@ def recent(level: str | None = None, limit: int | None = None) -> list[dict]:
     return RING.recent(level=level, limit=limit)
 
 
+def counts_by_severity() -> dict[str, int]:
+    """How many resident ring events sit at each severity (healthz)."""
+    return RING.counts_by_severity()
+
+
 def max_events() -> int:
     """The ring's current bound (config get path)."""
     return RING.max_events()
+
+
+def refresh_gauges() -> float:
+    """Refresh `obs.events.ring_utilization` from the live ring (per
+    /metrics scrape and /healthz read). Returns the utilization."""
+    u = RING.utilization()
+    _UTILIZATION.set(u)
+    return u
 
 
 def configure(max_events: int | None = None) -> None:

@@ -28,8 +28,8 @@ Finished root traces go to the JSON-lines sink when one is configured
 (``hyperspace.obs.sink``), and the last root is kept in-process
 (:func:`last_trace`, :func:`recent_roots`); :func:`adopt_root` adds a
 worker process's finished root (shipped back as its ``to_json()`` dict by
-`parallel/procpool.py`) to both. The JAX package's durable journal tap is
-not ported.
+`parallel/procpool.py`) to both, and every finished root (local or
+adopted) to the durable telemetry journal when it is on (obs/journal.py).
 """
 
 from __future__ import annotations
@@ -198,6 +198,7 @@ class _TraceHandle:
             with _recent_lock:
                 _recent_roots.append(self._span)
             _emit(self._span)
+            _journal_root(self._span)
         return False
 
 
@@ -328,6 +329,17 @@ def adopt_root(root: "dict | None") -> None:
     with _recent_lock:
         _recent_roots.append(span)
     _emit(span)
+    _journal_root(span)
+
+
+def _journal_root(span: "Span") -> None:
+    """Durable tap: completed root spans (local and adopted) also land
+    in the telemetry journal (obs/journal.py). The journal is advisory
+    and off by default; `to_json` is only paid when it is on."""
+    from hyperspace_tpu_torch.obs import journal as _journal
+
+    if _journal.enabled():
+        _journal.record_span(span.to_json())
 
 
 def last_trace() -> "Span | None":

@@ -1,13 +1,14 @@
-"""Spawn-context worker-process lifecycle of the pooled index build.
+"""Spawn-context worker-process lifecycle, shared by the serving fleet
+and the pooled index build.
 
 A port of the JAX package's `parallel/procpool.py`. Two layers:
 
 - :class:`ProcessHost` — one ``spawn`` multiprocessing context (never
-  ``fork``: by the time the pooled build runs, the coordinator holds a
-  CUDA context, which does not survive a fork, so every worker starts
-  from a fresh interpreter), a shared stop event for cooperative drain,
-  a keyed registry of named processes, and a stop() that signals, joins
-  and terminates stragglers.
+  ``fork``: the coordinator holds a CUDA context, which does not survive
+  a fork, so every worker starts from a fresh interpreter), a shared
+  stop event for cooperative drain, a keyed registry of named processes,
+  and a stop() that signals, joins and terminates stragglers.
+  `serve/fleet/supervisor.py` layers its restart-budget monitor on top.
 
 - :class:`TaskPool` — one process per submitted task with a shared
   result queue. :meth:`TaskPool.join` is a **bounded join with a
@@ -29,11 +30,14 @@ Across the process boundary:
   so the crash sweep sees through the boundary;
 - **tracing** — each worker's finished root span ships back as its
   ``to_json()`` dict and is adopted into this process's recent-root ring
-  and sink (:func:`~hyperspace_tpu_torch.obs.trace.adopt_root`).
+  and sink (:func:`~hyperspace_tpu_torch.obs.trace.adopt_root`);
+- **journal** — the telemetry journal's state (`obs/journal.py`
+  `export_state` / `install_state`) ships into each worker, which then
+  journals under its own ``<root>/<pid>/``.
 
-The JAX package also ships its telemetry journal's state into each
-worker; the journal (`obs/journal.py`) is not ported, so neither is that
-hook. Workers never touch the card.
+Build workers never touch the card; the serving fleet's members
+(serve/fleet/supervisor.py) ride :class:`ProcessHost` and each opens a
+CUDA context of its own.
 """
 
 from __future__ import annotations
@@ -139,6 +143,11 @@ def _task_entry(result_q, task_id, fn, args, env) -> None:
     if fstate is not None:
         faults.install_state(fstate)
     obs_trace.set_enabled(bool(env.get("obs_enabled", True)))
+    jstate = env.get("journal")
+    if jstate is not None:
+        from hyperspace_tpu_torch.obs import journal as obs_journal
+
+        obs_journal.install_state(jstate)
     try:
         result = fn(*args)
         root = obs_trace.last_trace()
@@ -181,7 +190,13 @@ class TaskPool:
         """Spawn one worker running ``fn(*args)``; its return value comes
         back from :meth:`join`. The coordinator's fault-injection state
         and tracer enablement ship along."""
-        env = {"faults": faults.export_state(), "obs_enabled": obs_trace.enabled()}
+        from hyperspace_tpu_torch.obs import journal as obs_journal
+
+        env = {
+            "faults": faults.export_state(),
+            "obs_enabled": obs_trace.enabled(),
+            "journal": obs_journal.export_state(),
+        }
         p = self._host.spawn(task_id, _task_entry, (self._q, task_id, fn, args, env))
         self._pending[task_id] = p
 

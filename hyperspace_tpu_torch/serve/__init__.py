@@ -4,8 +4,10 @@
 front of one `HyperspaceSession` (`session.serve()`); `PlanCache` and
 `ResultCache` memoize optimized plans and whole results under versioned
 keys that index mutations and source appends invalidate structurally. A
-port of the JAX package's `serve/` without its operations controller and
-fleet.
+port of the JAX package's `serve/`: the multi-process fleet
+(`serve/fleet/`: shared caches, single-flight, tenant quotas, the
+supervisor) and the operations controller (`serve/controller.py`,
+`Hyperspace.controller()`) too.
 """
 
 from hyperspace_tpu_torch.serve.plan_cache import PlanCache, collection_log_versions, versioned_plan_key

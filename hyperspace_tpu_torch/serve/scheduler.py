@@ -34,8 +34,12 @@ default stream for every thread: work from all workers is ordered on the
 card, so a tensor one worker cached is safe for another to read. The
 kernel wrappers count their launches under a lock (ops/kernels.py).
 
-Left out: tenant quotas (a `quotas=` other than None / False raises), the
-HTTP health plane and the fleet's cross-process single-flight.
+Tenant quotas (`quotas=`, serve/fleet/quota.py) run before admission;
+the controller moves the shed depth at run time (`set_shed_depth`); with
+`hyperspace.obs.http.enabled` the server holds the process's health
+plane (obs/http.py, `health_endpoint`); a result cache with a
+`single_flight` (the fleet's shared cache) executes a fleet-wide cold
+miss once.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import collections
 import threading
 import time
 
-from hyperspace_tpu_torch.exceptions import AdmissionRejected, HyperspaceError, QueryTimeout
+from hyperspace_tpu_torch.exceptions import AdmissionRejected, QueryTimeout
 from hyperspace_tpu_torch.obs import events as obs_events
 from hyperspace_tpu_torch.obs import metrics as obs_metrics
 from hyperspace_tpu_torch.obs import trace as obs_trace
@@ -167,8 +171,18 @@ class QueryServer:
             self.max_queue_depth if ratio >= 1.0
             else max(1, int(self.max_queue_depth * ratio))
         )
-        if quotas not in (None, False):
-            raise HyperspaceError("tenant quotas (serve/fleet/quota.py) are not ported yet")
+        # Per-tenant token-bucket admission (serve/fleet/quota.py). An
+        # explicit TenantQuotas instance is shareable across servers;
+        # True/None follow `hyperspace.serve.tenant.quota.enabled`.
+        if quotas is None:
+            quotas = conf.serve_tenant_quota_enabled
+        if quotas is True:
+            from hyperspace_tpu_torch.serve.fleet.quota import TenantQuotas
+
+            quotas = TenantQuotas(
+                rate=conf.serve_tenant_quota_rate, burst=conf.serve_tenant_quota_burst
+            )
+        self.quotas = quotas or None
         # True/False force the caches on/off; None follows config; an
         # instance is used as-is (shareable across servers).
         if plan_cache is None:
@@ -196,6 +210,16 @@ class QueryServer:
         ]
         for t in self._threads:
             t.start()
+        # The runtime health plane: opt-in /metrics + /healthz endpoints
+        # sharing this server's lifecycle. Off: one conf read, no import,
+        # no thread, no socket.
+        self._http = None
+        if conf.obs_http_enabled:
+            from hyperspace_tpu_torch.obs import http as obs_http
+
+            self._http = obs_http.acquire(host=conf.obs_http_host, port=conf.obs_http_port)
+            self._http.attach_session(session)
+            self._http.attach_server(self)
 
     # -- client API -------------------------------------------------------
     def submit(
@@ -203,11 +227,18 @@ class QueryServer:
         plan,
         priority: bool = False,
         timeout: float | None = None,
+        tenant: str | None = None,
     ) -> QueryHandle:
         """Enqueue a plan; returns its :class:`QueryHandle` immediately.
         Raises :class:`AdmissionRejected` when the queue is full, the
         saturation threshold sheds a non-priority submit, or the server
-        is draining/shut down."""
+        is draining/shut down — and its :class:`QuotaExceeded` subclass
+        when `tenant`'s token bucket is dry (tenant-less submits are
+        unmetered)."""
+        if self.quotas is not None and tenant is not None:
+            # Quota admission runs FIRST: a throttled tenant never costs
+            # a queue slot, a lock acquisition, or a trace span.
+            self.quotas.admit(tenant)
         timeout_s = self.timeout_seconds if timeout is None else float(timeout)
         handle = QueryHandle(timeout_s)
         with obs_trace.span("serve.enqueue", priority=bool(priority)):
@@ -250,9 +281,12 @@ class QueryServer:
                 self._cv.notify()
         return handle
 
-    def run(self, plan, priority: bool = False, timeout: float | None = None):
+    def run(self, plan, priority: bool = False, timeout: float | None = None,
+            tenant: str | None = None):
         """Submit and block for the result — the one-call client path."""
-        return self.submit(plan, priority=priority, timeout=timeout).result(timeout=timeout)
+        return self.submit(
+            plan, priority=priority, timeout=timeout, tenant=tenant
+        ).result(timeout=timeout)
 
     @property
     def plan_cache(self) -> PlanCache | None:
@@ -265,6 +299,20 @@ class QueryServer:
     def queue_depth(self) -> int:
         with self._cv:
             return len(self._prio) + len(self._fifo)
+
+    def set_shed_depth(self, depth: int) -> int:
+        """Move the graceful-saturation shed threshold at run time — the
+        ops controller's load-shedding actuator (serve/controller.py):
+        while serve SLOs page, non-priority traffic is refused earlier so
+        the queue drains instead of feeding the burn. Clamped to
+        [1, maxQueueDepth]; returns the applied value."""
+        with self._cv:
+            self.shed_depth = max(1, min(int(depth), self.max_queue_depth))
+            return self.shed_depth
+
+    def get_shed_depth(self) -> int:
+        with self._cv:
+            return self.shed_depth
 
     def saturation(self) -> dict:
         """Point-in-time scheduler load: how full the admission queue is
@@ -279,6 +327,13 @@ class QueryServer:
                 "shed_depth": self.shed_depth,
                 "accepting": self._accepting,
             }
+
+    @property
+    def health_endpoint(self):
+        """The attached HealthServer (None unless
+        `hyperspace.obs.http.enabled` was true at construction)."""
+        with self._cv:
+            return self._http
 
     # -- lifecycle --------------------------------------------------------
     def drain(self, timeout: float | None = None) -> bool:
@@ -322,6 +377,16 @@ class QueryServer:
                 self._cv.notify_all()
         for t in self._threads:
             t.join(timeout=5.0)
+        # The health plane rides the server's lifecycle: drop this server
+        # from /healthz and release the shared endpoint (the last server
+        # out closes the socket). Claimed once across repeated shutdowns.
+        with self._cv:
+            http, self._http = self._http, None
+        if http is not None:
+            from hyperspace_tpu_torch.obs import http as obs_http
+
+            http.detach_server(self)
+            obs_http.release()
 
     def __enter__(self) -> "QueryServer":
         return self
@@ -400,11 +465,29 @@ class QueryServer:
         if rc is None:
             return self._run_and_cache(plan, handle, None, None)
         key = rc.key(self.session, plan)
-        hit = rc.get(key)
-        if hit is not None:
-            handle.cache_hit = True
-            handle.stats = {"result_cache": "hit"}
+
+        def observe(hit):
+            if hit is not None:
+                handle.cache_hit = True
+                handle.stats = {"result_cache": "hit"}
             return hit
+
+        first = observe(rc.get(key))
+        if first is not None:
+            return first
+        sf = getattr(rc, "single_flight", None)
+        if sf is not None:
+            # Fleet-wide cold miss: one process across the fleet executes
+            # and publishes the shared entry; the rest observe it via the
+            # poll, or run locally when the wait budget expires.
+            from hyperspace_tpu_torch.serve.fleet.singleflight import key_name
+
+            peek = getattr(rc, "peek", rc.get)
+            return sf.run(
+                f"result-{key_name(key)}",
+                build=lambda: self._run_and_cache(plan, handle, rc, key),
+                check=lambda: observe(peek(key)),
+            )
         return self._run_and_cache(plan, handle, rc, key)
 
     def _run_and_cache(self, plan, handle: QueryHandle, rc, key):

@@ -40,6 +40,40 @@ The port declares only the counters its modules increment:
 - ``device.stage.bytes_copied``  scalar column bytes copied on the host
   first (nulls, casts, several chunks, a column bound for the CPU,
   staging off or a staging fault)
+- ``fleet.shared_cache.hits`` / ``.misses``  disk-backed shared plan and
+  result cache lookups (serve/fleet/shared_cache.py)
+- ``fleet.shared_cache.evictions``  entries removed by the lease-held
+  byte-budget eviction
+- ``fleet.shared_cache.errors``  advisory shared-cache IO failures (a torn
+  or unreadable entry is a miss; the caller recomputes)
+- ``fleet.singleflight.leader``  cross-process single-flight claims won
+  (serve/fleet/singleflight.py)
+- ``fleet.singleflight.follower_hits``  waits that ended by observing the
+  leader's published artifact
+- ``fleet.singleflight.takeovers``  stale leases reaped from a crashed
+  holder
+- ``fleet.singleflight.local_fallbacks``  waits that expired and fell back
+  to a local build
+- ``fleet.supervisor.restarts``  crashed fleet members respawned by the
+  supervisor (serve/fleet/supervisor.py)
+- ``fleet.worker.scaled``  members added or drained by
+  ``FleetSupervisor.set_target_workers``
+- ``controller.ticks``  reconciliation steps the operations controller ran
+  while armed (serve/controller.py)
+- ``controller.actuations``  mutations it executed (shed engage, heal,
+  scale)
+- ``controller.actuation_failures``  actuations that raised an ordinary
+  Exception (recorded; reconciliation continued)
+- ``controller.deferred``  actuations decided on but held back (cooldown,
+  background work backed off while serve SLOs burn, observe-only)
+- ``controller.heals``  quarantined indexes the controller healed
+- ``controller.scale``  fleet scale actuations it executed
+- ``controller.health_probe_errors``  saturation probes that raised
+- ``controller.incidents`` / ``controller.incident_errors``  incident
+  bundles opened, and advisory failures writing them
+- ``obs.journal.records`` / ``.errors`` / ``.segments_sealed`` /
+  ``.evictions``  the telemetry journal's appends, swallowed IO failures,
+  published segments and budget evictions (obs/journal.py)
 """
 
 from __future__ import annotations
@@ -64,6 +98,29 @@ KNOWN_COUNTERS = (
     "build.worker.crashes",
     "device.stage.bytes_zero_copy",
     "device.stage.bytes_copied",
+    "fleet.shared_cache.hits",
+    "fleet.shared_cache.misses",
+    "fleet.shared_cache.evictions",
+    "fleet.shared_cache.errors",
+    "fleet.singleflight.leader",
+    "fleet.singleflight.follower_hits",
+    "fleet.singleflight.takeovers",
+    "fleet.singleflight.local_fallbacks",
+    "fleet.supervisor.restarts",
+    "fleet.worker.scaled",
+    "controller.ticks",
+    "controller.actuations",
+    "controller.actuation_failures",
+    "controller.deferred",
+    "controller.heals",
+    "controller.scale",
+    "controller.health_probe_errors",
+    "controller.incidents",
+    "controller.incident_errors",
+    "obs.journal.records",
+    "obs.journal.errors",
+    "obs.journal.segments_sealed",
+    "obs.journal.evictions",
 )
 
 _counters = {name: _metrics.counter(name) for name in KNOWN_COUNTERS}

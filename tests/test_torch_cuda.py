@@ -1290,3 +1290,39 @@ def test_a_staged_column_lands_on_the_card_without_a_host_copy(cuda, tmp_path):
         assert read() == (0, n * (8 + 4 + 4))
     finally:
         staging.set_enabled(True)
+
+
+@pytest.mark.gpu
+def test_a_two_member_fleet_serves_on_the_card(cuda, tmp_path):
+    """Two fleet members spawned on the card: each opens a CUDA context
+    of its own and serves a Q1-shaped aggregate through the fleet's shared
+    plan cache, launching K1 in its own process, with the CPU's answer."""
+    import sys
+    from pathlib import Path
+
+    from hyperspace_tpu_torch import HyperspaceSession
+    from hyperspace_tpu_torch.datagen import gen_tpch_lineitem
+    from hyperspace_tpu_torch.parallel.procpool import spawn_context
+    from hyperspace_tpu_torch.serve.fleet import FleetSupervisor
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import _torch_fleet as members
+
+    gen_tpch_lineitem(tmp_path / "li", sf=0.002)
+    cpu = HyperspaceSession(system_path=str(tmp_path / "idx"), device="cpu")
+    want = cpu.to_pandas(cpu.parquet(tmp_path / "li").aggregate(["l_returnflag", "l_linestatus"], [
+        ("sum", "l_quantity", "q"), ("min", "l_extendedprice", "lo"), ("max", "l_discount", "hi"),
+        ("count", None, "c")]))
+    out_q = spawn_context().Queue()
+    sup = FleetSupervisor(members.card_member, fleet_dir=str(tmp_path / "fleet"), n=2,
+                          args=(str(tmp_path / "li"), str(tmp_path / "idx"), out_q), max_restarts=0)
+    with sup:
+        sup.start()
+        got = [out_q.get(timeout=300) for _ in range(2)]
+    assert len({g["pid"] for g in got}) == 2
+    keys = ["l_returnflag", "l_linestatus"]
+    for g in got:
+        assert g["cuda_initialized"] and g["device"].startswith("cuda") and g["k1_launches"] > 0
+        assert g["forbidden"] == []
+        served = pd.DataFrame(g["rows"]).sort_values(keys).reset_index(drop=True)
+        pd.testing.assert_frame_equal(served, want.sort_values(keys).reset_index(drop=True), check_dtype=False)

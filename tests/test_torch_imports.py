@@ -1,9 +1,10 @@
 """The port stands alone: importing it loads neither JAX nor the JAX package.
 
 A fresh interpreter imports `hyperspace_tpu_torch` and every one of its
-modules and reports which forbidden modules ended up in `sys.modules`;
-and a worker spawned by the pooled build's pool, after running a real p1
-shard of `execution/build_exchange.py`, reports the same.
+modules and reports which forbidden modules ended up in `sys.modules`; a
+worker spawned by the pooled build's pool, after running a real p1 shard
+of `execution/build_exchange.py`, reports the same, and so does a serving
+fleet member the supervisor spawns.
 """
 
 import json
@@ -79,6 +80,18 @@ def test_port_imports_without_jax_or_the_jax_package():
         "hyperspace_tpu_torch.execution.prefetch",
         "hyperspace_tpu_torch.parallel",
         "hyperspace_tpu_torch.parallel.procpool",
+        "hyperspace_tpu_torch.obs.journal",
+        "hyperspace_tpu_torch.obs.slo",
+        "hyperspace_tpu_torch.obs.runtime",
+        "hyperspace_tpu_torch.obs.export",
+        "hyperspace_tpu_torch.obs.http",
+        "hyperspace_tpu_torch.serve.fleet",
+        "hyperspace_tpu_torch.serve.fleet.lease",
+        "hyperspace_tpu_torch.serve.fleet.singleflight",
+        "hyperspace_tpu_torch.serve.fleet.quota",
+        "hyperspace_tpu_torch.serve.fleet.shared_cache",
+        "hyperspace_tpu_torch.serve.fleet.supervisor",
+        "hyperspace_tpu_torch.serve.controller",
     ):
         assert name in report["modules"]
 
@@ -115,6 +128,24 @@ def test_a_pooled_build_worker_imports_neither(tmp_path):
         pool.submit(0, _worker_census, task)
         census = pool.join()[0]
     assert census == {"rows": 500, "forbidden": []}
+
+
+def test_a_spawned_fleet_member_imports_neither(tmp_path):
+    """A member the fleet supervisor spawns imports every module of the
+    port and serves through the fleet's caches, loading neither."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_fleet as members
+
+    from hyperspace_tpu_torch.parallel.procpool import spawn_context
+    from hyperspace_tpu_torch.serve.fleet import FleetSupervisor
+
+    out_q = spawn_context().Queue()
+    sup = FleetSupervisor(members.import_member, fleet_dir=str(tmp_path / "fleet"), n=1, args=(out_q,),
+                          max_restarts=0)
+    with sup:
+        sup.start()
+        census = out_q.get(timeout=180)
+    assert census["forbidden"] == [] and census["pid"] != 0
 
 
 def test_port_sources_never_name_jax():

@@ -7,8 +7,9 @@ results exactly, and those equal the JAX package's serial results on the
 same data (rows as multisets; integral values exactly, float sums within
 1e-12 relative). Added here: a tensor written in place in a cached result
 makes the next lookup miss; the kernel wrappers' launch counter stays
-exact under threads; the pieces left out (tenant quotas, the HTTP health
-plane) raise as not ported.
+exact under threads; the pieces left out (the operations controller's
+ingest pause and its storm-response and advisor-sweep keys) raise as not
+ported.
 """
 
 from __future__ import annotations
@@ -347,10 +348,13 @@ class TestAdmission:
             server.shutdown()
 
     def test_what_is_not_ported_raises(self, tmp_system_path):
+        from hyperspace_tpu_torch import Hyperspace
+
         session = _session(tmp_system_path)
         with pytest.raises(HyperspaceError, match="not ported"):
-            QueryServer(session, quotas=True)
-        for key in ("hyperspace.obs.http.enabled", "hyperspace.serve.tenant.quota.enabled"):
+            Hyperspace(session).controller(ingest=object())
+        for key in ("hyperspace.controller.stormResponse", "hyperspace.controller.demotionClusterSize",
+                    "hyperspace.controller.demotionWindowSeconds"):
             with pytest.raises(HyperspaceError, match="not ported"):
                 session.conf.set(key, True)
 

@@ -211,6 +211,29 @@ What it does, in order (any failure raises and exits non-zero):
    `fleet_shared_result_cache`, `fleet_refresh_churn`,
    `fleet_controller`); the members' launches are read in their own
    processes and join the kernels line as `fleet_members`;
+3i. the advisor (`advisor_path`), on the same session, store and plans
+   (`advisor_plans`: the 12 lookups, the 1% range, Q1, revenue, J1-J3,
+   Q13, DPPk, q43, q67) at SF1, the workload log emptied first: (a)
+   benchmarks/bench_advisor.py's three phases with adaptive routing on
+   (minSamples 2): raw (index off), indexed (demotion suppressed), routed
+   (demoteRatio 1), each plan 2 untimed runs with the ledger off, then 3
+   recorded; every routed run takes the decision the ledger's EMAs give
+   just before it, a demoted run the raw run's physical operators, join
+   paths and K1 / K2 launches and no index scan, a kept one the indexed
+   run's; routed, raw and indexed answers agree (`same_rows`, q43 / q67
+   against the query surface's reference) and explain's routing line
+   agrees with the ledger; medians, routed / raw and the number demoted
+   print, no time is gated (one `advisor_query` line a plan); (b) a full
+   refresh of `customer_custkey` moves the collection stamp: one
+   invalidation, every decision indexed again; (c) a cold index over a
+   table of its own and 12 cold `l_partkey` lookups: `recommend()` gives
+   their create and the cold index's drop, a sweep with autoCreate and
+   autoVacuum builds `adv_lineitem_l_partkey` on the card through the
+   Action log and vacuums the cold index, and the next lookup reads 1 of
+   200 bucket files and equals pyarrow; (d) the operations controller, the
+   lifecycle gates off: one step drains (a)'s demotions from the event
+   ring and makes exactly one audited `advisor.sweep`, which mutates
+   nothing; K1 and K2 launch, K3 does not;
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
@@ -259,7 +282,11 @@ What it does, in order (any failure raises and exits non-zero):
    a profiled window that misses a kernel it should hold fails the run;
 6. prints one JSON line describing every kernel, the card's name and
    power limit (nvidia-smi's answer; through NVML, the library it reads,
-   if it gave none), and, last, `{"ok": true, "device": {...}}`.
+   if it gave none), the script's wall, and, last,
+   `{"ok": true, "device": {...}}`.
+
+A phase that fails prints `{"failed_phase": "<name>", "error": "<type:
+message>"}` to stdout and stderr before the exception propagates (`phase`).
 
 It needs a CUDA card and the repository around it; without either it
 fails before printing any result.
@@ -268,6 +295,7 @@ fails before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -328,6 +356,26 @@ def sum_tolerance(rows, abs_sum):
     tests, whose groups are small enough for the floor to hold."""
     rows = np.asarray(rows, dtype=np.float64)
     return np.maximum(1e-12, 2 * np.maximum(rows - 1, 0) * UNIT_ROUNDOFF) * np.asarray(abs_sum)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Names the phase a failure came from: an exception inside first
+    prints one JSON line, {"failed_phase": name, "error": "<type: message>"},
+    to stdout and to stderr, then propagates unchanged (reported once,
+    by the innermost phase)."""
+    try:
+        yield
+    except BaseException as e:
+        if not getattr(e, "_chip_smoke_phase", None):
+            line = json.dumps({"failed_phase": name, "error": f"{type(e).__name__}: {e}"[:4000]})
+            print(line, flush=True)
+            print(line, file=sys.stderr, flush=True)
+            try:
+                e._chip_smoke_phase = name
+            except AttributeError:
+                pass
+        raise
 
 
 def log(*args) -> None:
@@ -2240,6 +2288,8 @@ def query_surface_path(device, ctx: dict, sf: float) -> dict:
             raise AssertionError(f"{query}: {len(calls)} K1 calls through the aggregate, expected {least} or more")
         k1_inputs[label] = calls[pick]
     ctx["k1_surface_inputs"] = k1_inputs
+    # What the advisor phase holds its float-ordered plans to.
+    ctx["surface_refs"] = {name: refs[name] for name in ("q43", "q67")}
     return out
 
 
@@ -5084,6 +5134,376 @@ def fleet_path(device, ctx: dict, sf: float) -> dict:
     return out
 
 
+# -- the advisor (3i) ---------------------------------------------------------
+
+ADVISOR_WARMUPS = 2  # untimed runs a plan a phase, with the routing ledger off
+ADVISOR_RUNS = 3  # recorded runs a plan a phase
+ADVISOR_MIN_SAMPLES = 2  # hyperspace.advisor.routing.minSamples in 3i
+ADVISOR_SUPPRESS = 1e9  # demoteRatio while the indexed phase measures
+ADVISOR_HOT_KEYS = 12  # (c)'s l_partkey lookups, keys drawn with seed 12
+ADVISOR_HOT = "adv_lineitem_l_partkey"  # the index the sweep creates for them
+ADVISOR_COLD = "cold_audit_idx"  # the index no query touches
+ADVISOR_REFRESHED = "customer_custkey"  # (b)'s committed mutation: Q13's side
+# The plans whose results are aggregates: their float columns are sums and
+# means of non-negative terms, within 2·N·u across paths.
+ADVISOR_AGGREGATES = ("Q1", "revenue", "J2", "J3", "Q13", "DPPk")
+
+
+def advisor_plans(pkg, ctx: dict, sf: float) -> dict:
+    """3i's plans, name -> plan, from the earlier phases': the main path's
+    12 lookups, its 1% range, Q1 and revenue, the join path's J1-J3, the
+    join-types path's Q13 and DPPk and the query surface's q43 and q67."""
+    from hyperspace_tpu_torch.datagen import TPCH_SF1_ORDERS_ROWS
+
+    col, lit = pkg.col, pkg.lit
+    li = ctx["lineitem"]
+    domain = int(TPCH_SF1_ORDERS_ROWS * sf)
+    keys = np.random.default_rng(7).integers(0, domain, 12).astype(np.int64)
+    plans = {f"lookup {int(k)}": li.filter(col("l_orderkey") == int(k)).select(
+        "l_orderkey", "l_partkey", "l_extendedprice") for k in keys}
+    lo, hi = int(domain * 0.47), int(domain * 0.48)
+    plans["range"] = li.filter((col("l_orderkey") >= lit(lo)) & (col("l_orderkey") <= lit(hi))).select(
+        "l_orderkey", "l_partkey", "l_extendedprice")
+    plans["Q1"] = li.aggregate(Q1_GROUP, Q1_AGGS)
+    plans["revenue"] = li.aggregate(["l_orderkey"], [("sum", "l_extendedprice", "rev")])
+    plans.update(ctx["join_queries"])
+    jt = join_type_plans(pkg, li, ctx["orders"], ctx["customer"], sf)
+    plans["Q13"], plans["DPPk"] = jt["Q13"][0], jt["DPPk"][0]
+    surface = query_surface_plans(pkg, ctx["surface_tables"])
+    plans["q43"], plans["q67"] = surface["q43"], surface["q67"]
+    return plans
+
+
+def sorted_rows(result, tolerant: tuple):
+    """A result as a pyarrow table with strings decoded, its rows sorted
+    by every column but the `tolerant` ones (for `same_rows`)."""
+    import pyarrow as pa
+
+    t = result.to_arrow()
+    t = pa.table({c: t[c].cast(t[c].type.value_type) if pa.types.is_dictionary(t[c].type) else t[c]
+                  for c in t.column_names})
+    return t.sort_by([(c, "ascending") for c in t.column_names if c not in tolerant])
+
+
+def same_rows(name: str, a, b, tolerant: tuple, rows: int) -> None:
+    """Two results of one query over two paths (the index's, the
+    source's), as `sorted_rows` gives them: the same rows as multisets,
+    strings compared as strings; the `tolerant` columns (sums and means
+    of non-negative terms) within 2·rows·u of each other, the rest
+    exact."""
+    import pyarrow.compute as pc
+
+    if a.column_names != b.column_names or a.num_rows != b.num_rows:
+        raise AssertionError(f"{name}: {a.num_rows} rows of {a.column_names}, the other path "
+                             f"{b.num_rows} of {b.column_names}")
+    for c in a.column_names:
+        if c not in tolerant:
+            if not a[c].equals(b[c]):
+                raise AssertionError(f"{name}: column {c} differs between the paths")
+            continue
+        x = a[c].to_numpy(zero_copy_only=False).astype(np.float64)
+        y = b[c].to_numpy(zero_copy_only=False).astype(np.float64)
+        nulls = np.asarray(pc.is_null(a[c])), np.asarray(pc.is_null(b[c]))
+        if not np.array_equal(*nulls):
+            raise AssertionError(f"{name}: the nulls of {c} differ between the paths")
+        ok = np.abs(x - y) <= 2 * rows * UNIT_ROUNDOFF * np.abs(y)
+        if not bool((ok | nulls[0]).all()):
+            raise AssertionError(f"{name}: {c} differs between the paths beyond 2·N·u")
+
+
+def advisor_path(device, ctx: dict, sf: float) -> dict:
+    """3i: the advisor on the earlier phases' session, store and plans
+    (`advisor_plans`), at SF1 with nothing cut. The session's workload log
+    starts empty: the advisor's evidence is this phase's.
+
+    (a) Three phases over every plan, as benchmarks/bench_advisor.py runs
+    them, with routing on (minSamples ADVISOR_MIN_SAMPLES): raw (index
+    off), indexed (demoteRatio ADVISOR_SUPPRESS), routed (the default
+    ratio); each plan ADVISOR_WARMUPS untimed runs with the ledger off,
+    then ADVISOR_RUNS recorded ones. Every routed run's decision must be
+    the one the ledger's own EMAs give just before it
+    (`indexed > demoteRatio x raw`, both sides sampled minSamples times);
+    a raw-routed run has no index scan, the raw run's physical operators
+    (so its join paths) and its K1 / K2 launches; an indexed-routed run
+    the indexed run's. The last routed, raw and indexed results agree
+    (`same_rows`; q43 and q67 each against the query surface's pandas
+    reference), and explain's routing line agrees with the ledger. The
+    medians per query, routed / raw and the number demoted print; no time
+    is gated. (b) A full refresh of `customer_custkey` (Q13's side) moves
+    the collection stamp: one invalidation, every decision indexed again.
+    (c) A cold index over a table of its own (2,000 rows) and 12 cold
+    `l_partkey` lookups on lineitem: `recommend()` gives a create for
+    them and a drop for the cold index; a sweep with autoCreate and
+    autoVacuum on builds the first on the card through the Action log and
+    vacuums the second (and any other index the phase did not touch); the
+    next lookup reads one of the new index's bucket files and equals
+    pyarrow. (d) The operations controller on an injected clock, the
+    lifecycle gates off, demotionClusterSize at most the demotions (a)
+    emitted: one step drains them from the event ring and makes exactly
+    one audited `advisor.sweep` (trigger `routing.demotion_cluster`),
+    which mutates nothing."""
+    import pandas as pd
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig, col, faults
+    from hyperspace_tpu_torch.advisor.workload import used_index_names
+    from hyperspace_tpu_torch.execution import device_cache as dc
+    from hyperspace_tpu_torch.metadata.log_manager import IndexLogManager
+    from hyperspace_tpu_torch.obs import events as obs_events
+    from hyperspace_tpu_torch.obs import metrics as obs_metrics
+    from hyperspace_tpu_torch.obs import slo as obs_slo
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+    from hyperspace_tpu_torch.serve.plan_cache import collection_log_versions
+    from hyperspace_tpu_torch.signature import plan_signature
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t_phase = time.perf_counter()
+    session, workdir, cache = ctx["session"], ctx["workdir"], ctx["plan_cache"]
+    hs = Hyperspace(session)
+    conf = session.conf
+    faults.reset()
+    session.enable_hyperspace()
+    session.workload.clear()
+    rows = ctx["source"].num_rows
+    plans = advisor_plans(htorch, ctx, sf)
+    sigs = {name: plan_signature(plan) for name, plan in plans.items()}
+    if len(set(sigs.values())) != len(sigs):
+        raise AssertionError(f"3i: two plans share a signature: {sigs}")
+    conf.set("hyperspace.advisor.routing.enabled", True)
+    conf.set("hyperspace.advisor.routing.minSamples", ADVISOR_MIN_SAMPLES)
+    ledger = session.routing_ledger()
+    ratio = float(conf.advisor_routing_demote_ratio)
+    min_n = ADVISOR_MIN_SAMPLES
+    refs = ctx["surface_refs"]
+    out: dict = {"plans": list(plans), "min_samples": min_n, "runs": ADVISOR_RUNS}
+    events_seq0 = max([e["seq"] for e in obs_events.recent()] or [0])
+
+    def run(plan):
+        k1, k2 = segment_reduce.launches, run_bounds.launches
+        t0 = time.perf_counter()
+        o = session.run_query(plan, plan_cache=cache)
+        sync()
+        wall = time.perf_counter() - t0
+        return o, wall, {"segment_reduce": segment_reduce.launches - k1, "run_bounds": run_bounds.launches - k2}
+
+    def expected(sig) -> str:
+        e = ledger.snapshot()["entries"].get(sig, {})
+        idx, raw = e.get("indexed"), e.get("raw")
+        if idx and raw and idx[1] >= min_n and raw[1] >= min_n and idx[0] > ratio * raw[0]:
+            return "raw"
+        return "indexed"
+
+    def index_scans(o) -> list:
+        return [s.root for s in o.optimized_plan.leaves() if s.bucket_spec is not None]
+
+    phases: dict = {}
+    for phase in ("raw", "indexed", "routed"):
+        t0 = time.perf_counter()
+        session.disable_hyperspace() if phase == "raw" else session.enable_hyperspace()
+        conf.set("hyperspace.advisor.routing.demoteRatio", ADVISOR_SUPPRESS if phase == "indexed" else ratio)
+        rec: dict = {}
+        for name, plan in plans.items():
+            conf.set("hyperspace.advisor.routing.enabled", False)
+            for _ in range(ADVISOR_WARMUPS):
+                run(plan)
+            conf.set("hyperspace.advisor.routing.enabled", True)
+            walls, decisions = [], []
+            for _ in range(ADVISOR_RUNS):
+                want = expected(sigs[name]) if phase == "routed" else None
+                o, wall, launched = run(plan)
+                walls.append(wall)
+                routing = o.stats["advisor_routing"]
+                decision = routing["decision"]
+                if phase == "routed":
+                    if routing != {"decision": want, "demoted": want == "raw"}:
+                        raise AssertionError(f"3i {name}: routed {routing}, the ledger's EMAs give {want}")
+                    ref = phases["raw" if decision == "raw" else "indexed"][name]
+                    ops = preorder_ops(o.physical_plan)
+                    if decision == "raw" and index_scans(o):
+                        raise AssertionError(f"3i {name}: demoted, yet the plan reads {index_scans(o)}")
+                    if ops != ref["ops"] or launched != ref["launches"]:
+                        raise AssertionError(f"3i {name} routed {decision}: {ops}, {launched}; the {decision} "
+                                             f"run {ref['ops']}, {ref['launches']}")
+                elif decision != ("raw" if phase == "raw" else "indexed"):
+                    raise AssertionError(f"3i {name} {phase}: routed {routing}")
+                decisions.append(decision)
+            rec[name] = {"result": o.result, "ops": preorder_ops(o.physical_plan), "launches": launched,
+                         "join_paths": o.stats.get("join_paths"), "index_scans": len(index_scans(o)),
+                         "median_ms": float(np.median(walls)) * 1e3, "decisions": decisions}
+        phases[phase] = rec
+        out[f"{phase}_s"] = time.perf_counter() - t0
+    session.enable_hyperspace()
+
+    # The answers: routed against raw and indexed (q43 and q67 each
+    # against the query surface's reference: their ORDER BY on float sums
+    # may swap rows tied within the bound between paths).
+    t0 = time.perf_counter()
+    for name in plans:
+        got = {p: phases[p][name]["result"] for p in phases}
+        if name in refs:
+            ref, ids, order, tol, limit, near = refs[name]
+            for p, result in got.items():
+                check_ordered(f"3i {name} {p}", pd.DataFrame(result.decode()), ref, ids, order, tol, limit, near)
+            continue
+        tolerant = tuple(f.name for f in got["raw"].schema.fields
+                         if name in ADVISOR_AGGREGATES and f.dtype in ("float32", "float64"))
+        got = {p: sorted_rows(r, tolerant) for p, r in got.items()}
+        same_rows(f"3i {name} routed / raw", got["routed"], got["raw"], tolerant, rows)
+        same_rows(f"3i {name} routed / indexed", got["routed"], got["indexed"], tolerant, rows)
+    out["answers_checked_s"] = time.perf_counter() - t0
+
+    # The ledger's verdicts and explain's line.
+    snap = ledger.snapshot()["entries"]
+    demoted = set(ledger.demoted_signatures())
+    table = {}
+    for name, plan in plans.items():
+        e = snap.get(sigs[name], {})
+        verdict = "raw" if sigs[name] in demoted else "indexed"
+        if verdict != expected(sigs[name]):
+            raise AssertionError(f"3i {name}: the ledger demotes {verdict}, its EMAs {e}")
+        line = [ln for ln in hs.explain(plan).splitlines() if ln.startswith("Adaptive routing:")]
+        if len(line) != 1 or line[0].split()[2] != verdict:
+            raise AssertionError(f"3i {name}: explain says {line}, the ledger {verdict}")
+        raw_ms, routed_ms = phases["raw"][name]["median_ms"], phases["routed"][name]["median_ms"]
+        table[name] = {"raw_ms": raw_ms, "indexed_ms": phases["indexed"][name]["median_ms"],
+                       "routed_ms": routed_ms, "routed_over_raw": routed_ms / raw_ms, "verdict": verdict,
+                       "routed_decisions": phases["routed"][name]["decisions"],
+                       "ema_indexed_ms": e["indexed"][0] * 1e3, "ema_raw_ms": e["raw"][0] * 1e3,
+                       "paths": {p: phases[p][name]["join_paths"] for p in ("raw", "indexed")},
+                       "launches": {p: phases[p][name]["launches"] for p in phases}}
+        log(json.dumps({"advisor_query": {"query": name, **table[name]}}))
+    out["queries"] = table
+    out["demoted"] = sorted(n for n in plans if table[n]["verdict"] == "raw")
+    demotion_events = [e for e in obs_events.recent() if e["seq"] > events_seq0
+                       and e["name"] == "advisor.routing.demoted"]
+    out["demotion_events"] = len(demotion_events)
+    want_events = sum(d == "raw" for n in plans for d in phases["routed"][n]["decisions"])
+    if len(demotion_events) != want_events:
+        raise AssertionError(f"3i: {len(demotion_events)} demotion events, {want_events} raw-routed runs")
+
+    # (b) Re-promotion: a committed mutation moves the collection stamp.
+    inval = obs_metrics.counter("advisor.routing.invalidations")
+    before = inval.value
+    t0 = time.perf_counter()
+    hs.refresh_index(ADVISOR_REFRESHED, "full")
+    sync()
+    out["repromotion_refresh_s"] = time.perf_counter() - t0
+    back = {name: ledger.decide(sig) for name, sig in sigs.items()}
+    if inval.value - before != 1 or set(back.values()) != {"indexed"} or ledger.snapshot()["entries"]:
+        raise AssertionError(f"3i (b): invalidations +{inval.value - before}, decisions {back}")
+    out["repromotion"] = {"invalidations": inval.value - before, "decisions": sorted(set(back.values()))}
+
+    # (c) Recommendations over the phase's workload, then the sweep.
+    t0 = time.perf_counter()
+    cold_root = workdir / "cold_audit"
+    cold_root.mkdir(exist_ok=True)
+    rng = np.random.default_rng(5)
+    pq.write_table(pa.table({"audit_id": np.arange(2000, dtype=np.int64), "blob": rng.standard_normal(2000)}),
+                   cold_root / "part0.parquet")
+    hs.create_index(session.parquet(cold_root), IndexConfig(ADVISOR_COLD, ["audit_id"], ["blob"]))
+    li = ctx["lineitem"]
+    hot_keys = np.random.default_rng(12).integers(1, int(200_000 * sf) + 1, ADVISOR_HOT_KEYS)
+    hot = [li.filter(col("l_partkey") == int(k)).select("l_partkey", "l_suppkey", "l_extendedprice")
+           for k in hot_keys]
+    # Cold lookups: an index is for the reads a cache does not hold.
+    dc.clear_all()
+    for plan in hot:
+        o = session.run_query(plan, plan_cache=cache)
+        if used_index_names(o.optimized_plan):
+            raise AssertionError(f"3i (c): a hot lookup used {used_index_names(o.optimized_plan)} before the sweep")
+    sync()
+    recs = hs.recommend()
+    out["recommendations"] = [r.to_json() for r in recs]
+    log(json.dumps({"advisor_recommendations": out["recommendations"]}))
+    src_root = str(li.root)
+    creates = [r for r in recs if r.kind == "create" and r.source_root == src_root
+               and [c.lower() for c in r.index_config.indexed_columns] == ["l_partkey"]]
+    drops = [r for r in recs if r.kind == "drop" and r.index_name == ADVISOR_COLD]
+    if len(creates) != 1 or creates[0].index_config.index_name != ADVISOR_HOT or len(drops) != 1:
+        raise AssertionError(f"3i (c): recommendations {out['recommendations']}")
+    system_path = Path(conf.system_path)
+    hot_log = IndexLogManager(system_path / ADVISOR_HOT)
+    hot_id0 = hot_log.get_latest_id()
+    conf.set("hyperspace.advisor.lifecycle.autoCreate", True)
+    conf.set("hyperspace.advisor.lifecycle.autoVacuum", True)
+    t1 = time.perf_counter()
+    report = hs.lifecycle().sweep()
+    sync()
+    out["sweep_s"] = time.perf_counter() - t1
+    out["sweep"] = {k: [(a["kind"], a["index_name"] or a["index_config"]["name"]) for a in v]
+                    for k, v in report.items()}
+    applied = out["sweep"]["applied"]
+    if report["failed"] or ("create", ADVISOR_HOT) not in applied or ("drop", ADVISOR_COLD) not in applied:
+        raise AssertionError(f"3i (c): the sweep {out['sweep']}")
+    conf.set("hyperspace.advisor.lifecycle.autoCreate", False)
+    conf.set("hyperspace.advisor.lifecycle.autoVacuum", False)
+    first = 0 if hot_id0 is None else hot_id0 + 1
+    states = [hot_log.get_log(i).state for i in range(first, hot_log.get_latest_id() + 1)]
+    files = sorted((system_path / ADVISOR_HOT).glob("v__=*/*.parquet"))
+    if states != ["CREATING", "ACTIVE"] or len(files) != conf.num_buckets:
+        raise AssertionError(f"3i (c): {ADVISOR_HOT}'s log {states}, {len(files)} bucket files")
+    cold_state = IndexLogManager(system_path / ADVISOR_COLD).get_latest_log().state
+    if cold_state != "DOESNOTEXIST" or list((system_path / ADVISOR_COLD).glob("v__=*")):
+        raise AssertionError(f"3i (c): {ADVISOR_COLD} is {cold_state} after the sweep")
+    out["hot_build"] = {"path": session.last_build_stats.get("path"), "rows": session.last_build_stats.get("rows"),
+                        "phases_s": session.last_build_stats.get("phases_s")}
+    key = int(hot_keys[0])
+    o = session.run_query(hot[0], plan_cache=cache)
+    sync()
+    st = o.stats
+    if used_index_names(o.optimized_plan) != (ADVISOR_HOT,) or st["scan"] != "IndexPointLookup" \
+            or st["files_read"] != 1 or st["files_pruned"] != conf.num_buckets - 1:
+        raise AssertionError(f"3i (c): the hot lookup after the sweep: {used_index_names(o.optimized_plan)}, "
+                             f"{ {k: st.get(k) for k in ('scan', 'files_read', 'files_pruned')} }")
+    src = ctx["source"]
+    cols = ["l_partkey", "l_suppkey", "l_extendedprice"]
+    want = src.filter(pc.equal(src["l_partkey"], key)).select(cols)
+    got = o.result.to_arrow().select(cols)
+    order = [(c, "ascending") for c in cols]
+    got, want = got.sort_by(order), want.sort_by(order)
+    if want.num_rows == 0 or got.num_rows != want.num_rows or not all(
+            np.array_equal(got[c].to_numpy(), want[c].to_numpy()) for c in cols):
+        raise AssertionError(f"3i (c): the hot lookup of {key} differs from pyarrow ({got.num_rows} rows, "
+                             f"{want.num_rows})")
+    out["hot_lookup"] = {"key": key, "rows": got.num_rows, "files_read": st["files_read"],
+                         "files_pruned": st["files_pruned"]}
+    out["recommend_sweep_s"] = time.perf_counter() - t0
+
+    # (d) The controller: the demotions of (a) on the ring, one step.
+    t0 = time.perf_counter()
+    if not demotion_events:
+        raise AssertionError("3i (d): (a) demoted nothing, so no demotion reached the ring")
+    conf.set("hyperspace.controller.enabled", True)
+    conf.set("hyperspace.controller.demotionClusterSize", min(3, len(demotion_events)))
+    versions = collection_log_versions(session)
+    seq = max(e["seq"] for e in obs_events.recent())
+    # The earlier phases' servers are not this step's SLO evidence.
+    obs_slo.reset()
+    ctrl = hs.controller(clock=lambda: 0.0)
+    try:
+        ctrl.step(now=0.0)
+    finally:
+        conf.set("hyperspace.controller.enabled", False)
+    audit = [e["fields"] for e in obs_events.recent() if e["seq"] > seq and e["name"] == "controller.actuation"]
+    sweeps = [a for a in audit if a["action"] == "advisor.sweep"]
+    if len(sweeps) != 1 or sweeps[0]["trigger"] != "routing.demotion_cluster" or sweeps[0]["outcome"] != "executed" \
+            or collection_log_versions(session) != versions:
+        raise AssertionError(f"3i (d): the controller's audit {audit}")
+    out["controller"] = {"audit": audit, "demotions_drained": sweeps[0]["demotions"],
+                         "cluster_size": conf.controller_demotion_cluster_size, "step_s": time.perf_counter() - t0}
+    conf.set("hyperspace.advisor.routing.enabled", False)
+    out["advisor_path_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def vector_lifecycle(device, vctx: dict) -> dict:
     """The vector index's lifecycle at the end of the vector path, on its
     index: 10% more rows drawn from the same clusters (gen_embeddings'
@@ -5461,15 +5881,16 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from hyperspace_tpu_torch.ops import kernels
-    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
-    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
-    from hyperspace_tpu_torch.ops.topk import topk
-
     device = torch.device("cuda")
-    t0 = time.perf_counter()
-    kernels.build()
-    log(json.dumps({"kernel_build_s": time.perf_counter() - t0, "kernels": list(kernels.SOURCES)}))
+    with phase("kernel_build"):
+        from hyperspace_tpu_torch.ops import kernels
+        from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+        from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+        from hyperspace_tpu_torch.ops.topk import topk
+
+        t0 = time.perf_counter()
+        kernels.build()
+        log(json.dumps({"kernel_build_s": time.perf_counter() - t0, "kernels": list(kernels.SOURCES)}))
 
     def zero_counts():
         segment_reduce.launches = 0
@@ -5486,272 +5907,298 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
 
     from hyperspace_tpu_torch import stats
 
+    t_script = time.perf_counter()
     work = Path(tempfile.mkdtemp(prefix="hs_chip_smoke_"))
     try:
-        zero_counts()
-        t0 = time.perf_counter()
-        staged0 = {k: stats.get(k) for k in ("device.stage.bytes_zero_copy", "device.stage.bytes_copied")}
-        result, ctx = main_path(device, args.sf, args.seed, work)
-        result["phases"]["main_path_s"] = time.perf_counter() - t0
-        # Zero-copy staging over the aggregate path's reads (most of them
-        # cold: each query's first run).
-        result["phases"]["staging_bytes"] = {k: stats.get(k) - v for k, v in staged0.items()}
-        launches = {"aggregates": read_counts("aggregate", ("segment_reduce",))}
-        log(json.dumps({"main_path": result, "launches": launches["aggregates"]}))
-        log(json.dumps({"caches_after_path": "aggregate", **cache_stats()}))
-        zero_counts()
-        t0 = time.perf_counter()
-        join, k1_join_inputs, k2_inputs = join_path(device, ctx, args.sf)
-        join["phases"]["join_path_s"] = time.perf_counter() - t0
-        launches["join"] = read_counts("join", ("run_bounds", "segment_reduce"))
-        log(json.dumps({"join_path": join, "launches": launches["join"]}))
-        log(json.dumps({"caches_after_path": "join", **cache_stats()}))
-        zero_counts()
-        t0 = time.perf_counter()
-        join_types = join_types_path(device, ctx, args.sf)
-        join_types["join_types_path_s"] = time.perf_counter() - t0
-        launches["join_types"] = read_counts("join types", ("run_bounds", "segment_reduce"))
-        log(json.dumps({"join_types_path": join_types, "launches": launches["join_types"]}))
-        log(json.dumps({"caches_after_path": "join types", **cache_stats()}))
-        zero_counts()
-        t0 = time.perf_counter()
-        surface = query_surface_path(device, ctx, args.sf)
-        surface["query_surface_path_s"] = time.perf_counter() - t0
-        launches["query_surface"] = read_counts("query surface", ("run_bounds", "segment_reduce"))
-        log(json.dumps({"query_surface_path": surface, "launches": launches["query_surface"]}))
-        log(json.dumps({"caches_after_path": "query surface", **cache_stats()}))
-        zero_counts()
-        t0 = time.perf_counter()
-        lifecycle, k1_life_inputs, k2_life_inputs = lifecycle_path(device, ctx, args.sf)
-        lifecycle["lifecycle_path_s"] = time.perf_counter() - t0
-        launches["lifecycle"] = read_counts("lifecycle", ("run_bounds", "segment_reduce"))
-        log(json.dumps({"lifecycle_path": lifecycle, "launches": launches["lifecycle"]}))
-        log(json.dumps({"caches_after_path": "lifecycle", **cache_stats()}))
-        zero_counts()
-        t0 = time.perf_counter()
-        serving = serving_path(device, ctx, args.sf)
-        serving["serving_path_wall_s"] = time.perf_counter() - t0
-        launches["serve"] = read_counts("serve", ("run_bounds", "segment_reduce"))
-        log(json.dumps({"serving_path": serving, "launches": launches["serve"]}, default=str))
-        log(json.dumps({"caches_after_path": "serve", **cache_stats()}))
-        zero_counts()
-        t0 = time.perf_counter()
-        faults_rec, k1_faults_inputs = faults_path(device, ctx, args.sf)
-        faults_rec["faults_path_wall_s"] = time.perf_counter() - t0
-        launches["faults"] = read_counts("faults", ("run_bounds", "segment_reduce"))
-        log(json.dumps({"faults_path": {k: v for k, v in faults_rec.items() if k != "sweep"},
-                        "launches": launches["faults"]}, default=str))
-        log(json.dumps({"caches_after_path": "faults", **cache_stats()}))
-        zero_counts()
-        t0 = time.perf_counter()
-        scale, k1_scale_inputs = build_scale_path(device, ctx, args.sf, args.build_sf)
-        scale["build_scale_path_wall_s"] = time.perf_counter() - t0
-        launches["build_scale"] = read_counts("build at scale", ("segment_reduce",))
-        log(json.dumps({"build_scale_path": scale, "launches": launches["build_scale"]}, default=str))
-        log(json.dumps({"caches_after_path": "build at scale", **cache_stats()}))
-        # Phase 3d's incremental refresh and taxi loop, with the host hash
-        # path they ran on (PERF.md §5 holds the numpy hash's).
-        log(json.dumps({"native_hash_refresh_and_taxi": {
-            "hash_path": scale["builds"]["b_streaming"]["hash_path"],
-            "li_live_refresh_incremental_s": lifecycle["actions_s"]["refresh_incremental"],
-            "li_live_refresh_incremental_phases_s": lifecycle["refresh_incremental_build_phases_s"],
-            "taxi_incremental_ingest_throughput_gbps": lifecycle["taxi"]["taxi_incremental_ingest_throughput_gbps"],
-        }}))
-        zero_counts()
-        t0 = time.perf_counter()
-        fleet = fleet_path(device, ctx, args.sf)
-        fleet["fleet_path_wall_s"] = time.perf_counter() - t0
-        launches["fleet"] = read_counts("fleet", ("run_bounds", "segment_reduce"))
-        # The members' launches, each read in its own process.
-        launches["fleet_members"] = fleet["member_launches"]
-        log(json.dumps({"fleet_path": {k: fleet.get(k) for k in (
-                            "fleet_path_s", "fleet_path_wall_s", "fleets_ready_s", "serial_launches", "member_launches",
-                            "compute_mode", "nvidia_smi_while_4_up")},
-                        "launches": launches["fleet"], "member_launches": launches["fleet_members"]}))
-        log(json.dumps({"caches_after_path": "fleet", **cache_stats()}))
+        with phase("main_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            staged0 = {k: stats.get(k) for k in ("device.stage.bytes_zero_copy", "device.stage.bytes_copied")}
+            result, ctx = main_path(device, args.sf, args.seed, work)
+            result["phases"]["main_path_s"] = time.perf_counter() - t0
+            # Zero-copy staging over the aggregate path's reads (most of them
+            # cold: each query's first run).
+            result["phases"]["staging_bytes"] = {k: stats.get(k) - v for k, v in staged0.items()}
+            launches = {"aggregates": read_counts("aggregate", ("segment_reduce",))}
+            log(json.dumps({"main_path": result, "launches": launches["aggregates"]}))
+            log(json.dumps({"caches_after_path": "aggregate", **cache_stats()}))
+        with phase("join_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            join, k1_join_inputs, k2_inputs = join_path(device, ctx, args.sf)
+            join["phases"]["join_path_s"] = time.perf_counter() - t0
+            launches["join"] = read_counts("join", ("run_bounds", "segment_reduce"))
+            log(json.dumps({"join_path": join, "launches": launches["join"]}))
+            log(json.dumps({"caches_after_path": "join", **cache_stats()}))
+        with phase("join_types_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            join_types = join_types_path(device, ctx, args.sf)
+            join_types["join_types_path_s"] = time.perf_counter() - t0
+            launches["join_types"] = read_counts("join types", ("run_bounds", "segment_reduce"))
+            log(json.dumps({"join_types_path": join_types, "launches": launches["join_types"]}))
+            log(json.dumps({"caches_after_path": "join types", **cache_stats()}))
+        with phase("query_surface_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            surface = query_surface_path(device, ctx, args.sf)
+            surface["query_surface_path_s"] = time.perf_counter() - t0
+            launches["query_surface"] = read_counts("query surface", ("run_bounds", "segment_reduce"))
+            log(json.dumps({"query_surface_path": surface, "launches": launches["query_surface"]}))
+            log(json.dumps({"caches_after_path": "query surface", **cache_stats()}))
+        with phase("lifecycle_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            lifecycle, k1_life_inputs, k2_life_inputs = lifecycle_path(device, ctx, args.sf)
+            lifecycle["lifecycle_path_s"] = time.perf_counter() - t0
+            launches["lifecycle"] = read_counts("lifecycle", ("run_bounds", "segment_reduce"))
+            log(json.dumps({"lifecycle_path": lifecycle, "launches": launches["lifecycle"]}))
+            log(json.dumps({"caches_after_path": "lifecycle", **cache_stats()}))
+        with phase("serving_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            serving = serving_path(device, ctx, args.sf)
+            serving["serving_path_wall_s"] = time.perf_counter() - t0
+            launches["serve"] = read_counts("serve", ("run_bounds", "segment_reduce"))
+            log(json.dumps({"serving_path": serving, "launches": launches["serve"]}, default=str))
+            log(json.dumps({"caches_after_path": "serve", **cache_stats()}))
+        with phase("faults_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            faults_rec, k1_faults_inputs = faults_path(device, ctx, args.sf)
+            faults_rec["faults_path_wall_s"] = time.perf_counter() - t0
+            launches["faults"] = read_counts("faults", ("run_bounds", "segment_reduce"))
+            log(json.dumps({"faults_path": {k: v for k, v in faults_rec.items() if k != "sweep"},
+                            "launches": launches["faults"]}, default=str))
+            log(json.dumps({"caches_after_path": "faults", **cache_stats()}))
+        with phase("build_scale_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            scale, k1_scale_inputs = build_scale_path(device, ctx, args.sf, args.build_sf)
+            scale["build_scale_path_wall_s"] = time.perf_counter() - t0
+            launches["build_scale"] = read_counts("build at scale", ("segment_reduce",))
+            log(json.dumps({"build_scale_path": scale, "launches": launches["build_scale"]}, default=str))
+            log(json.dumps({"caches_after_path": "build at scale", **cache_stats()}))
+            # Phase 3d's incremental refresh and taxi loop, with the host hash
+            # path they ran on (PERF.md §5 holds the numpy hash's).
+            log(json.dumps({"native_hash_refresh_and_taxi": {
+                "hash_path": scale["builds"]["b_streaming"]["hash_path"],
+                "li_live_refresh_incremental_s": lifecycle["actions_s"]["refresh_incremental"],
+                "li_live_refresh_incremental_phases_s": lifecycle["refresh_incremental_build_phases_s"],
+                "taxi_incremental_ingest_throughput_gbps": lifecycle["taxi"]["taxi_incremental_ingest_throughput_gbps"],
+            }}))
+        with phase("fleet_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            fleet = fleet_path(device, ctx, args.sf)
+            fleet["fleet_path_wall_s"] = time.perf_counter() - t0
+            launches["fleet"] = read_counts("fleet", ("run_bounds", "segment_reduce"))
+            # The members' launches, each read in its own process.
+            launches["fleet_members"] = fleet["member_launches"]
+            log(json.dumps({"fleet_path": {k: fleet.get(k) for k in (
+                                "fleet_path_s", "fleet_path_wall_s", "fleets_ready_s", "serial_launches",
+                                "member_launches", "compute_mode", "nvidia_smi_while_4_up")},
+                            "launches": launches["fleet"], "member_launches": launches["fleet_members"]}))
+            log(json.dumps({"caches_after_path": "fleet", **cache_stats()}))
+        with phase("advisor_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            advisor = advisor_path(device, ctx, args.sf)
+            advisor["advisor_path_wall_s"] = time.perf_counter() - t0
+            launches["advisor"] = read_counts("advisor", ("run_bounds", "segment_reduce"))
+            log(json.dumps({"advisor_path": {k: v for k, v in advisor.items() if k != "queries"},
+                            "launches": launches["advisor"], "script_s_so_far": time.perf_counter() - t_script},
+                           default=str))
+            log(json.dumps({"caches_after_path": "advisor", **cache_stats()}))
         k1_join_inputs.update(k1_life_inputs)
         k1_join_inputs.update(k1_faults_inputs)
         k1_join_inputs.update(k1_scale_inputs)
         k2_inputs.update(k2_life_inputs)
         k1_agg_inputs = {**ctx["k1_inputs"], **ctx["k1_surface_inputs"]}
         del ctx
-        zero_counts()
-        t0 = time.perf_counter()
-        vector, k3_inputs, vctx = vector_path(device, work, n=1_000_000)
-        vector["phases"]["vector_path_s"] = time.perf_counter() - t0
-        launches["vector"] = read_counts("vector", ("topk",))
-        log(json.dumps({"vector_path": vector, "launches": launches["vector"]}))
-        log(json.dumps({"caches_after_path": "vector", **cache_stats()}))
-        zero_counts()
-        t0 = time.perf_counter()
-        vector_life = vector_lifecycle(device, vctx)
-        vector_life["vector_lifecycle_s"] = time.perf_counter() - t0
-        launches["vector_lifecycle"] = read_counts("vector lifecycle", ("topk",))
-        log(json.dumps({"vector_lifecycle": vector_life, "launches": launches["vector_lifecycle"]}))
-        log(json.dumps({"caches_after_path": "vector lifecycle", **cache_stats()}))
-        del vctx
+        with phase("vector_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            vector, k3_inputs, vctx = vector_path(device, work, n=1_000_000)
+            vector["phases"]["vector_path_s"] = time.perf_counter() - t0
+            launches["vector"] = read_counts("vector", ("topk",))
+            log(json.dumps({"vector_path": vector, "launches": launches["vector"]}))
+            log(json.dumps({"caches_after_path": "vector", **cache_stats()}))
+        with phase("vector_lifecycle"):
+            zero_counts()
+            t0 = time.perf_counter()
+            vector_life = vector_lifecycle(device, vctx)
+            vector_life["vector_lifecycle_s"] = time.perf_counter() - t0
+            launches["vector_lifecycle"] = read_counts("vector lifecycle", ("topk",))
+            log(json.dumps({"vector_lifecycle": vector_life, "launches": launches["vector_lifecycle"]}))
+            log(json.dumps({"caches_after_path": "vector lifecycle", **cache_stats()}))
+            del vctx
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # Kernel phase at the aggregate path's two shapes: its row count and
-    # group counts. Q1 by (l_returnflag, l_linestatus): 6 groups, 12
-    # channels — the thread regime. Revenue by l_orderkey: 1.5M groups at
-    # SF1, 2 channels — the global regime. First on seeded channels with
-    # uniformly random group ids, then on the inputs the queries gave K1,
-    # whose ids come as the source's rows do (revenue's in runs of one to
-    # seven: lineitem is written in l_orderkey order).
-    n = result["rows"]
-    phases = result["phases"]
-    q1_kinds = ("qty", "ind", "price", "ind", "disc", "ind", "price", "ind", "disc", "ind", "ind", "ind")
-    shapes = {
-        "q1": k1_synthetic(device, n, phases["agg_q1_groups"], Q1_FNS, q1_kinds, args.seed),
-        "revenue": k1_synthetic(
-            device, n, phases["agg_revenue_groups"], ("sum", "sum"), ("price", "ind"), args.seed + 1
-        ),
-    }
-    # And at the join path's four, on the inputs the indexed J2 and J3 gave
-    # it: the secondary run extrema (min/max over about 1.5M runs, global
-    # atomics) and the group fold over the padded [B·Lp] rows; at the
-    # query-surface path's three: q67's re-fold, CD1's inner aggregate and
-    # q43's partial aggregate; and at 3f's three: the fallback's Q1 over
-    # li_live's raw source and the crash sweep's aggregate by priority
-    # after create and after the incremental refresh.
-    for name, (vals, gid, k, fns) in {**k1_agg_inputs, **k1_join_inputs}.items():
-        shapes[name] = k1_phase(device, vals, gid, k, fns, _k1_exact_from_data(vals.cpu().numpy(), fns))
-    del k1_agg_inputs, k1_join_inputs
-    # K2 at the join path's shapes, on its real key codes: the aligned J2
-    # (orders buckets searched in lineitem buckets), the aligned J3 (the
-    # reverse) and the un-indexed J2 (one partition: 1.5M codes searched in
-    # 6.0M); then the aligned J2 with each primary row shuffled (seed 3),
-    # which no caller gives it: a tile's keys then span its bucket's row,
-    # and the kernel searches device memory.
-    pk_j2 = k2_inputs["J2 aligned"][0]
-    k2_inputs["J2 aligned, shuffled"] = (np.random.default_rng(3).permuted(pk_j2, axis=1), k2_inputs["J2 aligned"][1])
-    k2 = {name: k2_phase(device, pk, sk) for name, (pk, sk) in k2_inputs.items()}
-    del k2_inputs
-    # K3 at the vector path's four shapes, on its real score matrices: the
-    # routing scores [32, 64] (k = 8), the probed candidates' [32, about
-    # 690k] (k = 10) and brute force's [32, 1M] at k = 10 and 100; then
-    # the tie-heavy matrix at the brute-force shape.
-    ties = tie_heavy(k3_inputs["brute force"][0])
-    k3_inputs["tie-heavy"] = (ties, 10)
-    k3_inputs["tie-heavy k=100"] = (ties, 100)
-    profiled = vector["phases"]["ann_nprobe8_profiled"]["topk_ms"] or {}
-    k3 = {name: k3_phase(device, scores, k) for name, (scores, k) in k3_inputs.items()}
-    # Each call's kernels alone on the card, beside the event time, which
-    # also holds the wrapper's host work: every kernel's calls in one
-    # profiler window.
-    device_ms = device_ms_each({
-        **{("segment_reduce", n): (r.pop("call"), r["kernels_per_call"], "segment_reduce_") for n, r in shapes.items()},
-        **{("run_bounds", n): (r.pop("call"), 1, "run_bounds_") for n, r in k2.items()},
-        **{("topk", n): (r.pop("call"), r["kernels_per_call"], "topk_") for n, r in k3.items()},
-    })
-    for name, r in shapes.items():
-        r["device_ms"] = device_ms["segment_reduce", name]
-        log(json.dumps({"kernel": "segment_reduce", "shape": name, **r}))
-
-    entries = []
-    for name, r in shapes.items():
-        query = name.split()[0]
-        entries.append({
-            "name": f"segment_reduce[{name}: n={r['n']}, K={r['k']}, C={r['channels']}]",
-            "route": "cuda",
-            "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
-            "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-            # K1 runs on nine paths: its launches on each, summed (the
-            # fleet's in this process and in its members).
-            "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types",
-                                                                     "query_surface", "lifecycle", "serve",
-                                                                     "faults", "build_scale", "fleet",
-                                                                     "fleet_members")),
-            "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
-            "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            # Where the kinds differ, no one call computes the function:
-            # torch's scatter_reduce_ once per kind, timed together.
-            "library_calls": r["library_calls"],
-            "library_calls_ms": r["library_calls_ms"],
-            "regime": r["regime"],
-            "kernels_per_call": r["kernels_per_call"],
-            "device_ms": r["device_ms"],
-            # The kernel's device time inside the main path's query
-            # (torch.profiler); for J2 and J3 both K1 launches of the query
-            # together; the query-surface queries are not profiled.
-            "main_path_ms": (
-                phases[f"agg_{query}_profiled"]["kernel_ms"]["segment_reduce_"] if query in ("q1", "revenue")
-                else join["phases"][f"{query}_profiled"]["kernel_ms"]["segment_reduce_"] if query in ("J2", "J3")
-                else None
+    with phase("kernel_phase"):
+        # Kernel phase at the aggregate path's two shapes: its row count and
+        # group counts. Q1 by (l_returnflag, l_linestatus): 6 groups, 12
+        # channels — the thread regime. Revenue by l_orderkey: 1.5M groups at
+        # SF1, 2 channels — the global regime. First on seeded channels with
+        # uniformly random group ids, then on the inputs the queries gave K1,
+        # whose ids come as the source's rows do (revenue's in runs of one to
+        # seven: lineitem is written in l_orderkey order).
+        n = result["rows"]
+        phases = result["phases"]
+        q1_kinds = ("qty", "ind", "price", "ind", "disc", "ind", "price", "ind", "disc", "ind", "ind", "ind")
+        shapes = {
+            "q1": k1_synthetic(device, n, phases["agg_q1_groups"], Q1_FNS, q1_kinds, args.seed),
+            "revenue": k1_synthetic(
+                device, n, phases["agg_revenue_groups"], ("sum", "sum"), ("price", "ind"), args.seed + 1
             ),
-            # k1_phase raised had the kernel disagreed with its plain version.
-            "plain_check": "passed",
+        }
+        # And at the join path's four, on the inputs the indexed J2 and J3 gave
+        # it: the secondary run extrema (min/max over about 1.5M runs, global
+        # atomics) and the group fold over the padded [B·Lp] rows; at the
+        # query-surface path's three: q67's re-fold, CD1's inner aggregate and
+        # q43's partial aggregate; and at 3f's three: the fallback's Q1 over
+        # li_live's raw source and the crash sweep's aggregate by priority
+        # after create and after the incremental refresh.
+        for name, (vals, gid, k, fns) in {**k1_agg_inputs, **k1_join_inputs}.items():
+            shapes[name] = k1_phase(device, vals, gid, k, fns, _k1_exact_from_data(vals.cpu().numpy(), fns))
+        del k1_agg_inputs, k1_join_inputs
+        # K2 at the join path's shapes, on its real key codes: the aligned J2
+        # (orders buckets searched in lineitem buckets), the aligned J3 (the
+        # reverse) and the un-indexed J2 (one partition: 1.5M codes searched in
+        # 6.0M); then the aligned J2 with each primary row shuffled (seed 3),
+        # which no caller gives it: a tile's keys then span its bucket's row,
+        # and the kernel searches device memory.
+        pk_j2 = k2_inputs["J2 aligned"][0]
+        k2_inputs["J2 aligned, shuffled"] = (np.random.default_rng(3).permuted(pk_j2, axis=1), k2_inputs["J2 aligned"][1])
+        k2 = {name: k2_phase(device, pk, sk) for name, (pk, sk) in k2_inputs.items()}
+        del k2_inputs
+        # K3 at the vector path's four shapes, on its real score matrices: the
+        # routing scores [32, 64] (k = 8), the probed candidates' [32, about
+        # 690k] (k = 10) and brute force's [32, 1M] at k = 10 and 100; then
+        # the tie-heavy matrix at the brute-force shape.
+        ties = tie_heavy(k3_inputs["brute force"][0])
+        k3_inputs["tie-heavy"] = (ties, 10)
+        k3_inputs["tie-heavy k=100"] = (ties, 100)
+        profiled = vector["phases"]["ann_nprobe8_profiled"]["topk_ms"] or {}
+        k3 = {name: k3_phase(device, scores, k) for name, (scores, k) in k3_inputs.items()}
+        # Each call's kernels alone on the card, beside the event time, which
+        # also holds the wrapper's host work: every kernel's calls in one
+        # profiler window.
+        device_ms = device_ms_each({
+            **{("segment_reduce", n): (r.pop("call"), r["kernels_per_call"], "segment_reduce_") for n, r in shapes.items()},
+            **{("run_bounds", n): (r.pop("call"), 1, "run_bounds_") for n, r in k2.items()},
+            **{("topk", n): (r.pop("call"), r["kernels_per_call"], "topk_") for n, r in k3.items()},
         })
+        for name, r in shapes.items():
+            r["device_ms"] = device_ms["segment_reduce", name]
+            log(json.dumps({"kernel": "segment_reduce", "shape": name, **r}))
 
-    profiled_k2 = {
-        "J2 aligned": join["phases"]["J2_profiled"], "J3 aligned": join["phases"]["J3_profiled"],
-        "J2 no index": join["phases"]["J2_no_index_profiled"],
-    }
-    for name, r in k2.items():
-        r["device_ms"] = device_ms["run_bounds", name]
-        log(json.dumps({"kernel": "run_bounds", "shape": name, **r}))
-        entries.append({
-            "name": f"run_bounds[{name}: B={r['b']}, Lp={r['lp']}, Ls={r['ls']}]",
-            "route": "cuda",
-            "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
-            "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
-            # K2 runs on the join paths, the query surface, the lifecycle,
-            # the serving path, the faults path and the fleet (in this
-            # process and in its members): its launches on each, summed.
-            "launches": sum(launches[p]["run_bounds"] for p in ("join", "join_types", "query_surface",
-                                                                 "lifecycle", "serve", "faults", "fleet",
-                                                                 "fleet_members")),
-            "launches_by_path": {p: c["run_bounds"] for p, c in launches.items()},
-            "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            "copy_ms": r["copy_ms"],
-            "tiles": r["tiles"],
-            "window": r["window"],
-            "device_ms": r["device_ms"],
-            # K2's device time inside the query of that name (torch.profiler);
-            # the shuffled primary is no query's.
-            "main_path_ms": profiled_k2[name]["kernel_ms"]["run_bounds_"] if name in profiled_k2 else None,
-            "plain_check": "passed",
-        })
+        entries = []
+        for name, r in shapes.items():
+            query = name.split()[0]
+            entries.append({
+                "name": f"segment_reduce[{name}: n={r['n']}, K={r['k']}, C={r['channels']}]",
+                "route": "cuda",
+                "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
+                "replaces": "hyperspace_tpu/ops/aggregate.py:81",
+                # K1 runs on ten paths: its launches on each, summed (the
+                # fleet's in this process and in its members).
+                "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types",
+                                                                         "query_surface", "lifecycle", "serve",
+                                                                         "faults", "build_scale", "fleet",
+                                                                         "fleet_members", "advisor")),
+                "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
+                "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                # Where the kinds differ, no one call computes the function:
+                # torch's scatter_reduce_ once per kind, timed together.
+                "library_calls": r["library_calls"],
+                "library_calls_ms": r["library_calls_ms"],
+                "regime": r["regime"],
+                "kernels_per_call": r["kernels_per_call"],
+                "device_ms": r["device_ms"],
+                # The kernel's device time inside the main path's query
+                # (torch.profiler); for J2 and J3 both K1 launches of the query
+                # together; the query-surface queries are not profiled.
+                "main_path_ms": (
+                    phases[f"agg_{query}_profiled"]["kernel_ms"]["segment_reduce_"] if query in ("q1", "revenue")
+                    else join["phases"][f"{query}_profiled"]["kernel_ms"]["segment_reduce_"] if query in ("J2", "J3")
+                    else None
+                ),
+                # k1_phase raised had the kernel disagreed with its plain version.
+                "plain_check": "passed",
+            })
 
-    for name, r in k3.items():
-        r["device_ms"] = device_ms["topk", name]
-        log(json.dumps({"kernel": "topk", "shape": name, **r}))
-        entries.append({
-            "name": f"topk[{name}: q={r['q']}, n={r['n']}, k={r['k']}]",
-            "route": "cuda",
-            "source": "hyperspace_tpu_torch/csrc/topk.cu",
-            "replaces": "hyperspace_tpu/ops/topk.py:46",
-            # K3 runs on the vector path and its lifecycle: summed.
-            "launches": launches["vector"]["topk"] + launches["vector_lifecycle"]["topk"],
-            "launches_by_path": {p: c["topk"] for p, c in launches.items()},
-            "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            "blocks_per_row": r["blocks_per_row"],
-            "kernels_per_call": r["kernels_per_call"],
-            "device_ms": r["device_ms"],
-            # K3's device time for this call inside one warm nprobe-8 query
-            # (torch.profiler); brute force is not profiled.
-            "main_path_ms": profiled.get(name),
-            "plain_check": "passed",
-        })
-    log(json.dumps({"kernels": entries}))
-    log(card_line(card_query))
+        profiled_k2 = {
+            "J2 aligned": join["phases"]["J2_profiled"], "J3 aligned": join["phases"]["J3_profiled"],
+            "J2 no index": join["phases"]["J2_no_index_profiled"],
+        }
+        for name, r in k2.items():
+            r["device_ms"] = device_ms["run_bounds", name]
+            log(json.dumps({"kernel": "run_bounds", "shape": name, **r}))
+            entries.append({
+                "name": f"run_bounds[{name}: B={r['b']}, Lp={r['lp']}, Ls={r['ls']}]",
+                "route": "cuda",
+                "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
+                "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
+                # K2 runs on the join paths, the query surface, the lifecycle,
+                # the serving path, the faults path, the fleet (in this
+                # process and in its members) and the advisor: its launches
+                # on each, summed.
+                "launches": sum(launches[p]["run_bounds"] for p in ("join", "join_types", "query_surface",
+                                                                     "lifecycle", "serve", "faults", "fleet",
+                                                                     "fleet_members", "advisor")),
+                "launches_by_path": {p: c["run_bounds"] for p, c in launches.items()},
+                "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "copy_ms": r["copy_ms"],
+                "tiles": r["tiles"],
+                "window": r["window"],
+                "device_ms": r["device_ms"],
+                # K2's device time inside the query of that name (torch.profiler);
+                # the shuffled primary is no query's.
+                "main_path_ms": profiled_k2[name]["kernel_ms"]["run_bounds_"] if name in profiled_k2 else None,
+                "plain_check": "passed",
+            })
+
+        for name, r in k3.items():
+            r["device_ms"] = device_ms["topk", name]
+            log(json.dumps({"kernel": "topk", "shape": name, **r}))
+            entries.append({
+                "name": f"topk[{name}: q={r['q']}, n={r['n']}, k={r['k']}]",
+                "route": "cuda",
+                "source": "hyperspace_tpu_torch/csrc/topk.cu",
+                "replaces": "hyperspace_tpu/ops/topk.py:46",
+                # K3 runs on the vector path and its lifecycle: summed.
+                "launches": launches["vector"]["topk"] + launches["vector_lifecycle"]["topk"],
+                "launches_by_path": {p: c["topk"] for p, c in launches.items()},
+                "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "blocks_per_row": r["blocks_per_row"],
+                "kernels_per_call": r["kernels_per_call"],
+                "device_ms": r["device_ms"],
+                # K3's device time for this call inside one warm nprobe-8 query
+                # (torch.profiler); brute force is not profiled.
+                "main_path_ms": profiled.get(name),
+                "plain_check": "passed",
+            })
+        log(json.dumps({"kernels": entries}))
+    with phase("card_line"):
+        log(card_line(card_query))
+    log(json.dumps({"script_s": time.perf_counter() - t_script}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

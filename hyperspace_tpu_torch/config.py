@@ -26,8 +26,8 @@ shedDepthRatio), the three explain display keys, the plan validator's
 `hyperspace.obs.http.*`, `hyperspace.obs.slo.*` and
 `hyperspace.obs.journal.*` (the last two process-global),
 `hyperspace.serve.tenant.quota.*`, `hyperspace.fleet.*` and
-`hyperspace.controller.*` but for the three keys of the controller's
-storm response and advisor sweep.
+`hyperspace.controller.*`; and the advisor's `hyperspace.advisor.*`
+(routing, the workload ring, the lifecycle gates and floors).
 A key the JAX package declares but the port does not read yet raises,
 naming it as not ported; an undeclared `hyperspace.*` key raises with a
 did-you-mean suggestion, as the JAX package's `check_known_key` does.
@@ -199,6 +199,32 @@ CONTROLLER_INCIDENT_ENABLED = "hyperspace.controller.incident.enabled"
 CONTROLLER_INCIDENT_DIR = "hyperspace.controller.incident.dir"
 CONTROLLER_INCIDENT_MAX_BUNDLES = "hyperspace.controller.incident.maxBundles"
 CONTROLLER_INCIDENT_SEGMENTS = "hyperspace.controller.incident.segments"
+# The controller's advisor sweep (a cluster of routing demotions inside a
+# trailing window triggers `LifecyclePolicy.sweep()`) and its storm
+# response (a `jit.recompile_storm` event pins the key's signature raw).
+CONTROLLER_DEMOTION_CLUSTER_SIZE = "hyperspace.controller.demotionClusterSize"
+CONTROLLER_DEMOTION_WINDOW_SECONDS = "hyperspace.controller.demotionWindowSeconds"
+CONTROLLER_STORM_RESPONSE = "hyperspace.controller.stormResponse"
+# Workload-driven index advisor (advisor/). routing.* gate the adaptive
+# query router: a per-plan-signature ledger of measured indexed vs raw
+# wall times that demotes rewrites which measured slower — off by default
+# because it changes plan choice. workload.maxRecords bounds the
+# in-memory workload ring the what-if analyzer learns from. lifecycle.*
+# gate the autonomous policy engine: all three default off; minConfidence
+# / minBenefitSeconds are the evidence floor any auto-applied
+# recommendation must clear; lifecycle.maxDeltas is the fragmentation
+# threshold past which an optimize recommendation fires.
+ADVISOR_ROUTING_ENABLED = "hyperspace.advisor.routing.enabled"
+ADVISOR_ROUTING_DEMOTE_RATIO = "hyperspace.advisor.routing.demoteRatio"
+ADVISOR_ROUTING_ALPHA = "hyperspace.advisor.routing.alpha"
+ADVISOR_ROUTING_MIN_SAMPLES = "hyperspace.advisor.routing.minSamples"
+ADVISOR_WORKLOAD_MAX_RECORDS = "hyperspace.advisor.workload.maxRecords"
+ADVISOR_AUTO_CREATE = "hyperspace.advisor.lifecycle.autoCreate"
+ADVISOR_AUTO_VACUUM = "hyperspace.advisor.lifecycle.autoVacuum"
+ADVISOR_AUTO_OPTIMIZE = "hyperspace.advisor.lifecycle.autoOptimize"
+ADVISOR_LIFECYCLE_MAX_DELTAS = "hyperspace.advisor.lifecycle.maxDeltas"
+ADVISOR_MIN_CONFIDENCE = "hyperspace.advisor.minConfidence"
+ADVISOR_MIN_BENEFIT_SECONDS = "hyperspace.advisor.minBenefitSeconds"
 
 DEFAULT_NUM_BUCKETS = 8
 DEFAULT_CACHE_EXPIRY_SECONDS = 300.0
@@ -233,6 +259,14 @@ DEFAULT_CONTROLLER_SCALE_MAX_WORKERS = 8
 DEFAULT_CONTROLLER_SCALE_STEP = 1
 DEFAULT_CONTROLLER_INCIDENT_MAX_BUNDLES = 16
 DEFAULT_CONTROLLER_INCIDENT_SEGMENTS = 4
+DEFAULT_CONTROLLER_DEMOTION_CLUSTER_SIZE = 3
+DEFAULT_CONTROLLER_DEMOTION_WINDOW_SECONDS = 300.0
+DEFAULT_ADVISOR_ROUTING_DEMOTE_RATIO = 1.0
+DEFAULT_ADVISOR_ROUTING_ALPHA = 0.5
+DEFAULT_ADVISOR_ROUTING_MIN_SAMPLES = 1
+DEFAULT_ADVISOR_WORKLOAD_MAX_RECORDS = 512
+DEFAULT_ADVISOR_LIFECYCLE_MAX_DELTAS = 4
+DEFAULT_ADVISOR_MIN_CONFIDENCE = 0.5
 
 # The keys the port reads.
 PORTED_KEYS = (
@@ -254,22 +288,19 @@ PORTED_KEYS = (
     CONTROLLER_ACTUATION_BUDGET, CONTROLLER_SHED_RATIO, CONTROLLER_QUOTA_FACTOR, CONTROLLER_HEAL_REBUILD,
     CONTROLLER_HEAL_COORDINATE, CONTROLLER_SCALE_SATURATION, CONTROLLER_SCALE_MAX_WORKERS, CONTROLLER_SCALE_STEP,
     CONTROLLER_INCIDENT_ENABLED, CONTROLLER_INCIDENT_DIR, CONTROLLER_INCIDENT_MAX_BUNDLES, CONTROLLER_INCIDENT_SEGMENTS,
+    CONTROLLER_DEMOTION_CLUSTER_SIZE, CONTROLLER_DEMOTION_WINDOW_SECONDS, CONTROLLER_STORM_RESPONSE,
+    ADVISOR_ROUTING_ENABLED, ADVISOR_ROUTING_DEMOTE_RATIO, ADVISOR_ROUTING_ALPHA, ADVISOR_ROUTING_MIN_SAMPLES,
+    ADVISOR_WORKLOAD_MAX_RECORDS, ADVISOR_AUTO_CREATE, ADVISOR_AUTO_VACUUM, ADVISOR_AUTO_OPTIMIZE,
+    ADVISOR_LIFECYCLE_MAX_DELTAS, ADVISOR_MIN_CONFIDENCE, ADVISOR_MIN_BENEFIT_SECONDS,
 )
 # The JAX package's other declared keys (its `config.KNOWN_KEYS`), whose
-# modules are not ported yet (the controller's three: its storm response
-# and the advisor sweep its demotion cluster triggers).
+# modules are not ported yet: the host venues, the fused kernels and
+# continuous ingestion.
 UNPORTED_KEYS = frozenset((
     'hyperspace.join.venue', 'hyperspace.join.venueMinMbps', 'hyperspace.build.venue', 'hyperspace.agg.venue',
     'hyperspace.sort.venue', 'hyperspace.filter.venue', 'hyperspace.device.fusedKernels',
-    'hyperspace.controller.demotionClusterSize', 'hyperspace.controller.demotionWindowSeconds',
-    'hyperspace.controller.stormResponse', 'hyperspace.advisor.routing.enabled',
-    'hyperspace.advisor.routing.demoteRatio', 'hyperspace.advisor.routing.alpha',
-    'hyperspace.advisor.routing.minSamples', 'hyperspace.advisor.workload.maxRecords',
-    'hyperspace.advisor.lifecycle.autoCreate', 'hyperspace.advisor.lifecycle.autoVacuum',
-    'hyperspace.advisor.lifecycle.autoOptimize', 'hyperspace.advisor.lifecycle.maxDeltas',
-    'hyperspace.advisor.minConfidence', 'hyperspace.advisor.minBenefitSeconds', 'hyperspace.ingest.enabled',
-    'hyperspace.ingest.pollSeconds', 'hyperspace.ingest.cdcBatchRows', 'hyperspace.ingest.autoCompact',
-    'hyperspace.ingest.processWorker', 'hyperspace.ingest.maxLagSeconds',
+    'hyperspace.ingest.enabled', 'hyperspace.ingest.pollSeconds', 'hyperspace.ingest.cdcBatchRows',
+    'hyperspace.ingest.autoCompact', 'hyperspace.ingest.processWorker', 'hyperspace.ingest.maxLagSeconds',
 ))
 
 
@@ -350,6 +381,20 @@ class HyperspaceConf:
     controller_incident_dir: str = ""  # "" = <fleet root>/incidents
     controller_incident_max_bundles: int = DEFAULT_CONTROLLER_INCIDENT_MAX_BUNDLES
     controller_incident_segments: int = DEFAULT_CONTROLLER_INCIDENT_SEGMENTS
+    controller_demotion_cluster_size: int = DEFAULT_CONTROLLER_DEMOTION_CLUSTER_SIZE
+    controller_demotion_window_seconds: float = DEFAULT_CONTROLLER_DEMOTION_WINDOW_SECONDS
+    controller_storm_response: bool = True
+    advisor_routing_enabled: bool = False  # opt-in: routing changes plan choice
+    advisor_routing_demote_ratio: float = DEFAULT_ADVISOR_ROUTING_DEMOTE_RATIO
+    advisor_routing_alpha: float = DEFAULT_ADVISOR_ROUTING_ALPHA
+    advisor_routing_min_samples: int = DEFAULT_ADVISOR_ROUTING_MIN_SAMPLES
+    advisor_workload_max_records: int = DEFAULT_ADVISOR_WORKLOAD_MAX_RECORDS
+    advisor_auto_create: bool = False
+    advisor_auto_vacuum: bool = False
+    advisor_auto_optimize: bool = False
+    advisor_lifecycle_max_deltas: int = DEFAULT_ADVISOR_LIFECYCLE_MAX_DELTAS
+    advisor_min_confidence: float = DEFAULT_ADVISOR_MIN_CONFIDENCE
+    advisor_min_benefit_seconds: float = 0.0
     overrides: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -489,6 +534,34 @@ class HyperspaceConf:
             self.controller_incident_max_bundles = int(value)
         elif key == CONTROLLER_INCIDENT_SEGMENTS:
             self.controller_incident_segments = int(value)
+        elif key == CONTROLLER_DEMOTION_CLUSTER_SIZE:
+            self.controller_demotion_cluster_size = int(value)
+        elif key == CONTROLLER_DEMOTION_WINDOW_SECONDS:
+            self.controller_demotion_window_seconds = float(value)
+        elif key == CONTROLLER_STORM_RESPONSE:
+            self.controller_storm_response = _as_bool(value)
+        elif key == ADVISOR_ROUTING_ENABLED:
+            self.advisor_routing_enabled = _as_bool(value)
+        elif key == ADVISOR_ROUTING_DEMOTE_RATIO:
+            self.advisor_routing_demote_ratio = float(value)
+        elif key == ADVISOR_ROUTING_ALPHA:
+            self.advisor_routing_alpha = float(value)
+        elif key == ADVISOR_ROUTING_MIN_SAMPLES:
+            self.advisor_routing_min_samples = int(value)
+        elif key == ADVISOR_WORKLOAD_MAX_RECORDS:
+            self.advisor_workload_max_records = int(value)
+        elif key == ADVISOR_AUTO_CREATE:
+            self.advisor_auto_create = _as_bool(value)
+        elif key == ADVISOR_AUTO_VACUUM:
+            self.advisor_auto_vacuum = _as_bool(value)
+        elif key == ADVISOR_AUTO_OPTIMIZE:
+            self.advisor_auto_optimize = _as_bool(value)
+        elif key == ADVISOR_LIFECYCLE_MAX_DELTAS:
+            self.advisor_lifecycle_max_deltas = int(value)
+        elif key == ADVISOR_MIN_CONFIDENCE:
+            self.advisor_min_confidence = float(value)
+        elif key == ADVISOR_MIN_BENEFIT_SECONDS:
+            self.advisor_min_benefit_seconds = float(value)
         elif key == OBS_SLO_AVAILABILITY_TARGET:
             from hyperspace_tpu_torch.obs import slo as _obs_slo
 
@@ -680,6 +753,34 @@ class HyperspaceConf:
             return self.controller_incident_max_bundles
         if key == CONTROLLER_INCIDENT_SEGMENTS:
             return self.controller_incident_segments
+        if key == CONTROLLER_DEMOTION_CLUSTER_SIZE:
+            return self.controller_demotion_cluster_size
+        if key == CONTROLLER_DEMOTION_WINDOW_SECONDS:
+            return self.controller_demotion_window_seconds
+        if key == CONTROLLER_STORM_RESPONSE:
+            return self.controller_storm_response
+        if key == ADVISOR_ROUTING_ENABLED:
+            return self.advisor_routing_enabled
+        if key == ADVISOR_ROUTING_DEMOTE_RATIO:
+            return self.advisor_routing_demote_ratio
+        if key == ADVISOR_ROUTING_ALPHA:
+            return self.advisor_routing_alpha
+        if key == ADVISOR_ROUTING_MIN_SAMPLES:
+            return self.advisor_routing_min_samples
+        if key == ADVISOR_WORKLOAD_MAX_RECORDS:
+            return self.advisor_workload_max_records
+        if key == ADVISOR_AUTO_CREATE:
+            return self.advisor_auto_create
+        if key == ADVISOR_AUTO_VACUUM:
+            return self.advisor_auto_vacuum
+        if key == ADVISOR_AUTO_OPTIMIZE:
+            return self.advisor_auto_optimize
+        if key == ADVISOR_LIFECYCLE_MAX_DELTAS:
+            return self.advisor_lifecycle_max_deltas
+        if key == ADVISOR_MIN_CONFIDENCE:
+            return self.advisor_min_confidence
+        if key == ADVISOR_MIN_BENEFIT_SECONDS:
+            return self.advisor_min_benefit_seconds
         if key == OBS_SLO_AVAILABILITY_TARGET:
             from hyperspace_tpu_torch.obs import slo as _obs_slo
 

@@ -8,8 +8,10 @@ against the catalog), and in verbose mode report the per-operator
 occurrence diff, whose headline here is how many scans became bucketed
 index scans (each is an exchange the executor never runs).
 `explain_executed` runs the query twice and diffs the executed physical
-plans; `explain_analyze` runs it once and renders its profile. The JAX
-package's adaptive-routing line is left out with the advisor.
+plans; `explain_analyze` runs it once and renders its profile. With adaptive
+routing on, the diff ends with the routing ledger's verdict for the plan
+(`Adaptive routing: indexed`, or `raw` where the indexed path measured
+slower and the rewrite shown would not run).
 """
 
 from __future__ import annotations
@@ -260,6 +262,20 @@ def explain_string(
     from hyperspace_tpu_torch.plan.prune import prune_columns
     from hyperspace_tpu_torch.plan.pushdown import push_down_filters
 
+    # Adaptive routing's verdict: keyed on the ORIGINAL plan's signature,
+    # exactly as run_query keys the ledger.
+    routing_line = None
+    conf = getattr(session, "conf", None)
+    if conf is not None and getattr(conf, "advisor_routing_enabled", False):
+        from hyperspace_tpu_torch.signature import plan_signature
+
+        demoted = plan_signature(plan) in set(session.routing_ledger().demoted_signatures())
+        routing_line = (
+            "Adaptive routing: raw (indexed path measured slower; the rewrite below would NOT run)"
+            if demoted
+            else "Adaptive routing: indexed"
+        )
+
     was_enabled = session.is_hyperspace_enabled()
     try:
         session.enable_hyperspace()
@@ -287,6 +303,9 @@ def explain_string(
     out.append("Indexes used:")
     for name in _used_indexes(with_plan, session):
         out.append(f"  {name}")
+    if routing_line is not None:
+        out.append("=" * 64)
+        out.append(routing_line)
     if verbose:
         cb = _operator_counts(plan)
         ca = _operator_counts(with_plan)

@@ -93,6 +93,8 @@ not listed raises.
 ``controller.heal.marker``  serve/controller.py, after the leader heals
                       the shared bytes but before the generation marker
                       publishes
+``advisor.recommend`` advisor/whatif.py, at the head of a recommendation pass
+``advisor.apply``     advisor/lifecycle.py, before each policy mutation
 ====================  =====================================================
 
 `export_state` / `install_state` carry the harness into the pooled
@@ -141,6 +143,8 @@ KNOWN_POINTS = (
     "controller.actuate",
     "journal.seal",
     "controller.heal.marker",
+    "advisor.recommend",
+    "advisor.apply",
 )
 
 

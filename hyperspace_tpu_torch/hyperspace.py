@@ -48,7 +48,18 @@ way; `QueryOutcome.replans` counts the re-plans, the stats'
 `degraded_indexes` name the quarantined roots, the `fallback.queries`
 counter and the `fallback.replan` / `index.quarantined` events record
 it. The quarantine is sticky for the session until a refresh, optimize
-or `recover()` lifts it. The advisor's routing is not ported yet.
+or `recover()` lifts it.
+
+The advisor (advisor/): every `run_query` appends a `WorkloadRecord` to
+the session's bounded `workload` log. With
+`hyperspace.advisor.routing.enabled`, `run_query` first asks the routing
+ledger (`routing_ledger()`) for the plan signature's route: a signature
+whose indexed path measured slower than its raw path (EMAs, both sides
+sampled) runs against the source (`advisor.routing.demoted`), and the
+measured wall is folded back into the ledger; the stats' `advisor_routing`
+holds the decision. `Hyperspace.recommend()` and `.lifecycle()` give the
+what-if analyzer's recommendations and the opt-in policy that applies
+them.
 """
 
 from __future__ import annotations
@@ -84,6 +95,7 @@ _profile_seq = itertools.count(1)
 # each carrying the active trace id.
 _EVT_FALLBACK = obs_events.declare("fallback.replan")
 _EVT_QUARANTINED = obs_events.declare("index.quarantined")
+_EVT_DEMOTED = obs_events.declare("advisor.routing.demoted")
 
 
 @dataclasses.dataclass
@@ -142,6 +154,10 @@ class HyperspaceSession:
         # indexes or the source. A refresh, optimize or recover() lifts it.
         # Mutations go through _state_lock.
         self.index_health: dict[str, dict] = {}
+        # The advisor: the bounded workload ring every run_query appends
+        # to, and the routing ledger; both built at first use.
+        self._workload = None
+        self._routing = None
 
     # -- rule toggle (package.scala:46-70) --------------------------------
     def enable_hyperspace(self) -> "HyperspaceSession":
@@ -184,6 +200,32 @@ class HyperspaceSession:
 
                     self._manager = CachingIndexCollectionManager(self.conf, writer_factory, vector_builder_factory)
         return self._manager
+
+    @property
+    def workload(self):
+        """The session's bounded workload log: one
+        :class:`~hyperspace_tpu_torch.advisor.workload.WorkloadRecord` per
+        run_query, the advisor's learning input."""
+        if self._workload is None:
+            with self._state_lock:
+                if self._workload is None:
+                    from hyperspace_tpu_torch.advisor.workload import WorkloadLog
+
+                    self._workload = WorkloadLog(self.conf.advisor_workload_max_records)
+        return self._workload
+
+    def routing_ledger(self):
+        """The adaptive-routing outcome ledger (advisor/routing.py),
+        built at first use; sessions that never enable
+        ``hyperspace.advisor.routing.enabled`` still get a readable view
+        of it for reports."""
+        if self._routing is None:
+            with self._state_lock:
+                if self._routing is None:
+                    from hyperspace_tpu_torch.advisor.routing import RoutingLedger
+
+                    self._routing = RoutingLedger(self)
+        return self._routing
 
     @property
     def last_build_stats(self) -> dict:
@@ -252,15 +294,37 @@ class HyperspaceSession:
         planning, read and derive included; the device's work is not
         waited for). The query is one `query` trace (`plan.optimize`,
         `rule.*`, `execute.*`, `io.read`, `device.kernel` spans) when
-        `hyperspace.obs.enabled`."""
+        `hyperspace.obs.enabled`. With `hyperspace.advisor.routing.enabled`
+        the routing ledger decides first whether the plan runs indexed or
+        against its source, and the query's wall is recorded under the
+        route it took (stats' `advisor_routing`)."""
+        from hyperspace_tpu_torch.advisor.workload import WorkloadRecord, used_index_names
         from hyperspace_tpu_torch.execution import device_cache
         from hyperspace_tpu_torch.execution.executor import Executor
         from hyperspace_tpu_torch.obs import profile as obs_profile
+        from hyperspace_tpu_torch.signature import plan_signature
 
         cache_before = self._cache_counts()
-        t0 = time.perf_counter()
         replans = 0
         use_indexes = True
+        # The plan's structural signature keys both the workload record and
+        # the routing ledger. Routing (opt-in) consults measured history
+        # before planning: a signature whose indexed path measured slower
+        # than raw runs straight against the source.
+        sig = plan_signature(plan)
+        routed = routing_stamp = ledger = None
+        if self.conf.advisor_routing_enabled:
+            from hyperspace_tpu_torch.advisor.routing import collection_stamp
+
+            ledger = self.routing_ledger()
+            routing_stamp = collection_stamp(self)
+            if self._enabled:
+                routed = ledger.decide(sig, stamp=routing_stamp)
+                if routed == "raw":
+                    use_indexes = False
+                    obs_trace.event("advisor.routing.demoted", signature=sig)
+                    _EVT_DEMOTED.emit(signature=sig)
+        t0 = time.perf_counter()
         plan_s = 0.0
         with obs_trace.trace("query") as root_span:
             while True:
@@ -313,6 +377,12 @@ class HyperspaceSession:
         if degraded:
             stats["degraded_indexes"] = degraded
         used = self._enabled and use_indexes
+        if ledger is not None:
+            # The measured outcome folds back into the ledger (an EMA a
+            # signature a route): the demotion evidence of later runs.
+            mode = "indexed" if used else "raw"
+            ledger.record(sig, mode, total_s, stamp=routing_stamp)
+            stats["advisor_routing"] = {"decision": mode, "demoted": routed == "raw"}
         cache_after = self._cache_counts()
         profile = obs_profile.build_profile(
             total_s=total_s,
@@ -323,6 +393,16 @@ class HyperspaceSession:
             fallback={"replans": replans, "degraded_indexes": degraded, "used_indexes": used},
             trace_root=root_span if isinstance(root_span, obs_trace.Span) else None,
         )
+        self.workload.record(WorkloadRecord(
+            signature=sig,
+            plan=plan,
+            total_s=total_s,
+            bytes_scanned=int(stats.get("bytes_scanned", 0) or 0),
+            used_indexes=used,
+            index_names=used_index_names(optimized),
+            profile=profile,
+            routed=routed,
+        ))
         return QueryOutcome(result, stats, optimized, executor.physical_plan, profile, replans, used)
 
     def _quarantine(self, e: IndexCorruptionError) -> bool:
@@ -424,8 +504,8 @@ class HyperspaceSession:
 
 class Hyperspace:
     """The user API (Hyperspace.scala:32-104): index creation, the
-    lifecycle actions, `ann_search`, `explain` and the operations
-    controller."""
+    lifecycle actions, `ann_search`, `explain`, the advisor
+    (`recommend`, `lifecycle`) and the operations controller."""
 
     def __init__(self, session: HyperspaceSession):
         self.session = session
@@ -503,6 +583,25 @@ class Hyperspace:
         """Every index under the system path, in any state, as a pandas
         DataFrame (name, kind, columns, buckets, location, state)."""
         return self.session.manager.indexes()
+
+    # -- advisor ---------------------------------------------------------
+    def recommend(self):
+        """Ranked create / drop / rebucket / optimize recommendations for
+        the session's observed workload: the what-if analyzer replaying
+        recorded plans through the real rewrite rules against hypothetical
+        indexes. Pure analysis; nothing is mutated."""
+        from hyperspace_tpu_torch.advisor.whatif import WhatIfAnalyzer
+
+        return WhatIfAnalyzer(self.session).recommend()
+
+    def lifecycle(self):
+        """The autonomous lifecycle policy over this API
+        (advisor/lifecycle.py). All its gates
+        (`hyperspace.advisor.lifecycle.*`) default off: construct it and
+        call `.sweep()` after opting in."""
+        from hyperspace_tpu_torch.advisor.lifecycle import LifecyclePolicy
+
+        return LifecyclePolicy(self)
 
     def controller(self, server=None, **kwargs):
         """The self-driving operations controller over this API

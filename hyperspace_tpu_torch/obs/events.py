@@ -44,6 +44,9 @@ KNOWN_EVENTS: dict[str, str] = {
     # the index that served it quarantined for the session (hyperspace.py).
     "fallback.replan": "warn",
     "index.quarantined": "warn",
+    # Advisor plane (advisor/routing.py): adaptive routing demoted a plan
+    # signature to a raw source scan.
+    "advisor.routing.demoted": "info",
     # Fleet plane (serve/fleet/): a tenant bounced off its token-bucket
     # quota; a crashed single-flight holder's lease was reaped by another
     # process; the supervisor respawned a dead member, backed off a
@@ -62,6 +65,12 @@ KNOWN_EVENTS: dict[str, str] = {
     "controller.backoff": "info",
     "controller.observe_only": "error",
     "controller.incident": "warn",
+    # The controller answered a `jit.recompile_storm`: the storming key's
+    # signature was pinned to the raw-scan route. The port compiles no
+    # jit code and emits no storm of its own; the controller answers one
+    # that reaches the ring.
+    "controller.storm_response": "warn",
+    "jit.recompile_storm": "warn",
     # SLO plane (obs/slo.py): an objective's multi-window burn rate
     # crossed its page threshold.
     "slo.burn": "error",

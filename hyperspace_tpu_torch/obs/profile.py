@@ -223,6 +223,14 @@ def render(profile: QueryProfile) -> str:
             f"fallback: replans={fb.get('replans', 0)} "
             f"degraded={fb.get('degraded_indexes', [])}"
         )
+    routing = st.get("advisor_routing")
+    if routing:
+        # Adaptive routing's verdict (advisor/routing.py): which path the
+        # ledger sent this query down, and whether that was a demotion.
+        out.append(
+            f"routing: {routing.get('decision')}"
+            + (" (demoted by measured history)" if routing.get("demoted") else "")
+        )
     if profile.trace is None:
         out.append("(tracing disabled — set hyperspace.obs.enabled for span detail)")
     return "\n".join(out)

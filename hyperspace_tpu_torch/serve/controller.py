@@ -3,9 +3,10 @@
 A port of the JAX package's `serve/controller.py`. Every control signal
 and actuator a self-managing installation needs exists in the port in
 isolation — `obs/slo.py` computes multi-window burn verdicts,
-`session.index_health` records quarantines, `faults.py` injects failures
-deterministically, and the Action protocol makes every mutation
-crash-safe. This module composes them into one closed loop:
+`session.index_health` records quarantines, `obs/events.py` records
+routing demotions, `faults.py` injects failures deterministically, and
+the advisor and Action protocols make every mutation crash-safe. This
+module composes them into one closed loop:
 
 ========================  ==========================================
 signal                    actuation (existing crash-safe protocol)
@@ -24,6 +25,11 @@ index quarantined         **heal**: `Hyperspace.recover(name)` (log
                           `refresh_index` rebuild through the normal
                           two-phase Action, so the corrupt bytes are
                           actually replaced.
+`advisor.routing.demoted` **advisor sweep**:
+events cluster            `LifecyclePolicy.sweep()` — still gated by
+(`demotionClusterSize`    the `hyperspace.advisor.lifecycle.*`
+within `demotion`         opt-ins; the controller only decides WHEN.
+`WindowSeconds`)
 sustained fleet/serve     **scale the fleet**:
 saturation                `FleetSupervisor.set_target_workers` grows
 (`fleet_health` queue     the member count by `controller.scale.step`
@@ -32,18 +38,23 @@ ratio over               (up to `controller.scale.maxWorkers`) after
 `saturation`)             restores the pre-episode count after
                           `recoveryTicks` calm ticks (the scale-down,
                           like every release, is budget-free).
-serve SLOs burning        **back off background work**: heals are
-                          deferred with a `controller.backoff` event
-                          until the burn clears.
+`jit.recompile_storm`     **storm response**: pin the storming key's
+event in the window       signature to the raw-scan route
+                          (`RoutingLedger.pin`). Gated by
+                          `controller.stormResponse`. The JAX
+                          package also drops its jit caches once; the
+                          port has none, and emits no storm of its
+                          own: only an event that reaches the ring
+                          draws the pin.
+serve SLOs burning        **back off background work**: heals and
+                          sweeps are deferred with a
+                          `controller.backoff` event until the burn
+                          clears.
 ========================  ==========================================
 
-Not ported, each because what it drives is not: the advisor sweep on a
-cluster of routing demotions (the advisor's lifecycle policy), the
-recompile-storm response (the routing ledger, and XLA's jit caches, which
-the port does not have) and the ingest daemon's pause and resume. Their
-keys (`hyperspace.controller.stormResponse`, `.demotionClusterSize`,
-`.demotionWindowSeconds`) raise "not ported yet", and so does an
-`ingest=` other than None.
+Not ported: the ingest daemon's pause and resume, with the daemon
+(continuous ingestion); an `ingest=` other than None raises "not ported
+yet".
 
 Fleet coordination: N controllers over ONE store must not race their
 heals — a quarantined index would be rebuilt N times. Heal actuations
@@ -95,7 +106,7 @@ Incident flight recorder: the controller snapshots a bundle under
 page engage, a fresh quarantine, observe-only degradation) and
 finalizes it when the episode resolves: event-ring dump, config
 snapshot, the process gauges (`proc.json`, where the JAX package writes
-its jit report), the actuation audit trail, and the last N durable
+its jit report), the routing ledger, the actuation audit trail, and the last N durable
 journal segments (obs/journal.py) from every reachable fleet member. At
 most ONE bundle is open at a time — later triggers annotate it — under
 the same cooldown discipline as every actuator, with retention capped
@@ -130,6 +141,7 @@ _EVT_FAILED = obs_events.declare("controller.actuation_failed")
 _EVT_BACKOFF = obs_events.declare("controller.backoff")
 _EVT_OBSERVE_ONLY = obs_events.declare("controller.observe_only")
 _EVT_INCIDENT = obs_events.declare("controller.incident")
+_EVT_STORM = obs_events.declare("controller.storm_response")
 
 _ENGAGED = obs_metrics.gauge(
     "controller.engaged", "1 while the controller's overload response holds overrides"
@@ -159,8 +171,8 @@ class OpsController:
                 "(the port has no ingest daemon)"
             )
         # `hyperspace` is the user-facing API facade: the controller has
-        # exactly the powers an operator has — recover/refresh — no
-        # private side doors into the log.
+        # exactly the powers an operator has — recover/refresh and the
+        # advisor's lifecycle — no private side doors into the log.
         self.hyperspace = hyperspace
         self.session = hyperspace.session
         self.server = server
@@ -178,6 +190,10 @@ class OpsController:
         self._engaged = False
         self._saved: dict = {}
         self._cooldowns: dict[str, float] = {}
+        # The event ring's cursor and the trailing window of routing
+        # demotions: (controller time, count) per tick that saw some.
+        self._last_seq = 0
+        self._demotions: collections.deque = collections.deque()
         self._last_verdicts: dict[str, str] = {}
         self._recent_actions: collections.deque = collections.deque(maxlen=16)
         # Fleet-heal bookkeeping: marker generation last observed per
@@ -274,8 +290,8 @@ class OpsController:
 
     # -- one reconciliation pass ------------------------------------------
     def step(self, now: float | None = None) -> dict:
-        """One reconciliation pass: sample SLOs, read the quarantines,
-        decide, actuate. Returns the post-step snapshot (the /healthz
+        """One reconciliation pass: sample SLOs, drain new events, read
+        the quarantines, decide, actuate. Returns the post-step snapshot (the /healthz
         document's `controller` section). `now` overrides the injected
         clock for deterministic tests."""
         conf = self.session.conf
@@ -303,6 +319,7 @@ class OpsController:
             else:
                 self._ok_ticks += 1
                 self._page_ticks = 0
+            demotion_cluster, storm_keys = self._drain_events(conf, now)
 
             # 1. Overload response: shed + tighten quotas while pages
             # persist (hysteresis), restore once the burn clears.
@@ -360,7 +377,32 @@ class OpsController:
                     fn=lambda n=name: self._heal(conf, n), index=name,
                 )
 
-            # 3. Incident close: the episode is over once nothing is
+            # 3. Routing demotions clustering means the index layout no
+            # longer fits the workload: hand the evidence to the advisor.
+            if demotion_cluster:
+                if burning:
+                    self._defer_background(
+                        conf, "advisor.sweep", now, reason="slo.burning"
+                    )
+                elif self._actuate(
+                    "advisor.sweep", trigger="routing.demotion_cluster", now=now,
+                    fn=self._sweep, demotions=demotion_cluster,
+                ):
+                    self._demotions.clear()  # evidence consumed; re-arm
+
+            # 4. Recompile-storm response: pin the storming signature to
+            # the raw-scan route. NOT deferred while burning — a storm is
+            # itself a serve-plane pressure source, and the response is
+            # cheap.
+            if conf.controller_storm_response:
+                for key in storm_keys:
+                    self._actuate(
+                        f"storm.response.{key}", trigger="jit.recompile_storm",
+                        now=now, fn=lambda k=key: self._storm_response(k),
+                        key=key,
+                    )
+
+            # 5. Incident close: the episode is over once nothing is
             # burning, no override is engaged, and no index remains
             # quarantined — finalize the open bundle (journal segments
             # from every member, manifest with the audit trail). The
@@ -375,6 +417,30 @@ class OpsController:
                         now, resolution=self._incident_resolution()
                     )
             return self.snapshot()
+
+    # -- signal plumbing --------------------------------------------------
+    def _drain_events(self, conf, now: float) -> tuple[int, list[str]]:
+        """Fold new ring events into the controller's trailing state;
+        returns (demotion count when it constitutes a cluster, the keys
+        of fresh `jit.recompile_storm` events, deduplicated in order)."""
+        fresh = [e for e in obs_events.recent() if e["seq"] > self._last_seq]
+        if fresh:
+            self._last_seq = max(e["seq"] for e in fresh)
+        storms: list[str] = []
+        for e in fresh:
+            if e["name"] == "jit.recompile_storm":
+                key = str(e.get("fields", {}).get("key", ""))
+                if key and key not in storms:
+                    storms.append(key)
+        n = sum(1 for e in fresh if e["name"] == "advisor.routing.demoted")
+        if n:
+            self._demotions.append((now, n))
+        cutoff = now - float(conf.controller_demotion_window_seconds)
+        while self._demotions and self._demotions[0][0] < cutoff:
+            self._demotions.popleft()
+        total = sum(c for _, c in self._demotions)
+        cluster = total if total >= int(conf.controller_demotion_cluster_size) else 0
+        return cluster, storms
 
     # -- actuators --------------------------------------------------------
     def _actuate(self, action: str, trigger: str, now: float, fn, **details) -> bool:
@@ -705,6 +771,19 @@ class OpsController:
              "at": now, "seq": record["seq"]}
         )
 
+    def _storm_response(self, key: str) -> None:
+        """One recompile storm, one response: pin the storming key's
+        signature to the raw-scan route (versioned like every routing
+        entry: any index mutation re-promotes it)."""
+        self.session.routing_ledger().pin(key, "raw")
+        _EVT_STORM.emit(key=key, route="raw", member=self.member_id)
+
+    def _sweep(self) -> None:
+        # The lifecycle policy's own gates (autoCreate/autoVacuum/
+        # autoOptimize, confidence and benefit floors) still decide WHAT
+        # may mutate; the controller only decided WHEN to look.
+        self.hyperspace.lifecycle().sweep()
+
     def _defer_background(self, conf, action: str, now: float, **details) -> None:
         stats.increment("controller.deferred")
         key = f"backoff.{action}"
@@ -817,6 +896,11 @@ class OpsController:
             {k: conf.get(k) for k in sorted(_config.PORTED_KEYS)},
         )
         file_utils.write_json(bundle / "proc.json", obs_runtime.refresh_process_gauges())
+        routing: dict = {}
+        ledger = getattr(self.session, "routing_ledger", None)
+        if callable(ledger):
+            routing = ledger().snapshot()
+        file_utils.write_json(bundle / "routing.json", routing)
 
     def _close_incident(self, now: float, resolution: str) -> None:
         """Finalize the open bundle: seal the local journal, copy the
@@ -984,6 +1068,7 @@ class OpsController:
                 "ok_ticks": self._ok_ticks,
                 "sat_ticks": self._sat_ticks,
                 "scale_baseline": self._scale_baseline,
+                "pending_demotions": sum(c for _, c in self._demotions),
                 "open_incident": (
                     self._incident_dir.name if self._incident_dir else None
                 ),

@@ -13,8 +13,13 @@ heal, the kill switch) goes through both packages' controllers step by
 step, and both give the same audit events in order, the same shed depth
 and quota factor, and the same target worker count; a heal the JAX
 package's controller leads is observed by the port's, and the reverse.
-Left out with what they drive: the advisor sweep, the storm response and
-the ingest pause.
+The script again with clusters of routing demotions and recompile storms
+put on the rings: the same advisor sweeps (deferred while serve SLOs
+burn), the same raw pins and the same audit events in order. The sweep
+and the storm pin on a real session: demotions run_query emitted trigger
+one audited sweep that mutates nothing with the lifecycle gates off, and
+a storm's pin routes the signature raw. Left out with what it drives: the
+ingest pause.
 """
 
 from __future__ import annotations
@@ -80,6 +85,33 @@ class FakeSession:
             self.conf.set(k, v)
         self._state_lock = threading.RLock()
         self.index_health = {}
+        self.ledger = FakeLedger()
+
+    def routing_ledger(self):
+        return self.ledger
+
+
+class FakeLedger:
+    """The routing ledger surface the storm response pins through."""
+
+    def __init__(self):
+        self.pins = []
+
+    def pin(self, signature, mode="raw"):
+        self.pins.append((signature, mode))
+
+    def snapshot(self):
+        return {"pins": list(self.pins)}
+
+
+class FakeLifecycle:
+    def __init__(self, hs):
+        self._hs = hs
+
+    def sweep(self):
+        self._hs._maybe_fail()
+        self._hs.calls.append(("sweep",))
+        return {"applied": [], "skipped": [], "failed": []}
 
 
 class FakeHyperspace:
@@ -107,6 +139,9 @@ class FakeHyperspace:
     def refresh_index(self, name, mode="full"):
         self._maybe_fail()
         self.calls.append(("refresh", name, mode))
+
+    def lifecycle(self):
+        return FakeLifecycle(self)
 
 
 class FakeSupervisor:
@@ -170,7 +205,8 @@ def shed_server():
 
 
 _AUDITED = ("controller.actuation", "controller.actuation_failed", "controller.backoff",
-            "controller.observe_only", "controller.incident", "slo.burn", "fleet.singleflight.takeover")
+            "controller.observe_only", "controller.incident", "slo.burn", "fleet.singleflight.takeover",
+            "controller.storm_response")
 
 
 def _audit(ring, since: int) -> list:
@@ -180,7 +216,8 @@ def _audit(ring, since: int) -> list:
             continue
         f = e["fields"]
         out.append((e["name"], f.get("action"), f.get("trigger"), f.get("outcome"), f.get("phase"),
-                    f.get("resolution"), f.get("workers"), f.get("budget_remaining")))
+                    f.get("resolution"), f.get("workers"), f.get("budget_remaining"), f.get("demotions"),
+                    f.get("key"), f.get("route")))
     return out
 
 
@@ -191,6 +228,27 @@ def test_scripted_signals_give_the_jax_packages_decisions(tmp_path, seed):
     outcome, deferrals, failures, observe-only, incident open and close,
     burn pages), the same shed depth, quota factor and target worker
     count after every step."""
+    seen = _scripted(tmp_path, seed)
+    assert {"shed.engage", "shed.release", "fleet.scale.up"} <= set(seen)
+    assert any(a.startswith("heal.") for a in seen if a)
+
+
+@pytest.mark.parametrize("seed", [7, 9])
+def test_scripted_demotions_and_storms_give_the_jax_packages_decisions(tmp_path, seed):
+    """The seeded script with clusters of `advisor.routing.demoted` events
+    and `jit.recompile_storm` events put on each package's ring: the same
+    advisor sweeps (deferred while serve SLOs burn), the same raw pins and
+    the same audit events in order, step by step."""
+    seen = _scripted(tmp_path, seed, advisor=True)
+    assert "advisor.sweep" in seen and any(a.startswith("storm.response.") for a in seen if a)
+    assert "controller.storm_response" in seen
+
+
+def _scripted(tmp_path, seed, advisor=False) -> list:
+    """Runs the seeded script through both packages' controllers and
+    returns the audit's actions (or event names) in order. With
+    `advisor`, each step may also put 1-3 routing demotions and a
+    recompile storm of one of two keys on both rings."""
     rng = np.random.default_rng(seed)
     conf = {"hyperspace.controller.actuationBudget": 7, "hyperspace.controller.cooldownSeconds": 20.0,
             "hyperspace.controller.scale.maxWorkers": 4}
@@ -222,6 +280,10 @@ def test_scripted_signals_give_the_jax_packages_decisions(tmp_path, seed):
             sat = int(rng.choice([0, 10, 60, 64])) if rng.random() < 0.3 else None
             fail_heal = rng.random() < 0.08
             flip = rng.random() < 0.04
+            demoted = storm = 0
+            if advisor:
+                demoted = int(rng.integers(1, 4)) if rng.random() < 0.25 else 0
+                storm = f"sig-{int(rng.integers(0, 2))}" if rng.random() < 0.08 else None
             for side in sides:
                 side["counters"][0].inc(ok)
                 side["counters"][1].inc(bad)
@@ -235,6 +297,10 @@ def test_scripted_signals_give_the_jax_packages_decisions(tmp_path, seed):
                 if flip:
                     enabled = side["hs"].session.conf.controller_enabled
                     side["hs"].session.conf.set("hyperspace.controller.enabled", "false" if enabled else "true")
+                for i in range(demoted):
+                    side["ring"].declare("advisor.routing.demoted").emit(signature=f"s{step}.{i}")
+                if storm:
+                    side["ring"].declare("jit.recompile_storm").emit(key=storm, recompiles=9)
                 side["ctrl"].step(now=t)
             got = []
             for side in sides:
@@ -243,11 +309,11 @@ def test_scripted_signals_give_the_jax_packages_decisions(tmp_path, seed):
                 snap = side["ctrl"].snapshot()
                 got.append((audit, side["server"].get_shed_depth(), side["server"].quotas.throttle(), side["sup"].n,
                             snap["engaged"], snap["mode"], snap["budget_remaining"], side["hs"].calls[:],
-                            sorted(side["hs"].session.index_health)))
+                            sorted(side["hs"].session.index_health), snap["pending_demotions"],
+                            side["hs"].session.ledger.pins[:]))
             assert got[0] == got[1], f"step {step} at t={t}"
             seen += [a[1] or a[0] for a in got[0][0]]
-        assert {"shed.engage", "shed.release", "fleet.scale.up"} <= set(seen)
-        assert any(a.startswith("heal.") for a in seen if a)
+        return seen
     finally:
         for side in sides:
             side["server"].shutdown()
@@ -344,6 +410,124 @@ def test_heal_defers_while_burning(shed_server):
     for dt in (70.0, 71.0, 72.0):
         ctrl.step(now=t + dt)
     assert ("recover", "hot") in hs.calls
+
+
+# -- the advisor sweep and the storm response ----------------------------------
+
+
+def _demote(n, prefix="s"):
+    demoted = events.declare("advisor.routing.demoted")
+    for i in range(n):
+        demoted.emit(signature=f"{prefix}{i}")
+
+
+def test_demotion_cluster_triggers_advisor_sweep():
+    _serve_counters()
+    hs, ctrl = _controller()
+    _demote(3)
+    ctrl.step(now=0.0)
+    ctrl.step(now=1.0)
+    assert hs.calls == [("sweep",)]
+    (evt,) = _actuation_events("advisor.sweep")
+    assert (evt["fields"]["trigger"], evt["fields"]["demotions"]) == ("routing.demotion_cluster", 3)
+    # The evidence is consumed: no second sweep without fresh demotions.
+    ctrl.step(now=100.0)
+    assert hs.calls.count(("sweep",)) == 1 and ctrl.snapshot()["pending_demotions"] == 0
+
+
+def test_demotions_below_cluster_size_or_outside_window_never_sweep():
+    _serve_counters()
+    hs, ctrl = _controller()
+    _demote(2)
+    ctrl.step(now=0.0)  # 2 < clusterSize 3
+    assert ctrl.snapshot()["pending_demotions"] == 2
+    _demote(1, prefix="late")
+    ctrl.step(now=1000.0)  # the window is 300 s: the first two aged out
+    assert ("sweep",) not in hs.calls and ctrl.snapshot()["pending_demotions"] == 1
+
+
+def test_sweep_defers_while_burning_then_runs(shed_server):
+    completed, failed, *_ = _serve_counters()
+    hs, ctrl = _controller(server=shed_server)
+    t = _drive_page(completed, failed, ctrl)
+    _demote(3)
+    ctrl.step(now=t + 1.0)
+    assert ("sweep",) not in hs.calls
+    backoffs = [e for e in events.recent() if e["name"] == "controller.backoff"]
+    assert {e["fields"]["action"] for e in backoffs} == {"advisor.sweep"}
+    completed.inc(80_000)
+    for dt in (70.0, 71.0, 72.0):
+        ctrl.step(now=t + dt)
+    assert hs.calls.count(("sweep",)) == 1
+
+
+def test_recompile_storm_pins_raw_once_per_cooldown():
+    _serve_counters()
+    hs, ctrl = _controller()
+    storm = events.declare("jit.recompile_storm")
+    storm.emit(key="sig-hot", recompiles=9)
+    ctrl.step(now=0.0)
+    assert hs.session.ledger.pins == [("sig-hot", "raw")]
+    (act,) = _actuation_events("storm.response.sig-hot")
+    assert (act["fields"]["trigger"], act["fields"]["outcome"]) == ("jit.recompile_storm", "executed")
+    (resp,) = [e for e in events.recent() if e["name"] == "controller.storm_response"]
+    assert (resp["fields"]["key"], resp["fields"]["route"]) == ("sig-hot", "raw")
+    storm.emit(key="sig-hot", recompiles=9)  # again, inside the cooldown: one pin
+    ctrl.step(now=1.0)
+    assert hs.session.ledger.pins == [("sig-hot", "raw")]
+
+
+def test_storm_response_gate_off_never_pins():
+    _serve_counters()
+    hs, ctrl = _controller(**{"hyperspace.controller.stormResponse": "false"})
+    events.declare("jit.recompile_storm").emit(key="sig-x", recompiles=9)
+    ctrl.step(now=0.0)
+    assert hs.session.ledger.pins == [] and _actuation_events("storm.response.sig-x") == []
+
+
+def test_sweep_and_storm_pin_on_a_real_session(tmp_path):
+    """Demotions run_query emitted over a real session and store trigger
+    one audited sweep, which with the lifecycle gates off mutates nothing;
+    a storm's key pinned raw routes that signature to its source."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, col
+    from hyperspace_tpu_torch.serve.plan_cache import collection_log_versions
+    from hyperspace_tpu_torch.signature import plan_signature
+
+    _serve_counters()
+    rng = np.random.default_rng(9)
+    (tmp_path / "src").mkdir()
+    pq.write_table(pa.table({"k": rng.integers(0, 50, 2000), "v": rng.standard_normal(2000)}),
+                   tmp_path / "src" / "p0.parquet")
+    session = HyperspaceSession(system_path=str(tmp_path / "idx"), num_buckets=4, device="cpu")
+    hs = Hyperspace(session)
+    df = session.parquet(tmp_path / "src")
+    hs.create_index(df, IndexConfig("kidx", ["k"], ["v"]))
+    session.enable_hyperspace()
+    session.conf.set("hyperspace.advisor.routing.enabled", True)
+    slow, other = df.filter(col("k") == 7).select("k", "v"), df.filter(col("k") == 8).select("k", "v")
+    led = session.routing_ledger()
+    led.record(plan_signature(slow), "raw", 1e-4)
+    led.record(plan_signature(slow), "indexed", 10.0)
+    for _ in range(3):
+        session.run(slow)
+        assert session.last_query_stats["advisor_routing"] == {"decision": "raw", "demoted": True}
+    before = collection_log_versions(session)
+    session.conf.set("hyperspace.controller.enabled", True)
+    ctrl = hs.controller(clock=lambda: 0.0)
+    ctrl.step(now=0.0)
+    (evt,) = _actuation_events("advisor.sweep")
+    assert (evt["fields"]["trigger"], evt["fields"]["demotions"], evt["fields"]["outcome"]) == \
+        ("routing.demotion_cluster", 3, "executed")
+    assert collection_log_versions(session) == before
+    assert [e.name for e in session.manager.get_indexes()] == ["kidx"]
+    events.declare("jit.recompile_storm").emit(key=plan_signature(other), recompiles=9)
+    ctrl.step(now=1.0)
+    assert plan_signature(other) in led.demoted_signatures()
+    session.run(other)
+    assert session.last_query_stats["advisor_routing"] == {"decision": "raw", "demoted": True}
 
 
 def test_single_verdict_flicker_never_actuates(shed_server):
@@ -457,6 +641,9 @@ def test_transient_fault_at_actuate_surfaces_typed():
 
 
 def test_what_the_controller_does_not_port_raises(tmp_path):
+    """The ingest pause is not ported: an `ingest=` and the ingest keys
+    raise. The storm response's and the advisor sweep's keys are ported
+    and read the JAX package's defaults."""
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
 
     session = HyperspaceSession(system_path=str(tmp_path), device="cpu")
@@ -464,10 +651,13 @@ def test_what_the_controller_does_not_port_raises(tmp_path):
     assert isinstance(ctrl, OpsController) and ctrl.snapshot()["mode"] == "disabled"
     with pytest.raises(HyperspaceError, match="not ported"):
         Hyperspace(session).controller(ingest=object())
-    for key in ("hyperspace.controller.stormResponse", "hyperspace.controller.demotionClusterSize",
-                "hyperspace.controller.demotionWindowSeconds"):
+    for key in ("hyperspace.ingest.enabled", "hyperspace.ingest.autoCompact"):
         with pytest.raises(HyperspaceError, match="not ported"):
             session.conf.get(key)
+    ref = JaxConf()
+    for key in ("hyperspace.controller.stormResponse", "hyperspace.controller.demotionClusterSize",
+                "hyperspace.controller.demotionWindowSeconds"):
+        assert session.conf.get(key) == ref.get(key)
 
 
 # -- the loop and its health surface ------------------------------------------

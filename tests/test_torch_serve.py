@@ -8,8 +8,7 @@ same data (rows as multisets; integral values exactly, float sums within
 1e-12 relative). Added here: a tensor written in place in a cached result
 makes the next lookup miss; the kernel wrappers' launch counter stays
 exact under threads; the pieces left out (the operations controller's
-ingest pause and its storm-response and advisor-sweep keys) raise as not
-ported.
+ingest pause and the ingest keys) raise as not ported.
 """
 
 from __future__ import annotations
@@ -353,8 +352,7 @@ class TestAdmission:
         session = _session(tmp_system_path)
         with pytest.raises(HyperspaceError, match="not ported"):
             Hyperspace(session).controller(ingest=object())
-        for key in ("hyperspace.controller.stormResponse", "hyperspace.controller.demotionClusterSize",
-                    "hyperspace.controller.demotionWindowSeconds"):
+        for key in ("hyperspace.ingest.enabled", "hyperspace.ingest.pollSeconds"):
             with pytest.raises(HyperspaceError, match="not ported"):
                 session.conf.set(key, True)
 

@@ -155,7 +155,8 @@ What it does, in order (any failure raises and exits non-zero):
    `faults_sweep` line an action; also a streaming create (a
    budget of a fifth of the input) and a pooled create (2 workers), each
    replayed at its points of `BUILD_POINTS` as a crash (a CrashPoint, or a
-   WorkerCrashed where a worker died) and as a transient fault, no spill
+   WorkerCrashed where a worker died), the streaming create's also as a
+   transient fault (`SWEEP_TRANSIENTS`), no spill
    or exchange dir left after any, and `prefetch.issue` /
    `device.stage` around a cold lookup (a crash, then advisory transient
    faults with the answer unchanged); K1 and K2 launch, K3 does not;
@@ -234,6 +235,30 @@ What it does, in order (any failure raises and exits non-zero):
    lifecycle gates off: one step drains (a)'s demotions from the event
    ring and makes exactly one audited `advisor.sweep`, which mutates
    nothing; K1 and K2 launch, K3 does not;
+3j. continuous ingestion (`ingest_path`), at benchmarks/bench_ingest.py's
+   full workload with nothing cut, on a store of its own: (a) a seed
+   batch of 500,000 trips (`gen_trips_batch`, seed 50) indexed as
+   `trips_zone` (`zone` with `fare`, `distance`; 16 buckets), the daemon
+   in thread mode on the card (pollSeconds 0.02, maxLagSeconds 60,
+   cdcBatchRows 10,000, the advisor's autoOptimize on so that compaction
+   runs past maxDeltas 4), bench_ingest's producer (8 more batches
+   published by `os.replace`, each with a CDC wave of 10,000 JSON rows)
+   and a querier alternating the gauge (`zone == 42`) with a zone
+   aggregate over 12 zones (K1), re-reading both through a snapshot
+   pinned before the first commit; /healthz read once while it runs:
+   every pinned read the admission answer (sums within 2·N·u), no live
+   answer backwards or stale past the lag bound, no untyped error, p99
+   under 5 s, after the drain the gauge the expected total and the
+   aggregate pyarrow's over every file, at least 8 commits, a
+   compaction, every action's version dirs, each build's sort on the
+   card, K1 in every aggregate and none in a lookup; the throughput
+   prints beside bench_ingest's 0.11 GB/s floor, ungated; (b) on that
+   index, two more batches with `hyperspace.ingest.processWorker` on:
+   the worker (its session on the card) commits the first and is
+   SIGKILLed, recover converges (no transient tail, no orphan version
+   dir), a restarted worker drains the rest exactly once, both workers'
+   journaled commits sorted on the card, no launch in this process
+   during the workers' window; K1 launches, K2 and K3 do not;
 4. vector path, at the shape of SIFT1M: generates 1,000,000 clustered
    128-d float32 embeddings (seed 7, 64 clusters), builds a vector index
    with `id` included (64 partitions, l2; timed by phase: read, k-means,
@@ -266,8 +291,9 @@ What it does, in order (any failure raises and exits non-zero):
    query surface's q67 re-fold, CD1 inner and q43 partial aggregates, and
    of 3f's: the Q1-shaped aggregate over li_live's source answered through
    the fallback, and the crash sweep's aggregate by `o_orderpriority`
-   after create's and the incremental refresh's first replay, and of 3g's
-   revenue over the streamed index's 1% range; K2: the
+   after create's and the incremental refresh's first replay, of 3g's
+   revenue over the streamed index's 1% range, and of 3j's zone aggregate
+   over the drained index; K2: the
    join's real key codes at the aligned J2 and J3 shapes, the hybrid
    J2's and the un-indexed J2 shape, and the aligned J2 codes with each
    primary row shuffled, so that the kernel's windows
@@ -302,6 +328,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -3246,9 +3273,9 @@ VALIDATE_EXPECT = {
 SWEEP_INDEX = "o_sweep"
 SWEEP_ACTIONS = ("create", "refresh", "optimize", "vacuum", "create_streaming", "create_pooled")
 # The build at scale's points (ten of faults.KNOWN_POINTS): the
-# streaming and pooled creates replay theirs as a crash and as a transient
-# fault; the query's two (`prefetch.issue`, `device.stage`) are replayed
-# around a cold lookup.
+# streaming and pooled creates replay theirs as a crash, the streaming
+# create also as a transient fault; the query's two (`prefetch.issue`,
+# `device.stage`) are replayed around a cold lookup.
 BUILD_POINTS = {
     "create_streaming": ("footer.read", "spill.read", "pipeline.put", "pipeline.get"),
     # The pooled create's own four; its workers' footer.read is the
@@ -3257,6 +3284,12 @@ BUILD_POINTS = {
     "create_pooled": ("build.worker.spawn", "build.exchange.write", "build.exchange.read",
                       "build.manifest.merge"),
 }
+# The creates whose points are also replayed as a transient fault. The
+# pooled create's transients are host code its workers run (they never
+# touch the card), which tests/test_torch_build_scaleout.py holds on the
+# CPU; each replay here paid the workers' start-up again (4 replays,
+# 26-84 s by the host).
+SWEEP_TRANSIENTS = ("create_streaming",)
 QUERY_POINTS = ("prefetch.issue", "device.stage")
 SWEEP_APPEND = (0.05, 49)
 # Later calls of the busy points, replayed on create.
@@ -3555,8 +3588,9 @@ def crash_sweep(device, ctx: dict, sf: float) -> dict:
     create (a budget of a fifth of the input) and a pooled create (2
     workers), each replayed at its points of BUILD_POINTS, once as a
     crash (a CrashPoint, or a WorkerCrashed where the worker died)
-    and once as a transient fault (absorbed by the retry, or a typed
-    failure rolled back), with no spill or exchange dir left after any;
+    and, for the actions of SWEEP_TRANSIENTS, once as a transient fault
+    (absorbed by the retry, or a typed failure rolled back), with no
+    spill or exchange dir left after any;
     and the QUERY_POINTS around a cold lookup, each as a crash and as a
     transient fault (advisory: the answer stays pyarrow's). Returns the
     record and K1's inputs from the aggregate of create's and the
@@ -3726,7 +3760,7 @@ def crash_sweep(device, ctx: dict, sf: float) -> dict:
             if len(new) != len(BUILD_POINTS[action]):
                 raise AssertionError(f"sweep {action}: fired {sorted(seen)}, not all of {BUILD_POINTS[action]}")
             replays = [(p, 1) for p in new]
-            transients = list(new)
+            transients = list(new) if action in SWEEP_TRANSIENTS else []
         else:
             replays = [(p, 1) for p in sorted(seen)]
             transients = []
@@ -5504,6 +5538,572 @@ def advisor_path(device, ctx: dict, sf: float) -> dict:
     return out
 
 
+# -- 3j: continuous ingestion -------------------------------------------------
+
+INGEST_BATCH_ROWS = 500_000  # benchmarks/bench_ingest.py's full workload: rows a trip batch
+INGEST_BATCHES = 8  # appended on top of the seed batch 0
+INGEST_CDC_ROWS = 10_000  # rows a CDC wave, one wave a batch
+INGEST_LAG_S = 60.0  # hyperspace.ingest.maxLagSeconds
+INGEST_P99_S = 5.0  # bench_ingest's completed-query p99 bound
+INGEST_FLOOR_GBPS = 0.11  # bench_ingest's throughput floor: printed with its verdict, not gated
+INGEST_GAUGE_ZONE = 42
+# The zone aggregate's 12 zones (42, the gauge's, among them).
+INGEST_ZONES = (7, 19, 42, 57, 88, 101, 133, 150, 177, 201, 230, 264)
+INGEST_WORKER_BATCHES = 2  # (b)'s batches, published with the process worker on
+
+
+class _TimedIngest:
+    """Pass-through Hyperspace facade that clocks successful refreshes and
+    compactions (bench_ingest's accounting: dataset bytes over the seconds
+    inside successful refreshes; empty polls and failures excluded) and
+    records what each build reports: its path, rows and the device its
+    bucket sort ran on."""
+
+    def __init__(self, hs):
+        self._hs = hs
+        self._lock = threading.Lock()
+        self.commit_s = 0.0
+        self.builds: list[dict] = []
+
+    def _record(self, action: str, t0: float) -> None:
+        st = self._hs.session.last_build_stats
+        with self._lock:
+            self.builds.append({"action": action, "s": time.perf_counter() - t0, "path": st.get("path"),
+                                "rows": st.get("rows"), "sort_device": st.get("sort_device")})
+
+    def refresh_index(self, name, mode="full"):
+        t0 = time.perf_counter()
+        out = self._hs.refresh_index(name, mode)  # raises on an empty poll
+        with self._lock:
+            self.commit_s += time.perf_counter() - t0
+        self._record("refresh", t0)
+        return out
+
+    def optimize_index(self, name, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self._hs.optimize_index(name, *args, **kwargs)
+        self._record("optimize", t0)
+        return out
+
+    def __getattr__(self, attr):
+        return getattr(self._hs, attr)
+
+
+def _ingest_answers(result) -> tuple:
+    """The zone aggregate's answer as (zones, counts, sums), by zone."""
+    d = result.decode()
+    order = np.argsort(d["zone"])
+    return (tuple(int(z) for z in d["zone"][order]), tuple(int(c) for c in d["n"][order]),
+            np.asarray(d["fare_sum"], dtype=np.float64)[order])
+
+
+def _ingest_reference(data: Path) -> tuple:
+    """pyarrow over every published file and CDC batch file under `data`:
+    the gauge's row count and the zone aggregate's zones, counts, sums and
+    sums of |fare| (each file read alone: the CDC batches order their
+    columns by name)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    parts = [pq.read_table(p, columns=["zone", "fare"]) for p in sorted(data.glob("*.parquet"))]
+    t = pa.concat_tables([p.cast(pa.schema([("zone", pa.int64()), ("fare", pa.float64())])) for p in parts])
+    gauge = int(pc.sum(pc.equal(t["zone"], INGEST_GAUGE_ZONE)).as_py())
+    sel = t.filter(pc.is_in(t["zone"], value_set=pa.array(INGEST_ZONES, pa.int64())))
+    g = sel.group_by("zone").aggregate([("fare", "sum"), ("fare", "count")]).sort_by("zone")
+    zones = tuple(int(z) for z in g["zone"].to_pylist())
+    counts = tuple(int(c) for c in g["fare_count"].to_pylist())
+    sums = np.asarray(g["fare_sum"].to_pylist(), dtype=np.float64)
+    return gauge, zones, counts, sums, np.abs(sums)  # every fare is >= 0
+
+
+def _ingest_log_actions(index_dir: Path, max_deltas: int) -> list[tuple]:
+    """Each committed action of the index's log with the version dirs it
+    left, checked against what the action must leave: a refresh its
+    predecessor's dirs plus one new one, an optimize one new dir in place
+    of more than `max_deltas`."""
+    log_dir = index_dir / "_hyperspace_log"
+    entries = [json.loads((log_dir / p).read_text())
+               for p in sorted((p.name for p in log_dir.iterdir() if p.name.isdigit()), key=int)]
+    actions, prev = [], None
+    for before, entry in zip([None] + entries[:-1], entries):
+        if entry["state"] != "ACTIVE":
+            continue
+        dirs = entry["content"]["directories"]
+        kind = before["state"] if before is not None else "CREATING"
+        if kind == "REFRESHING":
+            ok = dirs[:-1] == prev and dirs[-1] not in prev
+        elif kind == "OPTIMIZING":
+            ok = len(dirs) == 1 and dirs[0] not in prev and len(prev) > max_deltas
+        else:
+            ok = kind == "CREATING" and prev is None and len(dirs) == 1
+        if not ok:
+            raise AssertionError(f"3j: log entry {entry['id']} ({kind}) left {dirs} after {prev}")
+        actions.append((kind, tuple(dirs)))
+        prev = dirs
+    missing = [d for d in prev if not (index_dir / d).is_dir()]
+    if missing:
+        raise AssertionError(f"3j: the latest entry's version dirs {missing} are not on disk")
+    return actions
+
+
+def _journal_records(root: Path, pid: int) -> list[dict]:
+    """One process's journal records: its sealed segments and its active
+    tail, read as written (a killed process's flushed lines included)."""
+    from hyperspace_tpu_torch.obs import journal
+
+    d = root / str(pid)
+    paths = journal.segment_paths(d) + sorted(d.glob(f"{journal.TMP_PREFIX}*"))
+    return [r for p in paths for r in journal.read_segment(p)]
+
+
+def ingest_path(device, workdir: Path, batch_rows: int = INGEST_BATCH_ROWS, batches: int = INGEST_BATCHES,
+                cdc_rows: int = INGEST_CDC_ROWS) -> tuple[dict, dict]:
+    """3j: continuous ingestion at benchmarks/bench_ingest.py's full
+    workload, through the port with nothing cut.
+
+    (a) A seed batch of `batch_rows` trips (`gen_trips_batch`, seed 50)
+    indexed as `trips_zone` on `zone` with `fare` and `distance` (16
+    buckets); the daemon (`IngestDaemon`, thread mode, on the session's
+    device; pollSeconds 0.02, maxLagSeconds 60, cdcBatchRows `cdc_rows`,
+    the advisor's autoOptimize on so that compaction runs past maxDeltas
+    4) watches it and `changes.jsonl`. bench_ingest's producer publishes
+    `batches` more batches by `os.replace` from a staging dir, each with a
+    CDC wave of `cdc_rows` JSON rows (rng 1234, trip ids from 10,000,000),
+    and waits for the commits to keep up. A querier alternates the gauge
+    (`zone == 42`, zone and fare) with the zone aggregate (`zone` in
+    INGEST_ZONES, sum of fare and a count, by zone: K1), and re-reads both
+    every round through a snapshot pinned before the first commit; the
+    shared HTTP plane's /healthz is read once while it runs. Hard checks:
+    every pinned read repeats the admission answer (the gauge's rows and
+    the counts exactly, the sums within 2·N·u); no live answer goes
+    backwards; no query started more than maxLagSeconds after a unit
+    arrived misses it; no untyped error; completed-query p99 under 5 s;
+    after the drain the gauge equals the expected total and the aggregate
+    equals pyarrow over every file (counts exactly, sums within 2·N·u);
+    at least `batches` commits, a compaction, every action's version
+    dirs; each build's sort on the session's device; K1 in every
+    aggregate, none in a gauge lookup. The throughput (dataset bytes over
+    the seconds inside successful refreshes) prints beside bench_ingest's
+    0.11 GB/s floor, ungated.
+
+    (b) On (a)'s index, `hyperspace.ingest.processWorker` on: a batch and
+    its wave published, the spawned worker (its session on the parent's
+    device) commits it and is SIGKILLed; a second batch published;
+    `recover` converges (no transient tail, no orphan version dir, a
+    second recover does nothing); a restarted worker drains the rest
+    exactly once (the gauge's expected total, the aggregate against
+    pyarrow). The workers' commits journal their sort device; the parent
+    launches no kernel in the workers' window.
+
+    Returns the phase's record and the K1 input of one zone aggregate over
+    the drained index (for the kernel phase)."""
+    import os
+    import signal
+    import urllib.request
+
+    import pyarrow.parquet as pq
+    import torch
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, col, faults, stats
+    from hyperspace_tpu_torch.datagen import gen_trips_batch
+    from hyperspace_tpu_torch.exceptions import HyperspaceError
+    from hyperspace_tpu_torch.ingest import IngestDaemon
+    from hyperspace_tpu_torch.obs import http as obs_http
+    from hyperspace_tpu_torch.obs import journal
+    from hyperspace_tpu_torch.obs import slo as obs_slo
+    from hyperspace_tpu_torch.ops import aggregate
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.topk import topk
+
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    walls: dict = {}
+    out: dict = {"batch_rows": batch_rows, "batches": batches, "cdc_rows_per_wave": cdc_rows}
+    faults.reset()
+    # The earlier phases' servers are not this phase's SLO evidence: a page
+    # left over from them would defer every compaction.
+    obs_slo.reset()
+    root = workdir / "ingest"
+    data, staging = root / "trips", root / "staging"
+    t0 = time.perf_counter()
+    total_bytes = gen_trips_batch(data, batch_rows, 0)
+    session = HyperspaceSession(system_path=str(root / "indexes"), num_buckets=16, device=device)
+    conf = session.conf
+    conf.set("hyperspace.ingest.enabled", "true")
+    conf.set("hyperspace.ingest.pollSeconds", "0.02")
+    conf.set("hyperspace.ingest.maxLagSeconds", str(INGEST_LAG_S))
+    conf.set("hyperspace.ingest.cdcBatchRows", str(cdc_rows))
+    conf.set("hyperspace.advisor.lifecycle.autoOptimize", "true")
+    max_deltas = int(conf.advisor_lifecycle_max_deltas)
+    hs = Hyperspace(session)
+    df = session.parquet(data)
+    hs.create_index(df, IndexConfig("trips_zone", ["zone"], ["fare", "distance"]))
+    if not str(session.last_build_stats.get("sort_device", "")).startswith(device.type):
+        raise AssertionError(f"3j: the create sorted on {session.last_build_stats.get('sort_device')}")
+    session.enable_hyperspace()
+    gauge = df.filter(col("zone") == INGEST_GAUGE_ZONE).select("zone", "fare")
+    agg = df.filter(col("zone").isin(list(INGEST_ZONES))).aggregate(
+        ["zone"], [("sum", "fare", "fare_sum"), ("count", None, "n")])
+    timed = _TimedIngest(hs)
+    walls["seed_and_create_s"] = time.perf_counter() - t0
+
+    def count_rows(snapshot=None) -> tuple[int, int]:
+        k1 = segment_reduce.launches
+        n = len(session.run(gauge, snapshot=snapshot).decode()["zone"])
+        return n, segment_reduce.launches - k1
+
+    def zone_agg(snapshot=None) -> tuple[tuple, int]:
+        k1 = segment_reduce.launches
+        ans = _ingest_answers(session.run(agg, snapshot=snapshot))
+        return ans, segment_reduce.launches - k1
+
+    changelog = root / "changes.jsonl"
+    changelog.touch()
+    daemon = IngestDaemon(timed).watch("trips_zone", changelog=changelog)
+    stats0 = {k: stats.get(k) for k in ("ingest.commits", "ingest.compactions", "ingest.commit_failures",
+                                        "ingest.compact_failures", "ingest.rows", "ingest.bytes",
+                                        "ingest.snapshots", "ingest.pinned_reads", "ingest.deferred")}
+
+    # Pinned before any commit: this reader stays on the seed world for the
+    # whole run, however many micro-batches land underneath.
+    pinned = session.pin_snapshot()
+    (pinned_rows, _), (pinned_agg, _) = count_rows(pinned), zone_agg(pinned)
+    seed_rows, _ = count_rows()
+    _, seed_zones, seed_counts, seed_sums, seed_abs = _ingest_reference(data)
+    if (pinned_rows, pinned_agg[:2]) != (seed_rows, (seed_zones, seed_counts)) or not np.all(
+            np.abs(pinned_agg[2] - seed_sums) <= sum_tolerance(np.asarray(seed_counts), seed_abs)):
+        raise AssertionError(f"3j: the admission answer {pinned_rows}, {pinned_agg[:2]} is not pyarrow's "
+                             f"{seed_counts}")
+    pinned_tol = sum_tolerance(np.asarray(seed_counts), seed_abs)
+    floors: list[dict] = []
+    floors_lock = threading.Lock()
+    expected = {"gauge": seed_rows, "agg": sum(seed_counts)}
+    errors_untyped: list[str] = []
+    typed_refusals: list[str] = []
+    stop = threading.Event()
+    zone_set = np.asarray(INGEST_ZONES)
+
+    cdc = {"rng": np.random.default_rng(1234), "next_id": 10_000_000}
+
+    def publish_batch(b: int) -> tuple[int, np.ndarray]:
+        """Batch b built in staging and published by `os.replace`; its
+        bytes and zones."""
+        nb = gen_trips_batch(staging, batch_rows, b)
+        fname = f"batch-{b:04d}.parquet"
+        zones = np.asarray(pq.read_table(staging / fname, columns=["zone"]).column("zone"))
+        os.replace(staging / fname, data / fname)
+        return nb, zones
+
+    def publish_wave() -> np.ndarray:
+        """One CDC wave of `cdc_rows` JSON rows appended to the changelog;
+        its zones."""
+        rng = cdc["rng"]
+        wave = rng.integers(0, 265, cdc_rows)
+        with open(changelog, "a", encoding="utf-8") as f:
+            for z in wave:
+                f.write(json.dumps({"trip_id": cdc["next_id"], "zone": int(z),
+                                    "fare": round(float(rng.random() * 80), 3),
+                                    "distance": round(float(rng.random() * 30), 3)}) + "\n")
+                cdc["next_id"] += 1
+        return wave
+
+    def arrived(zones: np.ndarray) -> None:
+        with floors_lock:
+            expected["gauge"] += int((zones == INGEST_GAUGE_ZONE).sum())
+            expected["agg"] += int(np.isin(zones, zone_set).sum())
+            floors.append({"arrived": time.perf_counter(), "gauge": expected["gauge"], "agg": expected["agg"],
+                           "seen_at": None})
+
+    def producer():
+        """bench_ingest's producer: a batch, then its wave, each a unit of
+        arrival; then wait for the commits to keep up."""
+        nonlocal total_bytes
+        for b in range(1, batches + 1):
+            nb, zones = publish_batch(b)
+            total_bytes += nb
+            arrived(zones)
+            arrived(publish_wave())
+            deadline = time.perf_counter() + 120
+            while time.perf_counter() < deadline and not stop.is_set():
+                if daemon.snapshot()["commits"] >= b:
+                    break
+                time.sleep(0.02)
+
+    latencies: list[float] = []
+    serves = {"gauge": 0, "agg": 0, "backwards": 0, "stale_past_lag": 0}
+    pinned_state = {"reads": 0, "violations": []}
+    k1_by_query = {"gauge": 0, "agg": 0, "pinned_gauge": 0, "pinned_agg": 0}
+    high = {"gauge": seed_rows, "agg": sum(seed_counts)}
+
+    def querier():
+        turn = 0
+        while not stop.is_set():
+            kind = "gauge" if turn % 2 == 0 else "agg"
+            turn += 1
+            t_start = time.perf_counter()
+            try:
+                if kind == "gauge":
+                    n, k1 = count_rows()
+                else:
+                    ans, k1 = zone_agg()
+                    n = sum(ans[1])
+            except HyperspaceError as e:
+                typed_refusals.append(f"{type(e).__name__}: {e}"[:200])
+                continue
+            except Exception as e:  # noqa: BLE001 — the gate
+                errors_untyped.append(f"{type(e).__name__}: {e}"[:400])
+                continue
+            t_done = time.perf_counter()
+            latencies.append(t_done - t_start)
+            serves[kind] += 1
+            k1_by_query[kind] += k1
+            if n < high[kind]:
+                serves["backwards"] += 1
+            high[kind] = max(high[kind], n)
+            with floors_lock:
+                # Every unit that arrived more than maxLagSeconds before
+                # this query started must be in its answer; the first
+                # serve of the gauge covering a unit stamps its lag.
+                floor = max([u[kind] for u in floors if t_start - u["arrived"] > INGEST_LAG_S] or [0])
+                for u in floors:
+                    if kind == "gauge" and u["seen_at"] is None and n >= u["gauge"]:
+                        u["seen_at"] = t_done
+            if n < floor:
+                serves["stale_past_lag"] += 1
+            try:
+                pinned_state["reads"] += 1
+                pn, k1g = count_rows(pinned)
+                pa_, k1a = zone_agg(pinned)
+                k1_by_query["pinned_gauge"] += k1g
+                k1_by_query["pinned_agg"] += k1a
+                if pn != pinned_rows or pa_[:2] != pinned_agg[:2] or not np.all(
+                        np.abs(pa_[2] - pinned_agg[2]) <= pinned_tol):
+                    pinned_state["violations"].append((pn, pa_[1]))
+            except Exception as e:  # noqa: BLE001 — the gate
+                errors_untyped.append(f"pinned {type(e).__name__}: {e}"[:400])
+
+    plane = obs_http.acquire()
+    try:
+        daemon.start()
+        t_ingest0 = time.perf_counter()
+        qt = threading.Thread(target=querier, name="ingest-querier", daemon=True)
+        pt = threading.Thread(target=producer, name="ingest-producer", daemon=True)
+        qt.start()
+        pt.start()
+        # /healthz once while the daemon runs: its ingest section.
+        while pt.is_alive() and daemon.snapshot()["commits"] < 1:
+            time.sleep(0.05)
+        with urllib.request.urlopen(plane.url("/healthz"), timeout=30) as r:
+            health = json.loads(r.read())
+        pt.join(timeout=900)
+        if pt.is_alive():
+            raise AssertionError("3j: the producer did not finish in 900 s")
+        drained = daemon.drain(timeout=300)
+        t_ingest = time.perf_counter() - t_ingest0
+        commits = daemon.snapshot()["commits"]
+        stop.set()
+        qt.join(timeout=60)
+        daemon.stop()
+    finally:
+        stop.set()
+        daemon.stop()
+        obs_http.release()
+    walls["ingest_window_s"] = t_ingest
+    sections = [s for s in health.get("ingest", []) if s.get("watched") == ["trips_zone"]]
+    if not sections or not sections[0]["running"] or sections[0]["mode"] != "thread":
+        raise AssertionError(f"3j: /healthz's ingest section {health.get('ingest')}")
+    out["healthz_ingest"] = sections[0]
+
+    t0 = time.perf_counter()
+    final_rows, k1_final_gauge = count_rows()
+    final_agg, k1_final_agg = zone_agg()
+    pinned_final, _ = count_rows(pinned)
+    pinned_final_agg, _ = zone_agg(pinned)
+    pinned.release()
+    ref_rows, ref_zones, ref_counts, ref_sums, ref_abs = _ingest_reference(data)
+    walls["final_and_reference_s"] = time.perf_counter() - t0
+    t_end = t_ingest0 + t_ingest
+    lags = [max((u["seen_at"] if u["seen_at"] is not None else t_end) - u["arrived"], 0.0) for u in floors]
+    lat = sorted(latencies)
+    p99 = float(np.percentile(lat, 99)) if lat else float("nan")
+    gbps = (total_bytes / 1e9) / timed.commit_s if timed.commit_s > 0 else 0.0
+    counters = {k: stats.get(k) - v for k, v in stats0.items()}
+    actions = _ingest_log_actions(root / "indexes" / "trips_zone", max_deltas)
+    compactions = sum(1 for kind, _ in actions if kind == "OPTIMIZING")
+    out.update({
+        "dataset_bytes": total_bytes, "rows_expected_gauge": expected["gauge"],
+        "commits": commits, "compactions": compactions, "counters": counters,
+        "serves": dict(serves), "typed_refusals": len(typed_refusals), "errors_untyped": errors_untyped[:10],
+        "pinned": {"admission_rows": pinned_rows, "admission_counts": list(pinned_agg[1]),
+                   "reads": pinned_state["reads"], "violations": len(pinned_state["violations"])},
+        "freshness_lag_s": {"mean": float(np.mean(lags)) if lags else None,
+                            "max": float(np.max(lags)) if lags else None, "bound": INGEST_LAG_S},
+        "completed_p99_s": p99, "completed_p50_s": float(np.percentile(lat, 50)) if lat else None,
+        "p99_bound_s": INGEST_P99_S,
+        "throughput": {"gbps": gbps, "refresh_commit_s": timed.commit_s, "floor_gbps": INGEST_FLOOR_GBPS,
+                       "meets_floor": gbps >= INGEST_FLOOR_GBPS, "gated": False},
+        "builds": timed.builds, "log_actions": [k for k, _ in actions],
+        "k1_launches": dict(k1_by_query),
+    })
+    failures = []
+    if pinned_state["violations"] or pinned_final != pinned_rows or pinned_final_agg[:2] != pinned_agg[:2] \
+            or not np.all(np.abs(pinned_final_agg[2] - pinned_agg[2]) <= pinned_tol):
+        failures.append(f"pinned reads differ from the admission answer: {pinned_state['violations'][:3]}")
+    if pinned_state["reads"] < 10 or commits < 2:
+        failures.append(f"{pinned_state['reads']} pinned reads across {commits} commits")
+    if serves["backwards"] or serves["stale_past_lag"]:
+        failures.append(f"serves {serves}")
+    if errors_untyped:
+        failures.append(f"untyped errors {errors_untyped[:3]}")
+    if not p99 < INGEST_P99_S:
+        failures.append(f"completed p99 {p99} s")
+    if not drained or final_rows != expected["gauge"] or final_rows != ref_rows:
+        failures.append(f"drained {drained}: gauge {final_rows}, expected {expected['gauge']}, pyarrow {ref_rows}")
+    if final_agg[:2] != (ref_zones, ref_counts) or not np.all(
+            np.abs(final_agg[2] - ref_sums) <= sum_tolerance(np.asarray(ref_counts), ref_abs)):
+        failures.append(f"the live aggregate {final_agg[:2]} against pyarrow {ref_counts}")
+    if counters["ingest.commits"] < batches or commits < batches:
+        failures.append(f"{counters['ingest.commits']} commits")
+    if compactions < 1 or counters["ingest.compactions"] != compactions:
+        failures.append(f"{compactions} compactions in the log, {counters['ingest.compactions']} counted")
+    if counters["ingest.commit_failures"] or counters["ingest.compact_failures"]:
+        failures.append(f"failures {counters}")
+    wrong = [b for b in timed.builds if not str(b["sort_device"]).startswith(device.type)]
+    if wrong or len(timed.builds) != counters["ingest.commits"] + counters["ingest.compactions"]:
+        failures.append(f"builds {timed.builds}")
+    if cuda and (k1_by_query["gauge"] or k1_by_query["pinned_gauge"] or k1_final_gauge
+                 or not k1_final_agg or min(serves["agg"], k1_by_query["agg"]) < 1
+                 or k1_by_query["agg"] < serves["agg"] or k1_by_query["pinned_agg"] < pinned_state["reads"]):
+        failures.append(f"K1 launches by query {k1_by_query}, final gauge {k1_final_gauge} / agg {k1_final_agg}")
+    if cuda and topk.launches:
+        failures.append(f"K3 launched {topk.launches} times")
+    if failures:
+        raise AssertionError("3j (a): " + "; ".join(failures))
+    log(json.dumps({"ingest_throughput": out["throughput"],
+                    "verdict": "meets the floor" if out["throughput"]["meets_floor"] else "below the floor",
+                    "gate": "printed, not enforced"}))
+
+    # K1's input at the ingest aggregate's own shape, over the drained index.
+    calls = capture_k1(lambda: session.run(agg), aggregate)
+    if cuda and not calls:
+        raise AssertionError("3j: the zone aggregate made no K1 call through the aggregate")
+    k1_inputs = {"ingest zone aggregate": calls[0]} if calls else {}
+
+    # (b) The process worker on (a)'s index.
+    t_b = time.perf_counter()
+    index_dir = root / "indexes" / "trips_zone"
+    jroot = root / "_obs_ingest"
+    saved_journal = journal.export_state()
+    journal.configure(enabled=True, root=str(jroot))
+    conf.set("hyperspace.ingest.processWorker", "true")
+
+    def publish(b: int) -> None:
+        _, zones = publish_batch(b)
+        arrived(zones)
+        arrived(publish_wave())
+
+    def lm_id() -> int:
+        return json.loads((index_dir / "_hyperspace_log" / "latestStable").read_text())["id"]
+
+    k1_before = segment_reduce.launches
+    workers: list[dict] = []
+    try:
+        publish(batches + 1)
+        base_id = lm_id()
+        w1 = IngestDaemon(hs).watch("trips_zone", changelog=changelog)
+        t0, spawned_at = time.perf_counter(), time.time()
+        w1.start()
+        pid1 = w1.worker_pid()
+        deadline = time.perf_counter() + 300
+        while time.perf_counter() < deadline and lm_id() <= base_id and w1._host.alive_count():
+            time.sleep(0.05)
+        if lm_id() <= base_id:
+            raise AssertionError(f"3j (b): the process worker never committed (alive: {w1._host.alive_count()})")
+        first_commit_s = time.perf_counter() - t0
+        os.kill(pid1, signal.SIGKILL)
+        deadline = time.perf_counter() + 60
+        while time.perf_counter() < deadline and w1._host.alive_count() > 0:
+            time.sleep(0.05)
+        alive = w1._host.alive_count()
+        w1.stop(timeout=10)
+        if alive:
+            raise AssertionError("3j (b): the SIGKILLed worker is still alive")
+        workers.append({"pid": pid1, "spawned_at": spawned_at, "spawn_to_first_commit_s": first_commit_s,
+                        "killed": True})
+        publish(batches + 2)
+        t0 = time.perf_counter()
+        first = hs.recover("trips_zone")
+        again = hs.recover("trips_zone")
+        stable = json.loads((index_dir / "_hyperspace_log" / "latestStable").read_text())
+        on_disk = sorted(p.name for p in index_dir.glob("v__=*"))
+        if stable["state"] != "ACTIVE" or again["rolled"] or again["orphans_removed"] \
+                or on_disk != sorted(stable["content"]["directories"]):
+            raise AssertionError(f"3j (b): recover left {stable['state']}, {on_disk} against "
+                                 f"{stable['content']['directories']}; the second recover {again}")
+        walls["b_recover_s"] = time.perf_counter() - t0
+        out["b_recover"] = {"first": first, "second": again, "version_dirs": on_disk}
+        base_id = lm_id()
+        w2 = IngestDaemon(hs).watch("trips_zone", changelog=changelog)
+        t0, spawned_at = time.perf_counter(), time.time()
+        w2.start()
+        pid2 = w2.worker_pid()
+        deadline = time.perf_counter() + 300
+        rows = -1
+        while time.perf_counter() < deadline and w2._host.alive_count():
+            if lm_id() > base_id:
+                rows, _ = count_rows()
+                if rows >= expected["gauge"]:
+                    break
+            time.sleep(0.1)
+        drain_s = time.perf_counter() - t0
+        drained = w2.drain(timeout=120)
+        w2.stop(timeout=30)
+        latest = max(int(p.name) for p in (index_dir / "_hyperspace_log").iterdir() if p.name.isdigit())
+        if latest != lm_id():
+            raise AssertionError(f"3j (b): the stopped worker left log entry {latest} past the stable {lm_id()}")
+        workers.append({"pid": pid2, "spawned_at": spawned_at, "spawn_to_drained_s": drain_s, "killed": False})
+    finally:
+        conf.set("hyperspace.ingest.processWorker", "false")
+        journal.seal()
+        journal.configure(enabled=bool(saved_journal["enabled"]), root=saved_journal["root"] or "")
+    k1_window = segment_reduce.launches - k1_before
+    walls["b_s"] = time.perf_counter() - t_b
+    t0 = time.perf_counter()
+    final_rows, _ = count_rows()
+    final_agg, k1_b_agg = zone_agg()
+    ref_rows, ref_zones, ref_counts, ref_sums, ref_abs = _ingest_reference(data)
+    walls["b_check_s"] = time.perf_counter() - t0
+    for w in workers:
+        records = _journal_records(jroot, w["pid"])
+        w["commits"] = [{k: r["event"]["fields"].get(k) for k in ("log_id", "sort_device")} for r in records
+                        if r.get("kind") == "event" and r["event"].get("name") == "ingest.committed"]
+        # Start-up: the spawn to the worker's journal install (its imports
+        # done), on the host's wall clock.
+        installed = [r["ts"] for r in records if r.get("kind") == "process"]
+        w["startup_s"] = installed[0] - w.pop("spawned_at") if installed else None
+    out["b_workers"] = workers
+    out["b_worker_startup_s"] = [w["startup_s"] for w in workers]
+    failures = []
+    if not drained or final_rows != expected["gauge"] or final_rows != ref_rows:
+        failures.append(f"drained {drained}: gauge {final_rows}, expected {expected['gauge']}, pyarrow {ref_rows}")
+    if final_agg[:2] != (ref_zones, ref_counts) or not np.all(
+            np.abs(final_agg[2] - ref_sums) <= sum_tolerance(np.asarray(ref_counts), ref_abs)):
+        failures.append(f"the live aggregate {final_agg[:2]} against pyarrow {ref_counts}")
+    if k1_window:
+        failures.append(f"K1 launched {k1_window} times in the workers' window")
+    if cuda and not k1_b_agg:
+        failures.append("K1 did not launch in the aggregate after the workers")
+    for w in workers:
+        if not w["commits"] or w["startup_s"] is None or any(not str(c["sort_device"]).startswith(device.type) for c in w["commits"]):
+            failures.append(f"worker {w['pid']}'s journaled commits {w['commits']}")
+    if failures:
+        raise AssertionError("3j (b): " + "; ".join(failures))
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    return out, k1_inputs
+
+
 def vector_lifecycle(device, vctx: dict) -> dict:
     """The vector index's lifecycle at the end of the vector path, on its
     index: 10% more rows drawn from the same clusters (gen_embeddings'
@@ -6010,6 +6610,16 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
                             "launches": launches["advisor"], "script_s_so_far": time.perf_counter() - t_script},
                            default=str))
             log(json.dumps({"caches_after_path": "advisor", **cache_stats()}))
+        with phase("ingest_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            ingest, k1_ingest_inputs = ingest_path(device, work)
+            ingest["ingest_path_wall_s"] = time.perf_counter() - t0
+            launches["ingest"] = read_counts("ingest", ("segment_reduce",))
+            log(json.dumps({"ingest_path": ingest, "launches": launches["ingest"],
+                            "script_s_so_far": time.perf_counter() - t_script}, default=str))
+            log(json.dumps({"caches_after_path": "ingest", **cache_stats()}))
+        k1_join_inputs.update(k1_ingest_inputs)
         k1_join_inputs.update(k1_life_inputs)
         k1_join_inputs.update(k1_faults_inputs)
         k1_join_inputs.update(k1_scale_inputs)
@@ -6102,12 +6712,12 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
                 "route": "cuda",
                 "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
                 "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-                # K1 runs on ten paths: its launches on each, summed (the
+                # K1 runs on eleven paths: its launches on each, summed (the
                 # fleet's in this process and in its members).
                 "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types",
                                                                          "query_surface", "lifecycle", "serve",
                                                                          "faults", "build_scale", "fleet",
-                                                                         "fleet_members", "advisor")),
+                                                                         "fleet_members", "advisor", "ingest")),
                 "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
                 "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"],

@@ -26,8 +26,10 @@ contract: a persistence failure is counted
 Knobs: ``hyperspace.advisor.routing.enabled`` (off by default — routing
 changes plans, so it is an explicit opt-in), ``.demoteRatio`` (demote
 when indexed EMA > ratio x raw EMA), ``.alpha`` (EMA smoothing),
-``.minSamples`` (evidence floor per side). A pinned snapshot's own
-stamp waits for the pinned reader, which the port does not have yet.
+``.minSamples`` (evidence floor per side). A pinned reader
+(ingest/snapshot.py) keys the ledger on its snapshot's own stamp
+(`snapshot_stamp`), so a concurrent commit it cannot see does not wipe
+its evidence.
 """
 
 from __future__ import annotations
@@ -62,6 +64,14 @@ def collection_stamp(session) -> str:
     from hyperspace_tpu_torch.serve.plan_cache import collection_log_versions
 
     payload = repr(collection_log_versions(session)).encode()
+    return hashlib.md5(payload).hexdigest()
+
+
+def snapshot_stamp(snapshot) -> str:
+    """Version stamp of a pinned snapshot's admitted world: the same MD5
+    fold over the snapshot's own (index dir, log id) pairs, so a pinned
+    query keys the ledger on its read point instead of the live versions."""
+    payload = repr(snapshot.stamp).encode()
     return hashlib.md5(payload).hexdigest()
 
 

@@ -26,8 +26,9 @@ shedDepthRatio), the three explain display keys, the plan validator's
 `hyperspace.obs.http.*`, `hyperspace.obs.slo.*` and
 `hyperspace.obs.journal.*` (the last two process-global),
 `hyperspace.serve.tenant.quota.*`, `hyperspace.fleet.*` and
-`hyperspace.controller.*`; and the advisor's `hyperspace.advisor.*`
-(routing, the workload ring, the lifecycle gates and floors).
+`hyperspace.controller.*`; the advisor's `hyperspace.advisor.*`
+(routing, the workload ring, the lifecycle gates and floors); and
+continuous ingestion's `hyperspace.ingest.*`.
 A key the JAX package declares but the port does not read yet raises,
 naming it as not ported; an undeclared `hyperspace.*` key raises with a
 did-you-mean suggestion, as the JAX package's `check_known_key` does.
@@ -225,6 +226,18 @@ ADVISOR_AUTO_OPTIMIZE = "hyperspace.advisor.lifecycle.autoOptimize"
 ADVISOR_LIFECYCLE_MAX_DELTAS = "hyperspace.advisor.lifecycle.maxDeltas"
 ADVISOR_MIN_CONFIDENCE = "hyperspace.advisor.minConfidence"
 ADVISOR_MIN_BENEFIT_SECONDS = "hyperspace.advisor.minBenefitSeconds"
+# Continuous ingestion (ingest/): enabled is the daemon's kill switch (off:
+# every tick is a no-op); pollSeconds the tailer cadence; cdcBatchRows the
+# rows one materialized CDC batch file holds; autoCompact gates compaction
+# (the advisor's lifecycle gates apply on top); processWorker moves the
+# loop into a spawned worker process; maxLagSeconds the advisory freshness
+# objective past which the daemon emits `ingest.lagging`.
+INGEST_ENABLED = "hyperspace.ingest.enabled"
+INGEST_POLL_SECONDS = "hyperspace.ingest.pollSeconds"
+INGEST_CDC_BATCH_ROWS = "hyperspace.ingest.cdcBatchRows"
+INGEST_AUTO_COMPACT = "hyperspace.ingest.autoCompact"
+INGEST_PROCESS_WORKER = "hyperspace.ingest.processWorker"
+INGEST_MAX_LAG_SECONDS = "hyperspace.ingest.maxLagSeconds"
 
 DEFAULT_NUM_BUCKETS = 8
 DEFAULT_CACHE_EXPIRY_SECONDS = 300.0
@@ -267,6 +280,9 @@ DEFAULT_ADVISOR_ROUTING_MIN_SAMPLES = 1
 DEFAULT_ADVISOR_WORKLOAD_MAX_RECORDS = 512
 DEFAULT_ADVISOR_LIFECYCLE_MAX_DELTAS = 4
 DEFAULT_ADVISOR_MIN_CONFIDENCE = 0.5
+DEFAULT_INGEST_POLL_SECONDS = 1.0
+DEFAULT_INGEST_CDC_BATCH_ROWS = 65536
+DEFAULT_INGEST_MAX_LAG_SECONDS = 30.0
 
 # The keys the port reads.
 PORTED_KEYS = (
@@ -292,15 +308,14 @@ PORTED_KEYS = (
     ADVISOR_ROUTING_ENABLED, ADVISOR_ROUTING_DEMOTE_RATIO, ADVISOR_ROUTING_ALPHA, ADVISOR_ROUTING_MIN_SAMPLES,
     ADVISOR_WORKLOAD_MAX_RECORDS, ADVISOR_AUTO_CREATE, ADVISOR_AUTO_VACUUM, ADVISOR_AUTO_OPTIMIZE,
     ADVISOR_LIFECYCLE_MAX_DELTAS, ADVISOR_MIN_CONFIDENCE, ADVISOR_MIN_BENEFIT_SECONDS,
+    INGEST_ENABLED, INGEST_POLL_SECONDS, INGEST_CDC_BATCH_ROWS, INGEST_AUTO_COMPACT, INGEST_PROCESS_WORKER,
+    INGEST_MAX_LAG_SECONDS,
 )
 # The JAX package's other declared keys (its `config.KNOWN_KEYS`), whose
-# modules are not ported yet: the host venues, the fused kernels and
-# continuous ingestion.
+# modules are not ported yet: the host venues and the fused kernels.
 UNPORTED_KEYS = frozenset((
     'hyperspace.join.venue', 'hyperspace.join.venueMinMbps', 'hyperspace.build.venue', 'hyperspace.agg.venue',
     'hyperspace.sort.venue', 'hyperspace.filter.venue', 'hyperspace.device.fusedKernels',
-    'hyperspace.ingest.enabled', 'hyperspace.ingest.pollSeconds', 'hyperspace.ingest.cdcBatchRows',
-    'hyperspace.ingest.autoCompact', 'hyperspace.ingest.processWorker', 'hyperspace.ingest.maxLagSeconds',
 ))
 
 
@@ -395,6 +410,12 @@ class HyperspaceConf:
     advisor_lifecycle_max_deltas: int = DEFAULT_ADVISOR_LIFECYCLE_MAX_DELTAS
     advisor_min_confidence: float = DEFAULT_ADVISOR_MIN_CONFIDENCE
     advisor_min_benefit_seconds: float = 0.0
+    ingest_enabled: bool = False  # opt-in: the daemon mutates index state
+    ingest_poll_seconds: float = DEFAULT_INGEST_POLL_SECONDS
+    ingest_cdc_batch_rows: int = DEFAULT_INGEST_CDC_BATCH_ROWS
+    ingest_auto_compact: bool = True
+    ingest_process_worker: bool = False  # opt-in: spawns a worker process
+    ingest_max_lag_seconds: float = DEFAULT_INGEST_MAX_LAG_SECONDS
     overrides: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -562,6 +583,18 @@ class HyperspaceConf:
             self.advisor_min_confidence = float(value)
         elif key == ADVISOR_MIN_BENEFIT_SECONDS:
             self.advisor_min_benefit_seconds = float(value)
+        elif key == INGEST_ENABLED:
+            self.ingest_enabled = _as_bool(value)
+        elif key == INGEST_POLL_SECONDS:
+            self.ingest_poll_seconds = float(value)
+        elif key == INGEST_CDC_BATCH_ROWS:
+            self.ingest_cdc_batch_rows = int(value)
+        elif key == INGEST_AUTO_COMPACT:
+            self.ingest_auto_compact = _as_bool(value)
+        elif key == INGEST_PROCESS_WORKER:
+            self.ingest_process_worker = _as_bool(value)
+        elif key == INGEST_MAX_LAG_SECONDS:
+            self.ingest_max_lag_seconds = float(value)
         elif key == OBS_SLO_AVAILABILITY_TARGET:
             from hyperspace_tpu_torch.obs import slo as _obs_slo
 
@@ -781,6 +814,18 @@ class HyperspaceConf:
             return self.advisor_min_confidence
         if key == ADVISOR_MIN_BENEFIT_SECONDS:
             return self.advisor_min_benefit_seconds
+        if key == INGEST_ENABLED:
+            return self.ingest_enabled
+        if key == INGEST_POLL_SECONDS:
+            return self.ingest_poll_seconds
+        if key == INGEST_CDC_BATCH_ROWS:
+            return self.ingest_cdc_batch_rows
+        if key == INGEST_AUTO_COMPACT:
+            return self.ingest_auto_compact
+        if key == INGEST_PROCESS_WORKER:
+            return self.ingest_process_worker
+        if key == INGEST_MAX_LAG_SECONDS:
+            return self.ingest_max_lag_seconds
         if key == OBS_SLO_AVAILABILITY_TARGET:
             from hyperspace_tpu_torch.obs import slo as _obs_slo
 

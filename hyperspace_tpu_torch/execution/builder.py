@@ -40,8 +40,8 @@ into one sorted file a bucket, in memory or, above the budget, through
 the streaming pipeline. The JAX package's host sort venue
 (`hyperspace.build.venue`) is not ported: in this process the sort always
 runs on the card. `last_build_stats` holds the path, rows, chunks, the
-footers' estimate, the phase walls (`phases_s`) and whether the native
-host hash was used.
+footers' estimate, the phase walls (`phases_s`), the device the bucket
+sort ran on (`sort_device`) and whether the native host hash was used.
 """
 
 from __future__ import annotations
@@ -134,8 +134,11 @@ class DeviceIndexBuilder:
         self.exchange_dir = str(exchange_dir) if exchange_dir else None
         self.last_build_stats: dict = {}
 
-    def _stats(self, **stats) -> None:
-        self.last_build_stats = {**stats, "native": native.available(), "hash_path": native.path_taken()}
+    def _stats(self, sort_device: str | None = None, **stats) -> None:
+        # sort_device: where the bucket sort ran (the builder's device; the
+        # pooled build's workers sort on the host).
+        self.last_build_stats = {**stats, "sort_device": sort_device or str(self.device),
+                                 "native": native.available(), "hash_path": native.path_taken()}
 
     # -- IndexWriter -----------------------------------------------------
     def write(
@@ -706,7 +709,7 @@ class DeviceIndexBuilder:
             _MET_POOL_WORKERS.set(0)
             shutil.rmtree(exchange, ignore_errors=True)
         self._stats(
-            path="pooled", format=fmt, workers=self.workers, p1_shards=n_shards, p2_owners=num_owners,
+            sort_device="cpu", path="pooled", format=fmt, workers=self.workers, p1_shards=n_shards, p2_owners=num_owners,
             rows=total_rows, chunks=n_chunks, exchange_bytes=exchange_bytes,
             worker_cuda_initialized=any(r["cuda_initialized"] for r in (*p1.values(), *p2.values())),
             phases_s={"p1_decode_hash_spill": t_p2 - t0, "p2_sort_encode_write": t_end - t_p2},

@@ -14,9 +14,10 @@ decode pinned to the registered schema's types). Every data file read
 runs under the transient-IO retry (utils/retry.py) with the `bucket.read`
 fault point inside the retried call; writes fire `bucket.write` /
 `bucket.written` and `manifest.write` / `manifest.written`, and a manifest
-read `manifest.read` (faults.py). The decoded-table and footer caches and
-the chunked row-group read are not ported; the executor keeps decoded
-columns on the device instead (execution/device_cache.py).
+read `manifest.read` (faults.py). The mtime-validated footer cache and the
+chunked row-group read are ported; the decoded-table cache is not, as the
+executor keeps decoded columns on the device instead
+(execution/device_cache.py).
 """
 
 from __future__ import annotations

@@ -95,10 +95,21 @@ not listed raises.
                       publishes
 ``advisor.recommend`` advisor/whatif.py, at the head of a recommendation pass
 ``advisor.apply``     advisor/lifecycle.py, before each policy mutation
+``ingest.tail``       ingest/tailer.py, after a CDC batch file lands but
+                      before the cursor persists: a crash there leaves an
+                      orphan batch that the deterministic naming makes the
+                      retry idempotent over
+``ingest.commit``     ingest/writer.py, before a micro-batch's incremental
+                      refresh runs (a crash mid-commit leaves at most the
+                      action protocol's transient log entry)
+``ingest.compact``    ingest/writer.py, before the gated optimize action
+                      compacts delta buckets
+``ingest.stamp``      ingest/daemon.py, after a micro-batch commits but
+                      before the daemon stamps its lag / commit bookkeeping
 ====================  =====================================================
 
 `export_state` / `install_state` carry the harness into the pooled
-build's spawned workers (parallel/procpool.py): a rule at a worker-side
+build's spawned workers and the ingest worker (parallel/procpool.py): a rule at a worker-side
 point fires inside the worker, and the worker's observed points merge
 back on join.
 """
@@ -145,6 +156,10 @@ KNOWN_POINTS = (
     "controller.heal.marker",
     "advisor.recommend",
     "advisor.apply",
+    "ingest.tail",
+    "ingest.commit",
+    "ingest.compact",
+    "ingest.stamp",
 )
 
 

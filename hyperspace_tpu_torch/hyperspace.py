@@ -60,6 +60,12 @@ measured wall is folded back into the ledger; the stats' `advisor_routing`
 holds the decision. `Hyperspace.recommend()` and `.lifecycle()` give the
 what-if analyzer's recommendations and the opt-in policy that applies
 them.
+
+Continuous ingestion (ingest/): `session.pin_snapshot()` captures every
+active index's latest stable entry; `run(..., snapshot=)` and
+`run_query(..., snapshot=)` then read that world repeatably while
+micro-batches commit underneath (`ingest.pinned_reads`).
+`Hyperspace.ingest()` builds the daemon that tails, commits and compacts.
 """
 
 from __future__ import annotations
@@ -252,7 +258,7 @@ class HyperspaceSession:
         """Register a line-delimited JSON dataset."""
         return Dataset.json(root).scan()
 
-    def optimized_plan(self, plan: LogicalPlan) -> LogicalPlan:
+    def optimized_plan(self, plan: LogicalPlan, snapshot=None) -> LogicalPlan:
         if not self._enabled:
             return plan
         # Predicate pushdown and column pruning FIRST (the analog of Spark
@@ -260,8 +266,10 @@ class HyperspaceSession:
         # extraOptimizations batch): side-local filters reach the join
         # sides, where the index rules cover them, and scans narrow to
         # what the query needs, which is what index coverage is checked
-        # against.
-        indexes = self.manager.get_indexes()
+        # against. A pinned read (ingest/snapshot.py) takes its candidate
+        # set from the entries captured at admission, not the live
+        # listing: versions a concurrent micro-batch commits are invisible.
+        indexes = snapshot.entries() if snapshot is not None else self.manager.get_indexes()
         with self._state_lock:
             unhealthy = set(self.index_health)
         if unhealthy:
@@ -271,18 +279,30 @@ class HyperspaceSession:
             indexes = [e for e in indexes if str(Path(e.content.root)) not in unhealthy]
         return apply_rules(prune_columns(push_down_filters(plan)), indexes, conf=self.conf)
 
-    def run(self, plan: LogicalPlan, profile_dir: str | Path | None = None):
+    def run(self, plan: LogicalPlan, profile_dir: str | Path | None = None, snapshot=None):
         """Execute a plan (rewriting through indexes when enabled);
         returns a ColumnTable on the session's device. With `profile_dir`,
         the query runs under one `torch.profiler.profile` (the card's
         activity too, on the card) and its Chrome trace (`*.json`) is
         written there: the card's own times, which no span or profile
-        wall holds."""
-        outcome = self.run_query(plan, profile_dir=profile_dir)
+        wall holds. With `snapshot` (a PinnedSnapshot from
+        :meth:`pin_snapshot`), the read repeats against the pinned version
+        stamp whatever commits concurrently."""
+        outcome = self.run_query(plan, profile_dir=profile_dir, snapshot=snapshot)
         self._publish(outcome)
         return outcome.result
 
-    def run_query(self, plan: LogicalPlan, profile_dir: str | Path | None = None, plan_cache=None) -> QueryOutcome:
+    def pin_snapshot(self):
+        """Pin a repeatable-read view of the collection at the current
+        per-index version stamp (ingest/snapshot.py). Pass the handle to
+        `run(..., snapshot=snap)`; release it, or use it as a context
+        manager, when done."""
+        from hyperspace_tpu_torch.ingest.snapshot import PinnedSnapshot
+
+        return PinnedSnapshot(self)
+
+    def run_query(self, plan: LogicalPlan, profile_dir: str | Path | None = None, plan_cache=None,
+                  snapshot=None) -> QueryOutcome:
         """Execute a plan into a QueryOutcome without touching the
         session's view: the concurrency-safe entry point the serving
         plane uses. `plan_cache` (a serve.PlanCache) memoizes
@@ -297,7 +317,10 @@ class HyperspaceSession:
         `hyperspace.obs.enabled`. With `hyperspace.advisor.routing.enabled`
         the routing ledger decides first whether the plan runs indexed or
         against its source, and the query's wall is recorded under the
-        route it took (stats' `advisor_routing`)."""
+        route it took (stats' `advisor_routing`). With `snapshot`, every raw
+        source leaf is pinned to the snapshot's file lists before planning,
+        the candidate indexes are the pinned entries and the plan cache and
+        the routing ledger key on the snapshot's stamp."""
         from hyperspace_tpu_torch.advisor.workload import WorkloadRecord, used_index_names
         from hyperspace_tpu_torch.execution import device_cache
         from hyperspace_tpu_torch.execution.executor import Executor
@@ -305,6 +328,11 @@ class HyperspaceSession:
         from hyperspace_tpu_torch.signature import plan_signature
 
         cache_before = self._cache_counts()
+        if snapshot is not None:
+            # Pinned before planning: the rewrite rules then exact-match the
+            # pinned entries and a raw fallback scans the pinned files.
+            plan = snapshot.pin_plan(plan)
+            _stats.increment("ingest.pinned_reads")
         replans = 0
         use_indexes = True
         # The plan's structural signature keys both the workload record and
@@ -314,10 +342,13 @@ class HyperspaceSession:
         sig = plan_signature(plan)
         routed = routing_stamp = ledger = None
         if self.conf.advisor_routing_enabled:
-            from hyperspace_tpu_torch.advisor.routing import collection_stamp
+            from hyperspace_tpu_torch.advisor.routing import collection_stamp, snapshot_stamp
 
             ledger = self.routing_ledger()
-            routing_stamp = collection_stamp(self)
+            # A pinned query keys the ledger on its own read point: the live
+            # stamp moves under commits the pinned view cannot see, and a
+            # moved stamp empties the ledger.
+            routing_stamp = snapshot_stamp(snapshot) if snapshot is not None else collection_stamp(self)
             if self._enabled:
                 routed = ledger.decide(sig, stamp=routing_stamp)
                 if routed == "raw":
@@ -333,9 +364,9 @@ class HyperspaceSession:
                     if not use_indexes:
                         optimized = plan
                     elif plan_cache is not None and self._enabled:
-                        optimized = plan_cache.get_or_optimize(self, plan)
+                        optimized = plan_cache.get_or_optimize(self, plan, snapshot=snapshot)
                     else:
-                        optimized = self.optimized_plan(plan)
+                        optimized = self.optimized_plan(plan, snapshot=snapshot)
                     if use_indexes and self._enabled and self.conf.scan_prefetch_enabled:
                         # The query-tail prefetch: footers and the first
                         # chunk of the index files the pruner keeps start
@@ -505,7 +536,8 @@ class HyperspaceSession:
 class Hyperspace:
     """The user API (Hyperspace.scala:32-104): index creation, the
     lifecycle actions, `ann_search`, `explain`, the advisor
-    (`recommend`, `lifecycle`) and the operations controller."""
+    (`recommend`, `lifecycle`), the operations controller and the ingest
+    daemon."""
 
     def __init__(self, session: HyperspaceSession):
         self.session = session
@@ -613,6 +645,17 @@ class Hyperspace:
         from hyperspace_tpu_torch.serve.controller import OpsController
 
         return OpsController(self, server=server, **kwargs)
+
+    def ingest(self, **kwargs):
+        """The continuous-ingestion daemon over this API (ingest/): CDC
+        tailing, micro-batch commits through the two-phase refresh action
+        and gated compaction. Register indexes with `.watch(name,
+        changelog=...)`, then `.start()` / `.drain()` / `.stop()`, or drive
+        `.tick()` yourself. Gated by `hyperspace.ingest.enabled` (default
+        off): every tick is a no-op until you opt in."""
+        from hyperspace_tpu_torch.ingest.daemon import IngestDaemon
+
+        return IngestDaemon(self, **kwargs)
 
     def explain(self, plan: LogicalPlan, verbose: bool = False, physical: bool = False,
                 mode: str | None = None) -> str:

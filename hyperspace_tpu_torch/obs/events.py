@@ -47,6 +47,18 @@ KNOWN_EVENTS: dict[str, str] = {
     # Advisor plane (advisor/routing.py): adaptive routing demoted a plan
     # signature to a raw source scan.
     "advisor.routing.demoted": "info",
+    # Continuous ingestion (ingest/): the daemon started or stopped, a
+    # micro-batch committed, a commit or compaction raised, a compaction
+    # ran, the controller paused or resumed the daemon, and observed data
+    # waited past hyperspace.ingest.maxLagSeconds.
+    "ingest.started": "info",
+    "ingest.stopped": "info",
+    "ingest.committed": "info",
+    "ingest.commit_failed": "error",
+    "ingest.compacted": "info",
+    "ingest.paused": "warn",
+    "ingest.resumed": "info",
+    "ingest.lagging": "warn",
     # Fleet plane (serve/fleet/): a tenant bounced off its token-bucket
     # quota; a crashed single-flight holder's lease was reaped by another
     # process; the supervisor respawned a dead member, backed off a

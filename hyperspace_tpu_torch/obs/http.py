@@ -2,8 +2,8 @@
 
 A port of the JAX package's `obs/http.py`; its /healthz document has no
 ``jit`` section (the port compiles nothing at run time, obs/runtime.py)
-and carries the process gauges under ``proc`` instead, and no ``ingest``
-section (`attach_ingest` comes with the ingestion daemon). A stdlib
+and carries the process gauges under ``proc`` instead; its ``ingest``
+section lists each attached ingest daemon's state (`attach_ingest`). A stdlib
 :class:`~http.server.ThreadingHTTPServer` exposes the whole observability
 plane of a *running* process:
 
@@ -82,6 +82,7 @@ class HealthServer:
         self._servers: weakref.WeakSet = weakref.WeakSet()
         self._controllers: weakref.WeakSet = weakref.WeakSet()
         self._supervisors: weakref.WeakSet = weakref.WeakSet()
+        self._ingests: weakref.WeakSet = weakref.WeakSet()
 
     # -- providers --------------------------------------------------------
     def attach_session(self, session) -> None:
@@ -109,6 +110,13 @@ class HealthServer:
         visible between supervisor poll ticks."""
         with self._lock:
             self._supervisors.add(supervisor)
+
+    def attach_ingest(self, daemon) -> None:
+        """Surface a continuous-ingestion daemon's live state in /healthz:
+        mode, pause flag, per-index freshness lag, last committed log ids
+        (ingest/daemon.py registers itself on start())."""
+        with self._lock:
+            self._ingests.add(daemon)
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> "HealthServer":
@@ -166,6 +174,7 @@ class HealthServer:
             servers = list(self._servers)
             controllers = list(self._controllers)
             supervisors = list(self._supervisors)
+            ingests = list(self._ingests)
         indexes: dict[str, dict] = {}
         for s in sessions:
             with s._state_lock:
@@ -196,6 +205,10 @@ class HealthServer:
             # pids/ports and per-member last-heartbeat ages, read from
             # registrations — no member scrape on the /healthz path.
             "fleet": [s.fleet_summary() for s in supervisors],
+            # Continuous ingestion (ingest/daemon.py): each attached
+            # daemon's mode, pause flag, freshness lag and last committed
+            # log ids.
+            "ingest": [d.snapshot() for d in ingests],
         }
 
     def metrics_text(self) -> str:

@@ -108,9 +108,18 @@ class ProcessHost:
 
     def stop(self, timeout: float = 30.0, grace: float = 5.0) -> None:
         """Cooperative drain: set the stop event, join with `timeout`,
-        terminate stragglers (and join those with `grace`). Idempotent."""
-        self.stop_event.set()
+        terminate stragglers (and join those with `grace`). Idempotent.
+
+        A worker SIGKILLed inside ``stop_event.wait`` leaves the event's
+        condition one waker short, and ``set()`` then blocks for ever in
+        its notify: with no live worker the event is not set at all, and
+        otherwise it is set from a helper thread joined for at most
+        `timeout`, the stragglers terminated after."""
         procs = list(self.processes().values())
+        if any(p.is_alive() for p in procs):
+            setter = threading.Thread(target=self.stop_event.set, name=f"{self.name}-stop", daemon=True)
+            setter.start()
+            setter.join(timeout)
         for p in procs:
             p.join(timeout=timeout)
         for p in procs:

@@ -10,11 +10,13 @@ supervisor) and the operations controller (`serve/controller.py`,
 `Hyperspace.controller()`) too.
 """
 
+from hyperspace_tpu_torch.serve.controller import OpsController
 from hyperspace_tpu_torch.serve.plan_cache import PlanCache, collection_log_versions, versioned_plan_key
 from hyperspace_tpu_torch.serve.result_cache import ResultCache, table_nbytes
 from hyperspace_tpu_torch.serve.scheduler import QueryHandle, QueryServer
 
 __all__ = [
+    "OpsController",
     "PlanCache",
     "QueryHandle",
     "QueryServer",

@@ -49,12 +49,14 @@ event in the window       signature to the raw-scan route
 serve SLOs burning        **back off background work**: heals and
                           sweeps are deferred with a
                           `controller.backoff` event until the burn
-                          clears.
+                          clears; an attached ingest daemon
+                          (`ingest=`, ingest/daemon.py) is paused
+                          through its control file after
+                          `hysteresisTicks` page ticks (a budgeted
+                          actuation) and resumed after
+                          `recoveryTicks` calm ticks or by the kill
+                          switch (budget-free).
 ========================  ==========================================
-
-Not ported: the ingest daemon's pause and resume, with the daemon
-(continuous ingestion); an `ingest=` other than None raises "not ported
-yet".
 
 Fleet coordination: N controllers over ONE store must not race their
 heals — a quarantined index would be rebuilt N times. Heal actuations
@@ -127,7 +129,6 @@ import time
 from pathlib import Path
 
 from hyperspace_tpu_torch import faults, stats
-from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.utils import file_utils
 from hyperspace_tpu_torch.obs import events as obs_events
 from hyperspace_tpu_torch.obs import metrics as obs_metrics
@@ -165,11 +166,6 @@ class OpsController:
 
     def __init__(self, hyperspace, server=None, clock=time.monotonic,
                  member_id: str | None = None, supervisor=None, ingest=None):
-        if ingest is not None:
-            raise HyperspaceError(
-                "the controller's ingest pause and resume are not ported yet "
-                "(the port has no ingest daemon)"
-            )
         # `hyperspace` is the user-facing API facade: the controller has
         # exactly the powers an operator has — recover/refresh and the
         # advisor's lifecycle — no private side doors into the log.
@@ -181,6 +177,11 @@ class OpsController:
         # optional supervisor handle the scale actuator drives.
         self.member_id = str(member_id) if member_id else f"pid-{os.getpid()}"
         self.supervisor = supervisor
+        # The continuous-ingestion daemon (ingest/daemon.py): paused while
+        # serve SLOs burn, resumed on recovery — background commit and
+        # compaction IO is the load class the backoff exists for.
+        self.ingest = ingest
+        self._ingest_paused = False
         self._clock = clock
         self._lock = threading.RLock()
         self._budget = int(self.session.conf.controller_actuation_budget)
@@ -304,6 +305,8 @@ class OpsController:
                 # stand down without observing or deciding anything.
                 if self._engaged:
                     self._release_overload(now, trigger="kill_switch")
+                if self._ingest_paused:
+                    self._resume_ingest(now, trigger="kill_switch")
                 self._close_incident(now, resolution="kill_switch")
                 return self.snapshot()
             stats.increment("controller.ticks")
@@ -352,6 +355,30 @@ class OpsController:
             # (budget-free, like every release).
             if self.supervisor is not None:
                 self._reconcile_scale(conf, now)
+
+            # 1c. Ingest backoff: pause the daemon (durably, through the
+            # control file its every tick reads, so it works across
+            # process boundaries) while pages persist, resume once the
+            # burn clears. Pausing is a budgeted actuation; resuming is
+            # budget-free like every release.
+            if self.ingest is not None:
+                if (
+                    burning
+                    and not self._ingest_paused
+                    and self._page_ticks >= int(conf.controller_hysteresis_ticks)
+                ):
+                    if self._actuate(
+                        "ingest.pause", trigger="slo.page", now=now,
+                        fn=lambda: self.ingest.pause(reason="controller.slo_burn"),
+                        verdicts=dict(self._last_verdicts),
+                    ):
+                        self._ingest_paused = True
+                elif (
+                    not burning
+                    and self._ingest_paused
+                    and self._ok_ticks >= int(conf.controller_recovery_ticks)
+                ):
+                    self._resume_ingest(now, trigger="slo.recovered")
 
             # 2. Heal quarantined indexes — rebuild-class work, deferred
             # while serve SLOs burn (backing off background work is
@@ -553,6 +580,31 @@ class OpsController:
         )
         self._recent_actions.append(
             {"action": "shed.release", "trigger": trigger, "at": now,
+             "seq": record["seq"]}
+        )
+
+    def _resume_ingest(self, now: float, trigger: str) -> None:
+        """Un-pause the ingest daemon we paused. Budget-free, like
+        `_release_overload`: the controller can always hand back what it
+        took, and a resume that fails stays paused-by-us so the next tick
+        retries."""
+        faults.fault_point("controller.actuate")
+        try:
+            self.ingest.resume()
+        except Exception as e:
+            stats.increment("controller.actuation_failures")
+            _EVT_FAILED.emit(
+                action="ingest.resume", trigger=trigger,
+                error=f"{type(e).__name__}: {e}",
+            )
+            return
+        self._ingest_paused = False
+        record = _EVT_ACTUATION.emit(
+            action="ingest.resume", trigger=trigger, outcome="executed",
+            member=self.member_id, budget_remaining=self._budget,
+        )
+        self._recent_actions.append(
+            {"action": "ingest.resume", "trigger": trigger, "at": now,
              "seq": record["seq"]}
         )
 
@@ -1062,6 +1114,7 @@ class OpsController:
                 "mode": mode,
                 "member": self.member_id,
                 "engaged": self._engaged,
+                "ingest_paused": self._ingest_paused,
                 "budget_remaining": self._budget,
                 "verdicts": dict(self._last_verdicts),
                 "page_ticks": self._page_ticks,

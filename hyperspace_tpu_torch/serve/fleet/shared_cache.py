@@ -255,8 +255,8 @@ class SharedPlanCache(_SharedCacheBase):
         super().__init__(root, max_bytes, lease_ttl_s)
         self.single_flight = single_flight
 
-    def get_or_optimize(self, session, plan):
-        key = versioned_plan_key(session, plan)
+    def get_or_optimize(self, session, plan, snapshot=None):
+        key = versioned_plan_key(session, plan, snapshot=snapshot)
         path = self.entry_path(key)
         cached = self._read(path)
         if cached is not None:
@@ -266,10 +266,10 @@ class SharedPlanCache(_SharedCacheBase):
         if self.single_flight is not None:
             return self.single_flight.run(
                 f"plan-{key_name(key)}",
-                build=lambda: self._optimize_and_publish(session, plan, path),
+                build=lambda: self._optimize_and_publish(session, plan, path, snapshot),
                 check=lambda: self._read(path),
             )
-        return self._optimize_and_publish(session, plan, path)
+        return self._optimize_and_publish(session, plan, path, snapshot)
 
     def _read(self, path: Path):
         from hyperspace_tpu_torch.plan.nodes import plan_from_json
@@ -287,8 +287,8 @@ class SharedPlanCache(_SharedCacheBase):
             return None
         return out
 
-    def _optimize_and_publish(self, session, plan, path: Path):
-        optimized = session.optimized_plan(plan)
+    def _optimize_and_publish(self, session, plan, path: Path, snapshot=None):
+        optimized = session.optimized_plan(plan, snapshot=snapshot)
         try:
             self._publish(path, json.dumps(optimized.to_json(), sort_keys=True).encode())
         except OSError:

@@ -9,9 +9,10 @@ invalidation is structural rather than event-driven:
 
     (plan signature,            # canonical-JSON MD5 of the logical plan
      data fingerprint,          # (size, mtime, path) fold of source files
-     index log versions,        # (index dir, latest log id) per index
-     hyperspace enabled?,
-     quarantined indexes)       # sorted roots of session.index_health
+     index log versions,        # (index dir, latest log id) per index,
+                                # or a pinned snapshot's stamp
+     quarantined indexes,       # sorted roots of session.index_health
+     hyperspace enabled?)
 
 Every mutating index API commits by writing a new log entry, so the
 latest log id bumps and old keys never hit again; appended or rewritten
@@ -19,10 +20,13 @@ source files change the data fingerprint the same way. The LRU bound only
 caps memory.
 
 The quarantine set makes a corruption re-plan re-optimize under a new
-key instead of hitting the poisoned entry. Left out until the port has
-what it keys on: the pinned snapshot stamp (ingestion). Hits, misses and evictions land in the metrics registry
-(`serve.plan_cache.*`, the process's counts over every cache) and in
-this cache's own `stats()`.
+key instead of hitting the poisoned entry. A pinned snapshot
+(ingest/snapshot.py) puts its admission-time stamp in place of the live
+version vector: the pinned world never moves, so pinned reads keep
+hitting while micro-batches bump the live ids underneath. The key is the
+JAX package's, element for element. Hits, misses and evictions land in
+the metrics registry (`serve.plan_cache.*`, the process's counts over
+every cache) and in this cache's own `stats()`.
 """
 
 from __future__ import annotations
@@ -47,20 +51,21 @@ def collection_log_versions(session) -> tuple:
     return tuple((d.name, IndexLogManager(d).get_latest_id()) for d in mgr.path_resolver.list_index_paths())
 
 
-def versioned_plan_key(session, plan) -> tuple:
+def versioned_plan_key(session, plan, snapshot=None) -> tuple:
     """The cache key for `plan` under `session`'s current state (module
     docstring). Stat-ing the source files costs one os.stat a file, far
     less than re-optimizing, and makes a hit after an append or a refresh
-    impossible."""
+    impossible. A pinned `snapshot` puts its stamp in place of the live
+    version vector."""
     fp = FileBasedSignatureProvider().signature(plan)
     with session._state_lock:
         quarantined = tuple(sorted(session.index_health))
     return (
         plan_signature(plan),
         fp.value if fp is not None else None,
-        collection_log_versions(session),
-        session.is_hyperspace_enabled(),
+        snapshot.stamp if snapshot is not None else collection_log_versions(session),
         quarantined,
+        session.is_hyperspace_enabled(),
     )
 
 
@@ -78,11 +83,11 @@ class PlanCache:
         self.misses = 0
         self.evictions = 0
 
-    def get_or_optimize(self, session, plan):
+    def get_or_optimize(self, session, plan, snapshot=None):
         """The optimized plan for `plan`, from the cache when the versioned
         key matches, else freshly via `session.optimized_plan` (outside the
         lock: optimization reads the index log and stats files)."""
-        key = versioned_plan_key(session, plan)
+        key = versioned_plan_key(session, plan, snapshot=snapshot)
         with self._lock:
             hit = self._entries.get(key)
             if hit is not None:
@@ -92,7 +97,7 @@ class PlanCache:
                 return hit
             self.misses += 1
             _MISSES.inc()
-        optimized = session.optimized_plan(plan)
+        optimized = session.optimized_plan(plan, snapshot=snapshot)
         with self._lock:
             if key not in self._entries:
                 self._entries[key] = optimized

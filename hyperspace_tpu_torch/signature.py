@@ -13,6 +13,7 @@ plan itself, for the plan cache (serve/plan_cache.py).
 from __future__ import annotations
 
 import hashlib
+import threading
 
 from hyperspace_tpu_torch.dataset import format_suffix, list_data_files
 from hyperspace_tpu_torch.exceptions import HyperspaceError
@@ -101,10 +102,17 @@ class FileBasedSignatureProvider(SignatureProvider):
 _REGISTRY: dict[str, type[SignatureProvider]] = {
     FileBasedSignatureProvider.name: FileBasedSignatureProvider,
 }
+_REGISTRY_LOCK = threading.Lock()
+
+
+def register_signature_provider(cls: type[SignatureProvider]) -> None:
+    with _REGISTRY_LOCK:
+        _REGISTRY[cls.name] = cls
 
 
 def create_signature_provider(name: str = "fileBased") -> SignatureProvider:
-    provider = _REGISTRY.get(name)
+    with _REGISTRY_LOCK:
+        provider = _REGISTRY.get(name)
     if provider is None:
         raise HyperspaceError(f"unknown signature provider {name!r}")
     return provider()

@@ -74,6 +74,22 @@ The port declares only the counters its modules increment:
 - ``obs.journal.records`` / ``.errors`` / ``.segments_sealed`` /
   ``.evictions``  the telemetry journal's appends, swallowed IO failures,
   published segments and budget evictions (obs/journal.py)
+- ``ingest.ticks``  poll passes the continuous-ingestion daemon ran
+  (ingest/daemon.py)
+- ``ingest.commits``  micro-batches committed through the incremental
+  refresh action (each one a new crash-safe index version)
+- ``ingest.commit_failures``  micro-batch commits that raised an ordinary
+  Exception (the action's own rollback ran; the daemon keeps polling)
+- ``ingest.rows``  rows the tailer materialized from CDC changelogs into
+  batch files
+- ``ingest.bytes``  source bytes the daemon observed arriving (new files
+  and materialized CDC batches)
+- ``ingest.compactions`` / ``.compact_failures``  delta-bucket compactions
+  the daemon ran through the gated optimize action, and those that raised
+- ``ingest.deferred``  daemon work held back: paused by the controller, or
+  compaction deferred while serve SLOs burn
+- ``ingest.snapshots``  pinned snapshots taken (ingest/snapshot.py)
+- ``ingest.pinned_reads``  queries run against a pinned snapshot's stamp
 """
 
 from __future__ import annotations
@@ -121,6 +137,16 @@ KNOWN_COUNTERS = (
     "obs.journal.errors",
     "obs.journal.segments_sealed",
     "obs.journal.evictions",
+    "ingest.ticks",
+    "ingest.commits",
+    "ingest.commit_failures",
+    "ingest.rows",
+    "ingest.bytes",
+    "ingest.compactions",
+    "ingest.compact_failures",
+    "ingest.deferred",
+    "ingest.snapshots",
+    "ingest.pinned_reads",
 )
 
 _counters = {name: _metrics.counter(name) for name in KNOWN_COUNTERS}

@@ -3,7 +3,8 @@
 tests/test_advisor.py's what-if, cost-model, routing, lifecycle and
 workload cases, each run through both packages (`P` is "jax" or "torch")
 on the same seeded sources with the same assertions (the pinned reader's
-routing waits for the port's pinned snapshot). Then the parity cases:
+routing is held in tests/test_torch_ingest.py, with the pinned snapshot).
+Then the parity cases:
 
 - the same plans give the same signatures in both packages, and the same
   recorded walls the same routing decisions; a `routing.json` written by
@@ -18,8 +19,9 @@ routing waits for the port's pinned snapshot). Then the parity cases:
 - a crash inside an auto-create left by one package is recovered by the
   other;
 - importing the port's advisor loads neither JAX nor the JAX package, and
-  the advisor keys read the JAX package's defaults while the ingest and
-  venue keys still raise as not ported.
+  the advisor keys read the JAX package's defaults while the venue and
+  fused-kernel keys still raise as not ported (the ingest keys are ported
+  since continuous ingestion).
 """
 
 from __future__ import annotations
@@ -677,8 +679,10 @@ def test_advisor_keys_are_ported_and_ingest_keys_still_raise(tmp_path):
     port.conf.set("hyperspace.advisor.routing.demoteRatio", "2.5")
     port.conf.set("hyperspace.controller.stormResponse", "false")
     assert (port.conf.advisor_routing_demote_ratio, port.conf.controller_storm_response) == (2.5, False)
-    assert UNPORTED_KEYS == {k for k in UNPORTED_KEYS if k.startswith("hyperspace.ingest.") or k.endswith(
-        ("venue", "venueMinMbps", "fusedKernels"))}
+    assert UNPORTED_KEYS == {k for k in UNPORTED_KEYS if k.endswith(("venue", "venueMinMbps", "fusedKernels"))}
+    assert len(UNPORTED_KEYS) == 7
+    for key in [k for k in PORTED_KEYS if k.startswith("hyperspace.ingest.")]:
+        assert port.conf.get(key) == ref.conf.get(key), key
     for key in sorted(UNPORTED_KEYS):
         with pytest.raises(htorch.HyperspaceError, match="not ported yet"):
             port.conf.set(key, "1")

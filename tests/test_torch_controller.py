@@ -18,8 +18,10 @@ put on the rings: the same advisor sweeps (deferred while serve SLOs
 burn), the same raw pins and the same audit events in order. The sweep
 and the storm pin on a real session: demotions run_query emitted trigger
 one audited sweep that mutates nothing with the lifecycle gates off, and
-a storm's pin routes the signature raw. Left out with what it drives: the
-ingest pause.
+a storm's pin routes the signature raw. The script again with an ingest
+daemon of each package attached: the same pauses and resumes and the same
+control file; and the pause and resume on a real session's daemon, whose
+paused ticks defer and whose resumed tick commits.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import pytest
 from hyperspace_tpu.config import HyperspaceConf as JaxConf
 from hyperspace_tpu.obs import events as jax_events
 from hyperspace_tpu.obs import metrics as jax_metrics
+from hyperspace_tpu.ingest.daemon import IngestDaemon as JaxIngestDaemon
 from hyperspace_tpu.serve.controller import OpsController as JaxOpsController
 from hyperspace_tpu.serve.fleet.quota import TenantQuotas as JaxTenantQuotas
 from hyperspace_tpu.serve.scheduler import QueryServer as JaxQueryServer
@@ -45,6 +48,7 @@ from hyperspace_tpu_torch import faults, stats
 from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.faults import CrashPoint
+from hyperspace_tpu_torch.ingest.daemon import IngestDaemon
 from hyperspace_tpu_torch.obs import events, journal, metrics, slo, trace
 from hyperspace_tpu_torch.obs import http as obs_http
 from hyperspace_tpu_torch.serve.controller import OpsController
@@ -244,18 +248,30 @@ def test_scripted_demotions_and_storms_give_the_jax_packages_decisions(tmp_path,
     assert "controller.storm_response" in seen
 
 
-def _scripted(tmp_path, seed, advisor=False) -> list:
+@pytest.mark.parametrize("seed", [3, 5])
+def test_scripted_ingest_backoff_gives_the_jax_packages_decisions(tmp_path, seed):
+    """The seeded script with an ingest daemon of each package attached:
+    the same pauses on a page (hysteresis, cooldown, budget), the same
+    resumes on recovery and by the kill switch, the same audit events in
+    order and the same control file after every step."""
+    seen = _scripted(tmp_path, seed, ingest=True)
+    assert {"ingest.pause", "ingest.resume"} <= set(seen)
+
+
+def _scripted(tmp_path, seed, advisor=False, ingest=False) -> list:
     """Runs the seeded script through both packages' controllers and
     returns the audit's actions (or event names) in order. With
     `advisor`, each step may also put 1-3 routing demotions and a
-    recompile storm of one of two keys on both rings."""
+    recompile storm of one of two keys on both rings. With `ingest`, each
+    controller drives an ingest daemon of its package."""
     rng = np.random.default_rng(seed)
     conf = {"hyperspace.controller.actuationBudget": 7, "hyperspace.controller.cooldownSeconds": 20.0,
             "hyperspace.controller.scale.maxWorkers": 4}
     sides = []
-    for pkg, conf_cls, mod, qs_cls, tq_cls, ctrl_cls, ring in (
-            ("port", HyperspaceConf, metrics, QueryServer, TenantQuotas, OpsController, events),
-            ("jax", JaxConf, jax_metrics, JaxQueryServer, JaxTenantQuotas, JaxOpsController, jax_events)):
+    for pkg, conf_cls, mod, qs_cls, tq_cls, ctrl_cls, ring, daemon_cls in (
+            ("port", HyperspaceConf, metrics, QueryServer, TenantQuotas, OpsController, events, IngestDaemon),
+            ("jax", JaxConf, jax_metrics, JaxQueryServer, JaxTenantQuotas, JaxOpsController, jax_events,
+             JaxIngestDaemon)):
         session = FakeSession(conf_cls, **conf, **{
             "hyperspace.system.path": str(tmp_path / pkg / "absent"),
             "hyperspace.controller.incident.dir": str(tmp_path / pkg / "incidents")})
@@ -263,9 +279,10 @@ def _scripted(tmp_path, seed, advisor=False) -> list:
         server = qs_cls(session, workers=1, max_queue_depth=32, run_fn=lambda p: p,
                         quotas=tq_cls(rate=10.0, burst=10.0))
         sup = FakeSupervisor(n=2)
-        ctrl = ctrl_cls(hs, server=server, clock=lambda: 0.0, member_id="m", supervisor=sup)
+        daemon = daemon_cls(hs) if ingest else None
+        ctrl = ctrl_cls(hs, server=server, clock=lambda: 0.0, member_id="m", supervisor=sup, ingest=daemon)
         sides.append({"hs": hs, "server": server, "sup": sup, "ctrl": ctrl, "ring": ring,
-                      "counters": _serve_counters(mod), "seq": 0})
+                      "counters": _serve_counters(mod), "seq": 0, "daemon": daemon})
     try:
         for side in sides:
             side["counters"][0].inc(10_000)
@@ -310,7 +327,8 @@ def _scripted(tmp_path, seed, advisor=False) -> list:
                 got.append((audit, side["server"].get_shed_depth(), side["server"].quotas.throttle(), side["sup"].n,
                             snap["engaged"], snap["mode"], snap["budget_remaining"], side["hs"].calls[:],
                             sorted(side["hs"].session.index_health), snap["pending_demotions"],
-                            side["hs"].session.ledger.pins[:]))
+                            side["hs"].session.ledger.pins[:], snap["ingest_paused"],
+                            side["daemon"].paused() if ingest else None))
             assert got[0] == got[1], f"step {step} at t={t}"
             seen += [a[1] or a[0] for a in got[0][0]]
         return seen
@@ -641,23 +659,65 @@ def test_transient_fault_at_actuate_surfaces_typed():
 
 
 def test_what_the_controller_does_not_port_raises(tmp_path):
-    """The ingest pause is not ported: an `ingest=` and the ingest keys
-    raise. The storm response's and the advisor sweep's keys are ported
-    and read the JAX package's defaults."""
+    """Nothing of the controller is left unported: it takes the session's
+    ingest daemon (`ingest=`), whose keys read the JAX package's defaults,
+    as do the storm response's and the advisor sweep's; the venue keys
+    still raise."""
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
 
     session = HyperspaceSession(system_path=str(tmp_path), device="cpu")
     ctrl = Hyperspace(session).controller()
     assert isinstance(ctrl, OpsController) and ctrl.snapshot()["mode"] == "disabled"
+    assert ctrl.snapshot()["ingest_paused"] is False
+    daemon = Hyperspace(session).ingest()
+    assert Hyperspace(session).controller(ingest=daemon).ingest is daemon
     with pytest.raises(HyperspaceError, match="not ported"):
-        Hyperspace(session).controller(ingest=object())
-    for key in ("hyperspace.ingest.enabled", "hyperspace.ingest.autoCompact"):
-        with pytest.raises(HyperspaceError, match="not ported"):
-            session.conf.get(key)
+        session.conf.get("hyperspace.join.venue")
     ref = JaxConf()
     for key in ("hyperspace.controller.stormResponse", "hyperspace.controller.demotionClusterSize",
-                "hyperspace.controller.demotionWindowSeconds"):
+                "hyperspace.controller.demotionWindowSeconds", "hyperspace.ingest.enabled",
+                "hyperspace.ingest.autoCompact"):
         assert session.conf.get(key) == ref.get(key)
+
+
+def test_ingest_pause_and_resume_on_a_real_daemon(tmp_path):
+    """tests/test_ingest.py's backoff through the port's controller on a
+    real session and daemon: two page ticks pause the daemon (its ticks
+    defer, the control file says so), two calm ticks resume it, and the
+    next tick commits the waiting changelog rows."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+
+    src = tmp_path / "src"
+    src.mkdir()
+    pq.write_table(pa.table({"id": np.arange(40), "key": np.arange(40) % 4, "value": np.arange(40) * 0.5}),
+                   src / "part-0.parquet")
+    session = HyperspaceSession(system_path=str(tmp_path / "sys"), num_buckets=2, device="cpu")
+    session.conf.set("hyperspace.ingest.enabled", "true")
+    session.conf.set("hyperspace.controller.enabled", "true")
+    hs = Hyperspace(session)
+    hs.create_index(session.parquet(src), IndexConfig("idx1", ["key"], ["id", "value"]))
+    changelog = tmp_path / "changes.jsonl"
+    changelog.write_text("".join(json.dumps({"id": i, "key": i % 4, "value": float(i)}) + "\n"
+                                 for i in range(40, 60)))
+    daemon = hs.ingest().watch("idx1", changelog=changelog)
+    ctrl = hs.controller(ingest=daemon, clock=lambda: 0.0)
+    completed, failed, *_ = _serve_counters()
+    t = _drive_page(completed, failed, ctrl)
+    assert daemon.paused() and ctrl.snapshot()["ingest_paused"]
+    assert json.loads((tmp_path / "sys" / "_ingest" / "control.json").read_text()) == {
+        "paused": True, "reason": "controller.slo_burn"}
+    deferred = stats.get("ingest.deferred")
+    assert daemon.tick()["commits"] == 0 and stats.get("ingest.deferred") == deferred + 1
+    completed.inc(1_000_000)
+    ctrl.step(now=t + 70.0)
+    ctrl.step(now=t + 71.0)
+    assert not daemon.paused() and not ctrl.snapshot()["ingest_paused"]
+    assert [e["fields"]["action"] for e in _actuation_events("ingest.pause")] == ["ingest.pause"]
+    assert [e["fields"]["trigger"] for e in _actuation_events("ingest.resume")] == ["slo.recovered"]
+    assert daemon.tick()["commits"] == 1 and stats.get("ingest.rows") == 20
 
 
 # -- the loop and its health surface ------------------------------------------

@@ -1326,3 +1326,64 @@ def test_a_two_member_fleet_serves_on_the_card(cuda, tmp_path):
         assert g["forbidden"] == []
         served = pd.DataFrame(g["rows"]).sort_values(keys).reset_index(drop=True)
         pd.testing.assert_frame_equal(served, want.sort_values(keys).reset_index(drop=True), check_dtype=False)
+
+
+@pytest.mark.gpu
+def test_a_thread_mode_commit_then_a_pinned_read_on_the_card(cuda, tmp_path):
+    """The ingest daemon in thread mode on a card session: one micro-batch
+    commit whose bucket sort ran on the card, then a read pinned before
+    the commit repeats the old answer on the card while a live read sees
+    the new rows; a zone aggregate launches K1 on the pinned and the live
+    read, with the CPU's answers."""
+    import json
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, col
+    from hyperspace_tpu_torch.obs import events
+
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.default_rng(5)
+    n = 20_000
+    pq.write_table(pa.table({"id": np.arange(n), "zone": rng.integers(0, 64, n), "fare": rng.random(n) * 50}),
+                   src / "part-0.parquet")
+    changelog = tmp_path / "changes.jsonl"
+    with open(changelog, "w") as f:
+        for i in range(n, n + 500):
+            f.write(json.dumps({"id": i, "zone": int(i % 64), "fare": float(i % 97)}) + "\n")
+    s = HyperspaceSession(system_path=str(tmp_path / "sys"), num_buckets=4, device=cuda)
+    s.conf.set("hyperspace.ingest.enabled", "true")
+    hs = Hyperspace(s)
+    hs.create_index(s.parquet(src), IndexConfig("z", ["zone"], ["id", "fare"]))
+    s.enable_hyperspace()
+    daemon = hs.ingest().watch("z", changelog=changelog)
+    gauge = s.parquet(src).filter(col("zone") == 42).select("zone", "fare")
+    agg = s.parquet(src).filter(col("zone").isin([3, 42])).aggregate(["zone"], [("sum", "fare", "s"),
+                                                                                ("count", None, "c")])
+
+    def answers(snapshot=None):
+        g = s.run(gauge, snapshot=snapshot)
+        assert g.columns["fare"].device.type == "cuda"
+        before = segment_reduce.launches
+        a = s.run(agg, snapshot=snapshot).decode()
+        launched = segment_reduce.launches - before
+        return len(g.decode()["fare"]), sorted(zip(a["zone"].tolist(), a["c"].tolist(), a["s"].tolist())), launched
+
+    snap = s.pin_snapshot()
+    pinned = answers(snap)
+    assert daemon.tick()["commits"] == 1
+    (committed,) = [e["fields"] for e in events.recent() if e["name"] == "ingest.committed"]
+    assert committed["sort_device"].startswith("cuda") and s.last_build_stats["sort_device"].startswith("cuda")
+    again, live = answers(snap), answers()
+    snap.release()
+    assert again[:2] == pinned[:2] and pinned[2] >= 1 and again[2] >= 1 and live[2] >= 1
+    added = {z: sum(1 for i in range(n, n + 500) if i % 64 == z) for z in (3, 42)}
+    assert live[0] == pinned[0] + added[42]
+    assert [r[1] for r in live[1]] == [r[1] + added[r[0]] for r in pinned[1]]
+    cpu = HyperspaceSession(system_path=str(tmp_path / "sys"), device="cpu").enable_hyperspace()
+    want = cpu.run(agg).decode()
+    want = sorted(zip(want["zone"].tolist(), want["c"].tolist(), want["s"].tolist()))
+    assert [w[:2] for w in want] == [r[:2] for r in live[1]]
+    np.testing.assert_allclose([w[2] for w in want], [r[2] for r in live[1]], rtol=1e-12)

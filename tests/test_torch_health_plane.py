@@ -515,7 +515,7 @@ def test_healthz_standalone_server_without_session():
         doc = json.loads(_get(hs.url("/healthz"))[1])
         assert doc["status"] == "ok"
         assert doc["indexes"] == {} and doc["scheduler"] == [] and doc["controller"] == []
-        assert doc["fleet"] == [] and "ingest" not in doc
+        assert doc["fleet"] == [] and doc["ingest"] == []
     finally:
         hs.stop()
     assert hs.port is None and not hs.running

@@ -3,8 +3,9 @@
 A fresh interpreter imports `hyperspace_tpu_torch` and every one of its
 modules and reports which forbidden modules ended up in `sys.modules`; a
 worker spawned by the pooled build's pool, after running a real p1 shard
-of `execution/build_exchange.py`, reports the same, and so does a serving
-fleet member the supervisor spawns.
+of `execution/build_exchange.py`, reports the same, and so do a serving
+fleet member the supervisor spawns and the ingest daemon's process worker.
+Both packages' `serve` export the operations controller.
 """
 
 import json
@@ -92,8 +93,36 @@ def test_port_imports_without_jax_or_the_jax_package():
         "hyperspace_tpu_torch.serve.fleet.shared_cache",
         "hyperspace_tpu_torch.serve.fleet.supervisor",
         "hyperspace_tpu_torch.serve.controller",
+        "hyperspace_tpu_torch.ingest",
+        "hyperspace_tpu_torch.ingest.tailer",
+        "hyperspace_tpu_torch.ingest.writer",
+        "hyperspace_tpu_torch.ingest.snapshot",
+        "hyperspace_tpu_torch.ingest.daemon",
     ):
         assert name in report["modules"]
+
+
+def test_importing_ingest_alone_loads_neither():
+    code = ("import json, sys; import hyperspace_tpu_torch.ingest as ing; "
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib')) "
+            "or k == 'hyperspace_tpu' or k.startswith('hyperspace_tpu.')); "
+            "print(json.dumps({'names': sorted(ing.__all__), 'forbidden': bad}))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report == {"names": ["CdcTailer", "FileArrivalWatcher", "IngestDaemon", "PinnedSnapshot"],
+                      "forbidden": []}
+
+
+def test_both_packages_export_the_ops_controller_from_serve():
+    from hyperspace_tpu.serve import OpsController as JaxOpsController
+    from hyperspace_tpu.serve import __all__ as jax_all
+    from hyperspace_tpu_torch.serve import OpsController
+    from hyperspace_tpu_torch.serve import __all__ as port_all
+    from hyperspace_tpu_torch.serve.controller import OpsController as direct
+
+    assert OpsController is direct and JaxOpsController.__name__ == OpsController.__name__
+    assert sorted(port_all) == sorted(jax_all)
 
 
 def _worker_census(task):
@@ -146,6 +175,44 @@ def test_a_spawned_fleet_member_imports_neither(tmp_path):
         sup.start()
         census = out_q.get(timeout=180)
     assert census["forbidden"] == [] and census["pid"] != 0
+
+
+def _ingest_worker_census(system_path, watches, env, stop_event, out_q):
+    """Runs in a spawned process: the ingest worker's entry rebuilds its
+    session on the parent's device and watches (the stop event is already
+    set, so it returns without polling), then which forbidden modules the
+    process holds."""
+    from hyperspace_tpu_torch.ingest.daemon import _service_entry
+
+    _service_entry(system_path, watches, env, stop_event)
+    bad = sorted(k for k in sys.modules
+                 if k == "jax" or k.startswith(("jax.", "jaxlib")) or k == "hyperspace_tpu"
+                 or k.startswith("hyperspace_tpu."))
+    out_q.put({"forbidden": bad, "torch": "torch" in sys.modules})
+
+
+def test_a_spawned_ingest_worker_imports_neither(tmp_path):
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.parallel.procpool import ProcessHost
+
+    (tmp_path / "src").mkdir()
+    pq.write_table(pa.table({"k": np.arange(50), "v": np.arange(50) * 0.5}), tmp_path / "src" / "p.parquet")
+    session = HyperspaceSession(system_path=str(tmp_path / "sys"), num_buckets=2, device="cpu")
+    Hyperspace(session).create_index(session.parquet(tmp_path / "src"), IndexConfig("i", ["k"], ["v"]))
+    host = ProcessHost("hs-imports")
+    out_q = host.ctx.Queue()
+    host.stop_event.set()
+    host.spawn("ingest", _ingest_worker_census,
+               (str(tmp_path / "sys"), [("i", None)], {"device": "cpu"}, host.stop_event, out_q))
+    try:
+        census = out_q.get(timeout=180)
+    finally:
+        host.stop(timeout=30)
+    assert census == {"forbidden": [], "torch": True}
 
 
 def test_port_sources_never_name_jax():

@@ -5,7 +5,8 @@ a posted error re-raised typed (`WorkerFailed` with the worker's
 traceback), a SIGKILLed or hard-exited worker a typed `WorkerCrashed`
 within a bounded wait, a join timeout typed, the coordinator's fault
 rules firing inside a worker with its observed points merged back, the
-worker's imports, and `ProcessHost.stop` ending stragglers.
+worker's imports, and `ProcessHost.stop` ending stragglers. Added here:
+`stop` returns after a worker was SIGKILLed inside the stop event's wait.
 
 The import census runs in a worker that has imported the pooled build's
 worker module (`execution/build_exchange.py`): neither `jax` nor the JAX
@@ -167,3 +168,36 @@ def test_process_host_stop_terminates_stragglers():
     assert time.monotonic() - t0 < 30
     assert not p.is_alive()
     assert host.alive_count() == 0
+
+
+def _wait_on_event(stop_event, ready_q):
+    """Waits on the host's stop event in short timed waits, as the ingest
+    worker's loop does."""
+    ready_q.put(os.getpid())
+    while not stop_event.wait(0.01):
+        pass
+
+
+@pytest.mark.parametrize("live_workers", [0, 1])
+def test_stop_returns_after_a_worker_was_sigkilled_inside_the_event_wait(live_workers):
+    """A worker SIGKILLed inside `stop_event.wait` leaves the event's
+    condition one waker short: `stop` still returns in bounded time and
+    leaves no worker alive, with or without another live waiter."""
+    import threading
+
+    host = ProcessHost("hs-test-kill-wait")
+    ready = host.ctx.Queue()
+    victim = host.spawn("victim", _wait_on_event, args=(host.stop_event, ready))
+    others = [host.spawn(f"w{i}", _wait_on_event, args=(host.stop_event, ready)) for i in range(live_workers)]
+    for _ in range(1 + live_workers):
+        ready.get(timeout=120)
+    time.sleep(0.3)  # the waiters are deep in their timed waits
+    os.kill(victim.pid, signal.SIGKILL)
+    victim.join(timeout=30)
+    assert not victim.is_alive()
+    stopper = threading.Thread(target=host.stop, kwargs={"timeout": 2.0, "grace": 5.0}, daemon=True)
+    t0 = time.monotonic()
+    stopper.start()
+    stopper.join(60)
+    assert not stopper.is_alive() and time.monotonic() - t0 < 30
+    assert host.alive_count() == 0 and not any(p.is_alive() for p in others)

@@ -7,8 +7,8 @@ results exactly, and those equal the JAX package's serial results on the
 same data (rows as multisets; integral values exactly, float sums within
 1e-12 relative). Added here: a tensor written in place in a cached result
 makes the next lookup miss; the kernel wrappers' launch counter stays
-exact under threads; the pieces left out (the operations controller's
-ingest pause and the ingest keys) raise as not ported.
+exact under threads; the pieces left out (the host venues and the fused
+kernels) raise as not ported, and the controller takes an ingest daemon.
 """
 
 from __future__ import annotations
@@ -347,14 +347,20 @@ class TestAdmission:
             server.shutdown()
 
     def test_what_is_not_ported_raises(self, tmp_system_path):
+        """The host venues and the fused kernels are not ported; the ingest
+        pause and the ingest keys are."""
         from hyperspace_tpu_torch import Hyperspace
+        from hyperspace_tpu_torch.ingest import IngestDaemon
 
         session = _session(tmp_system_path)
-        with pytest.raises(HyperspaceError, match="not ported"):
-            Hyperspace(session).controller(ingest=object())
-        for key in ("hyperspace.ingest.enabled", "hyperspace.ingest.pollSeconds"):
+        daemon = Hyperspace(session).ingest()
+        assert isinstance(daemon, IngestDaemon)
+        assert Hyperspace(session).controller(ingest=daemon).ingest is daemon
+        for key in ("hyperspace.join.venue", "hyperspace.device.fusedKernels"):
             with pytest.raises(HyperspaceError, match="not ported"):
                 session.conf.set(key, True)
+        session.conf.set("hyperspace.ingest.pollSeconds", "0.5")
+        assert session.conf.ingest_poll_seconds == 0.5
 
     def test_a_session_asked_for_the_card_needs_one(self, tmp_system_path):
         if torch.cuda.is_available():

@@ -382,7 +382,7 @@ def test_a_rewritten_source_or_a_new_log_id_moves_the_key(indexed):
     k1 = versioned_plan_key(session, q)
     assert k1[1] != k0[1] and k1[0] == k0[0]
     session.disable_hyperspace()
-    assert versioned_plan_key(session, q)[3] is False
+    assert versioned_plan_key(session, q)[4] is False
 
 
 def test_distinct_plans_get_distinct_entries_and_disabled_skips_the_cache(indexed):

@@ -41,6 +41,17 @@ What it does, in order (any failure raises and exits non-zero):
    pair); J2 and J3 run three times more, the last two under
    `torch.profiler` (indexed, and J2 also without the index), and once
    more with K1's inputs recorded;
+3a'. mesh path (`mesh_path`), on the aggregate and join paths' lineitem
+   and orders: a session over `make_mesh([card] * 4)`, four virtual
+   shards of the one card, builds config 1's lineitem index and config
+   2's orders index (200 buckets), and orders again over the (2, 2)
+   multi-slice mesh, every file byte-identical to the one-device build's;
+   then Q1 and revenue (agg_devices 4, one K1 a shard a run), J1 indexed
+   (join_devices 4, one K2 a shard a run), the 1% range index on and off
+   (unindexed through the shard masks), ORDER BY l_extendedprice DESC
+   LIMIT 100 and Q3 (mesh-sharded-select), each cold and warm on the mesh
+   and on the one-device session, equal to the one device's answers (sums
+   within 2·N·u) and to pyarrow where the earlier paths hold them to it;
 3b. join-types path, on the join path's session, lineitem and orders:
    generates TPC-H customer (150,000 rows, seed 45), builds
    `customer_custkey` (with `c_nationkey, c_acctbal`) and
@@ -863,9 +874,10 @@ def cold_warm(name: str, session, plans: list, cache, sync, derived=(), tolerant
         "device_cache_hits": r1["hits"] - r0["hits"], "device_cache_misses": r1["misses"] - r0["misses"],
         "derived_hits": sum(v["hits"] for v in d1.values()) - sum(v["hits"] for v in d0.values()),
         "derived_misses": sum(v["misses"] for v in d1.values()) - sum(v["misses"] for v in d0.values()),
-        "warm_stats": {k: warm[-1].stats[k] for k in ("scan", "files_read", "files_pruned", "rows_pruned",
-                                                     "range_exact", "agg_path", "join_path", "join_paths",
-                                                     "join_kernel", "exchange_kernel", "top_n", "limit_early_out")},
+        "warm_stats": {k: warm[-1].stats.get(k) for k in ("scan", "files_read", "files_pruned", "rows_pruned",
+                                                         "range_exact", "agg_path", "agg_devices", "join_path",
+                                                         "join_paths", "join_kernel", "join_devices",
+                                                         "exchange_kernel", "top_n", "limit_early_out")},
     }
 
 
@@ -1269,6 +1281,246 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
     return {"groups": {"J2": len(ref_j2), "J3": len(ref_j3)}, "rows": counts, "phases": phases}, k1_inputs, k2_inputs
 
 
+# -- mesh path ------------------------------------------------------------------
+
+MESH_SHARDS = 4  # virtual shards of the one card
+
+
+def _only_version(index_dir: Path) -> Path:
+    dirs = sorted(index_dir.glob("v__=*"))
+    if len(dirs) != 1:
+        raise AssertionError(f"{index_dir.name}: {len(dirs)} version dirs, expected one")
+    return dirs[0]
+
+
+def same_device_rows(name: str, a, b, keys: list) -> None:
+    """Two results (ColumnTables on one device) with the same rows as
+    multisets: each sorted on the device by `keys`, every column, null
+    mask and dictionary equal."""
+    import torch
+
+    def perm(t):
+        p = torch.arange(t.num_rows, device=t.device)
+        for c in reversed(keys):
+            p = p[torch.sort(t.column(c)[p], stable=True).indices]
+        return p
+
+    if a.schema.names != b.schema.names or a.num_rows != b.num_rows or a.num_rows == 0:
+        raise AssertionError(f"{name}: {a.num_rows} rows of {a.schema.names}, the one device's "
+                             f"{b.num_rows} of {b.schema.names}")
+    pa_, pb = perm(a), perm(b)
+    for f in a.schema.fields:
+        if not torch.equal(a.columns[f.name][pa_], b.columns[f.name][pb]):
+            raise AssertionError(f"{name}: column {f.name} differs from the one device's")
+        va, vb = a.validity.get(f.name), b.validity.get(f.name)
+        if (va is None) != (vb is None) or (va is not None and not torch.equal(va[pa_], vb[pb])):
+            raise AssertionError(f"{name}: the nulls of {f.name} differ from the one device's")
+        if not np.array_equal(a.dictionaries.get(f.name, []), b.dictionaries.get(f.name, [])):
+            raise AssertionError(f"{name}: the dictionary of {f.name} differs from the one device's")
+
+
+def mesh_path(device, ctx: dict, sf: float, one_device_builds: dict) -> dict:
+    """Phase 3a' (`mesh_path`): the device mesh through the user entry
+    points, `HyperspaceSession(mesh=make_mesh([card] * 4))`: four virtual
+    shards of the one card, on the aggregate and join paths' SF1 lineitem
+    and orders. (a) Config 1's lineitem index (200 buckets) and config 2's
+    orders index built over the mesh, and orders again over the (2, 2)
+    multi-slice mesh: every file of each version dir byte-identical to the
+    one-device build's. (b) Q1 and revenue cold and warm: agg_devices 4 and
+    4 K1 launches a run, equal to the one-device session's (sums within
+    2·N·u) and to pyarrow. (c) J1 indexed: join_devices 4 and 4 K2
+    launches a run, its pairs the one-device J1's. (d) The 1% range, index
+    on and off, exact against pyarrow; unindexed through the shard masks
+    (6.0M rows pad to 2^23, so 3 of the 4 shards hold rows). (e) ORDER BY
+    l_extendedprice DESC LIMIT 100 and Q3 (customer generated here, seed
+    45): the top-N is mesh-sharded-select, the answers the one-device
+    session's. Each mesh build follows a one-device build of its config in
+    the phase, and every query also runs cold and warm on the one-device
+    session, so the walls stand side by side; `one_device_builds` holds
+    the earlier paths' (first) build walls. The phase's indexes are
+    deleted at the end. Returns the record."""
+    import shutil
+
+    import pandas as pd
+    import pyarrow.compute as pc
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig, PlanCache, col, lit
+    from hyperspace_tpu_torch.datagen import TPCH_SF1_ORDERS_ROWS, gen_tpch_customer
+    from hyperspace_tpu_torch.ops import filter as filter_ops
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+    from hyperspace_tpu_torch.parallel.mesh import make_mesh, make_multislice_mesh, row_ranges
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    one, workdir, source = ctx["session"], ctx["workdir"], ctx["source"]
+    one_root = Path(one.conf.system_path)
+    num_buckets = one.conf.num_buckets
+    shards = [device] * MESH_SHARDS
+    dirs = [workdir / "mesh_indexes", workdir / "multislice_indexes", workdir / "mesh_customer",
+            workdir / "one_device_rebuild"]
+    out: dict = {"shards": MESH_SHARDS, "num_buckets": num_buckets}
+    try:
+        # (a) The builds, each against the one-device index of its config.
+        session = HyperspaceSession(system_path=str(dirs[0]), num_buckets=num_buckets, mesh=make_mesh(shards))
+        multi = HyperspaceSession(system_path=str(dirs[1]), num_buckets=num_buckets,
+                                  mesh=make_multislice_mesh(2, shards))
+        rebuild = HyperspaceSession(system_path=str(dirs[3]), num_buckets=num_buckets, device=device)
+        builds = {}
+        for label, s, name, data, config in (
+            ("lineitem", session, "lineitem_orderkey", "lineitem", (INDEXED, INCLUDED)),
+            ("orders", session, "orders_orderkey", "orders", (O_INDEXED, O_INCLUDED)),
+            ("orders_multislice", multi, "orders_orderkey", "orders", (O_INDEXED, O_INCLUDED)),
+        ):
+            one_s = None
+            if s is session:
+                # The one-device build again, just before the mesh's, for a
+                # wall taken as warm as the mesh's (the earlier path's was
+                # the card's and the files' first).
+                t0 = time.perf_counter()
+                Hyperspace(rebuild).create_index(rebuild.parquet(workdir / data), IndexConfig(name, *config))
+                sync()
+                one_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            Hyperspace(s).create_index(s.parquet(workdir / data), IndexConfig(name, *config))
+            sync()
+            wall = time.perf_counter() - t0
+            st = s.last_build_stats
+            if st["path"] != "in-memory" or st["mesh_devices"] != MESH_SHARDS:
+                raise AssertionError(f"mesh build {label}: path {st['path']} over {st['mesh_devices']} shards")
+            ref, got = _only_version(one_root / name), _only_version(Path(s.conf.system_path) / name)
+            if ref.name != got.name:
+                raise AssertionError(f"mesh build {label}: version dir {got.name}, the one device's {ref.name}")
+            builds[label] = {"s": wall, "one_device_s": one_s,
+                             "one_device_first_s": one_device_builds[label.split("_")[0]],
+                             "phases_s": st["phases_s"], "identical_bytes": _same_index_files(ref, got, label)}
+        shutil.rmtree(dirs[1])
+        shutil.rmtree(dirs[3])
+        out["builds"] = builds
+
+        # (b)-(e): each query cold and warm over the mesh, then on one device.
+        one.enable_hyperspace()
+        session.enable_hyperspace()
+        cache = PlanCache()
+        n_rows = source.num_rows
+        gen_tpch_customer(dirs[2], sf=sf, seed=45)
+        domain = int(TPCH_SF1_ORDERS_ROWS * sf)
+        lo, hi = int(domain * 0.47), int(domain * 0.48)
+        between = (col("l_orderkey") >= lit(lo)) & (col("l_orderkey") <= lit(hi))
+
+        def plans(s):
+            li, orders = s.parquet(workdir / "lineitem"), s.parquet(workdir / "orders")
+            return {
+                "Q1": li.aggregate(Q1_GROUP, Q1_AGGS),
+                "revenue": li.aggregate(["l_orderkey"], [("sum", "l_extendedprice", "rev")]),
+                "J1": li.select("l_orderkey", "l_extendedprice").join(
+                    orders.select("o_orderkey", "o_totalprice", "o_orderpriority"), ["l_orderkey"], ["o_orderkey"]),
+                "range": li.filter(between).select("l_orderkey", "l_partkey", "l_extendedprice"),
+                "topN": li.select("l_orderkey", "l_extendedprice").sort([("l_extendedprice", False)]).limit(100),
+                "Q3": q3_plan(htorch, li, orders, s.parquet(dirs[2])),
+            }
+
+        mesh_plans, one_plans = plans(session), plans(one)
+        # name: (K1, K2 launches a run over the mesh, the derived kinds a warm
+        # run must hit, the columns whose sums may differ in their last bits)
+        expect = {
+            "Q1": (MESH_SHARDS, 0, ("gid",), ("sum_price", "avg_disc")),
+            "revenue": (MESH_SHARDS, 0, ("gid",), ("rev",)),
+            "J1": (0, MESH_SHARDS, ("fact",), ()),
+            "topN": (0, 0, (), ()),
+            "Q3": (MESH_SHARDS, None, (), ("revenue",)),
+        }
+        queries = {}
+        masks: list = []
+        real_mask = filter_ops._mask
+
+        def counting_mask(table, predicate):
+            masks.append(table.num_rows)
+            return real_mask(table, predicate)
+
+        for name in ("Q1", "revenue", "J1", "range", "topN", "Q3"):
+            modes = ("index", "no_index") if name == "range" else ("index",)
+            for mode in modes:
+                for s in (session, one):
+                    s.enable_hyperspace() if mode == "index" else s.disable_hyperspace()
+                k1, k2, derived, tolerant = expect.get(name, (0, 0, (), ()))
+                label = name if mode == "index" else f"{name} {mode}"
+                l1, l2 = segment_reduce.launches, run_bounds.launches
+                masks.clear()
+                filter_ops._mask = counting_mask
+                try:
+                    (got,), _, timing = cold_warm(f"mesh {label}", session, [mesh_plans[name]], cache, sync, derived,
+                                                  tolerant)
+                finally:
+                    filter_ops._mask = real_mask
+                launched = {"segment_reduce": segment_reduce.launches - l1, "run_bounds": run_bounds.launches - l2}
+                shard_masks = list(masks)
+                (want,), _, one_timing = cold_warm(f"one-device {label}", one, [one_plans[name]], ctx["plan_cache"],
+                                                   sync, derived, tolerant)
+                stats = timing["warm_stats"]
+                if device.type == "cuda" and (launched["segment_reduce"] != 2 * k1
+                                              or (k2 is not None and launched["run_bounds"] != 2 * k2)):
+                    raise AssertionError(f"mesh {label}: {launched} launched cold and warm, expected K1 {k1} "
+                                         f"and K2 {k2} a run")
+                if k1 and stats["agg_devices"] != MESH_SHARDS:
+                    raise AssertionError(f"mesh {label}: agg_devices {stats['agg_devices']}")
+                if name == "J1" and (stats["join_devices"] != MESH_SHARDS
+                                     or stats["join_path"] != "zero-exchange-aligned"):
+                    raise AssertionError(f"mesh J1: {stats['join_path']} over {stats['join_devices']} shards")
+                if name in ("topN", "Q3"):
+                    top = stats["top_n"] or {}
+                    if top.get("kernel") != "mesh-sharded-select + sort" or top.get("devices") != MESH_SHARDS:
+                        raise AssertionError(f"mesh {name}: top-N {top}")
+                # The answers: the one device's (sums within 2·N·u), and pyarrow's.
+                if name == "J1":
+                    same_device_rows("mesh J1", got, want, ["l_orderkey", "l_extendedprice", "o_totalprice"])
+                elif name == "topN":
+                    if not got.to_arrow().equals(want.to_arrow()):
+                        raise AssertionError("mesh top-N: the rows differ from the one device's")
+                else:
+                    same_rows(f"mesh {label}", sorted_rows(got, tolerant), sorted_rows(want, tolerant), tolerant,
+                              n_rows)
+                if name == "Q1":
+                    check_q1(pd.DataFrame(got.decode()), source)
+                elif name == "revenue":
+                    check_revenue(pd.DataFrame(got.decode()), source)
+                elif name == "range":
+                    ref = source.filter(pc.and_(pc.greater_equal(source["l_orderkey"], lo),
+                                                pc.less_equal(source["l_orderkey"], hi)))
+                    ref = ref.select(["l_orderkey", "l_partkey", "l_extendedprice"])
+                    same_rows(f"mesh {label} against pyarrow", sorted_rows(got, ()),
+                              ref.sort_by([(c, "ascending") for c in ref.column_names]), (), n_rows)
+                    # The rows pad to a power of two and shard by n_pad / 4, as
+                    # the JAX package's mask shards them: 6.0M rows fill 3 of 4.
+                    per = filter_ops._pow2(n_rows) // MESH_SHARDS
+                    want_masks = 2 * sum(hi_ > lo_ for lo_, hi_ in row_ranges(n_rows, per, MESH_SHARDS))
+                    if mode == "no_index" and (len(shard_masks) != want_masks or want_masks < 4):
+                        raise AssertionError(f"mesh {label}: {len(shard_masks)} shard masks cold and warm, "
+                                             f"expected {want_masks}")
+                queries[label] = {
+                    "rows": got.num_rows, "cold_s": timing["cold_s"], "warm_s": timing["warm_s"],
+                    "one_device_cold_s": one_timing["cold_s"], "one_device_warm_s": one_timing["warm_s"],
+                    "warm_host_s": timing["warm_host_s"], "one_device_warm_host_s": one_timing["warm_host_s"],
+                    "launches_cold_and_warm": launched, "shard_masks_cold_and_warm": shard_masks,
+                    "warm_stats": stats,
+                }
+        session.disable_hyperspace()
+        session.run(mesh_plans["topN"])
+        plan_repr = repr(session.last_physical_plan)
+        if "mesh-sharded-select" not in plan_repr:
+            raise AssertionError(f"the top-N's physical plan does not name mesh-sharded-select: {plan_repr}")
+        out["queries"] = queries
+    finally:
+        one.enable_hyperspace()
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 # -- join-types path -----------------------------------------------------------
 
 C_INDEXED, C_INCLUDED = ["c_custkey"], ["c_nationkey", "c_acctbal"]
@@ -1591,6 +1843,20 @@ TPCDS_BUCKETS = 64
 LIMIT_ROWS = 1000
 
 
+def q3_plan(pkg, li, orders, customer):
+    """TPC-H Q3: lineitem ⋈ (orders ⋈ customer), so l_orderkey names the
+    key; the top 10 by revenue."""
+    col, lit, date_lit = pkg.col, pkg.lit, pkg.date_lit
+    disc_price = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    building = orders.filter(col("o_orderdate") < date_lit("1995-03-15")).select(
+        "o_orderkey", "o_custkey", "o_orderdate", "o_shippriority").join(
+        customer.filter(col("c_mktsegment") == lit("BUILDING")).select("c_custkey"), ["o_custkey"], ["c_custkey"])
+    return li.filter(col("l_shipdate") > date_lit("1995-03-15")).select(
+        "l_orderkey", "l_extendedprice", "l_discount").join(building, ["l_orderkey"], ["o_orderkey"]).aggregate(
+        ["l_orderkey", "o_orderdate", "o_shippriority"], [pkg.AggSpec.of("sum", disc_price, "revenue")]).sort(
+        [("revenue", False), ("o_orderdate", True)]).limit(10)
+
+
 def query_surface_plans(pkg, tables: dict) -> dict:
     """The query-surface phase's plans, built with `pkg`'s expression and
     plan builders so that the same function builds them for either
@@ -1613,14 +1879,7 @@ def query_surface_plans(pkg, tables: dict) -> dict:
             ("mean", "l_discount", "avg_disc"),
             ("count", None, "count_order"),
         ]).sort(["l_returnflag", "l_linestatus"])
-    # TPC-H Q3: lineitem ⋈ (orders ⋈ customer), so l_orderkey names the key.
-    building = orders.filter(col("o_orderdate") < date_lit("1995-03-15")).select(
-        "o_orderkey", "o_custkey", "o_orderdate", "o_shippriority").join(
-        customer.filter(col("c_mktsegment") == lit("BUILDING")).select("c_custkey"), ["o_custkey"], ["c_custkey"])
-    out["Q3"] = li.filter(col("l_shipdate") > date_lit("1995-03-15")).select(
-        "l_orderkey", "l_extendedprice", "l_discount").join(building, ["l_orderkey"], ["o_orderkey"]).aggregate(
-        ["l_orderkey", "o_orderdate", "o_shippriority"], [spec("sum", disc_price, "revenue")]).sort(
-        [("revenue", False), ("o_orderdate", True)]).limit(10)
+    out["Q3"] = q3_plan(pkg, li, orders, customer)
     # TPC-H Q12 with its real predicates.
     high = col("o_orderpriority").isin(["1-URGENT", "2-HIGH"])
     out["Q12"] = li.filter(
@@ -3910,7 +4169,7 @@ def _same_index_files(ref: Path, got: Path, name: str) -> int:
     for n in names:
         a, b = (ref / n).read_bytes(), (got / n).read_bytes()
         if a != b:
-            raise AssertionError(f"{name}: {n} differs from the serial streaming build's")
+            raise AssertionError(f"{name}: {n} differs from the reference build's")
         total += len(a)
     return total
 
@@ -6530,6 +6789,15 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             launches["join"] = read_counts("join", ("run_bounds", "segment_reduce"))
             log(json.dumps({"join_path": join, "launches": launches["join"]}))
             log(json.dumps({"caches_after_path": "join", **cache_stats()}))
+        with phase("mesh_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            mesh = mesh_path(device, ctx, args.sf, {"lineitem": result["phases"]["build_s"],
+                                                    "orders": join["phases"]["orders_build_s"]})
+            mesh["mesh_path_s"] = time.perf_counter() - t0
+            launches["mesh"] = read_counts("mesh", ("run_bounds", "segment_reduce"))
+            log(json.dumps({"mesh_path": mesh, "launches": launches["mesh"]}, default=str))
+            log(json.dumps({"caches_after_path": "mesh", **cache_stats()}))
         with phase("join_types_path"):
             zero_counts()
             t0 = time.perf_counter()
@@ -6712,9 +6980,9 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
                 "route": "cuda",
                 "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
                 "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-                # K1 runs on eleven paths: its launches on each, summed (the
+                # K1 runs on twelve paths: its launches on each, summed (the
                 # fleet's in this process and in its members).
-                "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "join_types",
+                "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "mesh", "join_types",
                                                                          "query_surface", "lifecycle", "serve",
                                                                          "faults", "build_scale", "fleet",
                                                                          "fleet_members", "advisor", "ingest")),
@@ -6756,11 +7024,11 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
                 "route": "cuda",
                 "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
                 "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
-                # K2 runs on the join paths, the query surface, the lifecycle,
-                # the serving path, the faults path, the fleet (in this
-                # process and in its members) and the advisor: its launches
-                # on each, summed.
-                "launches": sum(launches[p]["run_bounds"] for p in ("join", "join_types", "query_surface",
+                # K2 runs on the join paths, the mesh, the query surface, the
+                # lifecycle, the serving path, the faults path, the fleet (in
+                # this process and in its members) and the advisor: its
+                # launches on each, summed.
+                "launches": sum(launches[p]["run_bounds"] for p in ("join", "mesh", "join_types", "query_surface",
                                                                      "lifecycle", "serve", "faults", "fleet",
                                                                      "fleet_members", "advisor")),
                 "launches_by_path": {p: c["run_bounds"] for p, c in launches.items()},

@@ -7,8 +7,9 @@ name (:54-61). `build_log_entry` assembles the full IndexLogEntry — selected
 schema, numBuckets from conf, the JSON plan (vs. the reference's Kryo blob),
 the file-based signature and the source file list
 (CreateActionBase.scala:38-97). `op` runs the device build pipeline — the
-hot path: select columns → hash-bucketize → one stable sort by (bucket,
-key) on the device → persist buckets (CreateActionBase.scala:99-120).
+hot path: select columns → hash-bucketize (the exchange over the
+writer's mesh, or one device) → a stable sort by (bucket, key) a shard →
+persist buckets (CreateActionBase.scala:99-120).
 A copy of the JAX package's module.
 
 The pipeline is injected via the `IndexWriter` protocol — the DI seam the

@@ -8,16 +8,22 @@ index/DataFrameWriterExtensions.scala:49-78):
   host:   parquet → ColumnTable (strings dict-encoded) → row hashes (the
           same uint32 function the query plane uses for bucket pruning)
           and the order-preserving key lanes
-  device: ONE stable sort by (bucket, key lanes) (ops/bucketize.py)
+  device: the exchange over the mesh and a stable sort by (bucket, key
+          lanes) a shard (ops/bucketize.py); one sort on one device
   host:   carve the bucket-grouped, key-sorted rows into one parquet file
           per bucket + a manifest of per-bucket row counts and stats
 
-A port of the JAX package's `DeviceIndexBuilder` on one device, with its
-three build paths:
+A port of the JAX package's `DeviceIndexBuilder`, with its three build
+paths:
 
 - **in-memory**, where the parquet footers' uncompressed estimate fits
-  `memory_budget_bytes`: one host decode, one stable sort on the card
-  returning the row permutation, one threaded carve;
+  `memory_budget_bytes`: one host decode, the bucketize over the mesh
+  (`_mesh_for`: the largest prefix of the builder's mesh whose size
+  divides the bucket count; with no mesh, every visible card for a CUDA
+  device and one shard on the CPU) returning the row permutation, one
+  threaded carve. The rows are padded to a multiple of the mesh size,
+  the pads past `n` sent nowhere; the permutation is the one-device
+  sort's, so the files are byte-identical on any mesh;
 - **streaming** (out of core), where it does not: phase 1 decodes the
   source in chunks of at most `chunk_bytes` (the next chunk decoding on a
   thread while this one is hashed), partitions each chunk by bucket and
@@ -39,9 +45,12 @@ size. `compact` (OptimizeAction's seam) merges every live version dir
 into one sorted file a bucket, in memory or, above the budget, through
 the streaming pipeline. The JAX package's host sort venue
 (`hyperspace.build.venue`) is not ported: in this process the sort always
-runs on the card. `last_build_stats` holds the path, rows, chunks, the
-footers' estimate, the phase walls (`phases_s`), the device the bucket
-sort ran on (`sort_device`) and whether the native host hash was used.
+runs on the card. The streaming and pooled builds sort on the builder's
+device: the JAX package reads the mesh there only for its venue.
+`last_build_stats` holds the path, rows, chunks, the footers' estimate,
+the phase walls (`phases_s`), the device the bucket sort ran on
+(`sort_device`), the shards an in-memory build or compaction sorted
+over (`mesh_devices`) and whether the native host hash was used.
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.ops.bucketize import bucketize_perm
 from hyperspace_tpu_torch.ops.hashing import bucket_ids
 from hyperspace_tpu_torch.ops.sortkeys import device_sort_perms, key_lanes
+from hyperspace_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_for_parallelism, mesh_size
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
 
 # Pipeline telemetry: occupancy is the mean busy fraction of the three
@@ -86,6 +96,10 @@ _MET_POOL_WORKERS = obs_metrics.gauge(
     "build.workers.active",
     "worker processes the pooled build currently has spawned (0 between builds)",
 )
+
+
+def _pad_to(arr: np.ndarray, n: int) -> np.ndarray:
+    return arr if len(arr) == n else np.concatenate([arr, np.zeros(n - len(arr), dtype=arr.dtype)])
 
 
 def _prefetched(it):
@@ -111,11 +125,13 @@ def _prefetched(it):
 
 
 class DeviceIndexBuilder:
-    """IndexWriter and IndexCompactor whose sorts run on `device`."""
+    """IndexWriter and IndexCompactor whose sorts run on `device`, the
+    in-memory build's over `mesh`."""
 
     def __init__(
         self,
         device: torch.device,
+        mesh: Mesh | None = None,
         memory_budget_bytes: int | None = None,
         chunk_bytes: int | None = None,
         pipeline_enabled: bool = True,
@@ -124,6 +140,7 @@ class DeviceIndexBuilder:
         exchange_dir: str | None = None,
     ):
         self.device = torch.device(device)
+        self._mesh = mesh
         if memory_budget_bytes is None:
             memory_budget_bytes = DEFAULT_BUILD_MEMORY_BUDGET
         self.memory_budget_bytes = memory_budget_bytes
@@ -139,6 +156,15 @@ class DeviceIndexBuilder:
         # pooled build's workers sort on the host).
         self.last_build_stats = {**stats, "sort_device": sort_device or str(self.device),
                                  "native": native.available(), "hash_path": native.path_taken()}
+
+    def _mesh_for(self, num_buckets: int) -> Mesh:
+        """The largest prefix of the builder's mesh whose size divides
+        `num_buckets` (any multi-slice structure dropped). With no mesh:
+        every visible card for a CUDA device, else one shard."""
+        mesh = self._mesh
+        if mesh is None:
+            mesh = make_mesh() if self.device.type == "cuda" else make_mesh([self.device])
+        return mesh_for_parallelism(mesh, num_buckets)
 
     # -- IndexWriter -----------------------------------------------------
     def write(
@@ -179,7 +205,7 @@ class DeviceIndexBuilder:
         t_decode = time.perf_counter() - t0
         phases = self.write_table(table, indexed_columns, num_buckets, dest_path)
         self._stats(path="in-memory", bytes_estimate=est, rows=table.num_rows,
-                    phases_s={"decode": t_decode, **phases})
+                    mesh_devices=mesh_size(self._mesh_for(num_buckets)), phases_s={"decode": t_decode, **phases})
 
     # -- OptimizeAction's compactor seam ---------------------------------
     def compact(self, entry, src_paths: list[Path] | Path, dest_path: Path) -> None:
@@ -210,7 +236,7 @@ class DeviceIndexBuilder:
         t_decode = time.perf_counter() - t0
         phases = self.write_table(table, indexed, num_buckets, dest_path)
         self._stats(path="compact", bytes_estimate=est, rows=table.num_rows,
-                    phases_s={"decode": t_decode, **phases})
+                    mesh_devices=mesh_size(self._mesh_for(num_buckets)), phases_s={"decode": t_decode, **phases})
 
     def write_table(
         self,
@@ -232,9 +258,16 @@ class DeviceIndexBuilder:
         lanes = key_lanes(table, indexed_columns)
         t_hash = time.perf_counter()
 
-        # Device: one stable sort by (bucket, key lanes); the permutation
-        # and the per-bucket counts come back.
-        order, bucket_rows = bucketize_perm(lanes, bucket, num_buckets, self.device)
+        # Device: the exchange over the mesh and a stable sort by (bucket,
+        # key lanes) a shard (one sort on one device); the permutation and
+        # the per-bucket counts come back. Rows are padded to a multiple of
+        # the mesh size; the pads past n travel nowhere.
+        mesh = self._mesh_for(num_buckets)
+        d = mesh_size(mesh)
+        n_pad = max(d, -(-n // d) * d)
+        order, bucket_rows = bucketize_perm(
+            mesh, [_pad_to(l, n_pad) for l in lanes], _pad_to(bucket, n_pad), n, num_buckets
+        )
         if len(order) != n:
             raise HyperspaceError(f"row count changed through the sort: {n} → {len(order)}")
         t_sort = time.perf_counter()

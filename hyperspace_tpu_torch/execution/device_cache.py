@@ -13,7 +13,8 @@ stays valid as long as the entry lives. Two instances serve the read path:
   from its columns' entries, and a query reads only the columns it lacks.
   Keyed by column, not by table: a whole lineitem table at SF1 is larger
   than the quarter of the budget an entry may take. It also holds the
-  uploads of stable host arrays (`device_put_cached`).
+  uploads of stable host arrays (`device_put_cached`) and the copies of
+  stable tensors to a mesh's shards on other devices (`shard_cached`).
 - HOST_DERIVED (default 1 GiB, `HYPERSPACE_DERIVED_CACHE_BYTES`): what a
   query derives from stable inputs — group ids and join key codes on the
   host, and on the device the sorted and bucket-major padded key codes,
@@ -269,6 +270,26 @@ def device_put_cached(arr: np.ndarray, device: torch.device, dtype: torch.dtype 
     if not is_stable(arr):
         return _timed(lambda: build()[0])
     return _timed(lambda: DEVICE_CACHE.get_or_build(("raw", id(arr), str(dtype), str(device)), (arr,), build))
+
+
+def shard_cached(t: torch.Tensor, mesh, i: int, lo: int, hi: int) -> torch.Tensor:
+    """Rows [lo, hi) of `t` on shard i of `mesh`. A shard on `t`'s own
+    device takes a view; a copy to another device goes through
+    DEVICE_CACHE when `t` is stable, keyed by the mesh's shape and the
+    shard (the JAX package keys its sharded uploads so), so that a
+    one-device upload never serves a shard."""
+    dev = mesh.devices[i]
+    if dev == t.device:
+        return t[lo:hi]
+
+    def build():
+        s = t[lo:hi].to(dev)
+        return s, nbytes_of(s)
+
+    if not is_stable(t):
+        return _timed(lambda: build()[0])
+    key = ("shard", ident(t), str(mesh.shape), i, lo, hi, str(dev))
+    return _timed(lambda: DEVICE_CACHE.get_or_build(key, (t,), build))
 
 
 def derived(key: tuple, base_refs: tuple, build_value):

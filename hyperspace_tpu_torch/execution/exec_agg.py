@@ -2,9 +2,12 @@
 distinct expansion, and grouping-set re-folds (Executor mixin).
 
 A port of the JAX package's `execution/exec_agg.py::AggregateMixin`
-without its venues and meshes: every reduce runs on the session's device
-through ops/aggregate.py::aggregate_table (the CUDA segment-reduce
-kernel). A plain aggregate over an inner join first tries the
+without its venues: every reduce runs on the session's device through
+ops/aggregate.py::aggregate_table (the CUDA segment-reduce kernel). With
+the executor's mesh, the plain segment reduce shards its rows over it
+(one K1 a shard; `stats["agg_devices"]`), as the JAX package's device
+venue does; the other branches reduce on one device, as there. A plain
+aggregate over an inner join first tries the
 partial-aggregation pushdown, then the fused Aggregate(Join)
 (exec_join_agg.py), as the JAX package does; otherwise the child
 executes and one segment-reduce runs over every channel. Group ids go
@@ -44,6 +47,7 @@ from hyperspace_tpu_torch.execution.exec_common import (
 )
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_tensor
 from hyperspace_tpu_torch.ops.aggregate import _column_codes, aggregate_table, group_ids
+from hyperspace_tpu_torch.parallel.mesh import mesh_size
 from hyperspace_tpu_torch.plan.expr import Case, Col, Lit, when
 from hyperspace_tpu_torch.plan.nodes import AggSpec, Aggregate, Join, LogicalPlan
 from hyperspace_tpu_torch.schema import Field, Schema
@@ -96,11 +100,16 @@ class AggregateMixin:
             return fused
         table = self._execute(plan.child)
         self.stats["agg_path"] = f"segment-reduce-{self.device.type}"
+        if self.mesh is not None:
+            # The row dimension shards over the mesh: one K1 a shard.
+            self.stats["agg_devices"] = mesh_size(self.mesh)
         self._phys(
-            "SegmentReduceAggregate", venue=self.device.type, groups=len(plan.group_by), aggs=len(plan.aggs), devices=1
+            "SegmentReduceAggregate", venue=self.device.type, groups=len(plan.group_by), aggs=len(plan.aggs),
+            devices=self.stats.get("agg_devices", 1),
         )
         return aggregate_table(
-            table, plan.group_by, plan.aggs, plan.schema, groups=_group_ids_cached(table, plan.group_by)
+            table, plan.group_by, plan.aggs, plan.schema, groups=_group_ids_cached(table, plan.group_by),
+            mesh=self.mesh,
         )
 
     def _try_partial_agg_pushdown(self, plan: Aggregate) -> "ColumnTable | Aggregate | None":

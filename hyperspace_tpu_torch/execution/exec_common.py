@@ -106,16 +106,17 @@ def _bucket_of(offsets: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.repeat_interleave(torch.arange(len(counts), device=device), counts)
 
 
-def _filter_side(side: SideData, predicate: Expr) -> SideData:
+def _filter_side(side: SideData, predicate: Expr, mesh=None) -> SideData:
     """Apply a side-local filter to bucket-grouped data, recomputing the
     bucket offsets over the surviving rows (grouping and within-bucket
     order are preserved — a filtered subsequence stays sorted). As in the
     JAX package, the filtered side carries no hash domain: a join over it
-    leaves no bucket grouping for a later join to reuse."""
+    leaves no bucket grouping for a later join to reuse. With a mesh the
+    mask shards over it."""
     t = side.table
     if t.num_rows == 0:
         return side
-    mask = eval_predicate_mask(t, predicate)
+    mask = eval_predicate_mask(t, predicate, mesh=mesh)
     b = len(side.offsets) - 1
     new_counts = torch.bincount(_bucket_of(side.offsets, t.device)[mask], minlength=b)
     offsets = np.concatenate([[0], np.cumsum(new_counts.cpu().numpy())]).astype(np.int64)

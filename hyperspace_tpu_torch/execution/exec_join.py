@@ -11,9 +11,11 @@ outer join's residual changes the matching itself), `_semi_match_mask`,
 `_match_pairs` with the broadcast probe and `_should_broadcast`,
 `_gather_pairs`, `_left_unmatched` and `_right_unmatched`. The match
 pairs, the probes, the masks and the gathers all run on the session's
-device; only the key factorization runs on the host. The JAX package's
-host venues (its C++ merge) and its sharded merge have no counterpart
-here.
+device; only the key factorization runs on the host. With the
+executor's mesh, the merge join shards its buckets over it
+(`ops/join.py::merge_join_sharded`, one K2 a shard; `stats["join_devices"]`)
+and the residual masks their rows, as the JAX package's device venue
+does. Its host venue (the C++ merge) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from hyperspace_tpu_torch.execution.exec_common import (
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_tensor
 from hyperspace_tpu_torch.ops import join as join_ops
 from hyperspace_tpu_torch.ops.filter import eval_predicate_mask
+from hyperspace_tpu_torch.parallel.mesh import mesh_for_parallelism, mesh_size
 from hyperspace_tpu_torch.plan.nodes import Join
 from hyperspace_tpu_torch.schema import Schema
 
@@ -69,7 +72,7 @@ class JoinMixin:
             # and apply inside _partition_join.) The filtered table is a
             # new table, so it inherits no preserved bucket grouping.
             before = out.num_rows
-            out = out.filter_mask(eval_predicate_mask(out, plan.condition))
+            out = out.filter_mask(eval_predicate_mask(out, plan.condition, mesh=self.mesh))
             self._phys(residual_condition=True, residual_rows_dropped=before - out.num_rows)
         self.stats["join_paths"].append(path)
         self._phys(
@@ -119,7 +122,7 @@ class JoinMixin:
                 tuple(left_names.select(lkeep).fields) + tuple(plan.right.schema.select(rkeep).fields)
             )
             pairs = self._gather_pairs(plan, lt, rt, lidx, ridx, schema=sub_schema)
-            pmask = eval_predicate_mask(pairs, plan.condition)
+            pmask = eval_predicate_mask(pairs, plan.condition, mesh=self.mesh)
             matched = torch.zeros(lt.num_rows, dtype=torch.bool, device=lt.device)
             kept = lidx[pmask]
             matched[kept] = True
@@ -132,7 +135,7 @@ class JoinMixin:
             # it is no match, so its rows fall through to the
             # null-extended unmatched parts below (computed from the
             # SURVIVING pairs).
-            pmask = eval_predicate_mask(inner, plan.condition)
+            pmask = eval_predicate_mask(inner, plan.condition, mesh=self.mesh)
             inner = inner.filter_mask(pmask)
             pairs = len(lidx)
             lidx, ridx = lidx[pmask], ridx[pmask]
@@ -206,8 +209,15 @@ class JoinMixin:
                 self.stats["join_kernel"] = "device-broadcast-hash"
                 return res[0], res[1], None
         (lk, lperm), (rk, rperm) = _padded_key_codes(lside, rside, plan.left_on, plan.right_on, plan.null_safe)
-        self.stats["num_buckets"] = len(lside.offsets) - 1
-        li, ri, totals = join_ops.merge_join(lk, rk)
+        b = len(lside.offsets) - 1
+        self.stats["num_buckets"] = b
+        if self.mesh is not None:
+            # The bucket dimension shards over the mesh: one K2 a shard.
+            jmesh = mesh_for_parallelism(self.mesh, b)
+            li, ri, totals = join_ops.merge_join_sharded(lk, rk, jmesh)
+            self.stats["join_devices"] = mesh_size(jmesh)
+        else:
+            li, ri, totals = join_ops.merge_join(lk, rk)
         self.stats["join_kernel"] = "device-searchsorted"
         # Local (within-bucket) match indices → global row indices.
         dev = lk.device

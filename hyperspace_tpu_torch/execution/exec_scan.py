@@ -186,7 +186,7 @@ class ScanFilterMixin:
                     kernel=f"bucket-hash-prune + {MASK_KERNEL}",
                 )
                 table = self._read(pruned, child.scan_schema.names, child.scan_schema, child.root)
-                return apply_filter(table, plan.predicate)
+                return apply_filter(table, plan.predicate, mesh=self.mesh)
             ranged = self._range_read(child, plan.predicate)
             if ranged is not None:
                 table, exact = ranged
@@ -209,7 +209,7 @@ class ScanFilterMixin:
                     rows_pruned=self.stats["rows_pruned"] - rp0,
                     kernel=f"minmax-prune + searchsorted-slice + {MASK_KERNEL}",
                 )
-                return apply_filter(table, plan.predicate)
+                return apply_filter(table, plan.predicate, mesh=self.mesh)
         if isinstance(child, Union):
             # Hybrid scan: prune the bucketed input(s), keep deltas whole.
             new_inputs: list[LogicalPlan] = []
@@ -229,9 +229,9 @@ class ScanFilterMixin:
             )
             table = self._union(Union(new_inputs))
             self.stats["scan"] = "HybridScanFilter"
-            return apply_filter(table, plan.predicate)
+            return apply_filter(table, plan.predicate, mesh=self.mesh)
         self._phys(kernel=MASK_KERNEL)
-        return apply_filter(self._execute(child), plan.predicate)
+        return apply_filter(self._execute(child), plan.predicate, mesh=self.mesh)
 
     def _prune_bucket_files(self, scan: Scan, predicate: Expr) -> list[str] | None:
         """If the predicate pins every bucket column with equality

@@ -379,7 +379,7 @@ class JoinSidesMixin:
             sorted_within = False
         out = SideData(table, offsets, sorted_within, hash_fields=hf)
         if side.predicate is not None:
-            out = _filter_side(out, side.predicate)
+            out = _filter_side(out, side.predicate, self.mesh)
         return out
 
     def _merge_deltas(self, side: AlignedSide, table: ColumnTable, offsets: np.ndarray, num_buckets: int):

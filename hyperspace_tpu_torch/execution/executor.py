@@ -28,8 +28,12 @@ bucket-preserved join outputs (`_stash_bucketed`, `_preserved_sidedata`,
 `_propagate_stash`), ORDER BY ... LIMIT as a top-N selection (`_top_n`)
 and LIMIT over an unordered scan chain as an early-out read
 (`_limit_early_out`). There are no venues: every operator runs on the
-session's device. The stats name what ran; `join_paths` lists the path of
-every join of the query in the order they finished (`join_path` is the
+session's device, or, with the executor's mesh, over the mesh's shards
+where the JAX package's device venue shards it (the aligned merge join,
+the plain segment-reduce aggregate, the predicate masks, the top-N
+selection: `join_devices`, `agg_devices`, `top_n["devices"]`). The
+stats name what ran; `join_paths` lists the path of every join of the
+query in the order they finished (`join_path` is the
 last's), and `exchanges` what each exchanging join did to its sides
 (`rebucketize`, `preserved`, `preserved-both` or `preserved+rebucketize`,
 the JAX package's `exchange` detail of its physical plan). `top_n` and
@@ -74,7 +78,10 @@ from hyperspace_tpu_torch.execution.exec_side import JoinSidesMixin
 from hyperspace_tpu_torch.execution.physical import PhysicalNode
 from hyperspace_tpu_torch.execution.table import ColumnTable
 from hyperspace_tpu_torch.ops.project import project_table
-from hyperspace_tpu_torch.ops.sortkeys import column_lanes, device_order_perm, lane_tensor, lanes_as_unsigned
+from hyperspace_tpu_torch.ops.sortkeys import (
+    column_lanes, device_order_perm, distributed_top_n_candidates, lane_tensor, lanes_as_unsigned,
+)
+from hyperspace_tpu_torch.parallel.mesh import mesh_size
 from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.ops.window import window_table
 from hyperspace_tpu_torch.plan.expr import And
@@ -84,11 +91,17 @@ from hyperspace_tpu_torch.plan.pushdown import push_down_filters
 
 
 class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, AggregateMixin):
-    """Runs plans on `device`. `stats` records what physically ran."""
+    """Runs plans on `device`. With a mesh the query plane is distributed
+    over it, as the JAX package's: the aligned merge join shards its
+    buckets, the plain segment-reduce aggregate and the predicate masks
+    their rows, and ORDER BY ... LIMIT selects per shard (zero
+    collectives but the aggregate's partial combine). `stats` records
+    what physically ran."""
 
-    def __init__(self, device: torch.device, conf: HyperspaceConf | None = None):
+    def __init__(self, device: torch.device, conf: HyperspaceConf | None = None, mesh=None):
         self.device = device
         self.conf = conf if conf is not None else HyperspaceConf()
+        self.mesh = mesh
         self.stats: dict = {
             "files_read": 0,
             "files_pruned": 0,
@@ -100,6 +113,7 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
             "agg_path": None,
             "join_path": None,
             "join_kernel": None,
+            "join_devices": 1,
             "join_paths": [],
             "exchange_kernel": None,
             "exchanges": [],
@@ -330,6 +344,17 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
         if not asc0:
             lanes = [~l for l in lanes]
         lu = lanes_as_unsigned(lanes[:2])
+        if self.mesh is not None and mesh_size(self.mesh) > 1:
+            # Mesh-sharded selection: each shard's first n, one threshold
+            # over their union, a sharded mask; the ORDER BY participates
+            # in the mesh. None where the mesh cannot help.
+            cand = distributed_top_n_candidates(lu, n, self.mesh)
+            if cand is not None:
+                self.stats["top_n"] = {"kernel": "mesh-sharded-select + sort", "candidates": len(cand),
+                                       "devices": mesh_size(self.mesh)}
+                self._phys("TopN", n=n, **self.stats["top_n"])
+                full = self._sorted_table(table.take(torch.from_numpy(cand).to(table.device)), sort_plan)
+                return full.take(torch.arange(min(n, full.num_rows), device=full.device))
         hi = lane_tensor(lu[0], table.device) - (1 << 31)  # uint32 order as signed
         key = hi * (1 << 32) + (lane_tensor(lu[1], table.device) if lu.shape[0] > 1 else 0)
         thr = torch.kthvalue(key, n).values

@@ -89,6 +89,7 @@ from hyperspace_tpu_torch.index.collection_manager import CachingIndexCollection
 from hyperspace_tpu_torch.index.index_config import IndexConfig
 from hyperspace_tpu_torch.obs import events as obs_events
 from hyperspace_tpu_torch.obs import trace as obs_trace
+from hyperspace_tpu_torch.parallel.mesh import mesh_size, normalize_device
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
 from hyperspace_tpu_torch.plan.prune import prune_columns
 from hyperspace_tpu_torch.plan.pushdown import push_down_filters
@@ -135,6 +136,7 @@ class HyperspaceSession:
         self,
         system_path: str | None = None,
         num_buckets: int | None = None,
+        mesh=None,
         device: "str | torch.device | None" = None,
     ):
         kwargs = {}
@@ -143,7 +145,14 @@ class HyperspaceSession:
         if num_buckets is not None:
             kwargs["num_buckets"] = int(num_buckets)
         self.conf = HyperspaceConf(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            # Tables live on the mesh's first device; the others are shards.
+            self.device = mesh.devices[0]
+            if device is not None and normalize_device(resolve_device(device)) != self.device:
+                raise HyperspaceError(f"the session's device {device} is not the mesh's first device {self.device}")
         self._enabled = False
         self._manager: CachingIndexCollectionManager | None = None
         self._last_writer = None
@@ -189,6 +198,7 @@ class HyperspaceSession:
 
                         self._last_writer = DeviceIndexBuilder(
                             self.device,
+                            mesh=self.mesh,
                             memory_budget_bytes=self.conf.build_memory_budget_bytes,
                             chunk_bytes=self.conf.build_chunk_bytes or None,
                             pipeline_enabled=self.conf.build_pipeline_enabled,
@@ -377,7 +387,7 @@ class HyperspaceSession:
                 t1 = time.perf_counter()
                 plan_s += t1 - tp
                 derive0 = device_cache.derive_seconds()
-                executor = Executor(self.device, self.conf)
+                executor = Executor(self.device, self.conf, mesh=self.mesh)
                 try:
                     if profile_dir is not None:
                         result = self._profiled(executor, optimized, Path(profile_dir))
@@ -500,15 +510,17 @@ class HyperspaceSession:
 
     def _venue_info(self) -> dict:
         """Where this session's queries physically run (profile evidence)."""
+        mesh = self.mesh is not None
         if self.device.type == "cuda":
             index = self.device.index if self.device.index is not None else torch.cuda.current_device()
             return {
-                "mesh": False,
+                "mesh": mesh,
                 "platform": "gpu",
                 "device_kind": torch.cuda.get_device_name(index),
-                "device_count": torch.cuda.device_count(),
+                "device_count": mesh_size(self.mesh) if mesh else torch.cuda.device_count(),
             }
-        return {"mesh": False, "platform": "cpu", "device_kind": None, "device_count": 1}
+        return {"mesh": mesh, "platform": "cpu", "device_kind": None,
+                "device_count": mesh_size(self.mesh) if mesh else 1}
 
     def last_profile(self):
         """The QueryProfile of the most recent run() in this session (None

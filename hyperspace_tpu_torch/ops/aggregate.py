@@ -15,6 +15,13 @@ count, mean and all-null (NULL result) groups compose from the pair.
 The JAX package picks a venue for the reduce (host numpy by default) and
 engages its Pallas kernel only behind an exactness gate; the port runs
 every aggregate on the session's device, always through the one kernel.
+With a mesh (`sharded_segment_reduce`, the JAX package's
+`_make_sharded_segment_reduce`) the row dimension shards over it, K1 runs
+once on each shard, and the [C, K] partials combine by `psum`, `pmin`
+and `pmax` a channel in shard order, the distributed HashAggregate the
+reference gets from Spark's partial and final aggregation. The JAX
+package runs lax there, not its Pallas kernel; K1 is the port's segment
+reduce, so it stays.
 
 An aggregate's input is a column or an expression (`agg_input`): a CASE
 takes the filter's predicate semantics for its conditions, float64 legs
@@ -36,6 +43,7 @@ import torch
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_numpy
 from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+from hyperspace_tpu_torch.parallel.mesh import mesh_size, pmax, pmin, psum, row_ranges, to_shard
 from hyperspace_tpu_torch.plan.expr import Case, Col
 from hyperspace_tpu_torch.schema import Schema
 
@@ -212,9 +220,34 @@ def prepared_agg_input(table: ColumnTable, spec) -> tuple[torch.Tensor, torch.Te
     return dc.derived(key, refs, build)
 
 
-def aggregate_arrays(inputs: list, gid: torch.Tensor, num_groups: int) -> tuple[np.ndarray, np.ndarray]:
+def sharded_segment_reduce(vals: torch.Tensor, gid: torch.Tensor, num_segments: int, fns: tuple, mesh) -> torch.Tensor:
+    """`segment_reduce` with the row dimension sharded over `mesh`: shard
+    i reduces its contiguous rows (n / D, rounded up) with one K1 launch
+    on its device, and the partials combine on `vals`' device, sums by
+    `psum`, extrema by `pmin` / `pmax`, in shard order. A shard with no
+    rows holds the identity and launches nothing."""
+    from hyperspace_tpu_torch.execution.device_cache import shard_cached
+
+    d = mesh_size(mesh)
+    n = vals.shape[1]
+    partials = [
+        segment_reduce(to_shard(vals[:, lo:hi], mesh, i), shard_cached(gid, mesh, i, lo, hi), num_segments, fns)
+        for i, (lo, hi) in enumerate(row_ranges(n, -(-n // d), d)) if hi > lo
+    ]
+    if len(partials) <= 1:
+        return segment_reduce(vals, gid, num_segments, fns) if not partials else partials[0].to(vals.device)
+    out = torch.empty((len(fns), num_segments), dtype=torch.float64, device=vals.device)
+    for kind, combine in (("sum", psum), ("min", pmin), ("max", pmax)):
+        rows = [c for c, f in enumerate(fns) if f == kind]
+        if rows:
+            out[rows] = combine([p[rows] for p in partials], vals.device)
+    return out
+
+
+def aggregate_arrays(inputs: list, gid: torch.Tensor, num_groups: int, mesh=None) -> tuple[np.ndarray, np.ndarray]:
     """Segment-reduce of (values, valid, fn) triples sharing group ids
-    (fn ∈ sum/min/max). Returns host (results [A, K], counts [A, K])."""
+    (fn ∈ sum/min/max), sharded over `mesh` where one is given. Returns
+    host (results [A, K], counts [A, K])."""
     if not inputs:
         return np.zeros((0, num_groups)), np.zeros((0, num_groups))
     fns: list[str] = []
@@ -231,7 +264,12 @@ def aggregate_arrays(inputs: list, gid: torch.Tensor, num_groups: int) -> tuple[
             torch.ones_like(v) if valid is None else valid.to(torch.float64)
         )
         fns.append("sum")
-    out = to_numpy(segment_reduce(torch.stack(channels), gid, num_groups, tuple(fns)))
+    stacked = torch.stack(channels)
+    if mesh is not None and mesh_size(mesh) > 1:
+        out = sharded_segment_reduce(stacked, gid, num_groups, tuple(fns), mesh)
+    else:
+        out = segment_reduce(stacked, gid, num_groups, tuple(fns))
+    out = to_numpy(out)
     return out[0::2], out[1::2]
 
 
@@ -247,13 +285,13 @@ def finalize_agg_values(vals: np.ndarray, empty: np.ndarray, dtype) -> np.ndarra
 
 
 def aggregate_table(
-    table: ColumnTable, group_by: list[str], aggs: list, out_schema: Schema, groups=None
+    table: ColumnTable, group_by: list[str], aggs: list, out_schema: Schema, groups=None, mesh=None
 ) -> ColumnTable:
     """Execute a grouped aggregation over a materialized table; the result
     lies on the table's device. `groups` is group_ids' (gid, K, rep) when
     the caller has them (the executor's identity cache); their uploads go
     through the device cache; a factorization made on the device
-    (tensors) is used as it is."""
+    (tensors) is used as it is. With `mesh`, the reduce shards over it."""
     from hyperspace_tpu_torch.execution.device_cache import device_put_cached
 
     gid, k, rep = group_ids(table, group_by) if groups is None else groups
@@ -269,7 +307,7 @@ def aggregate_table(
         gid_t, rep_t = gid.to(torch.int32), rep
     else:
         gid_t, rep_t = device_put_cached(gid, table.device, torch.int32), device_put_cached(rep, table.device)
-    results, counts = aggregate_arrays(inputs, gid_t, k)
+    results, counts = aggregate_arrays(inputs, gid_t, k, mesh)
 
     cols: dict[str, np.ndarray] = {}
     dicts: dict[str, np.ndarray] = {}

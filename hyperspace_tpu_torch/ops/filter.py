@@ -18,7 +18,11 @@ over the dictionary on the host and become code ranges, or a boolean per
 code gathered on the device where the matches scatter (`_codes_runs_expr`,
 `_DictLut`); a comparison of the year of a date with a literal becomes a
 day range (`_translate_date_part_cmp`); month and day parts and
-arithmetic probes evaluate as torch ops (plan/expr.py::evaluate).
+arithmetic probes evaluate as torch ops (plan/expr.py::evaluate). With a
+mesh, the row dimension shards over it (`eval_predicate_mask`'s
+condition, the JAX package's), each shard masking its rows on its
+device: the analog of the reference keeping full scan parallelism
+(FilterIndexRule.scala:114-120).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.table import ColumnTable
+from hyperspace_tpu_torch.parallel.mesh import concat_shards, mesh_size, row_ranges
 from hyperspace_tpu_torch.plan.expr import (
     And, BinOp, Col, DatePart, Expr, InList, IsNull, Like, Lit, Not, Or, Substr, evaluate,
 )
@@ -356,13 +361,45 @@ def _mask(table: ColumnTable, predicate: Expr) -> torch.Tensor:
     return t
 
 
-def eval_predicate_mask(table: ColumnTable, predicate: Expr) -> torch.Tensor:
+def _pow2(n: int) -> int:
+    return 1 << max(1, (n - 1)).bit_length() if n > 1 else 1
+
+
+def _shard_table(table: ColumnTable, names: list, mesh, i: int, lo: int, hi: int) -> ColumnTable:
+    """Rows [lo, hi) of `table`'s columns `names` on shard i of `mesh`."""
+    from hyperspace_tpu_torch.execution.device_cache import shard_cached
+
+    sub = table.select(names)
+    return ColumnTable(
+        sub.schema,
+        {k: shard_cached(v, mesh, i, lo, hi) for k, v in sub.columns.items()},
+        sub.dictionaries,
+        {k: shard_cached(v, mesh, i, lo, hi) for k, v in sub.validity.items()},
+        mesh.devices[i],
+    )
+
+
+def eval_predicate_mask(table: ColumnTable, predicate: Expr, mesh=None) -> torch.Tensor:
     """The predicate's definitely-true mask, as a bool tensor on the
-    table's device."""
-    return _mask(table, translate_predicate(table, predicate))
+    table's device. With a mesh of D > 1 shards whose size divides the
+    row count padded to a power of two (the JAX package's condition),
+    the rows shard over it: shard i masks its contiguous n_pad / D rows
+    on its device (no collective) and the masks concatenate in shard
+    order."""
+    predicate = translate_predicate(table, predicate)
+    n = table.num_rows
+    names = sorted({r.lower() for r in predicate.references()})
+    if mesh is not None and names:
+        d = mesh_size(mesh)
+        n_pad = _pow2(n)
+        if d > 1 and n_pad % d == 0:
+            parts = [_mask(_shard_table(table, names, mesh, i, lo, hi), predicate)
+                     for i, (lo, hi) in enumerate(row_ranges(n, n_pad // d, d)) if hi > lo]
+            return concat_shards(parts, table.device)
+    return _mask(table, predicate)
 
 
-def apply_filter(table: ColumnTable, predicate: Expr) -> ColumnTable:
+def apply_filter(table: ColumnTable, predicate: Expr, mesh=None) -> ColumnTable:
     if table.num_rows == 0:
         return table
-    return table.filter_mask(eval_predicate_mask(table, predicate))
+    return table.filter_mask(eval_predicate_mask(table, predicate, mesh=mesh))

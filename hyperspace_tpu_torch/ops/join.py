@@ -19,8 +19,13 @@ sorted expansion:
 Because bucket(key) is a pure function of the key, the per-bucket joins
 concatenated are exactly the global join. The JAX package's TPU-only pair
 packing, capacity cache and compaction have no counterpart: the pairs are
-dense tensors on the device from the start. `merge_join_sharded` waits
-for the multi-GPU slice.
+dense tensors on the device from the start.
+
+`merge_join_sharded` is the distributed join (the JAX package's function
+of that name): the bucket dimension shards over a mesh, shard d owning
+the contiguous bucket range the build gave it, and each shard runs
+`merge_join` (one K2 launch) on its buckets with no collective; the
+shards' pairs, concatenated in shard order, are `merge_join`'s.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+from hyperspace_tpu_torch.parallel.mesh import concat_shards, mesh_size
 
 
 def sentinel_for(dtype: torch.dtype) -> int:
@@ -53,3 +59,23 @@ def merge_join(lkeys: torch.Tensor, rkeys: torch.Tensor):
     li = rows % lp
     ri = st.reshape(-1).long()[rows] + within
     return li, ri, totals
+
+
+def merge_join_sharded(lkeys: torch.Tensor, rkeys: torch.Tensor, mesh):
+    """`merge_join` with the bucket dimension sharded over `mesh`: shard i
+    joins buckets [i·B/D, (i+1)·B/D) on its device; the pairs and counts
+    come back to the keys' device in shard order. One device, or a bucket
+    count the mesh does not divide, takes `merge_join`."""
+    from hyperspace_tpu_torch.execution.device_cache import shard_cached
+
+    d = mesh_size(mesh)
+    num_b = lkeys.shape[0]
+    if d == 1 or num_b % d != 0:
+        return merge_join(lkeys, rkeys)
+    per = num_b // d
+    parts = [
+        merge_join(shard_cached(lkeys, mesh, i, i * per, (i + 1) * per),
+                   shard_cached(rkeys, mesh, i, i * per, (i + 1) * per))
+        for i in range(d)
+    ]
+    return tuple(concat_shards([p[j] for p in parts], lkeys.device) for j in range(3))

@@ -29,6 +29,9 @@ Torch can neither sort nor shift `uint32`, so every lane travels as int64:
 unsigned lanes zero-extend and signed lanes sign-extend, which keeps each
 lane's own (signed or unsigned) order.
 
+`distributed_top_n_candidates` is the mesh's top-N selection (each
+shard's first n, one threshold, a sharded mask).
+
 `run_bounds(pk, sk)` is the port of the JAX package's Pallas run-bounds
 kernel (K2, `_make_run_bounds_kernel` / `pallas_run_bounds`): the batched
 searchsorted the joins take their match runs from. On the card it is one
@@ -47,6 +50,7 @@ import torch
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.ops.kernels import count_launch, load, memo
+from hyperspace_tpu_torch.parallel.mesh import concat_shards, mesh_size, row_ranges, to_shard
 
 
 def _flip32(v: np.ndarray) -> np.ndarray:
@@ -151,6 +155,45 @@ def _packed_keys(lanes_u32: np.ndarray) -> list[np.ndarray]:
         lo = lanes_u32[i + 1].astype(np.uint64) if i + 1 < lanes_u32.shape[0] else np.uint64(0)
         keys.append(((hi | lo) ^ flip).view(np.int64))
     return keys
+
+
+def distributed_top_n_candidates(lanes_u32: np.ndarray, n: int, mesh) -> np.ndarray | None:
+    """Candidate row indices that provably hold the global top n by the
+    packed 64-bit key prefix of `lanes_u32` ([1 or 2, rows] uint32, the
+    first lane most significant), computed over `mesh` (the JAX package's
+    function of that name; the ORDER BY participation the reference gets
+    from Spark's TakeOrderedAndProject on every executor). The rows pad to
+    a power of two, rounded up to a multiple of the mesh size, and shard i
+    takes its contiguous n_pad / D of them: each shard selects its first n
+    keys on its device, the n-th smallest over the union of those is an
+    inclusive threshold, and each shard masks its rows at or below it
+    (prefix ties stay in; the exact sort of the candidates settles the
+    order). Returns None where the JAX package does: one shard, n <= 0,
+    fewer than 2·n·D rows, fewer than n rows a shard, or fewer than n real
+    candidates."""
+    d = mesh_size(mesh)
+    n_rows = lanes_u32.shape[1]
+    if d <= 1 or n <= 0 or n_rows < 2 * n * d:
+        return None
+    n_pad = 1 << int(n_rows - 1).bit_length()
+    if n_pad % d:
+        n_pad = -(-n_pad // d) * d
+    if n_pad // d < n:
+        return None
+    # (hi, lo) as one int64 whose signed order is the pair's unsigned order.
+    key = (lanes_u32[0].astype(np.int64) - (1 << 31)) << 32
+    if lanes_u32.shape[0] > 1:
+        key |= lanes_u32[1].astype(np.int64)
+    key = torch.from_numpy(key)
+    primary = mesh.devices[0]
+    shards = [to_shard(key[lo:hi], mesh, i) for i, (lo, hi) in enumerate(row_ranges(n_rows, n_pad // d, d))]
+    firsts = [torch.topk(k, min(n, len(k)), largest=False).values for k in shards]
+    union = concat_shards(firsts, primary)
+    if len(union) < n:
+        return None  # fewer real rows than n across the shards: the caller sorts all
+    thr = torch.kthvalue(union, n).values
+    mask = concat_shards([k <= thr.to(k.device) for k in shards], primary)
+    return np.flatnonzero(mask.cpu().numpy())
 
 
 def device_sort_perms(tables, key_columns: list[str], device: torch.device) -> list[np.ndarray]:

@@ -1387,3 +1387,46 @@ def test_a_thread_mode_commit_then_a_pinned_read_on_the_card(cuda, tmp_path):
     want = sorted(zip(want["zone"].tolist(), want["c"].tolist(), want["s"].tolist()))
     assert [w[:2] for w in want] == [r[:2] for r in live[1]]
     np.testing.assert_allclose([w[2] for w in want], [r[2] for r in live[1]], rtol=1e-12)
+
+
+@pytest.mark.gpu
+def test_a_four_shard_mesh_on_the_card_equals_one_device(cuda, tmp_path):
+    """Four virtual shards of one card: the mesh build's bucket files are
+    byte-identical to the one-device build's; an aggregate launches K1
+    once a shard (agg_devices 4) and an aligned join K2 once a shard
+    (join_devices 4); both equal the one-device session's, sums within
+    2·n·u·Σ|v| of them."""
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch.datagen import gen_tpch_orders
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+    from hyperspace_tpu_torch.parallel.mesh import make_mesh
+
+    src = _li_source(tmp_path)
+    gen_tpch_orders(tmp_path / "o", sf=0.004, seed=43)
+    outs = {}
+    for name, kw in (("one", {"device": cuda}), ("mesh", {"mesh": make_mesh([torch.device("cuda:0")] * 4)})):
+        s = htorch.HyperspaceSession(system_path=str(tmp_path / name), num_buckets=16, **kw)
+        hs = htorch.Hyperspace(s)
+        li, o = s.parquet(src), s.parquet(tmp_path / "o")
+        hs.create_index(li, htorch.IndexConfig("li", ["l_orderkey"], ["l_extendedprice", "l_returnflag"]))
+        assert s.last_build_stats["mesh_devices"] == (4 if name == "mesh" else 1)
+        hs.create_index(o, htorch.IndexConfig("o", ["o_orderkey"], ["o_totalprice"]))
+        s.enable_hyperspace()
+        k1, k2 = segment_reduce.launches, run_bounds.launches
+        agg = s.to_pandas(li.aggregate(["l_returnflag"], [("sum", "l_extendedprice", "s"), ("count", None, "c")]))
+        assert segment_reduce.launches - k1 == (4 if name == "mesh" else 1)
+        assert s.last_query_stats.get("agg_devices", 1) == (4 if name == "mesh" else 1)
+        j = s.to_pandas(li.select("l_orderkey", "l_extendedprice").join(
+            o.select("o_orderkey", "o_totalprice"), ["l_orderkey"], ["o_orderkey"]))
+        assert run_bounds.launches - k2 == (4 if name == "mesh" else 1)
+        assert s.last_query_stats["join_devices"] == (4 if name == "mesh" else 1)
+        outs[name] = (agg.sort_values("l_returnflag").reset_index(drop=True),
+                      j.sort_values(["l_orderkey", "l_extendedprice"]).reset_index(drop=True))
+    _same_files(tmp_path / "one" / "li" / "v__=0", tmp_path / "mesh" / "li" / "v__=0")
+    (a1, j1), (a2, j2) = outs["one"], outs["mesh"]
+    pd.testing.assert_frame_equal(j1, j2)
+    assert a1["c"].tolist() == a2["c"].tolist()
+    src_df = pd.read_parquet(src)
+    tol = 2 * len(src_df) * 2.0**-53 * src_df.groupby("l_returnflag")["l_extendedprice"].apply(
+        lambda v: v.abs().sum()).sort_index().to_numpy()
+    assert (np.abs(a1["s"] - a2["s"]).to_numpy() <= tol).all()

@@ -88,6 +88,19 @@ What it does, in order (any failure raises and exits non-zero):
    (`QUERY_SURFACE_EXPECT`: the aggregate's branch, the joins' paths, the
    top-N selection, the early-out) with K1 in every query but LIM, K2
    where that path merges and K3 in none; one line a query;
+3v. venue path (`venue_path`), on the join-types path's session and the
+   lineitem, orders and customer indexes (200 buckets): the card→host link
+   read as the JAX package's probe reads it (one 4 MB copy; the port's
+   `auto` reads no link) beside 4 MB pinned and 64 MB pageable copies;
+   Q1, revenue,
+   the 1% range (index on and off), J1 indexed, J2, REB (the forced
+   exchange) and Q3, each cold and warm with every venue key `host`, then
+   `device`, then `auto`; then config 1's lineitem index built again on
+   the host build venue. Host answers equal the device's (exactly;
+   non-integral sums within 2·N·u) and pyarrow's; the host build's bucket
+   files are byte-identical to the main path's; host runs launch neither
+   K1 nor K2 and show the JAX package's host names; `auto` launches what
+   `device` launches, with the same names; one `venue_query` line each;
 3d. lifecycle path, on the join path's session and orders: BASELINE
    config 3 (hybrid scan, as benchmarks/bench_hybrid.py runs it on
    lineitem): hard-links lineitem's files into a directory of its own,
@@ -877,7 +890,8 @@ def cold_warm(name: str, session, plans: list, cache, sync, derived=(), tolerant
         "warm_stats": {k: warm[-1].stats.get(k) for k in ("scan", "files_read", "files_pruned", "rows_pruned",
                                                          "range_exact", "agg_path", "agg_devices", "join_path",
                                                          "join_paths", "join_kernel", "join_devices",
-                                                         "exchange_kernel", "top_n", "limit_early_out")},
+                                                         "exchange_kernel", "top_n", "limit_early_out",
+                                                         "mask_kernel", "sort_op")},
     }
 
 
@@ -1170,6 +1184,8 @@ def join_path(device, ctx: dict, sf: float) -> tuple[dict, dict]:
     ref_j1 = ref.select(j1_cols).sort_by([(c, "ascending") for c in j1_cols])
     ref_j1 = [ref_j1[c].to_numpy() for c in j1_cols]
 
+    # What phase 3v holds its host venue's answers to.
+    ctx["venue_refs"] = {"J1": ref_j1, "J2": ref_j2}
     li_buckets = _index_buckets(Path(session.conf.system_path), "lineitem_orderkey", ["l_orderkey", "l_extendedprice"])
     o_buckets = _index_buckets(Path(session.conf.system_path), "orders_orderkey", ["o_orderkey", "o_totalprice"])
     stats = {"l_extendedprice": _bucket_stats(li_buckets, "l_extendedprice"),
@@ -1752,6 +1768,7 @@ def join_types_path(device, ctx: dict, sf: float) -> dict:
         o_src.select(["o_orderkey", "o_totalprice", "o_orderpriority", "o_orderstatus", "o_orderdate"]),
         keys="l_orderkey", right_keys="o_orderkey", join_type="inner")
     refs["REB"] = full.group_by(["o_orderstatus"]).aggregate([("l_extendedprice", "sum"), ("l_orderkey", "count")])
+    ctx["venue_refs"]["REB"] = refs["REB"].to_pandas()
     j1 = full.select(j_cols)
     refs["CHAIN"] = j1.filter(pc.is_in(j1["l_orderkey"], value_set=li10_keys))
     plans = join_type_plans(htorch, li, orders, customer, sf)
@@ -2576,6 +2593,270 @@ def query_surface_path(device, ctx: dict, sf: float) -> dict:
     ctx["k1_surface_inputs"] = k1_inputs
     # What the advisor phase holds its float-ordered plans to.
     ctx["surface_refs"] = {name: refs[name] for name in ("q43", "q67")}
+    return out
+
+
+# -- venue path (3v) ------------------------------------------------------------
+
+VENUE_KEYS = ("hyperspace.join.venue", "hyperspace.agg.venue", "hyperspace.sort.venue", "hyperspace.filter.venue",
+              "hyperspace.build.venue")
+VENUE_STAT_KEYS = ("agg_path", "join_kernel", "exchange_kernel", "mask_kernel", "sort_op", "join_path")
+# The names each query's host run must show (the JAX package's).
+VENUE_HOST_NAMES = {
+    "Q1": {"agg_path": "segment-reduce-host"},
+    "revenue": {"agg_path": "segment-reduce-host"},
+    # The 1% range is the sorted key's exact slice: no mask runs on either
+    # venue. Unindexed, every row is masked.
+    "range_index": {"mask_kernel": None},
+    "range_no_index": {"mask_kernel": "host-mask"},
+    "J1": {"join_kernel": "host-native-merge"},
+    "J2": {"join_kernel": "host-native-merge-accumulate"},
+    "REB": {"join_kernel": "host-native-merge-accumulate", "exchange_kernel": "host-counting-sort-exchange"},
+    "Q3": {"sort_op": "HostSort", "mask_kernel": "host-mask"},
+}
+# Non-integral sums and means: host and device within 2·N·u (K1's float64
+# atomics vary their last bits); everything else bit-equal.
+VENUE_TOLERANT = {"Q1": ("sum_price", "avg_disc"), "revenue": ("rev",), "J2": ("sum_price", "avg_total"),
+                  "REB": ("sum_price",), "Q3": ("revenue",)}
+
+
+def _copy_mb_per_s(device, nbytes: int, pinned: bool, repeats: int = 5) -> float:
+    """Median card→host rate of `nbytes` copies (MB/s, MB = 1e6 bytes),
+    into pinned or pageable host memory."""
+    import torch
+
+    x = torch.arange(nbytes // 4, dtype=torch.int32, device=device)
+    dst = torch.empty(nbytes // 4, dtype=torch.int32, pin_memory=pinned)
+    walls = []
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        dst.copy_(x)
+        torch.cuda.synchronize(device)
+        walls.append(time.perf_counter() - t0)
+    return nbytes / 1e6 / float(np.median(walls[1:]))
+
+
+def _device_perm(result, cols: list):
+    """Lexicographic order of `result`'s rows by `cols`, on its device."""
+    import torch
+
+    n = result.num_rows
+    perm = torch.arange(n, device=result.device)
+    for c in reversed(cols):
+        perm = perm[torch.sort(result.column(c)[perm], stable=True).indices]
+    return perm
+
+
+def same_answer(name: str, a, b, tolerant: tuple, rel: float, sort_by: list | None = None) -> None:
+    """Two venues' answers to one query: the same schema, rows, nulls and
+    dictionaries; every column bit-equal but `tolerant` ones, which agree
+    within `rel` of their magnitude. `sort_by` puts both in one row order
+    first (a join's pairs come in each merge's order)."""
+    import torch
+
+    if a.schema.names != b.schema.names or a.num_rows != b.num_rows:
+        raise AssertionError(f"{name}: {a.num_rows} rows of {a.schema.names} against {b.num_rows} of {b.schema.names}")
+    pa_, pb = (_device_perm(a, sort_by), _device_perm(b, sort_by)) if sort_by else (None, None)
+    for f in a.schema.fields:
+        ca, cb = a.columns[f.name], b.columns[f.name]
+        if pa_ is not None:
+            ca, cb = ca[pa_], cb[pb]
+        if f.name in tolerant:
+            if not bool(torch.isclose(ca.double(), cb.double(), rtol=rel, atol=0.0, equal_nan=True).all()):
+                raise AssertionError(f"{name}: {f.name} differs between the venues beyond 2·N·u")
+        elif not torch.equal(ca, cb):
+            raise AssertionError(f"{name}: {f.name} differs between the venues")
+        va, vb = a.validity.get(f.name), b.validity.get(f.name)
+        if pa_ is not None:
+            va, vb = (None if va is None else va[pa_]), (None if vb is None else vb[pb])
+        if (va is None) != (vb is None) or (va is not None and not torch.equal(va, vb)):
+            raise AssertionError(f"{name}: the nulls of {f.name} differ between the venues")
+        if not np.array_equal(a.dictionaries.get(f.name, []), b.dictionaries.get(f.name, [])):
+            raise AssertionError(f"{name}: the dictionary of {f.name} differs between the venues")
+
+
+def venue_plans(pkg, ctx: dict, sf: float) -> dict:
+    """3v's queries: name -> (plan, hyperspace on, rebucketize mode, rows
+    summed by its widest sum)."""
+    from hyperspace_tpu_torch.datagen import TPCH_SF1_ORDERS_ROWS
+
+    col, lit = pkg.col, pkg.lit
+    li, orders, customer = ctx["lineitem"], ctx["orders"], ctx["customer"]
+    domain = int(TPCH_SF1_ORDERS_ROWS * sf)
+    lo, hi = int(domain * 0.47), int(domain * 0.48)
+    between = li.filter((col("l_orderkey") >= lit(lo)) & (col("l_orderkey") <= lit(hi))).select(
+        "l_orderkey", "l_partkey", "l_extendedprice")
+    rows = ctx["source"].num_rows
+    return {
+        "Q1": (li.aggregate(Q1_GROUP, Q1_AGGS), True, "auto", rows),
+        "revenue": (li.aggregate(["l_orderkey"], [("sum", "l_extendedprice", "rev")]), True, "auto", rows),
+        "range_index": (between, True, "auto", rows),
+        "range_no_index": (between, False, "auto", rows),
+        "J1": (ctx["join_queries"]["J1"], True, "auto", rows),
+        "J2": (ctx["join_queries"]["J2"], True, "auto", rows),
+        "REB": (join_type_plans(pkg, li, orders, customer, sf)["REB"][0], True, "force", rows),
+        "Q3": (q3_plan(pkg, li, orders, customer), True, "auto", rows),
+    }
+
+
+def venue_path(device, ctx: dict, sf: float) -> dict:
+    """Phase 3v: the execution venues at SF1 on the join path's session
+    and its lineitem and orders indexes (200 buckets). The card→host link
+    is read the JAX package's way (one 4 MB copy after a synchronize: the
+    reading its `auto` would compare with the 200 MB/s floor; the port's
+    `auto` reads no link) and prints beside 4 MB pinned and 64 MB pageable
+    copies; Q1,
+    revenue, the 1% range (index on and off), J1 indexed, J2, REB (the
+    forced exchange) and Q3 run cold and warm with every venue key `host`,
+    `device` and `auto`; config 1's lineitem index is built again on the
+    host venue. Fails unless the host answers equal the device's (exactly,
+    non-integral sums within 2·N·u) and pyarrow's where the earlier phases
+    hold them to it, the host build's bucket files are byte-identical to
+    the main path's, host runs launch neither K1 nor K2, and `auto` runs
+    launch what device runs do, with the same stats names."""
+    import pandas as pd
+    import torch
+
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig
+    from hyperspace_tpu_torch.datagen import TPCH_SF1_ORDERS_ROWS
+    from hyperspace_tpu_torch.ops.segment_reduce import segment_reduce
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    session, cache = ctx["session"], ctx["plan_cache"]
+    out: dict = {}
+    probe: dict = {"jax_floor_mb_per_s": session.conf.join_venue_min_mbps}
+    if device.type == "cuda":
+        x = torch.arange(1 << 20, dtype=torch.int32, device=device)  # 4 MB
+        x[:1].cpu()  # the process's first card→host copy sets up the runtime
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        x.cpu()
+        probe["d2h_4mb_mb_per_s"] = 4.0 / (time.perf_counter() - t0)
+        probe.update(pinned_4mb_mb_per_s=_copy_mb_per_s(device, 4 << 20, True),
+                     pageable_64mb_mb_per_s=_copy_mb_per_s(device, 64 << 20, False))
+        try:
+            probe["card"] = nvml_card_line()
+        except Exception as e:  # noqa: BLE001 — the script's last lines print the card again
+            probe["card"] = f"{torch.cuda.get_device_name(device)} (power limit not read: {type(e).__name__})"
+    log(json.dumps({"venue_link": probe}))
+    out["probe"] = probe
+
+    plans = venue_plans(htorch, ctx, sf)
+    results: dict = {}
+    try:
+        for way in ("host", "device", "auto"):
+            for key in VENUE_KEYS:
+                session.conf.set(key, way)
+            for name, (plan, indexed, rebucketize, _) in plans.items():
+                session.enable_hyperspace() if indexed else session.disable_hyperspace()
+                session.conf.set("hyperspace.join.rebucketize", rebucketize)
+                k1, k2 = segment_reduce.launches, run_bounds.launches
+                try:
+                    (result,), _, timing = cold_warm(f"{name} {way}", session, [plan], cache, sync,
+                                                  tolerant=VENUE_TOLERANT.get(name, ()))
+                finally:
+                    session.conf.set("hyperspace.join.rebucketize", "auto")
+                stats = timing.pop("warm_stats")
+                launched = {"segment_reduce": segment_reduce.launches - k1, "run_bounds": run_bounds.launches - k2}
+                results[name, way] = (result, stats, launched)
+                record = {"query": name, "venue": way, "rows": result.num_rows, "cold_s": timing["cold_s"],
+                          "warm_s": timing["warm_s"], "warm_host_s": timing["warm_host_s"],
+                          **{k: stats.get(k) for k in VENUE_STAT_KEYS}, "launches": launched}
+                out[f"{name}_{way}"] = record
+                log(json.dumps({"venue_query": record}))
+    finally:
+        for key in VENUE_KEYS:
+            session.conf.set(key, "auto")
+        session.enable_hyperspace()
+
+    rows = ctx["source"].num_rows
+    for name, (_, _, _, n_sum) in plans.items():
+        host, dev, auto = (results[name, w] for w in ("host", "device", "auto"))
+        if device.type == "cuda" and any(host[2].values()):
+            raise AssertionError(f"{name}: the host venue launched {host[2]}")
+        for key, want in VENUE_HOST_NAMES[name].items():
+            if host[1].get(key) != want:
+                raise AssertionError(f"{name}: the host run's {key} is {host[1].get(key)}, expected {want}")
+        for key in VENUE_STAT_KEYS:
+            if auto[1].get(key) != dev[1].get(key):
+                raise AssertionError(f"{name}: auto's {key} {auto[1].get(key)} is not the device's {dev[1].get(key)}")
+        if auto[2] != dev[2]:
+            raise AssertionError(f"{name}: auto launched {auto[2]}, the device venue {dev[2]}")
+        if device.type == "cuda" and name not in ("range_index", "range_no_index") and not any(dev[2].values()):
+            raise AssertionError(f"{name}: the device venue launched no kernel")
+        rel = 2 * n_sum * UNIT_ROUNDOFF
+        sort_by = ["l_orderkey", "l_extendedprice", "o_totalprice"] if name == "J1" else (
+            ["l_orderkey"] if name == "Q3" else None)
+        same_answer(f"{name} host/device", host[0], dev[0], VENUE_TOLERANT.get(name, ()), rel, sort_by)
+        same_answer(f"{name} auto/device", auto[0], dev[0], VENUE_TOLERANT.get(name, ()), rel, sort_by)
+    # The host answers against pyarrow, as the earlier phases hold the
+    # device's.
+    source = ctx["source"]
+    check_q1(pd.DataFrame(results["Q1", "host"][0].decode()), source)
+    check_revenue(pd.DataFrame(results["revenue", "host"][0].decode()), source)
+    refs = ctx["venue_refs"]
+    import pyarrow.compute as pc
+
+    domain = int(TPCH_SF1_ORDERS_ROWS * sf)
+    lo, hi = int(domain * 0.47), int(domain * 0.48)
+    cols = ["l_orderkey", "l_partkey", "l_extendedprice"]
+    ref = source.filter(pc.and_(pc.greater_equal(source["l_orderkey"], lo), pc.less_equal(source["l_orderkey"], hi)))
+    ref = ref.select(cols).sort_by([(c, "ascending") for c in cols])
+    want = {c: ref[c].to_numpy() for c in cols}
+    for name in ("range_index", "range_no_index"):
+        got = results[name, "host"][0]
+        order = _device_perm(got, ["l_orderkey", "l_partkey", "l_extendedprice"])
+        for c in ("l_orderkey", "l_partkey", "l_extendedprice"):
+            if not np.array_equal(got.column(c)[order].cpu().numpy(), want[c]):
+                raise AssertionError(f"{name} host: column {c} differs from pyarrow")
+    j1 = results["J1", "host"][0]
+    order = _device_perm(j1, ["l_orderkey", "l_extendedprice", "o_totalprice"])
+    for c, want in zip(("l_orderkey", "l_extendedprice", "o_totalprice"), refs["J1"]):
+        if not np.array_equal(j1.column(c)[order].cpu().numpy(), want):
+            raise AssertionError(f"J1 host: the pairs differ from pyarrow in {c}")
+    buckets = session.conf.num_buckets
+    _check_join_aggregate(
+        "J2 host", pd.DataFrame(results["J2", "host"][0].decode()), refs["J2"], ["o_orderpriority"],
+        {"sum_qty": "l_quantity_sum", "min_disc": "l_discount_min", "max_price": "l_extendedprice_max",
+         "cnt": "l_orderkey_count"},
+        {"sum_price": ("l_extendedprice_sum", "s", False), "avg_total": ("o_totalprice_sum", "p", True)},
+        ctx["bucket_stats"], True, buckets)
+    _check_join_aggregate(
+        "REB host", pd.DataFrame(results["REB", "host"][0].decode()), refs["REB"], ["o_orderstatus"],
+        {"cnt": "l_orderkey_count"}, {"sum_price": ("l_extendedprice_sum", "s", False)},
+        ctx["bucket_stats"], True, buckets)
+    del results
+
+    # Config 1's lineitem index again, on the host build venue: every
+    # bucket file byte-identical to the main path's.
+    root = Path(session.conf.system_path)
+    session.conf.set("hyperspace.build.venue", "host")
+    try:
+        t0 = time.perf_counter()
+        Hyperspace(session).create_index(ctx["lineitem"], IndexConfig("lineitem_orderkey_host", INDEXED, INCLUDED))
+        out["host_build_s"] = time.perf_counter() - t0
+    finally:
+        session.conf.set("hyperspace.build.venue", "auto")
+    stats = session.last_build_stats
+    if stats["sort_venue"] != "host" or stats["path"] != "in-memory":
+        raise AssertionError(f"the host build ran {stats['path']} on {stats['sort_venue']}")
+    out["host_build_phases_s"] = stats["phases_s"]
+    ref_dir, got_dir = _only_version(root / "lineitem_orderkey"), _only_version(root / "lineitem_orderkey_host")
+    names = sorted(p.name for p in ref_dir.glob("bucket-*.parquet"))
+    if names != sorted(p.name for p in got_dir.glob("bucket-*.parquet")) or len(names) != buckets:
+        raise AssertionError("the host build wrote other bucket files than the main path's")
+    for f in names:
+        if (ref_dir / f).read_bytes() != (got_dir / f).read_bytes():
+            raise AssertionError(f"the host build's {f} differs from the main path's")
+    out["host_build_identical_files"] = len(names)
+    Hyperspace(session).delete_index("lineitem_orderkey_host")
+    Hyperspace(session).vacuum_index("lineitem_orderkey_host")
     return out
 
 
@@ -6814,6 +7095,16 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
             launches["query_surface"] = read_counts("query surface", ("run_bounds", "segment_reduce"))
             log(json.dumps({"query_surface_path": surface, "launches": launches["query_surface"]}))
             log(json.dumps({"caches_after_path": "query surface", **cache_stats()}))
+        with phase("venue_path"):
+            zero_counts()
+            t0 = time.perf_counter()
+            venues = venue_path(device, ctx, args.sf)
+            venues["venue_path_s"] = time.perf_counter() - t0
+            launches["venue"] = read_counts("venue", ("run_bounds", "segment_reduce"))
+            log(json.dumps({"venue_path": {k: v for k, v in venues.items() if not isinstance(v, dict) or k in (
+                "probe", "host_build_phases_s")}, "launches": launches["venue"],
+                "script_s_so_far": time.perf_counter() - t_script}, default=str))
+            log(json.dumps({"caches_after_path": "venue", **cache_stats()}))
         with phase("lifecycle_path"):
             zero_counts()
             t0 = time.perf_counter()
@@ -6980,10 +7271,10 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
                 "route": "cuda",
                 "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
                 "replaces": "hyperspace_tpu/ops/aggregate.py:81",
-                # K1 runs on twelve paths: its launches on each, summed (the
+                # K1 runs on thirteen paths: its launches on each, summed (the
                 # fleet's in this process and in its members).
                 "launches": sum(launches[p]["segment_reduce"] for p in ("aggregates", "join", "mesh", "join_types",
-                                                                         "query_surface", "lifecycle", "serve",
+                                                                         "query_surface", "venue", "lifecycle", "serve",
                                                                          "faults", "build_scale", "fleet",
                                                                          "fleet_members", "advisor", "ingest")),
                 "launches_by_path": {p: c["segment_reduce"] for p, c in launches.items()},
@@ -7024,12 +7315,12 @@ def run(args: argparse.Namespace, card_query: subprocess.Popen | None) -> int:
                 "route": "cuda",
                 "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
                 "replaces": "hyperspace_tpu/ops/sortkeys.py:212",
-                # K2 runs on the join paths, the mesh, the query surface, the
+                # K2 runs on the join paths, the mesh, the query surface, the venues, the
                 # lifecycle, the serving path, the faults path, the fleet (in
                 # this process and in its members) and the advisor: its
                 # launches on each, summed.
                 "launches": sum(launches[p]["run_bounds"] for p in ("join", "mesh", "join_types", "query_surface",
-                                                                     "lifecycle", "serve", "faults", "fleet",
+                                                                     "venue", "lifecycle", "serve", "faults", "fleet",
                                                                      "fleet_members", "advisor")),
                 "launches_by_path": {p: c["run_bounds"] for p, c in launches.items()},
                 "max_abs_err": r["max_abs_err"],

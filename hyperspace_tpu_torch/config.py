@@ -28,10 +28,16 @@ shedDepthRatio), the three explain display keys, the plan validator's
 `hyperspace.serve.tenant.quota.*`, `hyperspace.fleet.*` and
 `hyperspace.controller.*`; the advisor's `hyperspace.advisor.*`
 (routing, the workload ring, the lifecycle gates and floors); and
-continuous ingestion's `hyperspace.ingest.*`.
-A key the JAX package declares but the port does not read yet raises,
-naming it as not ported; an undeclared `hyperspace.*` key raises with a
-did-you-mean suggestion, as the JAX package's `check_known_key` does.
+continuous ingestion's `hyperspace.ingest.*`; and the execution venues:
+`hyperspace.{join,build,agg,sort,filter}.venue` (`auto`, `device`,
+`host`; any other value raises at the operator's first use, as in the JAX
+package; `auto` is the device), `hyperspace.join.venueMinMbps`
+(accepted, read by nothing: the port measures no link) and
+`hyperspace.device.fusedKernels` (`auto`: the port's device venue is its
+hand-written kernels, so `off` raises). That is every key the JAX package
+declares (`KNOWN_KEYS`, with its rendered defaults; `docs_table` renders
+them); an undeclared `hyperspace.*` key raises with a did-you-mean
+suggestion, as the JAX package's `check_known_key` does.
 Keys outside the `hyperspace.` namespace pass through as overrides.
 """
 
@@ -141,6 +147,22 @@ SCAN_PREFETCH_ENABLED = "hyperspace.scan.prefetch.enabled"
 # Zero-copy staging of card-bound columns (execution/staging.py).
 # Process-global: the decode path has no session handle.
 DEVICE_STAGING_ENABLED = "hyperspace.device.staging.enabled"
+# The execution venues (parallel/bandwidth.py::pick_venue): each operator
+# whose output lands on the host runs "device" (torch ops and the CUDA
+# kernels on the session's device) or "host" (numpy and the native C++
+# library); "auto" is the device. venueMinMbps, the JAX package's link
+# floor for its "auto", is accepted and read by nothing. The join venue
+# also picks the re-bucketing exchange's sort and the fused
+# Aggregate(Join)'s channel pass.
+JOIN_VENUE = "hyperspace.join.venue"
+JOIN_VENUE_MIN_MBPS = "hyperspace.join.venueMinMbps"
+BUILD_VENUE = "hyperspace.build.venue"
+AGG_VENUE = "hyperspace.agg.venue"
+SORT_VENUE = "hyperspace.sort.venue"
+FILTER_VENUE = "hyperspace.filter.venue"
+# The device venue's hand-written kernels: "auto" is the only value (the
+# port's device venue has no un-fused path to turn them off for).
+DEVICE_FUSED_KERNELS = "hyperspace.device.fusedKernels"
 # The runtime health plane (obs/http.py): /metrics, /healthz and /debug/*
 # on a stdlib server riding the QueryServer's lifecycle (port 0 =
 # ephemeral). Off: no thread, no socket.
@@ -241,6 +263,8 @@ INGEST_MAX_LAG_SECONDS = "hyperspace.ingest.maxLagSeconds"
 
 DEFAULT_NUM_BUCKETS = 8
 DEFAULT_CACHE_EXPIRY_SECONDS = 300.0
+DEFAULT_JOIN_VENUE = "auto"
+DEFAULT_JOIN_VENUE_MIN_MBPS = 200.0
 DEFAULT_JOIN_BROADCAST_MAX_ROWS = 4_000_000
 DEFAULT_JOIN_REBUCKETIZE = "auto"
 DEFAULT_HYBRID_SCAN_MAX_APPENDED_RATIO = 0.3
@@ -284,51 +308,525 @@ DEFAULT_INGEST_POLL_SECONDS = 1.0
 DEFAULT_INGEST_CDC_BATCH_ROWS = 65536
 DEFAULT_INGEST_MAX_LAG_SECONDS = 30.0
 
-# The keys the port reads.
-PORTED_KEYS = (
-    INDEX_SYSTEM_PATH, INDEX_NUM_BUCKETS, JOIN_BROADCAST_MAX_ROWS, JOIN_REBUCKETIZE,
-    INDEX_HYBRID_SCAN_ENABLED, INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO, RECOVER_ON_ACCESS,
-    RECOVER_GRACE_SECONDS, OBS_ENABLED, OBS_SINK, OBS_EVENTS_MAX, SERVE_WORKERS, SERVE_MAX_QUEUE_DEPTH,
-    SERVE_QUERY_TIMEOUT_SECONDS, SERVE_PLAN_CACHE_ENABLED, SERVE_PLAN_CACHE_MAX_ENTRIES,
-    SERVE_RESULT_CACHE_ENABLED, SERVE_RESULT_CACHE_MAX_BYTES, SERVE_SHED_DEPTH_RATIO, EXPLAIN_DISPLAY_MODE,
-    EXPLAIN_HIGHLIGHT_BEGIN, EXPLAIN_HIGHLIGHT_END, ANALYSIS_VALIDATE, FAULTS_ENABLED, FAULTS_MAX_DELAY_SECONDS,
-    RETRY_MAX_ATTEMPTS, RETRY_BACKOFF_BASE, RETRY_CAS_ATTEMPTS, FALLBACK_ENABLED, INDEX_CACHE_EXPIRY_SECONDS,
-    INDEX_BUILD_MEMORY_BUDGET, INDEX_BUILD_CHUNK_BYTES, BUILD_PIPELINE_ENABLED, BUILD_PIPELINE_MAX_INFLIGHT_BYTES,
-    BUILD_WORKERS, BUILD_EXCHANGE_DIR, SCAN_PREFETCH_ENABLED, DEVICE_STAGING_ENABLED,
-    OBS_HTTP_ENABLED, OBS_HTTP_HOST, OBS_HTTP_PORT, OBS_SLO_AVAILABILITY_TARGET, OBS_SLO_LATENCY_P99_SECONDS,
-    OBS_JOURNAL_ENABLED, OBS_JOURNAL_DIR, OBS_JOURNAL_SEGMENT_BYTES, OBS_JOURNAL_MAX_BYTES,
-    OBS_JOURNAL_SNAPSHOT_SECONDS, SERVE_TENANT_QUOTA_ENABLED, SERVE_TENANT_QUOTA_RATE, SERVE_TENANT_QUOTA_BURST,
-    FLEET_CACHE_DIR, FLEET_CACHE_MAX_BYTES, FLEET_LEASE_SECONDS, FLEET_SINGLEFLIGHT_WAIT_SECONDS, FLEET_WORKERS,
-    FLEET_MIN_WORKERS, FLEET_MAX_RESTARTS, FLEET_RESTART_BACKOFF_SECONDS, CONTROLLER_ENABLED,
-    CONTROLLER_INTERVAL_SECONDS, CONTROLLER_COOLDOWN_SECONDS, CONTROLLER_HYSTERESIS_TICKS, CONTROLLER_RECOVERY_TICKS,
-    CONTROLLER_ACTUATION_BUDGET, CONTROLLER_SHED_RATIO, CONTROLLER_QUOTA_FACTOR, CONTROLLER_HEAL_REBUILD,
-    CONTROLLER_HEAL_COORDINATE, CONTROLLER_SCALE_SATURATION, CONTROLLER_SCALE_MAX_WORKERS, CONTROLLER_SCALE_STEP,
-    CONTROLLER_INCIDENT_ENABLED, CONTROLLER_INCIDENT_DIR, CONTROLLER_INCIDENT_MAX_BUNDLES, CONTROLLER_INCIDENT_SEGMENTS,
-    CONTROLLER_DEMOTION_CLUSTER_SIZE, CONTROLLER_DEMOTION_WINDOW_SECONDS, CONTROLLER_STORM_RESPONSE,
-    ADVISOR_ROUTING_ENABLED, ADVISOR_ROUTING_DEMOTE_RATIO, ADVISOR_ROUTING_ALPHA, ADVISOR_ROUTING_MIN_SAMPLES,
-    ADVISOR_WORKLOAD_MAX_RECORDS, ADVISOR_AUTO_CREATE, ADVISOR_AUTO_VACUUM, ADVISOR_AUTO_OPTIMIZE,
-    ADVISOR_LIFECYCLE_MAX_DELTAS, ADVISOR_MIN_CONFIDENCE, ADVISOR_MIN_BENEFIT_SECONDS,
-    INGEST_ENABLED, INGEST_POLL_SECONDS, INGEST_CDC_BATCH_ROWS, INGEST_AUTO_COMPACT, INGEST_PROCESS_WORKER,
-    INGEST_MAX_LAG_SECONDS,
-)
-# The JAX package's other declared keys (its `config.KNOWN_KEYS`), whose
-# modules are not ported yet: the host venues and the fused kernels.
-UNPORTED_KEYS = frozenset((
-    'hyperspace.join.venue', 'hyperspace.join.venueMinMbps', 'hyperspace.build.venue', 'hyperspace.agg.venue',
-    'hyperspace.sort.venue', 'hyperspace.filter.venue', 'hyperspace.device.fusedKernels',
-))
+
+@dataclasses.dataclass(frozen=True)
+class ConfKey:
+    """One declared config key: its rendered default and its one-line doc
+    (`docs_table` renders the registry as a markdown table)."""
+
+    default: str
+    doc: str
+
+
+# The declared-key registry: the JAX package's keys, in its order, with its
+# rendered defaults. `HyperspaceConf.get/set` reject any `hyperspace.*` key
+# not declared here (UnknownConfigKeyError, with a did-you-mean suggestion).
+KNOWN_KEYS: dict[str, ConfKey] = {
+    INDEX_SYSTEM_PATH: ConfKey(
+        "`<cwd>/spark-warehouse/indexes`",
+        "Root directory holding every index (log + data versions)."),
+    INDEX_NUM_BUCKETS: ConfKey(
+        "8",
+        "Bucket count for new covering indexes (= build/query parallelism; the analog of "
+        "`spark.hyperspace.index.num.buckets`)."),
+    INDEX_CACHE_EXPIRY_SECONDS: ConfKey(
+        "300",
+        "TTL of the read-path metadata cache; every mutating API clears it."),
+    INDEX_HYBRID_SCAN_ENABLED: ConfKey(
+        "false",
+        "Serve stale indexes by unioning the index scan with a pinned scan of appended files."),
+    INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO: ConfKey(
+        "0.3",
+        "Hybrid scan applies only while appended bytes stay below this fraction of the indexed "
+        "source."),
+    INDEX_BUILD_MEMORY_BUDGET: ConfKey(
+        "4 GiB",
+        "Sources whose uncompressed footer estimate exceeds this stream through the out-of-core "
+        "build."),
+    INDEX_BUILD_CHUNK_BYTES: ConfKey(
+        "0 (derived)",
+        "Row-group chunk size of the streaming build; 0 derives it from the budget."),
+    JOIN_VENUE: ConfKey(
+        "`auto`",
+        "Where the materialized join's merge runs: `device` (the run-bounds kernel; also what "
+        "`auto` means in this package) or `host` (the threaded C++ merge); unknown values raise. "
+        "Also picks the re-bucketing exchange's sort and the fused Aggregate(Join)'s channel "
+        "pass."),
+    JOIN_VENUE_MIN_MBPS: ConfKey(
+        "200",
+        "Accepted for configurations written for the JAX package, whose `auto` venues take the "
+        "host below this card→host link speed; read by nothing here, where `auto` is always the "
+        "device (the columns already lie on the card)."),
+    BUILD_VENUE: ConfKey(
+        "`auto`",
+        "Where the build's bucketize+sort permutation is computed: the threaded C++ counting "
+        "sort and per-bucket key sort on the host vs the stable sort by (bucket, key lanes) on "
+        "the card (`auto`)."),
+    BUILD_PIPELINE_ENABLED: ConfKey(
+        "true",
+        "Streaming-build pipeline: overlap p1 decode/hash with pooled spill encode, and run p2 "
+        "as a 3-stage spill-read ‖ key-sort ‖ final-write pipeline behind a bounded bucket- "
+        "completion queue. `false` restores the serial two-phase build (the byte-for-byte "
+        "reference path)."),
+    BUILD_PIPELINE_MAX_INFLIGHT_BYTES: ConfKey(
+        "0 (derived)",
+        "Byte budget of decoded spill buckets resident across the p2 pipeline stages (the "
+        "memory bound on small hosts); 0 derives 4x `hyperspace.index.build.chunkBytes`. A "
+        "single bucket above the budget is still admitted alone. The pooled build derives each "
+        "p2 owner's one-ahead spill-read window from the same budget."),
+    BUILD_WORKERS: ConfKey(
+        "0 (in-process)",
+        "Scale-out pooled build: split the build across this many spawn-context worker "
+        "processes — p1 shards each decode a contiguous file slice and spill per destination "
+        "bucket-owner, p2 owners sort/encode/write their buckets in parallel (bucket id → owner "
+        "is the shard key, the analogue of Spark's hash shuffle), byte-identical to the in- "
+        "process streaming build. 0 keeps the in-process paths."),
+    BUILD_EXCHANGE_DIR: ConfKey(
+        "`` (derived)",
+        "Root of the pooled build's cross-process spill exchange; empty derives "
+        "`<dest>.exchange` next to the index version dir (same filesystem as the output). "
+        "Always swept when the build ends, success or abort."),
+    SCAN_PREFETCH_ENABLED: ConfKey(
+        "true",
+        "Async index bucket-file prefetch at plan-optimize time: footers (and the first row- "
+        "group chunk) of the files the pruner keeps are read on a background pool so the "
+        "executor's cold reads start warm. Advisory — prefetch failures are counted, never "
+        "surfaced."),
+    AGG_VENUE: ConfKey(
+        "`auto`",
+        "Where the grouped segment reduce runs: numpy bincount / reduceat on the host vs the "
+        "CUDA segment-reduce kernel on the card (`auto`; one launch a shard on a mesh)."),
+    SORT_VENUE: ConfKey(
+        "`auto`",
+        "Where ORDER BY and the join's regrouping sort run: numpy lexsort on the host vs one "
+        "stable torch sort over the order lanes on the card (`auto`)."),
+    FILTER_VENUE: ConfKey(
+        "`auto`",
+        "Where predicate masks evaluate (filters, join conditions, and the masks of projections, "
+        "CASE inputs and window inputs): exact numpy with Kleene logic on the host vs torch ops "
+        "on the card (`auto`; rows sharded on a mesh)."),
+    DEVICE_STAGING_ENABLED: ConfKey(
+        "true",
+        "Arrow→device zero-copy staging (execution/staging.py): fixed-width null-free columns "
+        "on the cache-destined read path stay read-only views over the Arrow buffers instead of "
+        "owned host copies, counted in `device.stage.bytes_zero_copy` vs "
+        "`device.stage.bytes_copied`. Process-global; `false` restores the always-copy decode."),
+    DEVICE_FUSED_KERNELS: ConfKey(
+        "`auto`",
+        "The hand-written CUDA kernels of the device venue (segment reduce, run bounds). `auto` "
+        "is the only value: the port's device venue has no un-fused path, so `off` raises."),
+    JOIN_BROADCAST_MAX_ROWS: ConfKey(
+        "4,000,000",
+        "A non-aligned join whose smaller side is under this row count (and ≥4x smaller than "
+        "the other) takes the broadcast hash path — dense code table from the small side, "
+        "vectorized gather probe, large side never sorted. 0 disables."),
+    JOIN_REBUCKETIZE: ConfKey(
+        "`auto`",
+        "Query-time re-bucketing exchange when exactly one join side is an index bucketed on "
+        "its join keys: the other side re-groups into the index's bucket layout (native "
+        "counting sort on host / one device sort on the device venue). `auto` engages it when "
+        "the broadcast probe does not apply; `force` always; `off` keeps the single-partition "
+        "fallback."),
+    EXPLAIN_DISPLAY_MODE: ConfKey(
+        "`plaintext`",
+        "Explain rendering: `plaintext`, `console` (ANSI), or `html`."),
+    EXPLAIN_HIGHLIGHT_BEGIN: ConfKey(
+        "`<b>`",
+        "Custom highlight tag opening replaced subtrees in html explain output (notebook use)."),
+    EXPLAIN_HIGHLIGHT_END: ConfKey(
+        "`</b>`",
+        "Custom highlight tag closing replaced subtrees in html explain output (notebook use)."),
+    ANALYSIS_VALIDATE: ConfKey(
+        "true",
+        "Pre-execution plan validation (analysis/validator.py): reject malformed plans with "
+        "structured diagnostics before any device work."),
+    FAULTS_ENABLED: ConfKey(
+        "true",
+        "Kill switch for the fault-injection harness (`faults.py`): false makes every "
+        "`fault_point` inert even with rules registered. See "
+        "[fault_tolerance.md](fault_tolerance.md)."),
+    FAULTS_MAX_DELAY_SECONDS: ConfKey(
+        "30",
+        "Clamp on any single injected brownout delay (base + jitter of a `delay_s` fault rule): "
+        "a typo'd rule slows a call by at most this long, so deadline-carrying paths surface "
+        "their typed timeouts instead of wedging."),
+    RETRY_MAX_ATTEMPTS: ConfKey(
+        "3",
+        "Attempts per transient-IO call site (log/pointer/manifest writes, parquet data/footer "
+        "reads); 1 disables retry."),
+    RETRY_BACKOFF_BASE: ConfKey(
+        "0.005",
+        "First-retry delay; doubles per attempt (capped, deterministic — jitter is an explicit "
+        "hook)."),
+    RETRY_CAS_ATTEMPTS: ConfKey(
+        "1",
+        "Whole-protocol retries when `Action.begin()` loses its CAS to a concurrent writer; 1 = "
+        "abort (the reference's single-writer behavior)."),
+    FALLBACK_ENABLED: ConfKey(
+        "true",
+        "Query-plane corruption fallback: an index scan over unreadable data quarantines the "
+        "index (`session.index_health`) and re-plans the query against healthy indexes / the "
+        "source instead of failing."),
+    OBS_ENABLED: ConfKey(
+        "true",
+        "Tracer gate (process-global, [observability.md](observability.md)): false makes "
+        "`span()`/`trace()` shared no-ops (nothing allocated on the query hot path); per-query "
+        'profiles (`session.last_profile()`, `explain(mode="analyze")`) remain available either '
+        "way."),
+    OBS_SINK: ConfKey(
+        "unset",
+        "JSON-lines path receiving one event per finished root trace (query or action) — the "
+        "export feed for `python -m hyperspace_tpu_torch.obs.export --sink <path>`."),
+    OBS_HTTP_ENABLED: ConfKey(
+        "false",
+        "Runtime health plane ([observability.md](observability.md)): serve `/metrics`, "
+        "`/healthz`, `/debug/events`, and `/debug/trace` over a zero-dependency HTTP server "
+        "that starts/stops with the QueryServer lifecycle. Off ⇒ no thread, no socket, nothing "
+        "imported."),
+    OBS_HTTP_HOST: ConfKey(
+        "`127.0.0.1`",
+        "Bind address of the health endpoints (loopback by default — expose deliberately, not "
+        "accidentally)."),
+    OBS_HTTP_PORT: ConfKey(
+        "0 (ephemeral)",
+        "Port of the health endpoints; 0 binds an ephemeral port, read back from "
+        "`QueryServer.health_endpoint.port`."),
+    OBS_EVENTS_MAX: ConfKey(
+        "256",
+        "Bound of the structured event ring (`/debug/events`): old events age out (counted in "
+        "`obs.events.dropped`), memory stays constant."),
+    OBS_SLO_AVAILABILITY_TARGET: ConfKey(
+        "0.999",
+        "Availability objective over admitted queries (completed vs failed/timed- "
+        "out/cancelled); burn rates are computed against 1 - target (obs/slo.py)."),
+    OBS_SLO_LATENCY_P99_SECONDS: ConfKey(
+        "1.0",
+        "Latency threshold of the `serve.latency_p99` objective: 99% of served queries must "
+        "finish under it (measured from the latency histogram's bucket bounds)."),
+    OBS_JOURNAL_ENABLED: ConfKey(
+        "false",
+        "Durable telemetry journal (process-global, [observability.md](observability.md) "
+        '"telemetry journal"): append events, completed root spans, periodic metric snapshots, '
+        "and SLO verdict transitions to a segment-rotated JSONL journal under `<dir>/<pid>/`. "
+        "Advisory — IO failures are counted (`obs.journal.errors`), never raised. Pooled/fleet "
+        "workers inherit it and journal under their own pid."),
+    OBS_JOURNAL_DIR: ConfKey(
+        "unset (`<system.path>/_obs`)",
+        "Root of the telemetry journal; one `<pid>/` subdirectory per journaling process. The "
+        "fleet merge reads this root (`python -m hyperspace_tpu_torch.obs.export --format "
+        "chrome --fleet <dir>`)."),
+    OBS_JOURNAL_SEGMENT_BYTES: ConfKey(
+        "65536",
+        "Active-segment size at which the journal seals: flush + fsync + atomic rename to "
+        "`segment-<n>.jsonl` (readers only ever see whole segments; a crash tears at most the "
+        "unsealed tail)."),
+    OBS_JOURNAL_MAX_BYTES: ConfKey(
+        "4194304",
+        "Per-process byte budget over sealed segments; exceeded ⇒ oldest-first eviction "
+        "(`obs.journal.evictions`). The journal is a flight recorder, not an archive."),
+    OBS_JOURNAL_SNAPSHOT_SECONDS: ConfKey(
+        "5.0",
+        "Minimum spacing of periodic counter/gauge snapshot records — taken opportunistically "
+        "on the journal write path, no background thread."),
+    RECOVER_ON_ACCESS: ConfKey(
+        "true",
+        "Index listing lazily repairs a crashed writer's log (torn entries immediately, "
+        "transient tails after the grace)."),
+    RECOVER_GRACE_SECONDS: ConfKey(
+        "300",
+        "Minimum staleness of a transient entry before lazy recovery touches it — keeps a "
+        "listing from cancelling a LIVE writer's in-flight action. Explicit `recover()` ignores "
+        "it."),
+    SERVE_WORKERS: ConfKey(
+        "4",
+        "Worker threads of the concurrent query server ([serving.md](serving.md)); the "
+        "subsystem is off unless a `QueryServer` is constructed (`session.serve()`)."),
+    SERVE_MAX_QUEUE_DEPTH: ConfKey(
+        "32",
+        "Admission-control limit: submits beyond it raise `AdmissionRejected`."),
+    SERVE_QUERY_TIMEOUT_SECONDS: ConfKey(
+        "0 (off)",
+        "Per-query deadline — expires queries still waiting in the queue and bounds "
+        "`QueryHandle.result()` waits (`QueryTimeout`)."),
+    SERVE_PLAN_CACHE_ENABLED: ConfKey(
+        "true",
+        "Serving-plane plan cache: memoize `optimized_plan()` under versioned keys that index "
+        "mutations / source appends invalidate structurally."),
+    SERVE_PLAN_CACHE_MAX_ENTRIES: ConfKey(
+        "128",
+        "Plan-cache LRU bound."),
+    SERVE_RESULT_CACHE_ENABLED: ConfKey(
+        "false",
+        "Opt-in whole-result cache under the same versioned keys (never serves pre-refresh "
+        "rows)."),
+    SERVE_RESULT_CACHE_MAX_BYTES: ConfKey(
+        "256 MiB",
+        "Result-cache byte budget; LRU eviction past it, no single entry above a quarter of it."),
+    SERVE_TENANT_QUOTA_ENABLED: ConfKey(
+        "false",
+        'Per-tenant token-bucket admission ([serving.md](serving.md) "fleet topology"): a '
+        "`submit(..., tenant=id)` whose bucket is dry raises `QuotaExceeded` (an "
+        "`AdmissionRejected` carrying `retry_after_s`) before costing a queue slot. Tenant-less "
+        "submits are unmetered."),
+    SERVE_TENANT_QUOTA_RATE: ConfKey(
+        "100",
+        "Default refill rate (queries/second) of each tenant's token bucket; override per "
+        "tenant via `TenantQuotas.set_limit`."),
+    SERVE_TENANT_QUOTA_BURST: ConfKey(
+        "200",
+        "Default bucket capacity: how many queries a tenant may burst above its sustained rate."),
+    SERVE_SHED_DEPTH_RATIO: ConfKey(
+        "1.0 (off)",
+        "Graceful saturation: non-priority submits are shed (typed `AdmissionRejected`) once "
+        "the queue reaches this fraction of `hyperspace.serve.maxQueueDepth`, keeping a bounded "
+        "p99 for the priority lane instead of collapsing under overload. 1.0 disables early "
+        "shedding (only the hard depth limit applies)."),
+    FLEET_CACHE_DIR: ConfKey(
+        "`<system.path>/_fleet`",
+        "Root of the fleet's shared on-disk state (plan/result cache entries, single-flight "
+        "leases, worker registrations). Underscore-prefixed, so index listing never mistakes it "
+        "for an index."),
+    FLEET_CACHE_MAX_BYTES: ConfKey(
+        "1 GiB",
+        "Byte budget of the shared result cache; past it the oldest entries are evicted under a "
+        "cross-process file lease (plans get 1/16 of the budget). No single result above a "
+        "quarter of the budget is admitted."),
+    FLEET_LEASE_SECONDS: ConfKey(
+        "10",
+        "TTL of cross-process lease files (single-flight claims, eviction lease): a holder that "
+        "dies is presumed dead after this long and its lease is reaped by the next claimant — a "
+        "crashed process can never wedge the fleet."),
+    FLEET_SINGLEFLIGHT_WAIT_SECONDS: ConfKey(
+        "15",
+        "How long a cold process waits for another process's in-flight build before giving up "
+        "and building locally (correct either way — the wait only dedups work)."),
+    FLEET_WORKERS: ConfKey(
+        "2",
+        "Default worker-process count of a `FleetSupervisor` (serve/fleet/supervisor.py)."),
+    FLEET_MIN_WORKERS: ConfKey(
+        "1",
+        "Floor of `FleetSupervisor.set_target_workers`: no scale-down (manual or controller- "
+        "actuated) drops the fleet below this many members."),
+    FLEET_MAX_RESTARTS: ConfKey(
+        "3",
+        "How many times the supervisor respawns a crashed worker before leaving its slot down "
+        "(counted in `fleet.supervisor.restarts`)."),
+    FLEET_RESTART_BACKOFF_SECONDS: ConfKey(
+        "0.5",
+        "Base of the exponential backoff between restarts of the SAME fleet member (delay = "
+        "base x 2^(restarts-1), deterministic jitter, capped): a crash-looping worker cannot "
+        "burn its whole `hyperspace.fleet.maxRestarts` budget in milliseconds. The first "
+        "respawn is immediate; when backoff engages a WARN `fleet.worker.crash_loop` event "
+        "names the member."),
+    CONTROLLER_ENABLED: ConfKey(
+        "false",
+        "Kill switch of the self-driving operations controller "
+        '([fault_tolerance.md](fault_tolerance.md) "self-driving operations"): false (the '
+        "default) means the reconciliation loop observes nothing and actuates nothing; "
+        "disarming a RUNNING controller mid-loop releases any overrides it holds (shed depth, "
+        "quota throttle) and stands down."),
+    CONTROLLER_INTERVAL_SECONDS: ConfKey(
+        "1.0",
+        "Reconciliation-loop tick interval of `OpsController.start()`; each tick samples the "
+        "SLO tracker, drains new structured events, and runs one `step()`."),
+    CONTROLLER_COOLDOWN_SECONDS: ConfKey(
+        "30",
+        "Minimum controller-clock seconds between two firings of the SAME actuation (per healed "
+        "index, per sweep, per shed engage) — the anti-flap floor on top of the verdict "
+        "hysteresis."),
+    CONTROLLER_HYSTERESIS_TICKS: ConfKey(
+        "2",
+        "Consecutive page-verdict ticks required before the overload response engages: a single "
+        "verdict flicker never actuates."),
+    CONTROLLER_RECOVERY_TICKS: ConfKey(
+        "2",
+        "Consecutive non-page ticks required before an engaged overload response releases "
+        "(restoring the original shed depth and quota rates)."),
+    CONTROLLER_ACTUATION_BUDGET: ConfKey(
+        "32",
+        "Global mutation budget of one controller lifetime. Exhaustion degrades the controller "
+        "to observe-only — decisions are still computed and audited, nothing mutates — "
+        "announced once by an ERROR `controller.observe_only` event. Releases of held overrides "
+        "stay free, so the system is always left as found."),
+    CONTROLLER_SHED_RATIO: ConfKey(
+        "0.5",
+        "Shed-depth tightening applied while serve SLOs page: the queue's shed threshold drops "
+        "to this fraction of `hyperspace.serve.maxQueueDepth` (non-priority submits refused "
+        "earlier, typed), restored on recovery."),
+    CONTROLLER_QUOTA_FACTOR: ConfKey(
+        "0.5",
+        "Tenant-quota tightening applied while serve SLOs page: every tenant's token-bucket "
+        "refill rate is scaled by this factor (`TenantQuotas.set_throttle`), restored on "
+        "recovery."),
+    CONTROLLER_HEAL_REBUILD: ConfKey(
+        "true",
+        "After healing a quarantined index via `recover()`, also rebuild it "
+        '(`refresh_index(mode="full")` — the crash-safe Action protocol) so on-disk corruption '
+        "is actually repaired, not just re-served until the next quarantine. false limits "
+        "healing to log recovery."),
+    CONTROLLER_DEMOTION_CLUSTER_SIZE: ConfKey(
+        "3",
+        "How many `advisor.routing.demoted` events must cluster inside `demotionWindowSeconds` "
+        "before the controller triggers an advisor lifecycle sweep (the sweep itself stays "
+        "gated by the `hyperspace.advisor.lifecycle.*` opt-ins)."),
+    CONTROLLER_DEMOTION_WINDOW_SECONDS: ConfKey(
+        "300",
+        "Trailing controller-clock window over which routing-demotion events are counted toward "
+        "the sweep-trigger cluster."),
+    CONTROLLER_HEAL_COORDINATE: ConfKey(
+        "true",
+        "Route heal actuations through the fleet single-flight lease "
+        "(serve/fleet/singleflight.py) so exactly ONE member rebuilds a quarantined index "
+        "fleet-wide; followers observe the published heal marker and only lift their local "
+        "quarantine. Engages only when a fleet directory is discoverable; false keeps every "
+        "heal process-local."),
+    CONTROLLER_SCALE_SATURATION: ConfKey(
+        "0.75",
+        "Queue-fullness ratio (worst of the fleet-health aggregate and the local server) at or "
+        "above which a controller tick counts toward the scale-up hysteresis."),
+    CONTROLLER_SCALE_MAX_WORKERS: ConfKey(
+        "8",
+        "Ceiling of controller-actuated fleet scale-up (`FleetSupervisor.set_target_workers`); "
+        "recovery restores the pre-episode member count."),
+    CONTROLLER_SCALE_STEP: ConfKey(
+        "1",
+        "How many members each scale-up actuation adds (each addition is a separate audited, "
+        "budgeted, cooled-down actuation)."),
+    CONTROLLER_STORM_RESPONSE: ConfKey(
+        "true",
+        "Actuate on `jit.recompile_storm` events: pin the storming key's signature to the raw- "
+        "scan route (`RoutingLedger.pin`). The port compiles no query code, so it emits no such "
+        "event. false keeps storms observe-only telemetry."),
+    CONTROLLER_INCIDENT_ENABLED: ConfKey(
+        "true",
+        "Incident bundles: on an SLO page engage, a fresh quarantine, or observe-only entry the "
+        "controller opens a forensic bundle under `<dir>/<ts>-<trigger>/` (event ring dump, "
+        "process report, config snapshot, routing ledger, actuation audit trail) and closes it "
+        "on recovery with every reachable member's journal segments. Advisory: capture failures "
+        "count `controller.incident_errors`, never raise."),
+    CONTROLLER_INCIDENT_DIR: ConfKey(
+        "unset (`<fleet root>/incidents`)",
+        "Where incident bundles land; defaults next to the fleet coordination root "
+        "(`hyperspace.fleet.cacheDir` or `<system.path>/_fleet`). Served read-only at "
+        "`/debug/incidents`."),
+    CONTROLLER_INCIDENT_MAX_BUNDLES: ConfKey(
+        "16",
+        "On-disk bundle retention: opening a bundle beyond this count evicts the oldest bundle "
+        "directory first."),
+    CONTROLLER_INCIDENT_SEGMENTS: ConfKey(
+        "4",
+        "How many of each reachable member's newest sealed journal segments the closing bundle "
+        "copies in — the cross-process evidence window."),
+    ADVISOR_ROUTING_ENABLED: ConfKey(
+        "false",
+        "Adaptive query routing ([advisor.md](advisor.md)): a per-plan-signature ledger of "
+        "measured indexed vs raw wall times demotes rewrites that measured slower to source "
+        "scans. Changes plan choice, so explicit opt-in; the ledger invalidates structurally on "
+        "any index mutation."),
+    ADVISOR_ROUTING_DEMOTE_RATIO: ConfKey(
+        "1.0",
+        "Demotion threshold: a signature routes raw once its indexed EMA exceeds ratio x its "
+        "raw EMA (both sides sampled)."),
+    ADVISOR_ROUTING_ALPHA: ConfKey(
+        "0.5",
+        "EMA smoothing of the routing ledger's wall-time estimates (higher = newer samples "
+        "dominate)."),
+    ADVISOR_ROUTING_MIN_SAMPLES: ConfKey(
+        "1",
+        "Evidence floor: both the indexed and raw path need at least this many samples before a "
+        "signature can be demoted."),
+    ADVISOR_WORKLOAD_MAX_RECORDS: ConfKey(
+        "512",
+        "Bound of the in-memory per-session workload ring the what-if analyzer learns from; old "
+        "traffic ages out."),
+    ADVISOR_AUTO_CREATE: ConfKey(
+        "false",
+        "Lifecycle gate: let `LifecyclePolicy.sweep()` build recommended indexes autonomously "
+        "(crash-safe through the normal create action)."),
+    ADVISOR_AUTO_VACUUM: ConfKey(
+        "false",
+        "Lifecycle gate: let the sweep delete+vacuum indexes the observed workload never "
+        "touched."),
+    ADVISOR_AUTO_OPTIMIZE: ConfKey(
+        "false",
+        "Lifecycle gate: let the sweep compact indexes fragmented past "
+        "`hyperspace.advisor.lifecycle.maxDeltas`."),
+    ADVISOR_LIFECYCLE_MAX_DELTAS: ConfKey(
+        "4",
+        "Fragmentation threshold: an index spanning more version dirs than this earns an "
+        "optimize recommendation."),
+    ADVISOR_MIN_CONFIDENCE: ConfKey(
+        "0.5",
+        "Policy floor: recommendations below this confidence are reported but never auto- "
+        "applied."),
+    ADVISOR_MIN_BENEFIT_SECONDS: ConfKey(
+        "0",
+        "Policy floor: recommendations whose estimated benefit is below this many seconds are "
+        "reported but never auto-applied."),
+    INGEST_ENABLED: ConfKey(
+        "false",
+        "Continuous-ingestion daemon ([ingestion.md](ingestion.md)): source watchers feed "
+        "micro-batch incremental refreshes through the two-phase Action protocol as a "
+        "background service. Off by default — nothing polls or mutates without opt-in; "
+        "`Hyperspace.ingest()` constructs the daemon either way."),
+    INGEST_POLL_SECONDS: ConfKey(
+        "1.0",
+        "Tailer cadence: how often the daemon polls its sources for new files / appended CDC "
+        "rows (and re-reads its pause control file)."),
+    INGEST_CDC_BATCH_ROWS: ConfKey(
+        "65536",
+        "Row bound of one materialized CDC batch file: a changelog tail longer than this is "
+        "split into multiple deterministic batch files (each commits through its own micro- "
+        "batch)."),
+    INGEST_AUTO_COMPACT: ConfKey(
+        "true",
+        "Gate the daemon's background compaction: once an index spans more delta version dirs "
+        "than `hyperspace.advisor.lifecycle.maxDeltas`, trigger the optimize action (deferred "
+        "while serve SLOs burn; the advisor lifecycle gates still bound WHAT may compact)."),
+    INGEST_PROCESS_WORKER: ConfKey(
+        "false",
+        "Run the ingest loop in a spawn-context worker PROCESS (parallel/procpool.py) instead "
+        "of the default in-process daemon thread — the crash-isolation deployment shape (a "
+        "SIGKILLed worker leaves only a transient log the next recover() converges)."),
+    INGEST_MAX_LAG_SECONDS: ConfKey(
+        "30.0",
+        "Advisory freshness objective: when data observed by the tailer has waited longer than "
+        "this without reaching a committed index version, the daemon emits a WARN "
+        "`ingest.lagging` event (never blocks)."),
+}
+# Every declared key is read by the port.
+PORTED_KEYS = tuple(KNOWN_KEYS)
 
 
 def check_known_key(key: str) -> None:
-    """Reject a `hyperspace.*` key the port does not read: one the JAX
-    package declares is named as not ported; any other is unknown, with a
-    did-you-mean suggestion. Keys outside the namespace pass through."""
-    if not key.startswith("hyperspace.") or key in PORTED_KEYS:
+    """Reject an undeclared `hyperspace.*` key with a did-you-mean
+    suggestion. Keys outside the namespace pass through (the overrides map
+    doubles as a scratch space for tests and embedding apps)."""
+    if not key.startswith("hyperspace.") or key in KNOWN_KEYS:
         return
-    if key in UNPORTED_KEYS:
-        raise HyperspaceError(f"config key {key!r} is not ported yet")
-    close = difflib.get_close_matches(key, PORTED_KEYS + tuple(sorted(UNPORTED_KEYS)), n=1, cutoff=0.6)
+    close = difflib.get_close_matches(key, KNOWN_KEYS, n=1, cutoff=0.6)
     raise UnknownConfigKeyError(key, close[0] if close else None)
+
+
+def docs_table() -> str:
+    """The registry as a markdown table: key, default, meaning."""
+    lines = ["| Key | Default | Meaning |", "|---|---|---|"]
+    for key, spec in KNOWN_KEYS.items():
+        lines.append(f"| `{key}` | {spec.default} | {spec.doc} |")
+    return "\n".join(lines)
+
+
+def check_fused_kernels(value: str) -> str:
+    """`hyperspace.device.fusedKernels`: `auto` is the port's only device
+    path (its hand-written kernels); any other value raises."""
+    if value == "auto":
+        return value
+    if value == "off":
+        raise HyperspaceError(
+            "hyperspace.device.fusedKernels=off: the port's device venue has no un-fused path "
+            "(its kernels are the device venue); use auto, or a host venue"
+        )
+    raise HyperspaceError(f"unknown hyperspace.device.fusedKernels={value!r} (auto)")
 
 
 def _as_bool(value: Any) -> bool:
@@ -343,6 +841,13 @@ class HyperspaceConf:
     num_buckets: int = DEFAULT_NUM_BUCKETS
     join_broadcast_max_rows: int = DEFAULT_JOIN_BROADCAST_MAX_ROWS
     join_rebucketize: str = DEFAULT_JOIN_REBUCKETIZE
+    join_venue: str = DEFAULT_JOIN_VENUE
+    join_venue_min_mbps: float = DEFAULT_JOIN_VENUE_MIN_MBPS
+    build_venue: str = DEFAULT_JOIN_VENUE
+    agg_venue: str = DEFAULT_JOIN_VENUE
+    sort_venue: str = DEFAULT_JOIN_VENUE
+    filter_venue: str = DEFAULT_JOIN_VENUE
+    device_fused_kernels: str = "auto"
     hybrid_scan_enabled: bool = False
     hybrid_scan_max_appended_ratio: float = DEFAULT_HYBRID_SCAN_MAX_APPENDED_RATIO
     recover_on_access: bool = True
@@ -424,6 +929,8 @@ class HyperspaceConf:
 
     def set(self, key: str, value: Any) -> None:
         check_known_key(key)
+        if key == DEVICE_FUSED_KERNELS:
+            check_fused_kernels(str(value))  # a refused value leaves no override
         self.overrides[key] = value
         if key == INDEX_SYSTEM_PATH:
             self.system_path = str(value)
@@ -433,6 +940,20 @@ class HyperspaceConf:
             self.join_broadcast_max_rows = int(value)
         elif key == JOIN_REBUCKETIZE:
             self.join_rebucketize = str(value)
+        elif key == JOIN_VENUE:
+            self.join_venue = str(value)
+        elif key == JOIN_VENUE_MIN_MBPS:
+            self.join_venue_min_mbps = float(value)
+        elif key == BUILD_VENUE:
+            self.build_venue = str(value)
+        elif key == AGG_VENUE:
+            self.agg_venue = str(value)
+        elif key == SORT_VENUE:
+            self.sort_venue = str(value)
+        elif key == FILTER_VENUE:
+            self.filter_venue = str(value)
+        elif key == DEVICE_FUSED_KERNELS:
+            self.device_fused_kernels = str(value)
         elif key == INDEX_HYBRID_SCAN_ENABLED:
             self.hybrid_scan_enabled = _as_bool(value)
         elif key == INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO:
@@ -664,6 +1185,20 @@ class HyperspaceConf:
             return self.join_broadcast_max_rows
         if key == JOIN_REBUCKETIZE:
             return self.join_rebucketize
+        if key == JOIN_VENUE:
+            return self.join_venue
+        if key == JOIN_VENUE_MIN_MBPS:
+            return self.join_venue_min_mbps
+        if key == BUILD_VENUE:
+            return self.build_venue
+        if key == AGG_VENUE:
+            return self.agg_venue
+        if key == SORT_VENUE:
+            return self.sort_venue
+        if key == FILTER_VENUE:
+            return self.filter_venue
+        if key == DEVICE_FUSED_KERNELS:
+            return self.device_fused_kernels
         if key == INDEX_HYBRID_SCAN_ENABLED:
             return self.hybrid_scan_enabled
         if key == INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO:

@@ -43,14 +43,21 @@ paths:
 Host memory is bounded by the chunk and the window, never the source
 size. `compact` (OptimizeAction's seam) merges every live version dir
 into one sorted file a bucket, in memory or, above the budget, through
-the streaming pipeline. The JAX package's host sort venue
-(`hyperspace.build.venue`) is not ported: in this process the sort always
-runs on the card. The streaming and pooled builds sort on the builder's
-device: the JAX package reads the mesh there only for its venue.
+the streaming pipeline. Where the in-memory build and the streaming
+phase 2 sort is the build venue (`hyperspace.build.venue`, `_sort_venue`):
+the device (the exchange over the mesh, the batched device key sort) or
+the host (the JAX package's: the native counting sort by bucket, each
+bucket's key sort inside its carve task, `native.sort_range`, so sorting
+overlaps the encode of other buckets; `_host_sort_perms` in phase 2).
+Both give the same permutation, so the files are byte-identical on either
+venue. `auto` is the device; the host venue runs where
+`hyperspace.build.venue` or HYPERSPACE_VENUE forces it. The pooled
+build's workers always sort on the host.
 `last_build_stats` holds the path, rows, chunks, the footers' estimate,
 the phase walls (`phases_s`), the device the bucket sort ran on
-(`sort_device`), the shards an in-memory build or compaction sorted
-over (`mesh_devices`) and whether the native host hash was used.
+(`sort_device`, `cpu` on the host venue), the build venue
+(`sort_venue`), the shards an in-memory build or compaction sorted over
+(`mesh_devices`) and whether the native host hash was used.
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ from hyperspace_tpu_torch.obs import metrics as obs_metrics
 from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.ops.bucketize import bucketize_perm
 from hyperspace_tpu_torch.ops.hashing import bucket_ids
-from hyperspace_tpu_torch.ops.sortkeys import device_sort_perms, key_lanes
+from hyperspace_tpu_torch.ops.sortkeys import device_sort_perms, key_lanes, lanes_as_unsigned
 from hyperspace_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_for_parallelism, mesh_size
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
 
@@ -100,6 +107,13 @@ _MET_POOL_WORKERS = obs_metrics.gauge(
 
 def _pad_to(arr: np.ndarray, n: int) -> np.ndarray:
     return arr if len(arr) == n else np.concatenate([arr, np.zeros(n - len(arr), dtype=arr.dtype)])
+
+
+def _host_sort_perms(tables, indexed_columns: list[str]) -> list[np.ndarray]:
+    """Each table's stable key-sort permutation on the host (the native
+    key sort): the streaming build's host venue, `device_sort_perms`'
+    order."""
+    return [bx.host_sort_perm(t, indexed_columns) for t in tables]
 
 
 def _prefetched(it):
@@ -138,8 +152,10 @@ class DeviceIndexBuilder:
         pipeline_max_inflight_bytes: int = 0,
         workers: int = 0,
         exchange_dir: str | None = None,
+        venue: str = "auto",
     ):
         self.device = torch.device(device)
+        self.venue = venue  # the build venue (hyperspace.build.venue)
         self._mesh = mesh
         if memory_budget_bytes is None:
             memory_budget_bytes = DEFAULT_BUILD_MEMORY_BUDGET
@@ -151,11 +167,21 @@ class DeviceIndexBuilder:
         self.exchange_dir = str(exchange_dir) if exchange_dir else None
         self.last_build_stats: dict = {}
 
-    def _stats(self, sort_device: str | None = None, **stats) -> None:
+    def _stats(self, sort_device: str | None = None, sort_venue: str = "device", **stats) -> None:
         # sort_device: where the bucket sort ran (the builder's device; the
-        # pooled build's workers sort on the host).
-        self.last_build_stats = {**stats, "sort_device": sort_device or str(self.device),
+        # host on the host venue and in the pooled build's workers).
+        if sort_venue == "host":
+            sort_device = "cpu"
+        self.last_build_stats = {**stats, "sort_device": sort_device or str(self.device), "sort_venue": sort_venue,
                                  "native": native.available(), "hash_path": native.path_taken()}
+
+    def _sort_venue(self) -> str:
+        """Where the bucketize + sort permutation is computed: the device
+        (`auto`), or the threaded C++ counting sort and key sort where the
+        build venue forces the host."""
+        from hyperspace_tpu_torch.parallel.bandwidth import pick_venue
+
+        return pick_venue(self.venue, what="hyperspace.build.venue")
 
     def _mesh_for(self, num_buckets: int) -> Mesh:
         """The largest prefix of the builder's mesh whose size divides
@@ -204,7 +230,7 @@ class DeviceIndexBuilder:
         table = hio.read_table_files(files, plan.format, columns=columns, schema=plan.schema, device="cpu")
         t_decode = time.perf_counter() - t0
         phases = self.write_table(table, indexed_columns, num_buckets, dest_path)
-        self._stats(path="in-memory", bytes_estimate=est, rows=table.num_rows,
+        self._stats(path="in-memory", bytes_estimate=est, rows=table.num_rows, sort_venue=phases.pop("venue"),
                     mesh_devices=mesh_size(self._mesh_for(num_buckets)), phases_s={"decode": t_decode, **phases})
 
     # -- OptimizeAction's compactor seam ---------------------------------
@@ -235,7 +261,7 @@ class DeviceIndexBuilder:
         table = hio.read_parquet(files, device="cpu")
         t_decode = time.perf_counter() - t0
         phases = self.write_table(table, indexed, num_buckets, dest_path)
-        self._stats(path="compact", bytes_estimate=est, rows=table.num_rows,
+        self._stats(path="compact", bytes_estimate=est, rows=table.num_rows, sort_venue=phases.pop("venue"),
                     mesh_devices=mesh_size(self._mesh_for(num_buckets)), phases_s={"decode": t_decode, **phases})
 
     def write_table(
@@ -246,7 +272,9 @@ class DeviceIndexBuilder:
         dest_path: Path,
     ) -> dict:
         """Build one index version from a table in memory; returns the
-        phase wall times (hash_lanes, partition_sort, carve_encode_write)."""
+        phase wall times (hash_lanes, partition_sort, carve_encode_write;
+        on the host venue the key sorts run inside the carve) and the
+        build venue (`venue`)."""
         table = hio.host_table(table)
         n = table.num_rows
         t0 = time.perf_counter()
@@ -258,16 +286,36 @@ class DeviceIndexBuilder:
         lanes = key_lanes(table, indexed_columns)
         t_hash = time.perf_counter()
 
-        # Device: the exchange over the mesh and a stable sort by (bucket,
-        # key lanes) a shard (one sort on one device); the permutation and
-        # the per-bucket counts come back. Rows are padded to a multiple of
-        # the mesh size; the pads past n travel nowhere.
         mesh = self._mesh_for(num_buckets)
-        d = mesh_size(mesh)
-        n_pad = max(d, -(-n // d) * d)
-        order, bucket_rows = bucketize_perm(
-            mesh, [_pad_to(l, n_pad) for l in lanes], _pad_to(bucket, n_pad), n, num_buckets
-        )
+        venue = self._sort_venue()
+        sort_fn = None
+        if venue == "host":
+            # Host: the native counting sort by bucket now; each bucket's key
+            # sort runs INSIDE its carve task, so sorting overlaps the parquet
+            # encode of other buckets, and nothing crosses the link.
+            # pick_venue refused a forced host without the library; one
+            # turned off since raises here rather than write unsorted files.
+            res = native.bucket_perm(bucket, num_buckets)
+            if res is None:
+                raise HyperspaceError("the host build venue's counting sort needs the native library")
+            order, bucket_rows = res
+            lanes_u = lanes_as_unsigned(lanes)
+
+            def sort_fn(b: int, sel: np.ndarray) -> np.ndarray:
+                if not native.sort_range(sel, lanes_u):
+                    raise HyperspaceError("the host build venue's key sort needs the native library")
+                return sel
+        else:
+            # Device: the exchange over the mesh and a stable sort by
+            # (bucket, key lanes) a shard (one sort on one device); the
+            # permutation and the per-bucket counts come back. Rows are
+            # padded to a multiple of the mesh size; the pads past n travel
+            # nowhere.
+            d = mesh_size(mesh)
+            n_pad = max(d, -(-n // d) * d)
+            order, bucket_rows = bucketize_perm(
+                mesh, [_pad_to(l, n_pad) for l in lanes], _pad_to(bucket, n_pad), n, num_buckets
+            )
         if len(order) != n:
             raise HyperspaceError(f"row count changed through the sort: {n} → {len(order)}")
         t_sort = time.perf_counter()
@@ -277,13 +325,14 @@ class DeviceIndexBuilder:
         payload_names = [f.name for f in table.schema.fields if f.name not in key_names]
         hio.carve_and_write(
             Path(dest_path), table.select(key_names + payload_names),
-            bucket_rows, indexed_columns, order,
+            bucket_rows, indexed_columns, order, sort_fn=sort_fn,
         )
         t_done = time.perf_counter()
         return {
             "hash_lanes": t_hash - t0,
             "partition_sort": t_sort - t_hash,
             "carve_encode_write": t_done - t_sort,
+            "venue": venue,
         }
 
     # -- streaming out-of-core build -------------------------------------
@@ -384,14 +433,15 @@ class DeviceIndexBuilder:
                 f.name for f in sub_schema.select(ordered).fields
                 if not f.is_vector and f.name != sub_schema.field(indexed_columns[0]).name
             ]
+            sort_venue = self._sort_venue()
             if pipelined:
                 pipe_info = self._p2_pipelined(
                     writers, spill, spill_bytes, dest, sub_schema, ordered, indexed_columns, num_buckets,
-                    stat_cols, bucket_rows, key_stats, col_stats,
+                    stat_cols, bucket_rows, key_stats, col_stats, sort_venue,
                 )
             else:
                 self._p2_serial(spill, dest, sub_schema, ordered, indexed_columns, num_buckets, stat_cols,
-                                bucket_rows, key_stats, col_stats)
+                                bucket_rows, key_stats, col_stats, sort_venue)
             hio.write_manifest(
                 dest, num_buckets, indexed_columns, bucket_rows,
                 key_stats if any(s is not None for s in key_stats) else None,
@@ -402,6 +452,7 @@ class DeviceIndexBuilder:
         t_end = time.perf_counter()
         self._stats(
             path="streaming", format=fmt, bytes_estimate=est_bytes, chunks=n_chunks, rows=total_rows,
+            sort_venue=sort_venue,
             # p1 = decode → hash → partition → spill (decode_wait: the part
             # of the decode the prefetch did not hide); p2 = spill read →
             # key sort → final write (pipelined: the overlapped wall).
@@ -414,12 +465,18 @@ class DeviceIndexBuilder:
         if pipe_info is not None:
             self.last_build_stats["pipeline"] = pipe_info
 
+    def _sort_perms(self, tables, indexed_columns: list[str], venue: str) -> list[np.ndarray]:
+        """A phase-2 batch's key-sort permutations on the build venue."""
+        if venue == "host":
+            return _host_sort_perms(tables, indexed_columns)
+        return device_sort_perms(tables, indexed_columns, self.device)
+
     def _p2_serial(self, spill: Path, dest: Path, sub_schema, ordered, indexed_columns, num_buckets, stat_cols,
-                   bucket_rows, key_stats, col_stats) -> None:
+                   bucket_rows, key_stats, col_stats, sort_venue: str = "device") -> None:
         """The serial phase 2: batches planned from the spill footers (at
         most chunk_bytes of bucket data resident at once), each batch read
-        on threads, its keys sorted in one device pass, and its buckets
-        written on threads."""
+        on threads, its keys sorted in one pass on the build venue, and its
+        buckets written on threads."""
         spill_files = {
             b: str(spill / hio.bucket_file_name(b))
             for b in range(num_buckets) if (spill / hio.bucket_file_name(b)).exists()
@@ -447,7 +504,7 @@ class DeviceIndexBuilder:
             for ids in batches:
                 tables = list(pool.map(lambda b: hio.read_parquet([spill_files[b]], device="cpu"), ids))
                 with obs_trace.span("build.p2.sort", buckets=len(ids), rows=sum(t.num_rows for t in tables)):
-                    perms = device_sort_perms(tables, indexed_columns, self.device)
+                    perms = self._sort_perms(tables, indexed_columns, sort_venue)
                 futs = [
                     pool.submit(hio.write_bucket, dest, b, t.take(torch.from_numpy(p)))
                     for b, t, p in zip(ids, tables, perms)
@@ -474,6 +531,7 @@ class DeviceIndexBuilder:
         bucket_rows: list,
         key_stats: list,
         col_stats: list,
+        sort_venue: str = "device",
     ) -> dict:
         """The three-stage phase 2 behind a bounded bucket queue: the spill
         writers' closes run on the pool and feed the queue as they land;
@@ -600,7 +658,7 @@ class DeviceIndexBuilder:
                     ts = [t for _, t, _ in batch]
                     t0 = time.perf_counter()
                     with obs_trace.span("build.p2.sort", buckets=len(batch), rows=sum(t.num_rows for t in ts)):
-                        perms = device_sort_perms(ts, indexed_columns, self.device)
+                        perms = self._sort_perms(ts, indexed_columns, sort_venue)
                     busy["sort"] += time.perf_counter() - t0
                     for (b, t, nb), perm in zip(batch, perms):
                         wfuts.append(pool.submit(obs_trace.wrap(write_one), b, t, perm, nb))
@@ -742,7 +800,7 @@ class DeviceIndexBuilder:
             _MET_POOL_WORKERS.set(0)
             shutil.rmtree(exchange, ignore_errors=True)
         self._stats(
-            sort_device="cpu", path="pooled", format=fmt, workers=self.workers, p1_shards=n_shards, p2_owners=num_owners,
+            sort_device="cpu", sort_venue="host", path="pooled", format=fmt, workers=self.workers, p1_shards=n_shards, p2_owners=num_owners,
             rows=total_rows, chunks=n_chunks, exchange_bytes=exchange_bytes,
             worker_cuda_initialized=any(r["cuda_initialized"] for r in (*p1.values(), *p2.values())),
             phases_s={"p1_decode_hash_spill": t_p2 - t0, "p2_sort_encode_write": t_end - t_p2},

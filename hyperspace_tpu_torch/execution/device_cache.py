@@ -19,7 +19,9 @@ stays valid as long as the entry lives. Two instances serve the read path:
   query derives from stable inputs — group ids and join key codes on the
   host, and on the device the sorted and bucket-major padded key codes,
   aggregate channels and channel stacks — that would otherwise be
-  recomputed per query.
+  recomputed per query; and the host venues' copies of stable card
+  tensors (`host_array`), so that a repeat host-venue query downloads
+  nothing.
 
 "Stable" means owned by a live entry of one of them (`is_stable`). The
 JAX package freezes its numpy arrays; torch has no read-only tensors, so
@@ -304,6 +306,20 @@ def derived(key: tuple, base_refs: tuple, build_value):
         return out, nbytes_of(out)
 
     return _timed(lambda: HOST_DERIVED.get_or_build(key, base_refs, build))
+
+
+def host_array(t) -> np.ndarray:
+    """A tensor's values as a host array, for the host venues: a CPU
+    tensor's own memory, a card tensor's download, memoized in HOST_DERIVED
+    when the tensor is stable (a repeat query downloads nothing). A host
+    array is returned as it is."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    if t.device.type == "cpu":
+        return t.detach().numpy()
+    if not is_stable(t):
+        return _timed(lambda: t.detach().cpu().numpy())
+    return derived(("host", ident(t)), (t,), lambda: t.detach().cpu().numpy())
 
 
 def clear_all() -> None:

@@ -1,12 +1,14 @@
 """Aggregate execution: segment reduce, partial-aggregation pushdown,
 distinct expansion, and grouping-set re-folds (Executor mixin).
 
-A port of the JAX package's `execution/exec_agg.py::AggregateMixin`
-without its venues: every reduce runs on the session's device through
-ops/aggregate.py::aggregate_table (the CUDA segment-reduce kernel). With
-the executor's mesh, the plain segment reduce shards its rows over it
-(one K1 a shard; `stats["agg_devices"]`), as the JAX package's device
-venue does; the other branches reduce on one device, as there. A plain
+A port of the JAX package's `execution/exec_agg.py::AggregateMixin` with
+its venues: every reduce goes through ops/aggregate.py::aggregate_table
+on the aggregation venue (`_agg_venue`): the CUDA segment-reduce kernel
+on the session's device, or numpy's bincount / reduceat on the host. With
+the executor's mesh, the plain segment reduce's device venue shards its
+rows over it (one K1 a shard; `stats["agg_devices"]`), as the JAX
+package's does; the host venue never shards, and the other branches
+reduce on one device, as there. A plain
 aggregate over an inner join first tries the
 partial-aggregation pushdown, then the fused Aggregate(Join)
 (exec_join_agg.py), as the JAX package does; otherwise the child
@@ -24,17 +26,19 @@ ran with the JAX package's physical-plan names (`PartialAggPushdown`,
 `CountDistinctReaggregate`, `DistinctExpandAggregate`,
 `GroupingSetsReaggregate`, `GroupingSetsDistinct`), set when the branch
 finishes, over whatever its inner aggregates recorded; a plain
-aggregate records `segment-reduce-<device type>` or `fused-join-agg`.
+aggregate records `segment-reduce-<device type>` (`segment-reduce-host`
+on the host venue) or `fused-join-agg`.
 Each branch also names its physical node with the JAX package's op and
 detail keys (`SegmentReduceAggregate`, `FusedJoinAggregate`, ...); its
-`venue` is the session's device type.
-The distinct pair counts and a ROLLUP's prefix-chain factorization
-(one sort of the finest key for every level) run as torch ops on the
-session's device.
+`venue` is the session's device type, or `host`.
+The distinct pair counts (numpy's bincount on the host venue) and a
+ROLLUP's prefix-chain factorization (one sort of the finest key for
+every level) run as torch ops on the session's device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
@@ -99,18 +103,26 @@ class AggregateMixin:
             )
             return fused
         table = self._execute(plan.child)
-        self.stats["agg_path"] = f"segment-reduce-{self.device.type}"
-        if self.mesh is not None:
+        venue = self._agg_venue()
+        name = self._venue_label(venue)
+        self.stats["agg_path"] = f"segment-reduce-{name}"
+        mesh = self.mesh if venue == "device" else None
+        if mesh is not None:
             # The row dimension shards over the mesh: one K1 a shard.
-            self.stats["agg_devices"] = mesh_size(self.mesh)
+            self.stats["agg_devices"] = mesh_size(mesh)
         self._phys(
-            "SegmentReduceAggregate", venue=self.device.type, groups=len(plan.group_by), aggs=len(plan.aggs),
+            "SegmentReduceAggregate", venue=name, groups=len(plan.group_by), aggs=len(plan.aggs),
             devices=self.stats.get("agg_devices", 1),
         )
         return aggregate_table(
             table, plan.group_by, plan.aggs, plan.schema, groups=_group_ids_cached(table, plan.group_by),
-            mesh=self.mesh,
+            mesh=mesh, venue=venue, mask_venue=self._filter_venue(),
         )
+
+    def _venue_label(self, venue: str) -> str:
+        """A venue as the stats and the physical plan name it: the
+        session's device type, or `host`."""
+        return self.device.type if venue == "device" else "host"
 
     def _try_partial_agg_pushdown(self, plan: Aggregate) -> "ColumnTable | Aggregate | None":
         """Partial aggregation pushdown: for Aggregate(Join(L, R)) where
@@ -203,7 +215,8 @@ class AggregateMixin:
             )
 
         pschema = Aggregate(_TableLeaf(lt), pkeys, partial_specs).schema
-        partial = aggregate_table(lt, pkeys, partial_specs, pschema, groups=(gid, k, rep))
+        partial = aggregate_table(lt, pkeys, partial_specs, pschema, groups=(gid, k, rep),
+                                  venue=self._agg_venue(), mask_venue=self._filter_venue())
         self._phys("PartialAggPushdown", partial_rows=partial.num_rows, input_rows=lt.num_rows, keys=pkeys)
         outer_plan: LogicalPlan = Aggregate(
             Join(_TableLeaf(partial), child.right, child.left_on, child.right_on, "inner"),
@@ -241,28 +254,41 @@ class AggregateMixin:
         representative row of each pair maps back to its outer group, so
         a bincount over pair representatives IS the distinct count."""
         ct = self._execute(plan.child)
+        venue = self._agg_venue()
         gid, k, rep = _group_ids_cached(ct, plan.group_by)
         out_schema = plan.schema
         self.stats["agg_path"] = "DistinctExpandAggregate"
-        self._phys("DistinctExpandAggregate", distinct_cols=dcols, groups=len(plan.group_by), venue=self.device.type)
+        self._phys("DistinctExpandAggregate", distinct_cols=dcols, groups=len(plan.group_by),
+                   venue=self._venue_label(venue))
         if k == 0 or (ct.num_rows == 0 and plan.group_by):
             return ColumnTable.empty(out_schema, device=self.device)
         regular = [a for a in plan.aggs if a.fn != "count_distinct"]
         reg_fields = [out_schema.field(c) for c in plan.group_by]
         reg_fields += [out_schema.field(a.alias) for a in regular]
-        base = aggregate_table(ct, plan.group_by, regular, Schema(tuple(reg_fields)), groups=(gid, k, rep))
+        base = aggregate_table(ct, plan.group_by, regular, Schema(tuple(reg_fields)), groups=(gid, k, rep),
+                               venue=venue, mask_venue=self._filter_venue())
         cols = dict(base.columns)
         dicts = dict(base.dictionaries)
         validity = dict(base.validity)
-        gid_t = to_tensor(gid, self.device)
         pair_counts: dict[str, torch.Tensor] = {}
-        for d in dcols:
-            prep = to_tensor(group_ids(ct, [*plan.group_by, d])[2], self.device)
-            outer = gid_t[prep]
-            vd = ct.valid_mask(d)
-            if vd is not None:
-                outer = outer[vd[prep]]  # SQL: distinct counts exclude NULL
-            pair_counts[d] = torch.bincount(outer, minlength=k).to(torch.int64)
+        if venue == "host":
+            # The JAX package's host pair counts: numpy over host group ids.
+            for d in dcols:
+                prep = group_ids(ct, [*plan.group_by, d])[2]
+                outer = gid[prep]
+                vd = ct.host_valid_mask(d)
+                if vd is not None:
+                    outer = outer[vd[prep]]  # SQL: distinct counts exclude NULL
+                pair_counts[d] = to_tensor(np.bincount(outer, minlength=k).astype(np.int64), self.device)
+        else:
+            gid_t = to_tensor(gid, self.device)
+            for d in dcols:
+                prep = to_tensor(group_ids(ct, [*plan.group_by, d])[2], self.device)
+                outer = gid_t[prep]
+                vd = ct.valid_mask(d)
+                if vd is not None:
+                    outer = outer[vd[prep]]  # SQL: distinct counts exclude NULL
+                pair_counts[d] = torch.bincount(outer, minlength=k).to(torch.int64)
         for a in plan.aggs:
             if a.fn == "count_distinct":
                 cols[out_schema.field(a.alias).name] = pair_counts[a.expr.name.lower()]
@@ -292,7 +318,9 @@ class AggregateMixin:
                 base_specs.append(AggSpec(a.fn, a.expr, a.alias))
         bt = self._execute(Aggregate(plan.child, plan.group_by, base_specs))
         out_schema = plan.schema
-        self._phys("GroupingSetsReaggregate", sets=[list(s) for s in plan.grouping_sets], venue=self.device.type)
+        venue = self._agg_venue()
+        self._phys("GroupingSetsReaggregate", sets=[list(s) for s in plan.grouping_sets],
+                   venue=self._venue_label(venue))
 
         def refold(a: AggSpec) -> list[AggSpec]:
             """Phase-2 spec(s) re-aggregating a phase-1 partial column."""
@@ -320,7 +348,7 @@ class AggregateMixin:
                 fields.append(Field(sp.alias, dtype))
             sub = aggregate_table(
                 bt, list(s), specs2, Schema(tuple(fields)),
-                groups=None if prefix_groups is None else prefix_groups.get(len(s)),
+                groups=None if prefix_groups is None else prefix_groups.get(len(s)), venue=venue,
             )
 
             def agg_col(f, spec, cols, dicts, validity, sub=sub):

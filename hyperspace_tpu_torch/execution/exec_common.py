@@ -3,14 +3,16 @@ caches, the shared key factorization, bucket-major padding, the
 broadcast probe, the outer join's null extension and the aggregate
 channel inputs.
 
-A port of the JAX package's `execution/exec_common.py` without what
-only its unported modules use (the run-extremum host venue): `_TableLeaf`
+A port of the JAX package's `execution/exec_common.py`: `_TableLeaf`
 (a materialized table as a plan leaf, which the partial-aggregation
 pushdown and the grouping sets splice in), `_desugar_count_distinct`,
 `AlignedSide` (with its hybrid-scan deltas, without its projection: the
 join gather emits the join's schema directly), `SideData` with its hash
 domain and `_hash_fields_compatible`, `_filter_side`,
-`_bucket_sorted_codes`, `_pad_bucket_major`, `_composite_keys`,
+`_bucket_sorted_codes` (with its host venue, `_bucket_sorted_codes_host`:
+numpy's `lexsort((codes, bucket_of))`, the same stable permutation),
+`_pad_bucket_major`, `_composite_keys` (and its host twin), the fused
+Aggregate(Join)'s host run extrema `_RunExtremum`,
 `_broadcast_probe`, `_copy_field`, `_null_field` and `_factorize_keys`
 (null-safe keys included) with its helpers; `KeyBounds`, `key_bounds`
 (with the LIKE-prefix and year bounds), `predicate_all_key_bounds`,
@@ -19,9 +21,10 @@ domain and `_hash_fields_compatible`, `_filter_side`,
 `_factorize_keys_cached`, `_pad_bucket_major_cached` and `_stack_cached`
 (execution/device_cache.py says what "stable" means here). The key factorization is a copy and runs
 on the host (numpy): it yields int32 rank codes whose order is the key
-tuples' order and whose equality across sides is key equality. Sorting,
-padding, probing and everything after run as torch ops on the tables'
-device.
+tuples' order and whose equality across sides is key equality. On the
+device venues, sorting, padding, probing and everything after run as
+torch ops on the tables' device; on the host venues the codes stay on the
+host for the native merge.
 """
 
 from __future__ import annotations
@@ -106,7 +109,7 @@ def _bucket_of(offsets: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.repeat_interleave(torch.arange(len(counts), device=device), counts)
 
 
-def _filter_side(side: SideData, predicate: Expr, mesh=None) -> SideData:
+def _filter_side(side: SideData, predicate: Expr, mesh=None, venue: str = "auto") -> SideData:
     """Apply a side-local filter to bucket-grouped data, recomputing the
     bucket offsets over the surviving rows (grouping and within-bucket
     order are preserved — a filtered subsequence stays sorted). As in the
@@ -116,7 +119,7 @@ def _filter_side(side: SideData, predicate: Expr, mesh=None) -> SideData:
     t = side.table
     if t.num_rows == 0:
         return side
-    mask = eval_predicate_mask(t, predicate, mesh=mesh)
+    mask = eval_predicate_mask(t, predicate, mesh=mesh, venue=venue)
     b = len(side.offsets) - 1
     new_counts = torch.bincount(_bucket_of(side.offsets, t.device)[mask], minlength=b)
     offsets = np.concatenate([[0], np.cumsum(new_counts.cpu().numpy())]).astype(np.int64)
@@ -143,6 +146,135 @@ def _bucket_sorted_codes(codes: torch.Tensor, side: SideData) -> tuple[torch.Ten
     key = (bucket_of << 32) + (codes.long() + (1 << 31))
     perm = torch.sort(key, stable=True).indices
     return codes[perm], perm
+
+
+def _bucket_sorted_codes_host(codes: np.ndarray, side: SideData) -> tuple[np.ndarray, np.ndarray | None]:
+    """The host venue of `_bucket_sorted_codes` (the JAX package's, with
+    its memo): host codes non-decreasing within each bucket, and the perm
+    from sorted positions back to the side's rows (None when already
+    sorted, verified with one vectorized pass). Otherwise numpy's stable
+    `lexsort((codes, bucket_of))`, the device sort's permutation. Stable
+    codes memoize the check and the sort in HOST_DERIVED."""
+    n = len(codes)
+    if n == 0:
+        return codes, None
+    if side.sorted_within:
+
+        def check() -> bool:
+            if n > (1 << 25):
+                # Index files are sorted by contract (the builder writes
+                # them so); past 33M rows an O(n) check costs seconds, so
+                # sample: the last adjacency of every bucket plus 64k
+                # random adjacencies.
+                rng = np.random.default_rng(0)
+                bounds = np.asarray(side.offsets)
+                idx = rng.integers(0, n - 1, 65_536)
+                ends = bounds[1:]
+                probes = np.concatenate([idx, ends[ends >= 2] - 2])
+                probes = probes[probes + 1 < n]
+                bucket_of_probe = np.searchsorted(bounds, probes, side="right") - 1
+                same_bucket = bucket_of_probe == (np.searchsorted(bounds, probes + 1, side="right") - 1)
+                return not bool(((codes[probes + 1] < codes[probes]) & same_bucket).any())
+            counts0 = np.diff(side.offsets)
+            b_of = np.repeat(np.arange(len(counts0), dtype=np.int64), counts0)
+            d = np.diff(codes)
+            return not np.any(d[b_of[:-1] == b_of[1:]] < 0)
+
+        if dc.is_stable(codes):
+            ok = dc.HOST_DERIVED.get_or_build(("sortck", id(codes), side.offsets.tobytes()), (codes,),
+                                              lambda: (check(), 1))
+        else:
+            ok = check()
+        if ok:
+            return codes, None
+
+    def build_sorted(cacheable: bool):
+        counts = np.diff(side.offsets)
+        bucket_of = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+        perm = np.lexsort((codes, bucket_of))  # stable; the device sort's order
+        sc = codes[perm]
+        nbytes = sc.nbytes + perm.nbytes
+        if cacheable and nbytes <= dc.HOST_DERIVED.budget // 4:
+            # Freeze only what the cache keeps: a frozen but uncached
+            # result would pass for stable.
+            sc, perm = dc.freeze(sc), dc.freeze(perm)
+        return (sc, perm), nbytes
+
+    if dc.is_stable(codes):
+        return dc.HOST_DERIVED.get_or_build(("bsort_host", id(codes), side.offsets.tobytes()), (codes,),
+                                            lambda: build_sorted(True))
+    return build_sorted(False)[0]
+
+
+def _composite_keys_host(codes: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """(bucket << 33) + code composites on the host: `_composite_keys`'
+    twin, globally sorted for bucket-major key-sorted codes."""
+    b = np.repeat(np.arange(len(offsets) - 1, dtype=np.int64), np.diff(offsets))
+    return (b << np.int64(33)) + codes.astype(np.int64)
+
+
+class _RunExtremum:
+    """The host venue's per-primary-row extrema over the secondary match
+    runs, shared by every min / max channel of one fused Aggregate(Join)
+    (the JAX package's, copied). The secondary side is bucket-major
+    key-sorted, so all rows with one key form a contiguous run; each
+    primary row's run bounds come from two searchsorteds over the globally
+    sorted composite keys (built lazily). Extrema are multiplicity
+    independent, so the per-KEY extremum stands in for every duplicate
+    primary row with that key."""
+
+    def __init__(self, pri_codes, pri_offsets, pperm, sec_codes, sec_offsets, sperm, matches, n_l):
+        self.sperm = sperm
+        self.pperm = pperm
+        self.matches = matches
+        self.n_l = n_l
+        self._pri = (pri_codes, pri_offsets)
+        self._sec = (sec_codes, sec_offsets)
+        self._runs = None
+
+    def _run_index(self):
+        if self._runs is None:
+            cp = _composite_keys_host(*self._pri)
+            cs = _composite_keys_host(*self._sec)
+            st = np.searchsorted(cs, cp, side="left")
+            en = np.searchsorted(cs, cp, side="right")
+            if len(cs):
+                starts = np.concatenate([[0], np.flatnonzero(np.diff(cs) != 0) + 1])
+                ridx = np.clip(np.searchsorted(starts, st, side="right") - 1, 0, len(starts) - 1)
+            else:
+                starts = np.zeros(0, np.int64)
+                ridx = np.zeros(len(cp), np.int64)
+            self._runs = (st, en, en > st, starts, ridx)
+        return self._runs
+
+    def per_primary_row(self, fn: str, side: str, secondary: str, vals, ind):
+        """(row extremum, row validity) in ORIGINAL primary order for one
+        channel; `vals` / `ind` are the channel's per-row host arrays of
+        `side` (invalid slots zeroed, `ind` marking them)."""
+        identity = np.inf if fn == "min" else -np.inf
+        if side == secondary:
+            _st, _en, has, starts, ridx = self._run_index()
+            sv = vals if self.sperm is None else vals[self.sperm]
+            si = ind if self.sperm is None else ind[self.sperm]
+            if not len(starts):
+                return np.full(self.n_l, identity), np.zeros(self.n_l, bool)
+            op = np.minimum if fn == "min" else np.maximum
+            sv = np.where(si > 0, np.asarray(sv, np.float64), identity)
+            key_ext = op.reduceat(sv, starts)
+            key_validcnt = np.add.reduceat(np.asarray(si, np.float64), starts)
+            ext_sorted = np.where(has, key_ext[ridx], identity)
+            valid_sorted = has & (key_validcnt[ridx] > 0)
+            if self.pperm is not None:
+                ext = np.empty(self.n_l)
+                ext[self.pperm] = ext_sorted
+                valid = np.empty(self.n_l, bool)
+                valid[self.pperm] = valid_sorted
+                return ext, valid
+            return ext_sorted, valid_sorted
+        # A primary-side channel: the extremum over the group's MATCHED rows.
+        v = np.where(np.asarray(ind) > 0, np.asarray(vals, np.float64), identity)
+        valid = (self.matches > 0) & (np.asarray(ind) > 0)
+        return v, valid
 
 
 def _pad_bucket_major(
@@ -262,32 +394,54 @@ def _null_field(out_f, n: int, dict_src: ColumnTable | None, device, cols, dicts
     val[out_f.name] = torch.zeros(n, dtype=torch.bool, device=device)
 
 
-def _padded_key_codes(
-    lside: SideData, rside: SideData, left_on: list[str], right_on: list[str], null_safe: bool = False
-) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
+def _sorted_key_codes(
+    lside: SideData, rside: SideData, left_on: list[str], right_on: list[str], null_safe: bool = False,
+    regroup: str = "device",
+) -> list[tuple]:
     """Per side (left, right): the join keys' int32 codes from the shared
-    factorization, sorted within each bucket and padded bucket-major to
-    [B, L] (pads at the int32 max), and the perm from sorted positions
-    back to the side's rows (None when the buckets were sorted already).
-    Every step goes through the identity caches: over stable tables a
-    repeat join factorizes, uploads, sorts and pads nothing."""
+    factorization sorted within each bucket, and the perm from sorted
+    positions back to the side's rows (None when the buckets were sorted
+    already). `regroup` "host" sorts the host codes with numpy
+    (`_bucket_sorted_codes_host`) and returns host arrays; "device" sorts
+    them on the side's device and returns tensors."""
     lt, rt = lside.table, rside.table
     lkeys = [lt.schema.field(c).name for c in left_on]
     rkeys = [rt.schema.field(c).name for c in right_on]
     lc, rc = _factorize_keys_cached(lt, rt, lkeys, rkeys, null_safe=null_safe)
+    if regroup == "host":
+        return [_bucket_sorted_codes_host(codes, side) for side, codes in ((lside, lc), (rside, rc))]
+    return [_bucket_sorted_codes_cached(dc.device_put_cached(codes, side.table.device), side)
+            for side, codes in ((lside, lc), (rside, rc))]
+
+
+def _padded_key_codes(
+    lside: SideData, rside: SideData, left_on: list[str], right_on: list[str], null_safe: bool = False,
+    regroup: str = "device",
+) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
+    """Per side (left, right): the join keys' int32 codes from the shared
+    factorization, sorted within each bucket (on the `regroup` venue) and
+    padded bucket-major to [B, L] on the side's device (pads at the int32
+    max), and the perm from sorted positions back to the side's rows, a
+    tensor (None when the buckets were sorted already). Every step goes
+    through the identity caches: over stable tables a repeat join
+    factorizes, uploads, sorts and pads nothing."""
     out = []
-    for side, codes in ((lside, lc), (rside, rc)):
-        codes_t = dc.device_put_cached(codes, side.table.device)
-        sorted_codes, perm = _bucket_sorted_codes_cached(codes_t, side)
-        out.append((_pad_bucket_major_cached(sorted_codes, side.offsets), perm))
+    for side, (codes, perm) in zip((lside, rside), _sorted_key_codes(lside, rside, left_on, right_on, null_safe,
+                                                                    regroup)):
+        dev = side.table.device
+        codes = dc.device_put_cached(codes, dev) if isinstance(codes, np.ndarray) else codes
+        if isinstance(perm, np.ndarray):
+            perm = dc.device_put_cached(perm, dev)
+        out.append((_pad_bucket_major_cached(codes, side.offsets), perm))
     return out
 
 
-def _agg_channels(table: ColumnTable, spec) -> tuple[torch.Tensor, torch.Tensor]:
+def _agg_channels(table: ColumnTable, spec, mask_venue: str) -> tuple[torch.Tensor, torch.Tensor]:
     """(masked values, indicator) float64 channels for one AggSpec on the
     table's device, with the plain aggregate path's null semantics: null
-    slots carry 0, the indicator marks the valid ones."""
-    vals, valid, _ = agg_input(table, spec)
+    slots carry 0, the indicator marks the valid ones; CASE masks on
+    `mask_venue`."""
+    vals, valid, _ = agg_input(table, spec, mask_venue)
     vals = vals.to(torch.float64)
     if valid is None:
         return vals, torch.ones_like(vals)
@@ -362,14 +516,14 @@ def _group_ids_cached(table: ColumnTable, group_by: list[str]):
     )
 
 
-def _agg_channels_cached(tbl: ColumnTable, spec) -> tuple[torch.Tensor, torch.Tensor]:
+def _agg_channels_cached(tbl: ColumnTable, spec, mask_venue: str) -> tuple[torch.Tensor, torch.Tensor]:
     """`_agg_channels` memoized per (expression, input identity) for
     stable tables."""
     refs, parts = _stable_table_refs(tbl, {r.lower() for r in spec.references()})
     if not refs:  # unstable or constant expression: no identity to key on
-        return _agg_channels(tbl, spec)
+        return _agg_channels(tbl, spec, mask_venue)
     key = ("aggin", json.dumps(spec.expr.to_json(), sort_keys=True), parts)
-    return dc.derived(key, refs, lambda: _agg_channels(tbl, spec))
+    return dc.derived(key, refs, lambda: _agg_channels(tbl, spec, mask_venue))
 
 
 def _factorize_keys_cached(

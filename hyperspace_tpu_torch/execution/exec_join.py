@@ -9,13 +9,18 @@ unmatched rows; semi and anti joins without a residual are a membership
 probe; with one, only the columns the residual reads are gathered; an
 outer join's residual changes the matching itself), `_semi_match_mask`,
 `_match_pairs` with the broadcast probe and `_should_broadcast`,
-`_gather_pairs`, `_left_unmatched` and `_right_unmatched`. The match
-pairs, the probes, the masks and the gathers all run on the session's
-device; only the key factorization runs on the host. With the
-executor's mesh, the merge join shards its buckets over it
+`_gather_pairs`, `_left_unmatched` and `_right_unmatched`. The key
+factorization runs on the host; the probes and the gathers on the
+session's device. The merge has the JAX package's two venues
+(`_join_venue`): the device venue pads the sorted codes bucket-major and
+merges them with K2 (`device-searchsorted`); the host venue runs the
+native C++ merge (`native.merge_join_sorted`, `host-native-merge`) over
+the host codes, regrouped on the sort venue, and uploads the pairs for
+the gathers. The residual masks run on the filter venue. With the
+executor's mesh, the device merge shards its buckets over it
 (`ops/join.py::merge_join_sharded`, one K2 a shard; `stats["join_devices"]`)
 and the residual masks their rows, as the JAX package's device venue
-does. Its host venue (the C++ merge) has no counterpart here.
+does.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.execution import device_cache as dc
+from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.exec_common import (
     SideData,
     _broadcast_probe,
@@ -32,6 +38,7 @@ from hyperspace_tpu_torch.execution.exec_common import (
     _factorize_keys_cached,
     _null_field,
     _padded_key_codes,
+    _sorted_key_codes,
 )
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_tensor
 from hyperspace_tpu_torch.ops import join as join_ops
@@ -72,7 +79,8 @@ class JoinMixin:
             # and apply inside _partition_join.) The filtered table is a
             # new table, so it inherits no preserved bucket grouping.
             before = out.num_rows
-            out = out.filter_mask(eval_predicate_mask(out, plan.condition, mesh=self.mesh))
+            out = out.filter_mask(eval_predicate_mask(out, plan.condition, mesh=self.mesh,
+                                                      venue=self._filter_venue()))
             self._phys(residual_condition=True, residual_rows_dropped=before - out.num_rows)
         self.stats["join_paths"].append(path)
         self._phys(
@@ -122,7 +130,7 @@ class JoinMixin:
                 tuple(left_names.select(lkeep).fields) + tuple(plan.right.schema.select(rkeep).fields)
             )
             pairs = self._gather_pairs(plan, lt, rt, lidx, ridx, schema=sub_schema)
-            pmask = eval_predicate_mask(pairs, plan.condition, mesh=self.mesh)
+            pmask = eval_predicate_mask(pairs, plan.condition, mesh=self.mesh, venue=self._filter_venue())
             matched = torch.zeros(lt.num_rows, dtype=torch.bool, device=lt.device)
             kept = lidx[pmask]
             matched[kept] = True
@@ -135,7 +143,7 @@ class JoinMixin:
             # it is no match, so its rows fall through to the
             # null-extended unmatched parts below (computed from the
             # SURVIVING pairs).
-            pmask = eval_predicate_mask(inner, plan.condition, mesh=self.mesh)
+            pmask = eval_predicate_mask(inner, plan.condition, mesh=self.mesh, venue=self._filter_venue())
             inner = inner.filter_mask(pmask)
             pairs = len(lidx)
             lidx, ridx = lidx[pmask], ridx[pmask]
@@ -208,9 +216,13 @@ class JoinMixin:
                 self.stats["num_buckets"] = 1
                 self.stats["join_kernel"] = "device-broadcast-hash"
                 return res[0], res[1], None
-        (lk, lperm), (rk, rperm) = _padded_key_codes(lside, rside, plan.left_on, plan.right_on, plan.null_safe)
         b = len(lside.offsets) - 1
         self.stats["num_buckets"] = b
+        regroup = self._sort_venue()
+        if self._join_venue() == "host":
+            return self._host_match_pairs(plan, lside, rside, regroup)
+        (lk, lperm), (rk, rperm) = _padded_key_codes(lside, rside, plan.left_on, plan.right_on, plan.null_safe,
+                                                     regroup)
         if self.mesh is not None:
             # The bucket dimension shards over the mesh: one K2 a shard.
             jmesh = mesh_for_parallelism(self.mesh, b)
@@ -228,6 +240,34 @@ class JoinMixin:
         if rperm is not None:
             ridx = rperm[ridx]
         return lidx, ridx, totals
+
+    def _host_match_pairs(self, plan: Join, lside: SideData, rside: SideData, regroup: str):
+        """The host venue of `_match_pairs`: the exact bucket-parallel C++
+        merge over the host codes sorted within each bucket (on the
+        `regroup` venue, brought to the host), the perms applied on the
+        host, and the pairs and per-bucket counts uploaded for the
+        gathers."""
+        from hyperspace_tpu_torch import native
+        from hyperspace_tpu_torch.execution.device_cache import host_array
+
+        (lcodes, lperm), (rcodes, rperm) = [
+            (host_array(c), None if p is None else host_array(p))
+            for c, p in _sorted_key_codes(lside, rside, plan.left_on, plan.right_on, plan.null_safe, regroup)
+        ]
+        res = native.merge_join_sorted(lcodes, lside.offsets, rcodes, rside.offsets)
+        if res is None:
+            # pick_venue refuses a forced host without the library; a
+            # library turned off later is a fault, never a device retreat.
+            raise HyperspaceError("hyperspace.join.venue=host: the native library is turned off")
+        lidx, ridx, totals = res
+        self.stats["join_kernel"] = "host-native-merge"
+        if lperm is not None:
+            lidx = lperm[lidx]
+        if rperm is not None:
+            ridx = rperm[ridx]
+        dev = lside.table.device
+        return (torch.from_numpy(lidx).to(dev), torch.from_numpy(ridx).to(dev),
+                torch.from_numpy(np.asarray(totals, dtype=np.int64)).to(dev))
 
     def _should_broadcast(self, n_l: int, n_r: int) -> bool:
         """Small-enough and asymmetric-enough for the broadcast probe."""

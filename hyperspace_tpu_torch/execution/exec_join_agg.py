@@ -2,13 +2,24 @@
 materializing the joined pairs (Executor mixin).
 
 A port of the JAX package's `execution/exec_join_agg.py`:
-`_try_fused_join_aggregate` and `_device_fused_channels`. There is no
-host venue: the channels always run on the session's device through
-ops/join_agg.py (K2 for the run bounds, K1 for the fold). Its sides come
-from `_join_sides`, so they may be zero-exchange aligned, re-bucketized,
-bucket-preserved or cut by dynamic partition pruning; a side whose
-buckets are not sorted within (an exchanged one) is sorted by
-(bucket, code) on the device first. It never takes the broadcast probe. Group ids are
+`_try_fused_join_aggregate` with its two venues (`_join_venue`). On the
+device venue (`_device_fused_channels`, `device-run-prefix`) the channels
+run on the session's device through ops/join_agg.py (K2 for the run
+bounds, K1 for the fold). On the host venue (`_host_fused_channels`,
+`host-native-merge-accumulate`) one native C++ merge+accumulate pass
+sums the secondary channels per primary row over the host key codes,
+then numpy bincounts fold them per group, and min / max channels go
+through `_RunExtremum` and the host segment reduce (the JAX package's
+code, copied); the channels are read as host copies of the card's
+(`device_cache.host_array`). Where the JAX package quietly takes the
+device path because the library is missing, the port raises: a forced
+host venue without the library is refused earlier, by `pick_venue`.
+
+Its sides come from `_join_sides`, so they may be zero-exchange aligned,
+re-bucketized, bucket-preserved or cut by dynamic partition pruning; a
+side whose buckets are not sorted within (an exchanged one) is sorted by
+(bucket, code) first, on the sort venue. It never takes the broadcast
+probe. Group ids are
 factorized on the host (ops/aggregate.py::group_ids), as for the plain
 aggregate. Group ids, channels, pads and channel stacks go through the
 identity caches (exec_common.py), as in the JAX package: a repeat over the
@@ -20,12 +31,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hyperspace_tpu_torch.execution.device_cache import device_put_cached
+from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.execution.device_cache import device_put_cached, host_array
 from hyperspace_tpu_torch.execution.exec_common import (
+    _RunExtremum,
     _agg_channels_cached,
     _group_ids_cached,
     _pad_bucket_major_cached,
     _padded_key_codes,
+    _sorted_key_codes,
     _stack_cached,
 )
 from hyperspace_tpu_torch.execution.table import ColumnTable, to_numpy
@@ -95,7 +109,14 @@ class FusedJoinAggMixin:
         self.stats["agg_path"] = "fused-join-agg"
         self.stats["num_buckets"] = len(lside.offsets) - 1
 
-        (lk, lperm), (rk, rperm) = _padded_key_codes(lside, rside, join.left_on, join.right_on, join.null_safe)
+        regroup = self._sort_venue()
+        host = self._join_venue() == "host"
+        if host:
+            sorted_codes = [(host_array(c), None if p is None else host_array(p)) for c, p in
+                            _sorted_key_codes(lside, rside, join.left_on, join.right_on, join.null_safe, regroup)]
+        else:
+            sorted_codes = _padded_key_codes(lside, rside, join.left_on, join.right_on, join.null_safe, regroup)
+        (lk, lperm), (rk, rperm) = sorted_codes
         keys, perms = {"left": lk, "right": rk}, {"left": lperm, "right": rperm}
 
         ptable = data[primary].table
@@ -105,10 +126,16 @@ class FusedJoinAggMixin:
                 return ColumnTable.empty(plan.schema, device=self.device)
             k, gid, rep = 1, np.zeros(0, np.int64), np.zeros(0, np.int64)
 
-        self.stats["join_kernel"] = "device-run-prefix"
-        out, spec_layout = self._device_fused_channels(
-            plan, data, keys, perms, primary, secondary, spec_sides, gid, k
-        )
+        if host:
+            self.stats["join_kernel"] = "host-native-merge-accumulate"
+            out, spec_layout = self._host_fused_channels(
+                plan, data, keys, perms, primary, secondary, spec_sides, gid, k
+            )
+        else:
+            self.stats["join_kernel"] = "device-run-prefix"
+            out, spec_layout = self._device_fused_channels(
+                plan, data, keys, perms, primary, secondary, spec_sides, gid, k
+            )
         star = out[0]
 
         keep = star > 0 if plan.group_by else np.ones(k, bool)
@@ -144,6 +171,101 @@ class FusedJoinAggMixin:
                 validity[out_f.name] = ~empty
         return ColumnTable.from_numpy(out_schema, cols, dicts, validity, device=self.device)
 
+    def _host_fused_channels(self, plan, data, codes, perms, primary, secondary, spec_sides, gid_orig, k):
+        """The host venue: one C++ merge+accumulate pass computes the
+        per-primary-row channel sums and match counts over the host key
+        codes (no pair materialization), then per-group bincounts give the
+        [K] channel layout the device kernels emit. Returns (host [C, k]
+        channel results, per-spec (value channel, count channel)
+        indices)."""
+        from hyperspace_tpu_torch import native
+        from hyperspace_tpu_torch.ops.aggregate import aggregate_arrays_host
+
+        if not native.available():
+            raise HyperspaceError("hyperspace.join.venue=host: the native library is turned off")
+        tbl_s = data[secondary].table
+        sec_arrays: list[np.ndarray] = []  # SORTED secondary order
+        parts: list[tuple] = []
+
+        def sec_sorted(a: np.ndarray) -> np.ndarray:
+            return a[perms[secondary]] if perms[secondary] is not None else a
+
+        mask_venue = self._filter_venue()
+        for spec, s in zip(plan.aggs, spec_sides):
+            if s is None:
+                parts.append(("star",))
+                continue
+            vals, ind = (host_array(a) for a in _agg_channels_cached(data[s].table, spec, mask_venue))
+            if spec.fn in ("min", "max"):
+                # Extremum channels bypass the sum accumulator: per-KEY run
+                # extrema (secondary) / matched-row extrema (primary).
+                parts.append(("mm", spec.fn, s, vals, ind))
+            elif s == secondary:
+                vi = None
+                if spec.fn in ("sum", "mean"):
+                    sec_arrays.append(sec_sorted(vals))
+                    vi = len(sec_arrays) - 1
+                sec_arrays.append(sec_sorted(ind))
+                parts.append(("sec", vi, len(sec_arrays) - 1))
+            else:
+                parts.append(("pri", vals if spec.fn in ("sum", "mean") else None, ind))
+
+        rvals = _host_stack(sec_arrays, (0, tbl_s.num_rows))
+        acc_sorted, match_sorted = native.merge_join_accumulate(
+            codes[primary], data[primary].offsets, codes[secondary], data[secondary].offsets, rvals,
+        )
+        n_l = data[primary].table.num_rows
+        pperm = perms[primary]
+        if pperm is not None:
+            matches = np.empty(n_l)
+            matches[pperm] = match_sorted
+            acc = np.empty_like(acc_sorted)
+            acc[:, pperm] = acc_sorted
+        else:
+            matches, acc = match_sorted, acc_sorted
+
+        def greduce(w: np.ndarray) -> np.ndarray:
+            if n_l == 0:
+                return np.zeros(k)
+            return np.bincount(gid_orig, weights=w, minlength=k)
+
+        mm_rows = None
+        if any(p[0] == "mm" for p in parts):
+            mm_rows = _RunExtremum(
+                codes[primary], data[primary].offsets, pperm,
+                codes[secondary], data[secondary].offsets, perms[secondary], matches, n_l,
+            )
+
+        out: list[np.ndarray] = [greduce(matches)]  # star = pairs per group
+        spec_layout: list[tuple[int | None, int]] = []
+        for part in parts:
+            if part[0] == "star":
+                spec_layout.append((None, 0))
+            elif part[0] == "sec":
+                _, vi, ci = part
+                v_idx = None
+                if vi is not None:
+                    out.append(greduce(acc[vi]))
+                    v_idx = len(out) - 1
+                out.append(greduce(acc[ci]))
+                spec_layout.append((v_idx, len(out) - 1))
+            elif part[0] == "mm":
+                _, fn, s, vals, ind = part
+                row_ext, row_valid = mm_rows.per_primary_row(fn, s, secondary, vals, ind)
+                res, cnt = aggregate_arrays_host([(row_ext, row_valid, fn)], gid_orig, k)
+                out.append(res[0])
+                out.append(cnt[0])
+                spec_layout.append((len(out) - 2, len(out) - 1))
+            else:
+                _, vals, ind = part
+                v_idx = None
+                if vals is not None:
+                    out.append(greduce(vals * matches))
+                    v_idx = len(out) - 1
+                out.append(greduce(ind * matches))
+                spec_layout.append((v_idx, len(out) - 1))
+        return np.stack(out), spec_layout
+
     def _device_fused_channels(self, plan, data, keys, perms, primary, secondary, spec_sides, gid, k):
         """The channel program's inputs, bucket-major padded on the device
         at natural widths (the widest bucket of each side, as the padded
@@ -177,11 +299,12 @@ class FusedJoinAggMixin:
             return len(channels) - 1
 
         spec_layout: list[tuple[int | None, int]] = []  # (value ch, count ch; 0 = star)
+        mask_venue = self._filter_venue()
         for spec, s in zip(plan.aggs, spec_sides):
             if s is None:  # count(*)
                 spec_layout.append((None, 0))
                 continue
-            vals, ind = _agg_channels_cached(data[s].table, spec)
+            vals, ind = _agg_channels_cached(data[s].table, spec, mask_venue)
             vi = None
             if spec.fn in ("sum", "mean"):
                 vi = add_channel(s, pad_rows(s, vals))
@@ -198,6 +321,17 @@ class FusedJoinAggMixin:
         svals = _stack_cached(s_arrays, (0, b, ls), dev)
         out = fused_join_aggregate(pk, sk, pvals, svals, gid_pad, k, tuple(channels))
         return to_numpy(out), spec_layout
+
+
+def _host_stack(arrs: list, empty_shape: tuple) -> np.ndarray:
+    """np.stack through the derived cache when every channel is stable."""
+    from hyperspace_tpu_torch.execution import device_cache as dc
+
+    if not arrs:
+        return np.zeros(empty_shape)
+    if all(dc.is_stable(a) for a in arrs):
+        return dc.derived(("stack_host", tuple(id(a) for a in arrs)), tuple(arrs), lambda: np.stack(arrs))
+    return np.stack(arrs)
 
 
 def _extremum_input(vals: torch.Tensor, ind: torch.Tensor, ident: float) -> torch.Tensor:

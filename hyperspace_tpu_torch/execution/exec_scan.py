@@ -16,7 +16,10 @@ whole and masks the union (`HybridScanFilter`, the JAX package's
 physical-plan name). Each branch names its physical node as the JAX
 package does (`IndexPointLookup`, `IndexRangeScan`, `HybridScanFilter`,
 with `files_pruned`, `rows_pruned` and the kernel); a physical read adds
-its files' bytes on disk to `bytes_scanned`.
+its files' bytes on disk to `bytes_scanned`. The residual mask runs on the
+filter venue (`_filter_venue`): torch ops on the session's device
+(`device-mask`) or the JAX package's numpy evaluation on the host
+(`host-mask`, its name there), recorded in `stats["mask_kernel"]`.
 """
 
 from __future__ import annotations
@@ -56,8 +59,9 @@ from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Scan, Union
 # Bucket pruning reads at most this many point combinations; above it
 # the (still-correct) mask takes over.
 MAX_POINT_COMBOS = 64
-# The predicate mask's kernel: torch ops on the session's device.
-MASK_KERNEL = "device-mask"
+# The predicate mask's kernel by venue: torch ops on the session's device,
+# or numpy on the host.
+MASK_KERNELS = {"device": "device-mask", "host": "host-mask"}
 
 
 def scan_files(scan: Scan) -> list[str]:
@@ -176,6 +180,9 @@ class ScanFilterMixin:
         # Per-OPERATOR pruning evidence: deltas of the query-cumulative
         # counters from this frame's start.
         fp0, rp0 = self.stats["files_pruned"], self.stats["rows_pruned"]
+        venue = self._filter_venue()
+        mask_kernel = MASK_KERNELS[venue]
+        self.stats["mask_kernel"] = mask_kernel
         if isinstance(child, Scan) and child.bucket_spec is not None:
             pruned = self._prune_bucket_files(child, plan.predicate)
             if pruned is not None:
@@ -183,10 +190,10 @@ class ScanFilterMixin:
                 self._phys(
                     "IndexPointLookup",
                     files_pruned=self.stats["files_pruned"] - fp0,
-                    kernel=f"bucket-hash-prune + {MASK_KERNEL}",
+                    kernel=f"bucket-hash-prune + {mask_kernel}",
                 )
                 table = self._read(pruned, child.scan_schema.names, child.scan_schema, child.root)
-                return apply_filter(table, plan.predicate, mesh=self.mesh)
+                return apply_filter(table, plan.predicate, mesh=self.mesh, venue=venue)
             ranged = self._range_read(child, plan.predicate)
             if ranged is not None:
                 table, exact = ranged
@@ -195,6 +202,7 @@ class ScanFilterMixin:
                     # The slice IS the predicate: every conjunct bounds the
                     # sorted key, so the residual mask would be all-true.
                     self.stats["range_exact"] = True
+                    self.stats["mask_kernel"] = None
                     self._phys(
                         "IndexRangeScan",
                         files_pruned=self.stats["files_pruned"] - fp0,
@@ -207,9 +215,9 @@ class ScanFilterMixin:
                     "IndexRangeScan",
                     files_pruned=self.stats["files_pruned"] - fp0,
                     rows_pruned=self.stats["rows_pruned"] - rp0,
-                    kernel=f"minmax-prune + searchsorted-slice + {MASK_KERNEL}",
+                    kernel=f"minmax-prune + searchsorted-slice + {mask_kernel}",
                 )
-                return apply_filter(table, plan.predicate, mesh=self.mesh)
+                return apply_filter(table, plan.predicate, mesh=self.mesh, venue=venue)
         if isinstance(child, Union):
             # Hybrid scan: prune the bucketed input(s), keep deltas whole.
             new_inputs: list[LogicalPlan] = []
@@ -225,13 +233,13 @@ class ScanFilterMixin:
             self._phys(
                 "HybridScanFilter",
                 files_pruned=self.stats["files_pruned"] - fp0,
-                kernel=f"bucket/minmax-prune + {MASK_KERNEL}",
+                kernel=f"bucket/minmax-prune + {mask_kernel}",
             )
             table = self._union(Union(new_inputs))
             self.stats["scan"] = "HybridScanFilter"
-            return apply_filter(table, plan.predicate, mesh=self.mesh)
-        self._phys(kernel=MASK_KERNEL)
-        return apply_filter(self._execute(child), plan.predicate, mesh=self.mesh)
+            return apply_filter(table, plan.predicate, mesh=self.mesh, venue=venue)
+        self._phys(kernel=mask_kernel)
+        return apply_filter(self._execute(child), plan.predicate, mesh=self.mesh, venue=venue)
 
     def _prune_bucket_files(self, scan: Scan, predicate: Expr) -> list[str] | None:
         """If the predicate pins every bucket column with equality

@@ -19,8 +19,11 @@ mask over the buckets the build sorted (a sorted bucket's rows inside
 membership probe against the producer's sorted key set. The cut is
 memoized in HOST_DERIVED on the side's stable identity, so a repeated
 query sees the same tensors. The exchange hashes rows on the host (the
-row hash, as the build does) and groups them with one stable device sort
-of the bucket ids (the JAX package's `device-sort-exchange`). A hybrid
+row hash, as the build does) and groups them on the join venue: one
+stable device sort of the bucket ids (the JAX package's
+`device-sort-exchange`), or on the host the native counting sort
+(`host-counting-sort-exchange`; numpy's stable argsort,
+`host-argsort-exchange`, where the library is turned off). A hybrid
 side (a Union of an index scan and the appended files' scans, from hybrid
 scan) is an aligned side with deltas: its delta rows are hashed on the
 host on the bucket columns in build order and, with the index rows'
@@ -36,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch import native
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution import device_cache as dc
 from hyperspace_tpu_torch.execution import io as hio
@@ -308,9 +312,9 @@ class JoinSidesMixin:
         dtype domain (equal values then hash identically; values the index
         side cannot represent have no partner there, so their placement
         cannot matter). The hash runs on the host, as the build's does;
-        the grouping is one stable sort of the bucket ids on the device.
-        None when the key shapes cannot share a hash domain (string vs
-        non-string)."""
+        the grouping is one stable sort of the bucket ids on the join venue
+        (the device, or the host's counting sort). None when the key shapes
+        cannot share a hash domain (string vs non-string)."""
         hs = []
         for c, fi in zip(key_cols, idx_fields):
             f = table.schema.field(c)
@@ -328,10 +332,22 @@ class JoinSidesMixin:
             if valid is not None:
                 h = np.where(valid, h, NULL_HASH)
             hs.append(h)
-        bucket = to_tensor(bucket_ids(combine_hashes(hs), num_buckets), table.device)
-        order = torch.sort(bucket, stable=True).indices
-        counts = torch.bincount(bucket, minlength=num_buckets).cpu().numpy()
-        self.stats["exchange_kernel"] = "device-sort-exchange"
+        bucket_np = np.asarray(bucket_ids(combine_hashes(hs), num_buckets), dtype=np.int32)
+        if self._join_venue() == "device":
+            bucket = to_tensor(bucket_np, table.device)
+            order = torch.sort(bucket, stable=True).indices
+            counts = torch.bincount(bucket, minlength=num_buckets).cpu().numpy()
+            self.stats["exchange_kernel"] = "device-sort-exchange"
+        else:
+            res = native.bucket_perm(bucket_np, num_buckets)
+            if res is not None:
+                order, counts = res
+                self.stats["exchange_kernel"] = "host-counting-sort-exchange"
+            else:
+                order = np.argsort(bucket_np, kind="stable")
+                counts = np.bincount(bucket_np, minlength=num_buckets).astype(np.int64)
+                self.stats["exchange_kernel"] = "host-argsort-exchange"
+            order = torch.from_numpy(order).to(table.device)
         offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
         return SideData(table.take(order), offsets, False, hash_fields=tuple(idx_fields))
 
@@ -379,7 +395,7 @@ class JoinSidesMixin:
             sorted_within = False
         out = SideData(table, offsets, sorted_within, hash_fields=hf)
         if side.predicate is not None:
-            out = _filter_side(out, side.predicate, self.mesh)
+            out = _filter_side(out, side.predicate, self.mesh, self._filter_venue())
         return out
 
     def _merge_deltas(self, side: AlignedSide, table: ColumnTable, offsets: np.ndarray, num_buckets: int):

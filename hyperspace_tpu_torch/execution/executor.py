@@ -27,12 +27,11 @@ exec_agg.py), Window (ops/window.py), Sort and Limit, with its
 bucket-preserved join outputs (`_stash_bucketed`, `_preserved_sidedata`,
 `_propagate_stash`), ORDER BY ... LIMIT as a top-N selection (`_top_n`)
 and LIMIT over an unordered scan chain as an early-out read
-(`_limit_early_out`). There are no venues: every operator runs on the
-session's device, or, with the executor's mesh, over the mesh's shards
-where the JAX package's device venue shards it (the aligned merge join,
-the plain segment-reduce aggregate, the predicate masks, the top-N
-selection: `join_devices`, `agg_devices`, `top_n["devices"]`). The
-stats name what ran; `join_paths` lists the path of every join of the
+(`_limit_early_out`). With the executor's mesh, the device venue runs
+over the mesh's shards where the JAX package's device venue shards it
+(the aligned merge join, the plain segment-reduce aggregate, the
+predicate masks, the top-N selection: `join_devices`, `agg_devices`,
+`top_n["devices"]`). The stats name what ran; `join_paths` lists the path of every join of the
 query in the order they finished (`join_path` is the
 last's), and `exchanges` what each exchanging join did to its sides
 (`rebucketize`, `preserved`, `preserved-both` or `preserved+rebucketize`,
@@ -40,6 +39,20 @@ the JAX package's `exchange` detail of its physical plan). `top_n` and
 `limit_early_out` carry the details of the JAX package's `TopN` and
 `LimitEarlyOut` physical nodes (the selection's kernel and candidates;
 the files scanned of the files listed).
+
+Every operator the JAX package runs "on host or on device" has both
+venues (`_venue` and the per-operator `_join_venue`, `_filter_venue`,
+`_agg_venue` and the sort venue, through parallel/bandwidth.py's
+`pick_venue`): the
+device venue is torch ops and the CUDA kernels on the session's device,
+the host venue the JAX package's numpy and native C++ code over host
+copies of the columns. `auto` is the device venue; the host venue runs
+where a venue key or HYPERSPACE_VENUE forces it (the JAX package's link
+probe is not ported: parallel/bandwidth.py says why). The choice shows in the stats
+(`agg_path` `segment-reduce-host`, `join_kernel` `host-native-merge` /
+`host-native-merge-accumulate`, `exchange_kernel`
+`host-counting-sort-exchange`, `mask_kernel` `host-mask`, `sort_op`
+`HostSort`) and in the physical plan's names.
 
 The executed physical plan (`physical_plan`, execution/physical.py) is
 recorded as the query runs, with the JAX package's operator names and
@@ -79,7 +92,8 @@ from hyperspace_tpu_torch.execution.physical import PhysicalNode
 from hyperspace_tpu_torch.execution.table import ColumnTable
 from hyperspace_tpu_torch.ops.project import project_table
 from hyperspace_tpu_torch.ops.sortkeys import (
-    column_lanes, device_order_perm, distributed_top_n_candidates, lane_tensor, lanes_as_unsigned,
+    column_lanes, device_order_perm, distributed_top_n_candidates, lane_tensor, lanes_as_unsigned, lexsort_lanes,
+    order_lanes,
 )
 from hyperspace_tpu_torch.parallel.mesh import mesh_size
 from hyperspace_tpu_torch.obs import trace as obs_trace
@@ -117,6 +131,8 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
             "join_paths": [],
             "exchange_kernel": None,
             "exchanges": [],
+            "mask_kernel": None,
+            "sort_op": None,
             "num_buckets": None,
             "top_n": None,
             "limit_early_out": None,
@@ -235,7 +251,7 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
             if plan.is_simple:
                 return self._propagate_stash(child, child.select(plan.columns))
             self._phys("ProjectCompute", computed=[c[0] for c in plan.columns if not isinstance(c, str)])
-            return project_table(child, plan.columns, plan.schema)
+            return project_table(child, plan.columns, plan.schema, self._filter_venue())
         if isinstance(plan, Join):
             return self._join(plan)
         if isinstance(plan, Union):
@@ -251,11 +267,13 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
                 frame=plan.frame,
                 funcs=[f.fn for f in plan.funcs],
             )
-            return window_table(t, plan.partition_by, plan.order_by, plan.funcs, plan.frame, plan.schema)
+            return window_table(t, plan.partition_by, plan.order_by, plan.funcs, plan.frame, plan.schema,
+                                self._filter_venue())
         if isinstance(plan, Sort):
             t = self._execute(plan.child)
-            self._phys("DeviceSort", keys=[c for c, _ in plan.by])
-            return self._sorted_table(t, plan)
+            venue = self._sort_venue()
+            self._phys(f"{venue.capitalize()}Sort", keys=[c for c, _ in plan.by])
+            return self._sorted_table(t, plan, venue)
         if isinstance(plan, _TableLeaf):
             return plan.table
         if isinstance(plan, Limit):
@@ -268,6 +286,38 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
             t = self._execute(plan.child)
             return t.take(torch.arange(min(plan.n, t.num_rows), device=t.device))
         raise HyperspaceError(f"cannot execute plan node {type(plan).__name__}")
+
+    # -- venues -----------------------------------------------------------
+
+    def _venue(self, conf_attr: str, what: str, needs_native: bool) -> str:
+        """One pick_venue call on the conf's setting: a forced venue, or
+        the device (`auto`)."""
+        from hyperspace_tpu_torch.parallel.bandwidth import pick_venue
+
+        return pick_venue(getattr(self.conf, conf_attr), what=what, needs_native=needs_native)
+
+    def _join_venue(self) -> str:
+        """The join merge's (and the exchange's and the fused
+        Aggregate(Join)'s) venue: the native merge, or K2 on the device.
+        A forced "host" wins over a mesh, the native merge being
+        bucket-parallel too."""
+        return self._venue("join_venue", "hyperspace.join.venue", needs_native=True)
+
+    def _filter_venue(self) -> str:
+        """The predicate masks' venue (filters, residual join conditions,
+        and the masks of projections, CASE inputs and window inputs): host
+        numpy, or the device (sharded over a mesh)."""
+        return self._venue("filter_venue", "hyperspace.filter.venue", needs_native=False)
+
+    def _agg_venue(self) -> str:
+        """The segment reduce's venue: host numpy bincount / reduceat, or
+        K1 on the device."""
+        return self._venue("agg_venue", "hyperspace.agg.venue", needs_native=False)
+
+    def _sort_venue(self) -> str:
+        """ORDER BY's and the regrouping sort's venue: numpy lexsort, or one
+        stable torch sort on the device."""
+        return self._venue("sort_venue", "hyperspace.sort.venue", needs_native=False)
 
     def _limit_early_out(self, child: LogicalPlan, n: int) -> ColumnTable | None:
         """LIMIT over an unordered linear scan chain: pull rows file by
@@ -344,7 +394,14 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
         if not asc0:
             lanes = [~l for l in lanes]
         lu = lanes_as_unsigned(lanes[:2])
-        if self.mesh is not None and mesh_size(self.mesh) > 1:
+        if (
+            self.mesh is not None
+            and mesh_size(self.mesh) > 1
+            # Venue-gated like every other operator: a forced host sort
+            # venue (or HYPERSPACE_VENUE=host) keeps the single-device
+            # selection.
+            and self._sort_venue() == "device"
+        ):
             # Mesh-sharded selection: each shard's first n, one threshold
             # over their union, a sharded mask; the ORDER BY participates
             # in the mesh. None where the mesh cannot help.
@@ -367,11 +424,18 @@ class Executor(ScanFilterMixin, JoinSidesMixin, JoinMixin, FusedJoinAggMixin, Ag
         full = self._sorted_table(table.take(cand), sort_plan)
         return full.take(torch.arange(min(n, full.num_rows), device=full.device))
 
-    @staticmethod
-    def _sorted_table(table: ColumnTable, plan: Sort) -> ColumnTable:
-        """Total order of a materialized table (one stable device sort)."""
+    def _sorted_table(self, table: ColumnTable, plan: Sort, venue: str | None = None) -> ColumnTable:
+        """Total order of a materialized table: numpy's lexsort of the
+        order lanes on the host, or one stable sort on the device (the
+        same permutation). Records the operator in `sort_op`."""
+        if venue is None:
+            venue = self._sort_venue()
+        self.stats["sort_op"] = f"{venue.capitalize()}Sort"
         if table.num_rows <= 1:
             return table
+        if venue == "host":
+            perm = lexsort_lanes(order_lanes(table, plan.by))
+            return table.take(torch.from_numpy(perm).to(table.device))
         return table.take(device_order_perm(table, plan.by))
 
     def _union(self, plan: Union) -> ColumnTable:

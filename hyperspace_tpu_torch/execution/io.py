@@ -524,12 +524,16 @@ def carve_and_write(
     bucket_rows: np.ndarray,
     indexed_columns: list[str],
     order: np.ndarray,
+    sort_fn=None,
 ) -> list[int]:
     """Carve a host (CPU) `table` into one parquet file per bucket +
     manifest. `order` lists the table's rows in (bucket, key) order and
     `bucket_rows[b]` counts bucket b's rows, so bucket b's rows are
-    `order[starts[b]:starts[b+1]]`. Buckets encode concurrently (the
-    parquet encode releases the GIL). Returns per-bucket row counts."""
+    `order[starts[b]:starts[b+1]]`; with `sort_fn(b, sel)`, `order` is in
+    bucket order only and each bucket's slice is key-sorted by it inside
+    its write task (the build's host venue). Buckets encode concurrently
+    (the parquet encode and the native sort release the GIL). Returns
+    per-bucket row counts."""
     dest = Path(dest)
     dest.mkdir(parents=True, exist_ok=True)
     num_buckets = len(bucket_rows)
@@ -542,7 +546,10 @@ def carve_and_write(
     order_t = torch.from_numpy(np.ascontiguousarray(order, dtype=np.int64))
 
     def write_one(b: int) -> None:
-        sub = table.take(order_t[starts[b] : starts[b + 1]])
+        if sort_fn is None:
+            sub = table.take(order_t[starts[b] : starts[b + 1]])
+        else:
+            sub = table.take(torch.from_numpy(sort_fn(b, order[starts[b] : starts[b + 1]])))
         if lead is not None:
             key_stats[b] = bucket_key_stats(sub, lead)
         if other_cols:

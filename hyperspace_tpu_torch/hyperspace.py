@@ -205,6 +205,7 @@ class HyperspaceSession:
                             pipeline_max_inflight_bytes=self.conf.build_pipeline_max_inflight_bytes,
                             workers=self.conf.build_workers,
                             exchange_dir=self.conf.build_exchange_dir or None,
+                            venue=self.conf.build_venue,
                         )
                         return self._last_writer
 

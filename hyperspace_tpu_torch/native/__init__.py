@@ -18,10 +18,10 @@ entry points, bound with `ctypes` (no pybind11). The build differs:
   package's `HYPERSPACE_TPU_DISABLE_NATIVE`), and then every wrapper
   returns None, its callers' sign to take their numpy path.
 
-`available()` says which path is active. The host venues' entry points
-of `hashing.cpp` (`hs_bucket_perm` and the merge-join helpers) are
-compiled but not bound: no caller of the port needs them until the host
-venues are ported.
+`available()` says which path is active. The host venues run on
+`bucket_perm` (the build's and the exchange's counting sort by bucket),
+`sort_range` (a bucket's key sort), `merge_join_sorted` (the join merge)
+and `merge_join_accumulate` (the fused Aggregate(Join)'s channel pass).
 """
 
 from __future__ import annotations
@@ -93,6 +93,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hs_take_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64p, ctypes.c_int64, ctypes.c_int64]
     lib.hs_combine.argtypes = [u32p, u32p, ctypes.c_int64]
     lib.hs_sort_range.argtypes = [i64p, ctypes.c_int64, u32p, ctypes.c_int64, ctypes.c_int64]
+    lib.hs_bucket_perm.argtypes = [i32p, ctypes.c_int64, ctypes.c_int64, i64p, i64p]
+    lib.hs_mj_count.argtypes = [i32p, i64p, i32p, i64p, ctypes.c_int64, i64p]
+    lib.hs_mj_fill.argtypes = [i32p, i64p, i32p, i64p, i64p, ctypes.c_int64, i64p, i64p]
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    lib.hs_mj_accum.argtypes = [
+        i32p, i64p, i32p, i64p, ctypes.c_int64, f64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, f64p, f64p,
+    ]
     return lib
 
 
@@ -177,6 +184,19 @@ def take_rows(arr: np.ndarray, idx: np.ndarray) -> np.ndarray | None:
     return out
 
 
+def bucket_perm(bucket: np.ndarray, num_buckets: int) -> tuple[np.ndarray, np.ndarray] | None:
+    """Stable counting sort of row ids by bucket: (perm int64, per-bucket
+    counts int64)."""
+    lib = _load()
+    if lib is None:
+        return None
+    bucket = np.ascontiguousarray(bucket, dtype=np.int32)
+    perm = np.empty(len(bucket), dtype=np.int64)
+    counts = np.zeros(num_buckets, dtype=np.int64)
+    lib.hs_bucket_perm(bucket, len(bucket), num_buckets, perm, counts)
+    return perm, counts
+
+
 def sort_range(perm_slice: np.ndarray, lanes_u32: np.ndarray) -> bool:
     """In-place stable key sort of a contiguous int64 permutation by the
     [L, n] unsigned lanes (the GIL is released). False where the library
@@ -194,6 +214,54 @@ def sort_range(perm_slice: np.ndarray, lanes_u32: np.ndarray) -> bool:
         lanes_u32.shape[1] if num_lanes else 0, num_lanes,
     )
     return True
+
+
+def merge_join_accumulate(
+    lk: np.ndarray, lofs: np.ndarray, rk: np.ndarray, rofs: np.ndarray, rvals: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """Fused merge + accumulate over within-bucket-sorted int32 codes: per
+    SORTED primary row, the channel sums of its matching secondary rows and
+    its match count, without materializing the pairs. `rvals` is [A, n_r]
+    float64; returns (out [A, n_l], counts [n_l])."""
+    lib = _load()
+    if lib is None:
+        return None
+    lk = np.ascontiguousarray(lk, dtype=np.int32)
+    rk = np.ascontiguousarray(rk, dtype=np.int32)
+    lofs = np.ascontiguousarray(lofs, dtype=np.int64)
+    rofs = np.ascontiguousarray(rofs, dtype=np.int64)
+    rvals = np.ascontiguousarray(rvals, dtype=np.float64)
+    a_r = rvals.shape[0]
+    n_r, n_l = len(rk), len(lk)
+    out = np.zeros((a_r, n_l), dtype=np.float64)
+    counts = np.zeros(n_l, dtype=np.float64)
+    lib.hs_mj_accum(lk, lofs, rk, rofs, len(lofs) - 1, rvals if a_r else np.zeros((1, 1)), a_r, n_r, n_l, out, counts)
+    return out, counts
+
+
+def merge_join_sorted(
+    lk: np.ndarray, lofs: np.ndarray, rk: np.ndarray, rofs: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+    """Exact bucket-parallel merge join over within-bucket-sorted int32
+    codes: (li, ri, totals), GLOBAL row indices (int64) in bucket-major
+    match order and the per-bucket match counts."""
+    lib = _load()
+    if lib is None:
+        return None
+    lk = np.ascontiguousarray(lk, dtype=np.int32)
+    rk = np.ascontiguousarray(rk, dtype=np.int32)
+    lofs = np.ascontiguousarray(lofs, dtype=np.int64)
+    rofs = np.ascontiguousarray(rofs, dtype=np.int64)
+    nb = len(lofs) - 1
+    counts = np.zeros(nb, dtype=np.int64)
+    lib.hs_mj_count(lk, lofs, rk, rofs, nb, counts)
+    oofs = np.zeros(nb + 1, dtype=np.int64)
+    np.cumsum(counts, out=oofs[1:])
+    total = int(oofs[-1])
+    li = np.empty(total, dtype=np.int64)
+    ri = np.empty(total, dtype=np.int64)
+    lib.hs_mj_fill(lk, lofs, rk, rofs, oofs, nb, li, ri)
+    return li, ri, counts
 
 
 def combine(acc: np.ndarray, h: np.ndarray) -> np.ndarray | None:

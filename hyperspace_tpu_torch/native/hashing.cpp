@@ -9,8 +9,8 @@
 //   - MD5 prefix hashes for string dictionaries (RFC 1321, replacing a
 //     per-entry Python hashlib loop),
 //   - the stable per-bucket key sort of the pooled build's workers,
-//   - threaded row gather, and the merge-join helpers (bound by no caller
-//     of the port yet).
+//   - threaded row gather, and the host venues' counting sort by bucket
+//     and merge-join helpers.
 //
 // Built at first use by hyperspace_tpu_torch/native/__init__.py with
 // g++ -O3. A failed build raises; the numpy path runs only where the

@@ -1,4 +1,4 @@
-"""Grouped aggregation on the device.
+"""Grouped aggregation, on the device or on the host.
 
 Group identity is factorized on the host (the JAX package's `group_ids`,
 copied), the reduction runs as ONE segment-reduce launch over every
@@ -12,10 +12,18 @@ slots masked to the fn's identity: 0 for sums, +inf for min, -inf for
 max) followed by a non-null count channel (0/1 indicators, summed), so
 count, mean and all-null (NULL result) groups compose from the pair.
 
-The JAX package picks a venue for the reduce (host numpy by default) and
-engages its Pallas kernel only behind an exactness gate; the port runs
-every aggregate on the session's device, always through the one kernel.
-With a mesh (`sharded_segment_reduce`, the JAX package's
+The reduce has two venues, as in the JAX package. The device venue runs
+every aggregate through the one kernel (the JAX package engages its Pallas
+kernel only behind an exactness gate, its lax path otherwise; the port has
+no second device path). The host venue (`aggregate_arrays_host`, the JAX
+package's, copied) reduces with numpy: bincount sums and min / max by a
+stable sort and `reduceat` over the non-empty groups, in exact float64
+and row order. It reads the channels' host copies
+(`device_cache.host_array`: a card tensor downloads once a query, a stable
+one once) and the host group ids, and its [A, K] results go back to the
+table's device with the group columns. Counts, integral sums, min and max
+are equal on both venues; a non-integral sum agrees within 2·N·u (K1's
+float64 atomics vary its last bits). With a mesh (`sharded_segment_reduce`, the JAX package's
 `_make_sharded_segment_reduce`) the row dimension shards over it, K1 runs
 once on each shard, and the [C, K] partials combine by `psum`, `pmin`
 and `pmax` a channel in shard order, the distributed HashAggregate the
@@ -148,18 +156,18 @@ def group_ids(table: ColumnTable, group_by: list[str]):
 # -- channels and the device reduce --------------------------------------------
 
 
-def agg_input(table: ColumnTable, spec) -> tuple[torch.Tensor, torch.Tensor | None, bool]:
+def agg_input(table: ColumnTable, spec, venue: str = "device") -> tuple[torch.Tensor, torch.Tensor | None, bool]:
     """(values, valid mask or None, is_string_codes) for one AggSpec, on
     the table's device. A CASE evaluates its conditions with the filter's
     full predicate semantics and its legs in float64, its validity
-    following the branch taken; any other expression evaluates with the
-    JAX package's numpy dtypes (ops/project.py)."""
+    following the branch taken, its masks on `venue`; any other expression
+    evaluates with the JAX package's numpy dtypes (ops/project.py)."""
     from hyperspace_tpu_torch.ops.project import _case_input, _expr_input, _full
 
     if spec.expr is None:  # count(*)
         return torch.ones(table.num_rows, dtype=torch.float64, device=table.device), None, False
     if isinstance(spec.expr, Case):
-        vals, valid = _case_input(table, spec.expr)
+        vals, valid = _case_input(table, spec.expr, venue)
         return vals, valid, False
     if isinstance(spec.expr, Col):
         f = table.schema.field(spec.expr.name)
@@ -167,7 +175,7 @@ def agg_input(table: ColumnTable, spec) -> tuple[torch.Tensor, torch.Tensor | No
         if f.is_string and spec.fn not in ("min", "max", "count"):
             raise HyperspaceError(f"{spec.fn} over string column {f.name!r}")
         return table.columns[f.name], valid, f.is_string
-    vals, valid = _expr_input(table, spec.expr)
+    vals, valid = _expr_input(table, spec.expr, venue)
     return _full(vals, table.num_rows, table.device), valid, False
 
 
@@ -194,7 +202,9 @@ def _spec_identity(table: ColumnTable, spec):
     return tuple(refs), tuple(parts)
 
 
-def prepared_agg_input(table: ColumnTable, spec) -> tuple[torch.Tensor, torch.Tensor | None, str]:
+def prepared_agg_input(
+    table: ColumnTable, spec, mask_venue: str = "device",
+) -> tuple[torch.Tensor, torch.Tensor | None, str]:
     """(values, validity, reduce fn) channel inputs for one AggSpec. An
     expression's are memoized in HOST_DERIVED per (fn, expression, input
     identity) for stable tables, so that repeat queries skip evaluating
@@ -204,7 +214,7 @@ def prepared_agg_input(table: ColumnTable, spec) -> tuple[torch.Tensor, torch.Te
     from hyperspace_tpu_torch.execution import device_cache as dc
 
     def build():
-        vals, valid, _ = agg_input(table, spec)
+        vals, valid, _ = agg_input(table, spec, mask_venue)
         fn = {"count": "sum", "mean": "sum"}.get(spec.fn, spec.fn)
         if spec.fn == "count":
             vals = torch.ones(table.num_rows, dtype=torch.float64, device=table.device) if valid is None else valid
@@ -273,6 +283,45 @@ def aggregate_arrays(inputs: list, gid: torch.Tensor, num_groups: int, mesh=None
     return out[0::2], out[1::2]
 
 
+def aggregate_arrays_host(inputs: list, gid: np.ndarray, num_groups: int) -> tuple[np.ndarray, np.ndarray]:
+    """The host venue of the segment reduce: bincount sums and
+    sorted-reduceat min / max in exact float64 over host (values, valid,
+    fn) triples. Returns (results [A, K], counts [A, K])."""
+    n = len(gid)
+    order = None
+    group_rows = np.bincount(gid, minlength=num_groups).astype(np.int64)
+    results: list[np.ndarray] = []
+    counts: list[np.ndarray] = []
+    for vals, valid, fn in inputs:
+        v = np.asarray(vals, dtype=np.float64)
+        if fn == "sum":
+            if valid is not None:
+                v = np.where(valid, v, 0.0)
+            res = np.bincount(gid, weights=v, minlength=num_groups)
+        else:
+            identity = np.inf if fn == "min" else -np.inf
+            if order is None:
+                order = np.argsort(gid, kind="stable")
+                starts = np.searchsorted(gid[order], np.arange(num_groups))
+            sv = v[order]
+            if valid is not None:
+                sv = np.where(valid[order], sv, identity)
+            nonempty = group_rows > 0
+            res = np.full(num_groups, identity)
+            if n and nonempty.any():
+                op = np.minimum if fn == "min" else np.maximum
+                # reduceat only over NON-EMPTY groups: an empty group's start
+                # equals the next group's, so including it would shrink a
+                # neighbour's segment; a non-empty group's segment runs to
+                # the next listed start, exactly its true end.
+                res[nonempty] = op.reduceat(sv, starts[nonempty])
+        cnt = (group_rows.astype(np.float64) if valid is None
+               else np.bincount(gid, weights=valid.astype(np.float64), minlength=num_groups))
+        results.append(res)
+        counts.append(cnt)
+    return np.stack(results), np.stack(counts)
+
+
 def finalize_agg_values(vals: np.ndarray, empty: np.ndarray, dtype) -> np.ndarray:
     """Per-group aggregate values → output column. Float outputs keep
     legitimately non-finite results; only empty (all-NULL) groups are
@@ -285,14 +334,17 @@ def finalize_agg_values(vals: np.ndarray, empty: np.ndarray, dtype) -> np.ndarra
 
 
 def aggregate_table(
-    table: ColumnTable, group_by: list[str], aggs: list, out_schema: Schema, groups=None, mesh=None
+    table: ColumnTable, group_by: list[str], aggs: list, out_schema: Schema, groups=None, mesh=None,
+    venue: str = "device", mask_venue: str = "device",
 ) -> ColumnTable:
     """Execute a grouped aggregation over a materialized table; the result
     lies on the table's device. `groups` is group_ids' (gid, K, rep) when
     the caller has them (the executor's identity cache); their uploads go
     through the device cache; a factorization made on the device
-    (tensors) is used as it is. With `mesh`, the reduce shards over it."""
-    from hyperspace_tpu_torch.execution.device_cache import device_put_cached
+    (tensors) is used as it is. With `mesh`, the reduce shards over it.
+    `venue` "host" reduces with numpy on the host (`aggregate_arrays_host`);
+    `mask_venue` is where the inputs' CASE masks evaluate."""
+    from hyperspace_tpu_torch.execution.device_cache import device_put_cached, host_array
 
     gid, k, rep = group_ids(table, group_by) if groups is None else groups
     inputs = []
@@ -300,14 +352,20 @@ def aggregate_table(
     for i, spec in enumerate(aggs):
         if isinstance(spec.expr, Col) and table.schema.field(spec.expr.name).is_string:
             string_dicts[i] = table.dictionaries[table.schema.field(spec.expr.name).name]
-        inputs.append(prepared_agg_input(table, spec))
+        inputs.append(prepared_agg_input(table, spec, mask_venue))
     if k == 0:
         return ColumnTable.empty(out_schema, device=table.device)
-    if isinstance(gid, torch.Tensor):  # a factorization made on the device
-        gid_t, rep_t = gid.to(torch.int32), rep
+    if venue == "host":
+        rep_t = rep if isinstance(rep, torch.Tensor) else device_put_cached(rep, table.device)
+        results, counts = aggregate_arrays_host(
+            [(host_array(v), None if m is None else host_array(m), fn) for v, m, fn in inputs], host_array(gid), k
+        ) if inputs else (np.zeros((0, k)), np.zeros((0, k)))
     else:
-        gid_t, rep_t = device_put_cached(gid, table.device, torch.int32), device_put_cached(rep, table.device)
-    results, counts = aggregate_arrays(inputs, gid_t, k, mesh)
+        if isinstance(gid, torch.Tensor):  # a factorization made on the device
+            gid_t, rep_t = gid.to(torch.int32), rep
+        else:
+            gid_t, rep_t = device_put_cached(gid, table.device, torch.int32), device_put_cached(rep, table.device)
+        results, counts = aggregate_arrays(inputs, gid_t, k, mesh)
 
     cols: dict[str, np.ndarray] = {}
     dicts: dict[str, np.ndarray] = {}

@@ -1,4 +1,4 @@
-"""Predicate evaluation on the device.
+"""Predicate evaluation, on the device or on the host.
 
 The analog of Spark's WholeStageCodegen'd filter over the index scan: the
 predicate tree evaluates as torch ops over the columns on the table's
@@ -23,6 +23,15 @@ mesh, the row dimension shards over it (`eval_predicate_mask`'s
 condition, the JAX package's), each shard masking its rows on its
 device: the analog of the reference keeping full scan parallelism
 (FilterIndexRule.scala:114-120).
+
+The host venue (`venue="host"`, `_host_mask`) is the JAX package's exact
+numpy evaluation with the same Kleene logic, copied: it reads each column
+the predicate references as a host array (`device_cache.host_array`: one
+download a query of a card tensor, none for a stable one after the first)
+and uploads the finished mask to the table's device. The default venue
+is the device: the executor resolves `hyperspace.filter.venue` and passes
+it to every mask it wants (its filters, join conditions, projections,
+CASE inputs and window inputs).
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.table import ColumnTable
 from hyperspace_tpu_torch.parallel.mesh import concat_shards, mesh_size, row_ranges
 from hyperspace_tpu_torch.plan.expr import (
-    And, BinOp, Col, DatePart, Expr, InList, IsNull, Like, Lit, Not, Or, Substr, evaluate,
+    And, BinOp, Col, DatePart, Expr, InList, IsNull, Like, Lit, Not, Or, Substr, evaluate, evaluate_host,
 )
 
 _FLIP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq", "ne": "ne"}
@@ -361,6 +370,61 @@ def _mask(table: ColumnTable, predicate: Expr) -> torch.Tensor:
     return t
 
 
+def _host_mask(table: ColumnTable, predicate: Expr) -> np.ndarray:
+    """The host venue: numpy with full 64-bit semantics and Kleene logic
+    over the columns' host copies (the JAX package's `_host_mask`).
+    Returns the definitely-true mask (what a SQL filter keeps) as a host
+    bool array."""
+    from hyperspace_tpu_torch.execution.device_cache import host_array
+
+    def resolve(name: str) -> np.ndarray:
+        return host_array(table.column(name))
+
+    n_rows = table.num_rows
+
+    def known_mask(e: Expr) -> np.ndarray:
+        """True where every column input of `e` is non-null."""
+        known = np.ones(n_rows, dtype=bool)
+        for name in e.references():
+            valid = table.valid_mask(name)
+            if valid is not None:
+                known = known & host_array(valid)
+        return known
+
+    def tri(e: Expr):
+        if isinstance(e, And):
+            t1, f1 = tri(e.left)
+            t2, f2 = tri(e.right)
+            return t1 & t2, f1 | f2
+        if isinstance(e, Or):
+            t1, f1 = tri(e.left)
+            t2, f2 = tri(e.right)
+            return t1 | t2, f1 & f2
+        if isinstance(e, Not):
+            t, f = tri(e.child)
+            return f, t
+        if isinstance(e, IsNull):
+            known = known_mask(e.child)
+            return ~known, known  # IS NULL is never UNKNOWN
+        if isinstance(e, _DictLut):
+            v = e.lut[resolve(e.col.name)]
+        elif isinstance(e, _StrColCmp):
+            fn = {"eq": np.equal, "ne": np.not_equal, "lt": np.less,
+                  "le": np.less_equal, "gt": np.greater, "ge": np.greater_equal}[e.op]
+            v = fn(e.lmap[resolve(e.left.name)], e.rmap[resolve(e.right.name)])
+        elif isinstance(e, _Const):
+            v = np.full(n_rows, e.value, dtype=bool)
+        else:
+            # Leaf comparison / expression: any null input makes it unknown.
+            with np.errstate(all="ignore"):
+                v = np.broadcast_to(np.asarray(evaluate_host(e, resolve), dtype=bool), (n_rows,))
+        known = known_mask(e)
+        return v & known, ~v & known
+
+    t, _ = tri(predicate)
+    return t
+
+
 def _pow2(n: int) -> int:
     return 1 << max(1, (n - 1)).bit_length() if n > 1 else 1
 
@@ -379,14 +443,17 @@ def _shard_table(table: ColumnTable, names: list, mesh, i: int, lo: int, hi: int
     )
 
 
-def eval_predicate_mask(table: ColumnTable, predicate: Expr, mesh=None) -> torch.Tensor:
+def eval_predicate_mask(table: ColumnTable, predicate: Expr, mesh=None, venue: str = "device") -> torch.Tensor:
     """The predicate's definitely-true mask, as a bool tensor on the
-    table's device. With a mesh of D > 1 shards whose size divides the
-    row count padded to a power of two (the JAX package's condition),
-    the rows shard over it: shard i masks its contiguous n_pad / D rows
-    on its device (no collective) and the masks concatenate in shard
-    order."""
+    table's device. `venue` "host" evaluates it with numpy on the host
+    (`_host_mask`). On the device, with a mesh of D > 1
+    shards whose size divides the row count padded to a power of two (the
+    JAX package's condition), the rows shard over it: shard i masks its
+    contiguous n_pad / D rows on its device (no collective) and the masks
+    concatenate in shard order."""
     predicate = translate_predicate(table, predicate)
+    if venue == "host":
+        return torch.from_numpy(_host_mask(table, predicate)).to(table.device)
     n = table.num_rows
     names = sorted({r.lower() for r in predicate.references()})
     if mesh is not None and names:
@@ -399,7 +466,7 @@ def eval_predicate_mask(table: ColumnTable, predicate: Expr, mesh=None) -> torch
     return _mask(table, predicate)
 
 
-def apply_filter(table: ColumnTable, predicate: Expr, mesh=None) -> ColumnTable:
+def apply_filter(table: ColumnTable, predicate: Expr, mesh=None, venue: str = "device") -> ColumnTable:
     if table.num_rows == 0:
         return table
-    return table.filter_mask(eval_predicate_mask(table, predicate, mesh=mesh))
+    return table.filter_mask(eval_predicate_mask(table, predicate, mesh=mesh, venue=venue))

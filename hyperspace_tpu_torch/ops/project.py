@@ -11,7 +11,9 @@ float64), int / int in float64. Torch's own promotion differs (an int64
 column times 2.5 would be float32), so every operand is cast to that
 dtype first. Date parts and the math functions evaluate as torch ops
 (plan/expr.py::eval_date_part). Boolean expressions, LIKE among them,
-ride the filter's mask machinery; SUBSTRING and the string CASE map the
+ride the filter's mask machinery, on the mask venue the caller passes
+(`venue`: the executor's `hyperspace.filter.venue`, else the device);
+SUBSTRING and the string CASE map the
 (small, sorted) dictionary on the host and remap the codes on the device,
 so the order-preserving codes invariant holds downstream. The aggregate
 inputs over expressions (ops/aggregate.py::agg_input) are these same
@@ -77,11 +79,11 @@ def _and_valid(av, bv):
     return av & bv
 
 
-def _expr_input(table: ColumnTable, e: Expr):
+def _expr_input(table: ColumnTable, e: Expr, venue: str = "device"):
     """(values, validity or None) of a numeric expression: values a
     tensor, or a Python literal until the caller broadcasts."""
     if isinstance(e, Case):
-        return _case_input(table, e)
+        return _case_input(table, e, venue)
     if isinstance(e, Col):
         f = table.schema.field(e.name)
         if f.is_string:
@@ -90,14 +92,14 @@ def _expr_input(table: ColumnTable, e: Expr):
     if isinstance(e, Lit):
         return e.value, None
     if isinstance(e, BinOp):
-        a, av = _expr_input(table, e.left)
-        b, bv = _expr_input(table, e.right)
+        a, av = _expr_input(table, e.left, venue)
+        b, bv = _expr_input(table, e.right, venue)
         return _binop(e.op, a, b), _and_valid(av, bv)
     if isinstance(e, DatePart):
-        vals, valid = _expr_input(table, e.child)
+        vals, valid = _expr_input(table, e.child, venue)
         return eval_date_part(e.part, _full(vals, table.num_rows, table.device)), valid
     if isinstance(e, MathFn):
-        vals, valid = _expr_input(table, e.child)
+        vals, valid = _expr_input(table, e.child, venue)
         v = _full(vals, table.num_rows, table.device)
         if e.fn == "sqrt":
             return torch.sqrt(v if v.is_floating_point() else v.to(torch.float64)), valid
@@ -107,18 +109,18 @@ def _expr_input(table: ColumnTable, e: Expr):
     raise HyperspaceError(f"cannot evaluate expression {type(e).__name__} as a number")
 
 
-def _case_input(table: ColumnTable, e: Case):
+def _case_input(table: ColumnTable, e: Case, venue: str = "device"):
     """CASE WHEN over numbers: conditions with full predicate semantics (a
     null condition does not take its branch), values in float64, validity
     following the branch taken."""
     from hyperspace_tpu_torch.ops.filter import eval_predicate_mask
 
     n, dev = table.num_rows, table.device
-    out, valid = _expr_input(table, e.default)
+    out, valid = _expr_input(table, e.default, venue)
     out = _full(out, n, dev).to(torch.float64)
     for cond, val in reversed(e.branches):
-        m = eval_predicate_mask(table, cond)
-        v, vvalid = _expr_input(table, val)
+        m = eval_predicate_mask(table, cond, venue=venue)
+        v, vvalid = _expr_input(table, val, venue)
         out = torch.where(m, _full(v, n, dev).to(torch.float64), out)
         if valid is not None or vvalid is not None:
             va = torch.ones(n, dtype=torch.bool, device=dev) if valid is None else valid
@@ -127,13 +129,13 @@ def _case_input(table: ColumnTable, e: Case):
     return out, valid
 
 
-def _bool_column(table: ColumnTable, e: Expr):
+def _bool_column(table: ColumnTable, e: Expr, venue: str = "device"):
     """SQL boolean value of a predicate: True / False / NULL (unknown):
     the true-mask and, where neither it nor the false-mask holds, NULL."""
     from hyperspace_tpu_torch.ops.filter import eval_predicate_mask
 
-    tmask = eval_predicate_mask(table, e)
-    fmask = eval_predicate_mask(table, Not(e))
+    tmask = eval_predicate_mask(table, e, venue=venue)
+    fmask = eval_predicate_mask(table, Not(e), venue=venue)
     known = tmask | fmask
     return tmask, None if bool(known.all()) else known
 
@@ -156,7 +158,7 @@ def _substr_column(table: ColumnTable, e: Substr):
     return codes, new_dict.astype(object), table.valid_mask(f.name)
 
 
-def _string_case_column(table: ColumnTable, e: Expr):
+def _string_case_column(table: ColumnTable, e: Expr, venue: str = "device"):
     """String-valued CASE whose branch values are one string column or
     string literals: the dictionary extends with the literals (re-sorted
     to keep the order-preserving codes) and branches select in code
@@ -196,7 +198,7 @@ def _string_case_column(table: ColumnTable, e: Expr):
     codes = branch_codes(e.default)
     valid = branch_valid(e.default)
     for cond, v in reversed(e.branches):
-        m = eval_predicate_mask(table, cond)
+        m = eval_predicate_mask(table, cond, venue=venue)
         codes = torch.where(m, branch_codes(v), codes)
         bv = branch_valid(v)
         if valid is not None or bv is not None:
@@ -206,9 +208,9 @@ def _string_case_column(table: ColumnTable, e: Expr):
     return codes.to(torch.int32), merged.astype(object), valid
 
 
-def compute_column(table: ColumnTable, e: Expr, dtype: str):
-    """Evaluate one computed projection entry on the table's device.
-    Returns (values, dictionary or None, validity or None); values are
+def compute_column(table: ColumnTable, e: Expr, dtype: str, venue: str = "device"):
+    """Evaluate one computed projection entry on the table's device, its
+    predicate masks on `venue`. Returns (values, dictionary or None, validity or None); values are
     physical (codes when a dictionary is returned)."""
     if isinstance(e, Col):
         # Column rename (SELECT c AS x): codes, dictionary and validity.
@@ -217,22 +219,22 @@ def compute_column(table: ColumnTable, e: Expr, dtype: str):
     if isinstance(e, Substr):
         return _substr_column(table, e)
     if dtype == "bool" and isinstance(e, (And, Or, Not, IsNull, InList, Like)) or (isinstance(e, BinOp) and e.is_comparison):
-        vals, valid = _bool_column(table, e)
+        vals, valid = _bool_column(table, e, venue)
         return vals, None, valid
     if dtype == "string":
         if isinstance(e, Lit) and isinstance(e.value, str):
             # A constant string column: a one-entry dictionary, codes 0.
             return (torch.zeros(table.num_rows, dtype=torch.int32, device=table.device),
                     np.array([e.value], dtype=object), None)
-        return _string_case_column(table, e)
-    vals, valid = _expr_input(table, e)
+        return _string_case_column(table, e, venue)
+    vals, valid = _expr_input(table, e, venue)
     phys = _torch_dtype(Field("_", dtype).device_dtype)
     return _full(vals, table.num_rows, table.device).to(phys), None, valid
 
 
-def project_table(table: ColumnTable, columns: list, out_schema) -> ColumnTable:
+def project_table(table: ColumnTable, columns: list, out_schema, venue: str = "device") -> ColumnTable:
     """Execute a Project with computed entries over a table; the result
-    lies on the table's device."""
+    lies on the table's device, its predicate masks on `venue`."""
     cols: dict[str, torch.Tensor] = {}
     dicts: dict[str, np.ndarray] = {}
     validity: dict[str, torch.Tensor] = {}
@@ -245,7 +247,7 @@ def project_table(table: ColumnTable, columns: list, out_schema) -> ColumnTable:
             if f.name in table.validity:
                 validity[field.name] = table.validity[f.name]
             continue
-        vals, d, valid = compute_column(table, entry[1], field.dtype)
+        vals, d, valid = compute_column(table, entry[1], field.dtype, venue)
         cols[field.name] = vals
         if d is not None:
             dicts[field.name] = d

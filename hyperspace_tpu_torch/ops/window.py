@@ -98,12 +98,13 @@ def _safe_int(vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(torch.isfinite(vals), vals, 0).to(dtype)
 
 
-def _input(table: ColumnTable, e):
-    """(values [n], validity or None) of a window function's input."""
+def _input(table: ColumnTable, e, venue: str):
+    """(values [n], validity or None) of a window function's input, its
+    CASE masks on `venue`."""
     if isinstance(e, Col):
         f = table.schema.field(e.name)
         return table.columns[f.name], table.validity.get(f.name)
-    vals, valid = _expr_input(table, e)
+    vals, valid = _expr_input(table, e, venue)
     return _full(vals, table.num_rows, table.device), valid
 
 
@@ -114,6 +115,7 @@ def window_table(
     funcs: list[WindowSpec],
     frame: str,
     out_schema,
+    venue: str = "device",
 ) -> ColumnTable:
     n = table.num_rows
     dev = table.device
@@ -147,7 +149,7 @@ def window_table(
         if spec.fn in ("lag", "lead"):
             # Partition-bounded shift along the ORDER BY: NULL past the
             # segment's edge (SQL's default).
-            vals, valid = _input(table, spec.expr)
+            vals, valid = _input(table, spec.expr, venue)
             src_dict = table.dictionaries.get(table.schema.field(spec.expr.name).name) if isinstance(spec.expr, Col) else None
             sv = vals[perm]
             if spec.fn == "lag":
@@ -184,7 +186,7 @@ def window_table(
         if spec.expr is None:  # count(*)
             vals, valid = torch.ones(n, dtype=torch.int64, device=dev), None
         else:
-            vals, valid = _input(table, spec.expr)
+            vals, valid = _input(table, spec.expr, venue)
         sv = vals[perm]
         svalid = None if valid is None else valid[perm]
         ones = torch.ones(n, dtype=torch.int64, device=dev) if svalid is None else svalid.to(torch.int64)

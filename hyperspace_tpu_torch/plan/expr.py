@@ -574,6 +574,70 @@ def evaluate(e: Expr, resolve: Callable[[str], Any]) -> Any:
     raise ValueError(f"cannot evaluate {e!r}")
 
 
+def evaluate_host(e: Expr, resolve: Callable[[str], Any]) -> Any:
+    """`evaluate` over host arrays with numpy (the host venue's): given
+    `resolve(name) -> np.ndarray`, the JAX package's numpy evaluation,
+    copied. Division by zero gives IEEE inf / nan without a warning (the
+    validity masks upstream make it NULL)."""
+    import numpy as np
+
+    if isinstance(e, Col):
+        return resolve(e.name)
+    if isinstance(e, Lit):
+        return e.value
+    if isinstance(e, BinOp):
+        a = evaluate_host(e.left, resolve)
+        b = evaluate_host(e.right, resolve)
+        if e.op in ("div", "mod"):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                return a / b if e.op == "div" else a % b
+        return {
+            "eq": lambda: a == b,
+            "ne": lambda: a != b,
+            "lt": lambda: a < b,
+            "le": lambda: a <= b,
+            "gt": lambda: a > b,
+            "ge": lambda: a >= b,
+            "add": lambda: a + b,
+            "sub": lambda: a - b,
+            "mul": lambda: a * b,
+        }[e.op]()
+    if isinstance(e, And):
+        return np.logical_and(evaluate_host(e.left, resolve), evaluate_host(e.right, resolve))
+    if isinstance(e, Or):
+        return np.logical_or(evaluate_host(e.left, resolve), evaluate_host(e.right, resolve))
+    if isinstance(e, Not):
+        return np.logical_not(evaluate_host(e.child, resolve))
+    if isinstance(e, Case):
+        out = evaluate_host(e.default, resolve)
+        for cond, val in reversed(e.branches):
+            out = np.where(evaluate_host(cond, resolve), evaluate_host(val, resolve), out)
+        return out
+    if isinstance(e, DatePart):
+        d64 = np.asarray(evaluate_host(e.child, resolve)).astype("datetime64[D]")
+        if e.part == "year":
+            return d64.astype("datetime64[Y]").astype(np.int64) + 1970
+        if e.part == "month":
+            return d64.astype("datetime64[M]").astype(np.int64) % 12 + 1
+        return (d64 - d64.astype("datetime64[M]")).astype(np.int64) + 1
+    if isinstance(e, MathFn):
+        v = evaluate_host(e.child, resolve)
+        if e.fn == "sqrt":
+            with np.errstate(invalid="ignore"):
+                return np.sqrt(v)
+        if e.fn == "abs":
+            return np.abs(v)
+        return np.floor(v).astype(np.int64)
+    if isinstance(e, InList):
+        v = evaluate_host(e.child, resolve)
+        out = None
+        for lv in e.values:
+            m = v == lv
+            out = m if out is None else np.logical_or(out, m)
+        return out
+    raise ValueError(f"cannot evaluate {e!r}")
+
+
 def eval_date_part(part: str, days) -> Any:
     """year / month / day of int days since 1970-01-01, as int64, on the
     tensor's device: the proleptic Gregorian civil-from-days conversion in

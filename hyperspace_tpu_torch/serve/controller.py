@@ -945,7 +945,7 @@ class OpsController:
         )
         file_utils.write_json(
             bundle / "config.json",
-            {k: conf.get(k) for k in sorted(_config.PORTED_KEYS)},
+            {k: conf.get(k) for k in sorted(_config.KNOWN_KEYS)},
         )
         file_utils.write_json(bundle / "proc.json", obs_runtime.refresh_process_gauges())
         routing: dict = {}

@@ -19,9 +19,10 @@ Then the parity cases:
 - a crash inside an auto-create left by one package is recovered by the
   other;
 - importing the port's advisor loads neither JAX nor the JAX package, and
-  the advisor keys read the JAX package's defaults while the venue and
-  fused-kernel keys still raise as not ported (the ingest keys are ported
-  since continuous ingestion).
+  the advisor keys read the JAX package's defaults; so does every other
+  key of the JAX package's since the venues (the ingest keys since
+  continuous ingestion), but `hyperspace.device.fusedKernels=off`, which
+  raises the port's typed error.
 """
 
 from __future__ import annotations
@@ -667,7 +668,15 @@ def test_importing_the_advisor_loads_no_jax():
 
 
 def test_advisor_keys_are_ported_and_ingest_keys_still_raise(tmp_path):
-    from hyperspace_tpu_torch.config import PORTED_KEYS, UNPORTED_KEYS
+    """The advisor keys and, since the venues, every key the JAX package
+    declares read its defaults; `fusedKernels=off` raises the port's
+    typed error and a bogus venue raises at its first query, as in the
+    JAX package."""
+    from hyperspace_tpu.config import KNOWN_KEYS
+    from hyperspace_tpu.parallel.bandwidth import pick_venue as jax_pick_venue
+
+    from hyperspace_tpu_torch.config import PORTED_KEYS
+    from hyperspace_tpu_torch.parallel.bandwidth import pick_venue
 
     moved = [k for k in PORTED_KEYS if k.startswith("hyperspace.advisor.")] + [
         "hyperspace.controller.demotionClusterSize", "hyperspace.controller.demotionWindowSeconds",
@@ -679,10 +688,19 @@ def test_advisor_keys_are_ported_and_ingest_keys_still_raise(tmp_path):
     port.conf.set("hyperspace.advisor.routing.demoteRatio", "2.5")
     port.conf.set("hyperspace.controller.stormResponse", "false")
     assert (port.conf.advisor_routing_demote_ratio, port.conf.controller_storm_response) == (2.5, False)
-    assert UNPORTED_KEYS == {k for k in UNPORTED_KEYS if k.endswith(("venue", "venueMinMbps", "fusedKernels"))}
-    assert len(UNPORTED_KEYS) == 7
-    for key in [k for k in PORTED_KEYS if k.startswith("hyperspace.ingest.")]:
-        assert port.conf.get(key) == ref.conf.get(key), key
-    for key in sorted(UNPORTED_KEYS):
-        with pytest.raises(htorch.HyperspaceError, match="not ported yet"):
-            port.conf.set(key, "1")
+    assert set(PORTED_KEYS) == set(KNOWN_KEYS)
+    fresh_port, fresh_ref = TORCH.session(tmp_path / "fresh"), JAX.session(tmp_path / "fresh")
+    for key in KNOWN_KEYS:
+        assert fresh_port.conf.get(key) == fresh_ref.conf.get(key), key
+    with pytest.raises(htorch.HyperspaceError, match="no un-fused path"):
+        port.conf.set("hyperspace.device.fusedKernels", "off")
+    for s in (port, ref):
+        s.conf.set("hyperspace.agg.venue", "bogus")
+    msgs = []
+    for decide in (lambda: pick_venue(port.conf.agg_venue, "hyperspace.agg.venue", needs_native=False),
+                   lambda: jax_pick_venue(ref.conf.agg_venue, ref.conf.join_venue_min_mbps, False,
+                                          "hyperspace.agg.venue", needs_native=False)):
+        with pytest.raises(Exception, match="unknown hyperspace.agg.venue='bogus'") as e:
+            decide()
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]

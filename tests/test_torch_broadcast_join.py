@@ -183,15 +183,18 @@ def test_sparse_code_space_falls_back_to_the_merge(tmp_path):
 
 def test_conf_reads_the_join_keys_and_refuses_the_rest(tmp_path):
     """`session.conf` takes the join keys the port reads, with the JAX
-    package's defaults; a key the JAX package declares but the port does
-    not read raises as not ported; a misspelt key raises with a
-    suggestion, as the JAX package's `check_known_key` does."""
+    package's defaults; since the venues that is every key the JAX package
+    declares (`fusedKernels=off` alone refused, with the port's typed
+    error); a misspelt key raises with a suggestion, as the JAX package's
+    `check_known_key` does, and `docs_table` lists the JAX package's keys
+    and defaults."""
     from hyperspace_tpu.config import KNOWN_KEYS
+    from hyperspace_tpu.config import docs_table as jax_docs_table
 
-    from hyperspace_tpu_torch.config import PORTED_KEYS, UNPORTED_KEYS
+    from hyperspace_tpu_torch.config import PORTED_KEYS, docs_table
     from hyperspace_tpu_torch.exceptions import UnknownConfigKeyError
 
-    assert set(PORTED_KEYS) | UNPORTED_KEYS == set(KNOWN_KEYS)
+    assert set(PORTED_KEYS) == set(KNOWN_KEYS)
     port = htorch.HyperspaceSession(system_path=str(tmp_path), device="cpu")
     ref = hjax.HyperspaceSession(system_path=str(tmp_path))
     for key in PORTED_KEYS:
@@ -199,8 +202,16 @@ def test_conf_reads_the_join_keys_and_refuses_the_rest(tmp_path):
     port.conf.set(MAX_ROWS, "12")
     port.conf.set("hyperspace.join.rebucketize", "off")
     assert (port.conf.join_broadcast_max_rows, port.conf.join_rebucketize) == (12, "off")
-    with pytest.raises(htorch.HyperspaceError, match="not ported yet"):
-        port.conf.set("hyperspace.join.venue", "host")
+    port.conf.set("hyperspace.join.venue", "host")
+    assert port.conf.get("hyperspace.join.venue") == "host" and port.conf.join_venue == "host"
+    with pytest.raises(htorch.HyperspaceError, match="no un-fused path"):
+        port.conf.set("hyperspace.device.fusedKernels", "off")
+
+    def rows(table):
+        return [line.split(" | ")[:2] for line in table.splitlines()]
+
+    assert rows(docs_table()) == rows(jax_docs_table())
+    assert len(rows(docs_table())) == len(KNOWN_KEYS) + 2
     with pytest.raises(UnknownConfigKeyError, match="did you mean 'hyperspace.join.rebucketize'"):
         port.conf.get("hyperspace.join.rebucketise")
     port.conf.set("app.scratch", 1)  # outside the namespace: an override

@@ -661,8 +661,9 @@ def test_transient_fault_at_actuate_surfaces_typed():
 def test_what_the_controller_does_not_port_raises(tmp_path):
     """Nothing of the controller is left unported: it takes the session's
     ingest daemon (`ingest=`), whose keys read the JAX package's defaults,
-    as do the storm response's and the advisor sweep's; the venue keys
-    still raise."""
+    as do the storm response's and the advisor sweep's, and since the
+    venues the venue keys; `fusedKernels=off` raises the port's typed
+    error."""
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
 
     session = HyperspaceSession(system_path=str(tmp_path), device="cpu")
@@ -671,12 +672,13 @@ def test_what_the_controller_does_not_port_raises(tmp_path):
     assert ctrl.snapshot()["ingest_paused"] is False
     daemon = Hyperspace(session).ingest()
     assert Hyperspace(session).controller(ingest=daemon).ingest is daemon
-    with pytest.raises(HyperspaceError, match="not ported"):
-        session.conf.get("hyperspace.join.venue")
+    with pytest.raises(HyperspaceError, match="no un-fused path"):
+        session.conf.set("hyperspace.device.fusedKernels", "off")
     ref = JaxConf()
     for key in ("hyperspace.controller.stormResponse", "hyperspace.controller.demotionClusterSize",
                 "hyperspace.controller.demotionWindowSeconds", "hyperspace.ingest.enabled",
-                "hyperspace.ingest.autoCompact"):
+                "hyperspace.ingest.autoCompact", "hyperspace.join.venue", "hyperspace.join.venueMinMbps",
+                "hyperspace.build.venue", "hyperspace.device.fusedKernels"):
         assert session.conf.get(key) == ref.get(key)
 
 
@@ -1012,6 +1014,27 @@ def test_fresh_quarantine_opens_bundle_closed_as_healed(tmp_path):
     (inc,) = ctrl.list_incidents()
     assert (inc["trigger"], inc["open"], inc["resolution"]) == ("quarantine.a", False, "healed")
     assert "heal.a" in [a["action"] for a in ctrl.read_incident(inc["name"])["manifest"]["actions"]]
+
+
+def test_incident_config_snapshot_lists_the_jax_package_keys(tmp_path):
+    """With every key ported, an incident bundle's config snapshot holds the
+    JAX package's keys (its `KNOWN_KEYS`), each at the JAX package's
+    default."""
+    from hyperspace_tpu.config import KNOWN_KEYS
+
+    _serve_counters()
+    hs, ctrl = _incident_controller(tmp_path)
+    with hs.session._state_lock:
+        hs.session.index_health["/idx/a"] = {"reason": "torn"}
+    ctrl.step(now=0.0)
+    (inc,) = ctrl.list_incidents()
+    config = json.loads((tmp_path / "incidents" / inc["name"] / "config.json").read_text())
+    assert list(config) == sorted(KNOWN_KEYS)
+    ref = JaxConf()
+    for key in ("hyperspace.join.venue", "hyperspace.join.venueMinMbps", "hyperspace.agg.venue",
+                "hyperspace.sort.venue", "hyperspace.filter.venue", "hyperspace.build.venue",
+                "hyperspace.device.fusedKernels"):
+        assert config[key] == ref.get(key), key
 
 
 def test_budget_exhaustion_snapshots_an_observe_only_bundle(tmp_path):

@@ -1430,3 +1430,57 @@ def test_a_four_shard_mesh_on_the_card_equals_one_device(cuda, tmp_path):
     tol = 2 * len(src_df) * 2.0**-53 * src_df.groupby("l_returnflag")["l_extendedprice"].apply(
         lambda v: v.abs().sum()).sort_index().to_numpy()
     assert (np.abs(a1["s"] - a2["s"]).to_numpy() <= tol).all()
+
+
+@pytest.mark.gpu
+def test_auto_resolves_to_the_device_for_each_operator(cuda, tmp_path, monkeypatch):
+    """On the card `auto` picks the device venue for every operator: the
+    aggregate launches K1, the aligned join and the fused aggregate over
+    it launch K2, the mask, the sort and the build run on the device."""
+    import hyperspace_tpu_torch as htorch
+    from hyperspace_tpu_torch.datagen import gen_tpch_orders
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds
+
+    monkeypatch.delenv("HYPERSPACE_VENUE", raising=False)
+    src = _li_source(tmp_path)
+    gen_tpch_orders(tmp_path / "o", sf=0.004, seed=43)
+    s = htorch.HyperspaceSession(system_path=str(tmp_path / "idx"), num_buckets=16, device=cuda)
+    hs = htorch.Hyperspace(s)
+    li, o = s.parquet(src), s.parquet(tmp_path / "o")
+    hs.create_index(li, htorch.IndexConfig("li", ["l_orderkey"], ["l_extendedprice", "l_returnflag"]))
+    assert s.last_build_stats["sort_venue"] == "device"
+    hs.create_index(o, htorch.IndexConfig("o", ["o_orderkey"], ["o_totalprice"]))
+    s.enable_hyperspace()
+    k1, k2 = segment_reduce.launches, run_bounds.launches
+    s.run(li.aggregate(["l_returnflag"], [("sum", "l_extendedprice", "s")]))
+    assert s.last_query_stats["agg_path"] == "segment-reduce-cuda" and segment_reduce.launches > k1
+    j = li.select("l_orderkey", "l_extendedprice").join(o.select("o_orderkey", "o_totalprice"), ["l_orderkey"],
+                                                         ["o_orderkey"])
+    s.run(j)
+    assert s.last_query_stats["join_kernel"] == "device-searchsorted" and run_bounds.launches > k2
+    s.run(j.aggregate([], [("sum", "o_totalprice", "t")]))
+    assert s.last_query_stats["join_kernel"] == "device-run-prefix"
+    s.run(li.filter(htorch.col("l_extendedprice") > 1000.0).sort([("l_extendedprice", False)]))
+    assert s.last_query_stats["mask_kernel"] == "device-mask" and s.last_query_stats["sort_op"] == "DeviceSort"
+
+
+@pytest.mark.gpu
+def test_a_host_venue_aggregate_launches_no_k1(cuda, tmp_path):
+    """Q1's shape on the host aggregation venue launches no K1 and equals
+    the device venue's answer (counts exactly, sums within 2·n·u·Σ|v|)."""
+    import hyperspace_tpu_torch as htorch
+
+    src = _li_source(tmp_path)
+    s = htorch.HyperspaceSession(system_path=str(tmp_path / "idx"), num_buckets=16, device=cuda)
+    li = s.parquet(src)
+    plan = li.aggregate(["l_returnflag", "l_linestatus"], [("sum", "l_extendedprice", "s"), ("count", None, "c"),
+                                                          ("min", "l_discount", "mn"), ("max", "l_quantity", "mx")])
+    dev = s.to_pandas(plan).sort_values(["l_returnflag", "l_linestatus"]).reset_index(drop=True)
+    s.conf.set("hyperspace.agg.venue", "host")
+    k1 = segment_reduce.launches
+    host = s.to_pandas(plan).sort_values(["l_returnflag", "l_linestatus"]).reset_index(drop=True)
+    torch.cuda.synchronize()
+    assert segment_reduce.launches == k1 and s.last_query_stats["agg_path"] == "segment-reduce-host"
+    pd.testing.assert_frame_equal(host.drop(columns="s"), dev.drop(columns="s"))
+    tol = 2 * len(pd.read_parquet(src)) * 2.0**-53 * host["s"].abs()
+    assert (np.abs(host["s"] - dev["s"]) <= tol).all()

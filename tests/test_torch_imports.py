@@ -82,6 +82,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         "hyperspace_tpu_torch.parallel",
         "hyperspace_tpu_torch.parallel.procpool",
         "hyperspace_tpu_torch.parallel.mesh",
+        "hyperspace_tpu_torch.parallel.bandwidth",
         "hyperspace_tpu_torch.ops.bucketize",
         "hyperspace_tpu_torch.obs.journal",
         "hyperspace_tpu_torch.obs.slo",

@@ -7,8 +7,8 @@ results exactly, and those equal the JAX package's serial results on the
 same data (rows as multisets; integral values exactly, float sums within
 1e-12 relative). Added here: a tensor written in place in a cached result
 makes the next lookup miss; the kernel wrappers' launch counter stays
-exact under threads; the pieces left out (the host venues and the fused
-kernels) raise as not ported, and the controller takes an ingest daemon.
+exact under threads; the venue keys are read (`fusedKernels=off` alone
+raises the port's typed error), and the controller takes an ingest daemon.
 """
 
 from __future__ import annotations
@@ -347,8 +347,10 @@ class TestAdmission:
             server.shutdown()
 
     def test_what_is_not_ported_raises(self, tmp_system_path):
-        """The host venues and the fused kernels are not ported; the ingest
-        pause and the ingest keys are."""
+        """Since the venues nothing raises as not ported: the venue keys
+        are read, and `fusedKernels=off` raises the port's typed error
+        (its device venue has no un-fused path); the ingest pause and the
+        ingest keys are ported."""
         from hyperspace_tpu_torch import Hyperspace
         from hyperspace_tpu_torch.ingest import IngestDaemon
 
@@ -356,9 +358,10 @@ class TestAdmission:
         daemon = Hyperspace(session).ingest()
         assert isinstance(daemon, IngestDaemon)
         assert Hyperspace(session).controller(ingest=daemon).ingest is daemon
-        for key in ("hyperspace.join.venue", "hyperspace.device.fusedKernels"):
-            with pytest.raises(HyperspaceError, match="not ported"):
-                session.conf.set(key, True)
+        session.conf.set("hyperspace.join.venue", "host")
+        assert session.conf.join_venue == "host"
+        with pytest.raises(HyperspaceError, match="no un-fused path"):
+            session.conf.set("hyperspace.device.fusedKernels", "off")
         session.conf.set("hyperspace.ingest.pollSeconds", "0.5")
         assert session.conf.ingest_poll_seconds == 0.5
 

@@ -139,6 +139,132 @@ TRANSIENT_ERRNOS = frozenset(
 )
 
 
+# The declared typed-error surface of every public entry point: the
+# exception types (by class name, hierarchy-aware — an entry covers its
+# subclasses) that MAY escape each API. The static rule HSL016
+# (analysis/raises.py) verifies both directions on every push: any
+# statically observed escape not covered here is contract drift, and a
+# declared program-local type covering no observed escape is dead.
+# docs/torch/errors.md renders this table (python -m
+# hyperspace_tpu_torch.analysis.check --write-error-docs regenerates it).
+#
+# How to read it: HyperspaceError covers the typed framework surface
+# (plan validation, admission, timeouts, corruption); OSError covers
+# real disk failures AND injected FaultError; CrashPoint is the
+# simulated hard death that must NEVER be absorbed below these APIs;
+# ValueError/KeyError/NotImplementedError are the programming-error
+# surface (bad plans, undeclared counters, abstract hooks).
+_QUERY_SURFACE = (
+    "HyperspaceError", "OSError", "CrashPoint",
+    "ValueError", "KeyError", "NotImplementedError",
+)
+ERROR_CONTRACTS: dict[str, tuple[str, ...]] = {
+    "hyperspace_tpu_torch.hyperspace.HyperspaceSession.run": _QUERY_SURFACE,
+    "hyperspace_tpu_torch.hyperspace.HyperspaceSession.run_query": _QUERY_SURFACE,
+    # submit emits admission telemetry; the journal's seal path arms the
+    # journal.seal fault point (HSL028 torn window), so a simulated hard
+    # death there escapes untouched — and stats.increment's KeyError is
+    # the declared-counter-registry programming-error surface.
+    "hyperspace_tpu_torch.serve.scheduler.QueryServer.submit": (
+        "AdmissionRejected", "CrashPoint", "KeyError",
+    ),
+    "hyperspace_tpu_torch.serve.scheduler.QueryHandle.result": (
+        "QueryTimeout", "HyperspaceError", "OSError", "CrashPoint",
+    ),
+    "hyperspace_tpu_torch.hyperspace.Hyperspace.create_index": _QUERY_SURFACE,
+    "hyperspace_tpu_torch.hyperspace.Hyperspace.refresh_index": _QUERY_SURFACE,
+    "hyperspace_tpu_torch.hyperspace.Hyperspace.optimize_index": _QUERY_SURFACE,
+    "hyperspace_tpu_torch.hyperspace.Hyperspace.vacuum_index": _QUERY_SURFACE,
+    "hyperspace_tpu_torch.hyperspace.Hyperspace.recover": _QUERY_SURFACE,
+    # explain runs the same planner (and, mode="analyze", the executor)
+    # as run(): it shares the full query surface, including lazy
+    # recover-on-access fault points reachable from index listing.
+    "hyperspace_tpu_torch.hyperspace.Hyperspace.explain": _QUERY_SURFACE,
+    "hyperspace_tpu_torch.actions.base.Action.run": _QUERY_SURFACE,
+    # Advisor plane. recommend() replays observed plans
+    # through the rules/validator (planner surface) and reads the index
+    # log; sweep() additionally executes lifecycle actions — individual
+    # apply failures are absorbed (recorded, sweep continues), but the
+    # recommendation pass, CrashPoint, and policy programming errors
+    # escape with the standard query surface.
+    "hyperspace_tpu_torch.advisor.whatif.WhatIfAnalyzer.recommend": _QUERY_SURFACE,
+    # sweep absorbs per-apply Exceptions (recorded, the sweep continues),
+    # so the typed framework surface does not statically escape it — what
+    # remains is injected IO faults at advisor.* fault points, CrashPoint,
+    # and the programming-error surface.
+    "hyperspace_tpu_torch.advisor.lifecycle.LifecyclePolicy.sweep": (
+        "OSError", "CrashPoint", "ValueError", "KeyError", "NotImplementedError",
+    ),
+    # Self-driving operations controller (serve/controller.py). One
+    # reconciliation step actuates through the SAME facade methods an
+    # operator would call (recover/refresh/lifecycle), so it shares the
+    # full query surface: at runtime `_actuate` absorbs per-mutation
+    # Exceptions (recorded as controller.actuation_failed, the step
+    # continues), but the declared surface stays the honest upper bound
+    # on what the actuator lambdas can raise — plus the injected
+    # IO-fault surface at the controller.actuate fault point and
+    # CrashPoint (a dying process does not keep reconciling).
+    "hyperspace_tpu_torch.serve.controller.OpsController.step": _QUERY_SURFACE,
+    # Fleet plane. The shared caches
+    # are advisory by contract — IO failures are counted and answered
+    # with a miss — so what escapes is the injected hard-death surface
+    # (CrashPoint via the fleet.* fault points) plus, for the plan
+    # cache, the planner surface its cold path runs. Tenant quota
+    # admission is exactly one typed rejection. SingleFlight.run's own
+    # protocol raises nothing — whatever the caller's build() raises
+    # passes through it (the scheduler's contracts cover those).
+    # (KeyError is the declared-registry surface: stats.increment raises
+    # it for an undeclared counter name — a programming error.)
+    # Rejections emit telemetry, so the journal.seal crash surface (and
+    # the counter-registry KeyError) rides along with the typed verdict.
+    "hyperspace_tpu_torch.serve.fleet.quota.TenantQuotas.admit": (
+        "QuotaExceeded", "CrashPoint", "KeyError",
+    ),
+    "hyperspace_tpu_torch.serve.fleet.singleflight.SingleFlight.run": (
+        "OSError", "CrashPoint", "KeyError",
+    ),
+    "hyperspace_tpu_torch.serve.fleet.shared_cache.SharedResultCache.get": (
+        "OSError", "CrashPoint", "KeyError",
+    ),
+    "hyperspace_tpu_torch.serve.fleet.shared_cache.SharedResultCache.put": (
+        "OSError", "CrashPoint", "KeyError",
+    ),
+    "hyperspace_tpu_torch.serve.fleet.shared_cache.SharedPlanCache.get_or_optimize": _QUERY_SURFACE,
+    # Scale-out build worker entry points. These module-level functions ARE process entry
+    # points — parallel/procpool.py runs them in spawned workers and the
+    # coordinator's typed abort (WorkerFailed/WorkerCrashed) relies on
+    # their surface: framework errors and injected IO faults post back
+    # through the result queue; CrashPoint deliberately kills the worker
+    # (the coordinator's liveness check converts that into WorkerCrashed).
+    "hyperspace_tpu_torch.execution.build_exchange.p1_shard": _QUERY_SURFACE,
+    "hyperspace_tpu_torch.execution.build_exchange.p2_owner": _QUERY_SURFACE,
+    # Continuous-ingestion daemon (ingest/). The writer commits through the SAME facade
+    # methods an operator would call (refresh/optimize), so it shares
+    # the full query surface. One daemon tick absorbs per-index
+    # Exceptions (recorded as ingest.commit_failures /
+    # ingest.compact_failures, the loop keeps polling the other
+    # watches) — what escapes tick() is injected IO faults at the
+    # ingest.* fault points, CrashPoint (a dying daemon does not keep
+    # committing), and the programming-error surface. The CDC tailer's
+    # poll is a contract of its own: the crash window between a batch
+    # file landing and the cursor persisting (the ingest.tail fault
+    # point) unwinds through it, and the deterministic batch naming is
+    # what makes the retry idempotent. `_service_entry` is the
+    # processWorker-mode spawn target (procdomain SPAWN_ENTRY_POINTS):
+    # its setup (session rebuild, config replay, watch registration)
+    # runs before the absorbing loop, so the full surface applies.
+    "hyperspace_tpu_torch.ingest.daemon.IngestDaemon.tick": (
+        "OSError", "CrashPoint", "ValueError", "KeyError", "NotImplementedError",
+    ),
+    "hyperspace_tpu_torch.ingest.tailer.CdcTailer.poll": (
+        "OSError", "CrashPoint", "ValueError", "KeyError",
+    ),
+    "hyperspace_tpu_torch.ingest.daemon._service_entry": _QUERY_SURFACE,
+    "hyperspace_tpu_torch.ingest.writer.commit_micro_batch": _QUERY_SURFACE,
+    "hyperspace_tpu_torch.ingest.writer.maybe_compact": _QUERY_SURFACE,
+}
+
+
 def is_retryable(exc: BaseException) -> bool:
     """Retryable-exception classification for utils/retry.py: transient
     OS-level IO failures retry; everything else (corruption, missing

@@ -384,7 +384,7 @@ def fault_point(name: str, path: str | os.PathLike | None = None) -> None:
     # _lock; a stale False skips at most one injection during the arming
     # instant, and the disarmed fast path must stay lock-free (every
     # metadata/IO call site runs through here).
-    if not _armed:
+    if not _armed:  # noqa: HSL013
         return
     _hit(name, path)
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import time
 from pathlib import Path
 
-from hyperspace_tpu_torch import states
+from hyperspace_tpu_torch import states, stats
 from hyperspace_tpu_torch.actions import (
     CancelAction,
     CreateAction,
@@ -163,11 +163,13 @@ class IndexCollectionManager:
                 if not lm.quarantine_log(latest_id):
                     break
                 report["quarantined_entries"] += 1
+                stats.increment("recover.quarantined_entries")
         if latest is None:
             return report
         if latest.state not in states.STABLE_STATES:
             CancelAction(lm).run()
             report["rolled"] = True
+            stats.increment("recover.rolled")
         # Refresh the pointer unconditionally: cheap, and repairs a crash
         # between end()'s final write and its pointer swap.
         lm.create_latest_stable_log(lm.get_latest_id())
@@ -179,6 +181,7 @@ class IndexCollectionManager:
             if f"{DATA_VERSION_PREFIX}{vid}" not in referenced:
                 dm.delete(vid)
                 report["orphans_removed"] += 1
+                stats.increment("recover.orphans_removed")
         return report
 
     def _latest_for_listing(self, lm, dir_path: Path) -> IndexLogEntry | None:
@@ -205,16 +208,17 @@ class IndexCollectionManager:
             # Wall clock on purpose: entry.timestamp is a PERSISTED stamp
             # from a possibly-different process; monotonic() cannot
             # compare across those.
-            and time.time() - (entry.timestamp or 0) > self.conf.recover_grace_seconds
+            and time.time() - (entry.timestamp or 0) > self.conf.recover_grace_seconds  # noqa: HSL007
         )
         if entry is None or stale:
             try:
                 self.recover(dir_path.name)
                 entry = lm.get_latest_log()
             except Exception:
-                # Lazy repair is best-effort by design: the listing must
-                # not fail because one index is broken.
-                pass
+                # Lazy repair is best-effort by design (the listing must
+                # not fail because one index is broken) — but count it:
+                # a silent failure here would hide a dead index forever.
+                stats.increment("recover.on_access_failed")
         return entry
 
     def get_indexes(self, states_filter=(states.ACTIVE,)) -> list[IndexLogEntry]:

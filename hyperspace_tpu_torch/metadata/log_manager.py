@@ -72,9 +72,10 @@ class IndexLogManager:
         for id in range(latest, -1, -1):
             try:
                 entry = self.get_log(id)
-            except (ValueError, KeyError, TypeError, OSError):
-                # A torn entry is skipped: the last STABLE entry still
-                # resolves.
+            except (ValueError, KeyError, TypeError, OSError):  # noqa: HSL017
+                # Not a retry of one entry — the scan's documented
+                # contract: a torn entry is skipped, the last STABLE
+                # entry still resolves.
                 continue
             if entry is not None and entry.state in STABLE_STATES:
                 return entry

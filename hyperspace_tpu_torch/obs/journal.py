@@ -141,7 +141,7 @@ def enabled() -> bool:
     # names are init-only publication (config writes, then taps read);
     # the worst interleaving skips or double-gates one record around a
     # reconfigure, which the advisory contract already tolerates.
-    return _enabled and _root is not None
+    return _enabled and _root is not None  # noqa: HSL013
 
 
 def configured_enabled() -> bool:

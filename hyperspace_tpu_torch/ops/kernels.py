@@ -7,10 +7,12 @@ checkout, named by a hash of the source, and loaded with `ctypes`. Nothing
 is built or loaded when a module is imported: the CPU path never needs
 `nvcc`.
 
-The wrappers share two helpers that keep them exact under threads (the
+The wrappers share three helpers that keep them exact under threads (the
 query server runs queries on several threads at once): `count_launch`
-adds to a wrapper's `launches` under a lock, and `memo` builds a launch
-plan once under a lock.
+adds to a wrapper's `launches` under a lock, `memo` builds a launch plan
+(or a typed kernel function, or a card's SM count) once under a lock, and
+`call_on_stream` makes the launch on the current device's raw stream —
+the one place the port touches torch's private API.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 
@@ -60,6 +64,17 @@ def memo(table: dict, key, build):
                 table.clear()
             value = table[key] = build()
         return value
+
+
+def call_on_stream(index: int, fn, *args):
+    """`fn(*args, stream)`, `stream` being card `index`'s current raw CUDA
+    stream, with `index` the current device for the call (switched only
+    where it is not). torch's private API is used here and nowhere else
+    in the port."""
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def _nvcc() -> str:

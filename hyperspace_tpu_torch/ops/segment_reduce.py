@@ -33,7 +33,7 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.obs import trace as obs_trace
-from hyperspace_tpu_torch.ops.kernels import count_launch, load, memo
+from hyperspace_tpu_torch.ops.kernels import call_on_stream, count_launch, load, memo
 
 FNS = ("sum", "min", "max")
 _FNS = frozenset(FNS)
@@ -125,11 +125,7 @@ def segment_reduce(vals: torch.Tensor, gid: torch.Tensor, num_segments: int, fns
     # them.
     full = torch.empty((c_num + scratch_rows, k), dtype=torch.float64, device=vals.device)
     with obs_trace.span("device.kernel", kernel="cuda-segment-reduce", channels=c_num, segments=k):
-        if index == torch._C._cuda_getDevice():
-            _run(launches, vals, gid, full, n, k, c_num, torch._C._cuda_getCurrentRawStream(index))
-        else:
-            with torch.cuda.device(index):
-                _run(launches, vals, gid, full, n, k, c_num, torch._C._cuda_getCurrentRawStream(index))
+        call_on_stream(index, _run, launches, vals, gid, full, n, k, c_num)
     return full[:c_num] if scratch_rows else full
 
 
@@ -180,25 +176,27 @@ def _launch_plan(fns: tuple, k: int, n: int, sms: int):
 segment_reduce.launches = 0
 
 
-_sms: dict[int, int] = {}
-_fn = []
+_sms: dict = {}  # device -> SM count
+_fn: dict = {}  # symbol -> typed kernel function
 
 
 def _sm_count(index: int) -> int:
-    if index not in _sms:
-        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _sms[index]
+    return memo(_sms, index, lambda: torch.cuda.get_device_properties(index).multi_processor_count)
 
 
 def _launch():
-    """hs_segment_reduce from the kernel's library, typed once."""
-    if not _fn:
-        fn = load("segment_reduce").hs_segment_reduce
+    """hs_segment_reduce from the kernel's library, typed once. The library is
+    loaded (built, the first time) outside the memo's lock."""
+    lib = load("segment_reduce")
+
+    def build():
+        fn = lib.hs_segment_reduce
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+        return fn
+
+    return memo(_fn, "hs_segment_reduce", build)

@@ -49,7 +49,7 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.obs import trace as obs_trace
-from hyperspace_tpu_torch.ops.kernels import count_launch, load, memo
+from hyperspace_tpu_torch.ops.kernels import call_on_stream, count_launch, load, memo
 from hyperspace_tpu_torch.parallel.mesh import concat_shards, mesh_size, row_ranges, to_shard
 
 
@@ -364,15 +364,12 @@ def run_bounds(pk: torch.Tensor, sk: torch.Tensor) -> tuple[torch.Tensor, torch.
     if b * lp == 0:
         return st, en
     index = pk.get_device()
-    threads, tiles, grid, window, _ = memo(_plans, (b, lp, ls, index), lambda: bounds_plan(b, lp, ls, _sm_count(index)))
+    sms = _sm_count(index)
+    threads, tiles, grid, window, _ = memo(_plans, (b, lp, ls, index), lambda: bounds_plan(b, lp, ls, sms))
     args = (pk.data_ptr(), sk.data_ptr(), st.data_ptr(), en.data_ptr(), b, lp, ls, threads, tiles, grid, window,
             index)
     with obs_trace.span("device.kernel", kernel="cuda-run-bounds", buckets=b, secondary=ls):
-        if index == torch._C._cuda_getDevice():
-            err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
-        else:
-            with torch.cuda.device(index):
-                err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
+        err = call_on_stream(index, _launch(), *args)
     if err != 0:
         raise HyperspaceError(f"run_bounds kernel launch failed at [{b}, {lp}] x [{b}, {ls}]: CUDA error {err}")
     count_launch(run_bounds)
@@ -382,26 +379,28 @@ def run_bounds(pk: torch.Tensor, sk: torch.Tensor) -> tuple[torch.Tensor, torch.
 run_bounds.launches = 0
 
 
-_sms: dict[int, int] = {}
+_sms: dict = {}  # device -> SM count
 _plans: dict = {}  # (b, lp, ls, device) -> bounds_plan
-_fn = []
+_fn: dict = {}  # symbol -> typed kernel function
 
 
 def _sm_count(index: int) -> int:
-    if index not in _sms:
-        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _sms[index]
+    return memo(_sms, index, lambda: torch.cuda.get_device_properties(index).multi_processor_count)
 
 
 def _launch():
-    """hs_run_bounds from the kernel's library, typed once."""
-    if not _fn:
-        fn = load("run_bounds").hs_run_bounds
+    """hs_run_bounds from the kernel's library, typed once. The library is
+    loaded (built, the first time) outside the memo's lock."""
+    lib = load("run_bounds")
+
+    def build():
+        fn = lib.hs_run_bounds
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+        return fn
+
+    return memo(_fn, "hs_run_bounds", build)

@@ -30,7 +30,7 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.obs import trace as obs_trace
-from hyperspace_tpu_torch.ops.kernels import count_launch, load, memo
+from hyperspace_tpu_torch.ops.kernels import call_on_stream, count_launch, load, memo
 
 MAX_K = 2048  # candidates the last step sorts in shared memory (16 KB); a run of the merge sort above
 SMALL_N = 4096  # a row this short is sorted whole by one block, in one launch
@@ -127,8 +127,10 @@ def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     index = scores.get_device()
     src = scores.contiguous()
 
+    sms = _sm_count(index)
+
     def build():
-        blocks, chunk = select_plan(q, n, _sm_count(index))
+        blocks, chunk = select_plan(q, n, sms)
         return blocks, chunk, workspace_bytes(q, k, blocks) if blocks else 0
 
     blocks, chunk, work_bytes = memo(_plans, (q, n, k, index), build)
@@ -136,11 +138,7 @@ def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     args = (src.data_ptr(), q, n, k, blocks, chunk, work.data_ptr() if blocks else None,
             vals.data_ptr(), idx.data_ptr())
     with obs_trace.span("device.kernel", kernel="cuda-topk", rows=q, columns=n, k=k):
-        if index == torch._C._cuda_getDevice():
-            err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
-        else:
-            with torch.cuda.device(index):
-                err = _launch()(*args, torch._C._cuda_getCurrentRawStream(index))
+        err = call_on_stream(index, _launch(), *args)
     if err != 0:
         raise HyperspaceError(f"topk kernel failed at [{q}, {n}], k={k}, {blocks} blocks a row: error {err}")
     count_launch(topk)
@@ -150,25 +148,27 @@ def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 topk.launches = 0
 
 
-_sms: dict[int, int] = {}
+_sms: dict = {}  # device -> SM count
 _plans: dict = {}  # (q, n, k, device) -> (blocks a row, chunk, workspace bytes)
-_fn = []
+_fn: dict = {}  # symbol -> typed kernel function
 
 
 def _sm_count(index: int) -> int:
-    if index not in _sms:
-        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _sms[index]
+    return memo(_sms, index, lambda: torch.cuda.get_device_properties(index).multi_processor_count)
 
 
 def _launch():
-    """hs_topk from the kernel's library, typed once."""
-    if not _fn:
-        fn = load("topk").hs_topk
+    """hs_topk from the kernel's library, typed once. The library is
+    loaded (built, the first time) outside the memo's lock."""
+    lib = load("topk")
+
+    def build():
+        fn = lib.hs_topk
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+        return fn
+
+    return memo(_fn, "hs_topk", build)

@@ -108,7 +108,7 @@ class FileLease:
                     f.write(token)
                     f.flush()
                     os.fsync(f.fileno())
-            except OSError:  # not a retry: an unwritten
+            except OSError:  # noqa: HSL017 — not a retry: an unwritten
                 # token fails the verification below and the claim is
                 # reported lost in-band
                 pass
@@ -140,11 +140,11 @@ class FileLease:
             # case where mtime is consulted) so a live-but-unwritten
             # lease is not reaped.
             try:
-                if time.time() - os.stat(self.path).st_mtime <= self.ttl_s:
+                if time.time() - os.stat(self.path).st_mtime <= self.ttl_s:  # noqa: HSL007
                     return False
             except OSError:
                 return True
-        elif time.time() - ep <= self.ttl_s:  # persisted epoch token
+        elif time.time() - ep <= self.ttl_s:  # noqa: HSL007 — persisted epoch token
             return False
         claimed = self.path.with_name(f"{self.path.name}.reap-{nonce}")
         try:

@@ -300,4 +300,4 @@ class SharedPlanCache(_SharedCacheBase):
 
 def warm_age_s(path: Path) -> float:
     """Seconds since an entry was last touched (tests/tools)."""
-    return time.time() - path.stat().st_mtime  # cross-process mtime age
+    return time.time() - path.stat().st_mtime  # noqa: HSL007 — cross-process mtime age

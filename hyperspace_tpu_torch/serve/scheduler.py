@@ -445,7 +445,7 @@ class QueryServer:
                 with obs_trace.trace("serve.run", priority=ticket.priority):
                     handle._result = self._execute(ticket.plan, handle)
                 _COMPLETED.inc()
-            except BaseException as e:  # noqa: BLE001 — worker isolation:
+            except BaseException as e:  # noqa: HSL017 — worker isolation:
                 # a failing query must not take the worker thread down;
                 # the exception object (traceback included) is stored on
                 # the handle and re-raised, original frames intact, by

@@ -27,6 +27,12 @@ The port declares only the counters its modules increment:
   failed (recover() finishes the repair from the next process)
 - ``action.cleanup_failed``   partial-data quarantines that failed (the
   orphan GC in recover() sweeps what they left)
+- ``recover.rolled``       recover() roll-forwards of a transient log
+- ``recover.quarantined_entries``  torn log entries quarantined by recover()
+- ``recover.orphans_removed``      unreferenced version dirs GC'd by recover()
+- ``recover.on_access_failed``  lazy recover-on-access attempts that
+  failed during listing (the entry stays unlisted; explicit recover()
+  still applies)
 - ``io.footer_cache.hits``    parquet footer parses skipped by the
   mtime-validated footer cache (execution/io.py)
 - ``io.footer_cache.misses``  footer parses that opened the file
@@ -108,6 +114,10 @@ KNOWN_COUNTERS = (
     "action.rolled_back",
     "action.rollback_failed",
     "action.cleanup_failed",
+    "recover.rolled",
+    "recover.quarantined_entries",
+    "recover.orphans_removed",
+    "recover.on_access_failed",
     "io.footer_cache.hits",
     "io.footer_cache.misses",
     "build.exchange.bytes",

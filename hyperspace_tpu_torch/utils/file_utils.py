@@ -135,11 +135,11 @@ def _try_reap(lock: Path, nonce: str) -> bool:
         # live-but-not-yet-written lease is not reaped.
         try:
             # Wall clock on purpose (cross-process lease vs file mtime).
-            if time.time() - os.stat(lock).st_mtime <= _LOCK_STALE_S:
+            if time.time() - os.stat(lock).st_mtime <= _LOCK_STALE_S:  # noqa: HSL007
                 return False
         except OSError:
             return True  # vanished — retry the acquire
-    elif time.time() - ep <= _LOCK_STALE_S:
+    elif time.time() - ep <= _LOCK_STALE_S:  # noqa: HSL007 — persisted epoch token
         return False
     reaped = lock.with_name(f"{lock.name}.reap-{nonce}")
     try:
@@ -198,9 +198,9 @@ def _locked_rename(tmp: str, path: Path) -> bool:
                 f.write(token)
                 f.flush()
                 os.fsync(f.fileno())
-        except OSError:
-            # Not a retry: an unwritten token simply fails the lease check
-            # below and the claim returns False in-band.
+        except OSError:  # noqa: HSL017 — not a retry: an unwritten token
+            # simply fails the lease check below and the claim returns
+            # False in-band.
             pass
         try:
             if path.exists():
@@ -217,9 +217,8 @@ def _locked_rename(tmp: str, path: Path) -> bool:
             if _read_lock_text(lock) == token:
                 try:
                     os.unlink(lock)
-                except OSError:
-                    # Lease-file cleanup only; a leftover lock is reaped by
-                    # the next claimant.
+                except OSError:  # noqa: HSL017 — lease-file cleanup only;
+                    # a leftover lock is reaped by the next claimant.
                     pass
     return False
 

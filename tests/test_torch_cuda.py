@@ -1484,3 +1484,56 @@ def test_a_host_venue_aggregate_launches_no_k1(cuda, tmp_path):
     pd.testing.assert_frame_equal(host.drop(columns="s"), dev.drop(columns="s"))
     tol = 2 * len(pd.read_parquet(src)) * 2.0**-53 * host["s"].abs()
     assert (np.abs(host["s"] - dev["s"]) <= tol).all()
+
+
+@pytest.mark.gpu
+def test_the_launch_contract_proofs_hold_against_one_launch_of_each_kernel(cuda):
+    """The static launch contract (HSL026) against the card: each kernel the
+    proofs name, called once on a CUDA tensor, adds exactly one to its
+    wrapper's count, agrees with its plain version, and no launch counter
+    outside ops.KNOWN_KERNELS exists."""
+    import sys
+    from pathlib import Path
+
+    from hyperspace_tpu_torch.analysis.callgraph import CallGraph
+    from hyperspace_tpu_torch.analysis.program import Program
+    from hyperspace_tpu_torch.analysis.raises import Raises
+    from hyperspace_tpu_torch.analysis.tracedomain import LaunchDomains
+    from hyperspace_tpu_torch.ops import KNOWN_KERNELS
+    from hyperspace_tpu_torch.ops.sortkeys import run_bounds, run_bounds_plain
+    from hyperspace_tpu_torch.ops.topk import topk, topk_plain
+
+    repo = Path(__file__).resolve().parent.parent
+    program = Program.load([repo / "hyperspace_tpu_torch"])
+    cg = CallGraph(program)
+    proofs = {p["kernel"]: p for p in LaunchDomains(program, cg, Raises(program, cg)).kernel_proofs()}
+    assert set(proofs) == set(KNOWN_KERNELS) and all(p["proven"] for p in proofs.values())
+
+    rng = np.random.default_rng(11)
+    gid = torch.from_numpy(rng.integers(0, 6, 10_000).astype(np.int32))
+    vals = torch.from_numpy(rng.integers(-50, 50, (4, 10_000)).astype(np.float64))
+    sk = torch.from_numpy(np.sort(rng.integers(0, 1000, (4, 2048)).astype(np.int32), axis=1))
+    pk = torch.from_numpy(np.sort(rng.integers(0, 1000, (4, 512)).astype(np.int32), axis=1))
+    scores = torch.from_numpy(rng.standard_normal((8, 5000)).astype(np.float32))
+    calls = {
+        "ops.segment_reduce.segment_reduce": (
+            segment_reduce, lambda d: segment_reduce(vals.to(d), gid.to(d), 6, ("sum", "min", "max", "sum"))
+            if d.type == "cuda" else segment_reduce_plain(vals, gid, 6, ("sum", "min", "max", "sum"))),
+        "ops.sortkeys.run_bounds": (
+            run_bounds, lambda d: run_bounds(pk.to(d), sk.to(d)) if d.type == "cuda" else run_bounds_plain(pk, sk)),
+        "ops.topk.topk": (topk, lambda d: topk(scores.to(d), 10) if d.type == "cuda" else topk_plain(scores, 10)),
+    }
+    assert set(calls) == set(KNOWN_KERNELS)
+    for name, (wrapper, call) in calls.items():
+        before = wrapper.launches
+        got = call(cuda)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, name
+        want = call(torch.device("cpu"))
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    sys.path.insert(0, str(repo))
+    import chip_smoke
+
+    assert set(chip_smoke.runtime_launch_counters()) == set(KNOWN_KERNELS)

@@ -5,13 +5,16 @@ modules and reports which forbidden modules ended up in `sys.modules`; a
 worker spawned by the pooled build's pool, after running a real p1 shard
 of `execution/build_exchange.py`, reports the same, and so do a serving
 fleet member the supervisor spawns and the ingest daemon's process worker.
-Both packages' `serve` export the operations controller.
+Each module of the static analyzer, imported alone, loads neither. Both
+packages' `serve` export the operations controller.
 """
 
 import json
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -101,8 +104,26 @@ def test_port_imports_without_jax_or_the_jax_package():
         "hyperspace_tpu_torch.ingest.writer",
         "hyperspace_tpu_torch.ingest.snapshot",
         "hyperspace_tpu_torch.ingest.daemon",
+        *(f"hyperspace_tpu_torch.analysis.{m}" for m in _ANALYSIS),
     ):
         assert name in report["modules"]
+
+
+_ANALYSIS = ("lint", "program", "callgraph", "locks", "effects", "races", "raises", "procdomain",
+             "duradomain", "tracedomain", "check")
+
+
+@pytest.mark.parametrize("module", _ANALYSIS)
+def test_importing_an_analysis_module_alone_loads_neither(module):
+    """The analyzer runs where JAX is absent: each of its modules, imported
+    alone in a fresh interpreter, loads no jax and no JAX package (the
+    check also imports the port's validator for its corpus)."""
+    code = (f"import json, sys; import hyperspace_tpu_torch.analysis.{module}; "
+            "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'hyperspace_tpu'))))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_importing_ingest_alone_loads_neither():

@@ -9,11 +9,11 @@ unindexed sources pin on first touch), the tailer (arrivals seen once,
 complete lines only, the batch fsynced before its rename, a crash between
 batch and cursor idempotent), the crash sweeps (every fault point a
 committing tick passes, inside a compaction, the deferral while SLOs
-burn), the torn-window sweep driven by the names in the JAX package's
-`analysis.duradomain.TORN_WINDOWS`, the daemon's lifecycle, a real
-SIGKILL of the process worker, the controller's backoff and the
-registries. tests/test_ingest.py's `ERROR_CONTRACTS` case waits for the
-port's static analysis, which has no error-contract registry yet.
+burn), the torn-window sweep driven by the names in the port's own
+`analysis.duradomain.TORN_WINDOWS` (each package reading its own
+registry's fault point), the daemon's lifecycle, a real SIGKILL of the
+process worker, the controller's backoff and the registries, the
+`ERROR_CONTRACTS` coverage of the five ingest entry points included.
 
 Then the parity cases:
 
@@ -50,7 +50,7 @@ import hyperspace_tpu_torch as htorch
 from hyperspace_tpu import faults as jfaults
 from hyperspace_tpu import stats as jstats
 from hyperspace_tpu.advisor import routing as jrouting
-from hyperspace_tpu.analysis.duradomain import TORN_WINDOWS
+from hyperspace_tpu.analysis.duradomain import TORN_WINDOWS as JTORN_WINDOWS
 from hyperspace_tpu.config import HyperspaceConf as JConf
 from hyperspace_tpu.exceptions import HyperspaceError as JHyperspaceError
 from hyperspace_tpu.faults import CrashPoint as JCrashPoint
@@ -68,6 +68,7 @@ from hyperspace_tpu.utils import retry as jretry
 from hyperspace_tpu_torch import faults as tfaults
 from hyperspace_tpu_torch import stats as tstats
 from hyperspace_tpu_torch.advisor import routing as trouting
+from hyperspace_tpu_torch.analysis.duradomain import TORN_WINDOWS
 from hyperspace_tpu_torch.config import HyperspaceConf as TConf
 from hyperspace_tpu_torch.exceptions import HyperspaceError as THyperspaceError
 from hyperspace_tpu_torch.execution import device_cache as tdc
@@ -114,6 +115,7 @@ class _Pkg:
         self.routing = jrouting if jax else trouting
         self.plan_signature = jplan_signature if jax else tplan_signature
         self.kw = {} if jax else {"device": "cpu"}
+        self.torn_windows = JTORN_WINDOWS if jax else TORN_WINDOWS
 
     def session(self, system_path, **kw):
         return self.pkg.HyperspaceSession(system_path=str(system_path), **kw, **self.kw)
@@ -445,12 +447,14 @@ _TORN_WINDOW_DRIVERS = {
 
 
 class TestTornWindowSweep:
-    """Over the names in the JAX package's `TORN_WINDOWS`: an ingest window
-    added there without a driver here fails with a KeyError."""
+    """Over the names in the port's own `TORN_WINDOWS`, each package
+    reading its window from its own registry: an ingest window added there
+    without a driver here fails with a KeyError, and one the JAX package
+    lacks fails on its lookup."""
 
     @pytest.mark.parametrize("window", sorted(k for k in TORN_WINDOWS if k.startswith("ingest.")))
     def test_kill_inside_window_converges(self, P, window, tmp_path_factory):
-        _fn, _first, _second, point, why = TORN_WINDOWS[window]
+        _fn, _first, _second, point, why = P.torn_windows[window]
         assert point in P.faults.KNOWN_POINTS, why
         _TORN_WINDOW_DRIVERS[window](P, tmp_path_factory, point)
 
@@ -669,8 +673,18 @@ class TestRegistries:
                   "ingest.pinned_reads"):
             assert c in P.stats.KNOWN_COUNTERS, c
 
-    # tests/test_ingest.py::TestRegistries::test_error_contracts_cover_daemon_entry_points
-    # waits for the port's static analysis: the port has no ERROR_CONTRACTS.
+    def test_error_contracts_cover_daemon_entry_points(self, P):
+        from importlib import import_module
+
+        contracts = import_module(f"{P.pkg.__name__}.exceptions").ERROR_CONTRACTS
+        for qname in (
+            "ingest.daemon.IngestDaemon.tick",
+            "ingest.daemon._service_entry",
+            "ingest.tailer.CdcTailer.poll",
+            "ingest.writer.commit_micro_batch",
+            "ingest.writer.maybe_compact",
+        ):
+            assert f"{P.pkg.__name__}.{qname}" in contracts, qname
 
 
 def test_the_port_declares_the_jax_packages_ingest_names():
